@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of ``serenade_tpu`` for one NVIDIA H100.
+
+The JAX package ``serenade_tpu`` stays the reference; this package mirrors
+its file names and its channels-last ``(B, T, C)`` layout at every public
+function.  It imports ``torch`` and ``numpy`` only.  The three TPU kernels
+on the conversion path (flash attention, fused Block1D, HiFiGAN residual
+branch) are CUDA C++ kernels under ``csrc/``, built with ``nvcc`` at first
+use (``ops/_cuda.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  Raises when CUDA is asked for (or defaulted to) but absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev

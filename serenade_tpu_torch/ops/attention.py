@@ -1,0 +1,39 @@
+"""Multi-head attention (counterpart of serenade_tpu/ops/attention.py).
+
+Square self-attention (``tq == tk``) goes through the flash wrapper at
+every length: the flash kernel on CUDA, its plain version on the CPU.
+Non-square attention (the GST token attention, tq=1) takes the plain
+einsum path, as ``_xla_attention`` does in JAX.  Padded keys get a -1e30
+bias and the softmax runs in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from serenade_tpu_torch.ops.flash_cuda import (
+    flash_attention,
+    flash_attention_plain,
+)
+
+
+def multi_head_attention(q, k, v, *, num_heads: int,
+                         key_mask: Optional[torch.Tensor] = None):
+    """q ``(B, Tq, H*D)``, k/v ``(B, Tk, H*D)``, key_mask ``(B, Tk)``
+    1=valid.  Returns ``(B, Tq, H*D)``."""
+    b, tq, hd = q.shape
+    tk = k.shape[1]
+    d = hd // num_heads
+    scale = d ** -0.5
+
+    def split(x, t):
+        return x.reshape(b, t, num_heads, d).transpose(1, 2)
+
+    qh, kh, vh = split(q, tq), split(k, tk), split(v, tk)
+    if tq == tk:
+        out = flash_attention(qh, kh, vh, key_mask, scale)
+    else:
+        out, _ = flash_attention_plain(qh, kh, vh, key_mask, scale)
+    return out.transpose(1, 2).reshape(b, tq, hd)

@@ -1,0 +1,52 @@
+"""HiFiGAN residual block (counterpart of serenade_tpu/vocoder/layers.py
+``HiFiGANResidualBlock``).  Each branch runs through the residual-branch
+wrapper: the CUDA kernel on the card at every channel width, the plain
+conv chain on the CPU."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from serenade_tpu_torch.models.layers import Conv1d, as_dtype
+from serenade_tpu_torch.ops.resblock_cuda import resblock_branch
+
+
+def leaky_relu_01(x):
+    return F.leaky_relu(x, 0.1)
+
+
+class HiFiGANResidualBlock(nn.Module):
+    """Per dilation d: LReLU(0.1) → k-conv(dil=d) [→ LReLU → k-conv(dil=1)]
+    → +residual."""
+
+    def __init__(self, kernel_size: int = 3, channels: int = 512,
+                 dilations: Tuple[int, ...] = (1, 3, 5),
+                 use_additional_convs: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.kernel_size, self.dilations = kernel_size, tuple(dilations)
+        self.use_additional_convs = use_additional_convs
+        self.dtype = as_dtype(dtype)
+        for i in range(len(self.dilations)):
+            setattr(self, f"conv1_{i}",
+                    Conv1d(channels, channels, kernel_size, dtype=dtype))
+            if use_additional_convs:
+                setattr(self, f"conv2_{i}",
+                        Conv1d(channels, channels, kernel_size, dtype=dtype))
+
+    def forward(self, x):
+        n = len(self.dilations)
+        convs1 = [getattr(self, f"conv1_{i}") for i in range(n)]
+        convs2 = ([getattr(self, f"conv2_{i}") for i in range(n)]
+                  if self.use_additional_convs else convs1)
+        w1 = torch.stack([c.weight for c in convs1])
+        b1 = torch.stack([c.bias for c in convs1])
+        w2 = torch.stack([c.weight for c in convs2])
+        b2 = torch.stack([c.bias for c in convs2])
+        return resblock_branch(
+            x.to(self.dtype), w1, b1, w2, b2, kernel_size=self.kernel_size,
+            dilations=self.dilations,
+            use_additional_convs=self.use_additional_convs)
