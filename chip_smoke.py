@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
                with times, the roofline bound and a PyTorch yardstick;
 3. main     -- a full-width Converter (seeded random weights) answers four
                requests through Euler-10 and the HiFiGAN vocoder; the
-               launch counters must show every kernel ran;
+               launch counters must show every kernel ran; then one more
+               (1024, 512) request under torch.profiler gives the device's
+               busy time and the kernels that took it;
 4. parity   -- one small f32 conversion on the CPU (plain versions) and on
                the card (kernels) with the same weights and noise.
 
@@ -220,7 +222,8 @@ def _features(np, rng, frames, with_mel, input_dim=768, mels=80):
 
 
 def _scaler(np, input_dim=768, mels=80):
-    return {"hubert": {"mean": np.zeros(input_dim), "scale": np.ones(input_dim)},
+    return {"hubert": {"mean": np.zeros(input_dim),
+                       "scale": np.ones(input_dim)},
             "score": {"min": 0.0, "max": 1.0},
             "loud": {"min": 0.0, "max": 1.0},
             "logmel": {"mean": np.zeros(mels), "scale": np.ones(mels)}}
@@ -264,7 +267,33 @@ def main_path(torch, np, dev, counters):
           "launches": launches, "launches_expected": dict(
               want, resblock_branch=f">= {9 * n}"),
           "ok": counts_ok and all(r["ok"] for r in results)})
+    prof = device_time(torch, lambda: (conv.convert_features(*feats[0]),
+                                       torch.cuda.synchronize()))
+    # idle share against the unprofiled wall time of the same request
+    prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / results[0][
+        "wall_s"]
+    emit(dict(phase="profile", request=list(requests[0]), **prof))
     return counts_ok and all(r["ok"] for r in results), launches
+
+
+def device_time(torch, fn) -> dict:
+    """One run of ``fn`` under torch.profiler: the device's busy time (the
+    sum of its kernel and copy times; one stream, so they do not overlap)
+    and the kernels that took the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    return {"device_busy_s": sum(us for us, _, _ in rows) / 1e6,
+            "device_launches": sum(count for _, _, count in rows),
+            "top": [{"kernel": key[:60], "ms": us / 1e3, "count": count}
+                    for us, key, count in rows[:10]]}
 
 
 def slice_parity(torch, np, dev):
@@ -324,63 +353,58 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    only = sys.argv[1:]           # optional phase names, for debugging
     # f32 stays f32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    _cuda.build_all()
-    ptxas = [line.strip() for log in _cuda.BUILD_LOGS.values()
+    logs = _cuda.build_all()
+    ptxas = [line.strip() for log in logs.values()
              for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": time.time() - t0, "ptxas": ptxas})
 
     ok = True
     entries = []
-    if not only or "kernels" in only:
-        sources = {
-            "flash_fwd": ("serenade_tpu_torch/csrc/flash_fwd.cu",
-                          "serenade_tpu/ops/flash_pallas.py:106",
-                          check_flash),
-            "block1d_fwd": ("serenade_tpu_torch/csrc/block1d_fwd.cu",
-                            "serenade_tpu/ops/block1d_pallas.py:255",
-                            check_block1d),
-            "resblock_branch": ("serenade_tpu_torch/csrc/resblock_branch.cu",
-                                "serenade_tpu/ops/resblock_pallas.py:154",
-                                check_resblock),
-        }
-        for name, (src, replaces, check) in sources.items():
-            main_row, rows = check(torch, dev)
-            emit({"phase": "kernels", "kernel": name, "cases": rows})
-            ok &= all(r["ok"] for r in rows)
-            entries.append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": None,
-                "max_abs_err": main_row["max_abs_err"],
-                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-                "bound_ms": main_row["bound_ms"],
-                "bound_by": main_row["bound_by"],
-                "library_ms": main_row["library_ms"],
-                "shape": main_row["shape"], "dtype": main_row["dtype"]})
+    sources = {
+        "flash_fwd": ("serenade_tpu_torch/csrc/flash_fwd.cu",
+                      "serenade_tpu/ops/flash_pallas.py:106", check_flash),
+        "block1d_fwd": ("serenade_tpu_torch/csrc/block1d_fwd.cu",
+                        "serenade_tpu/ops/block1d_pallas.py:255",
+                        check_block1d),
+        "resblock_branch": ("serenade_tpu_torch/csrc/resblock_branch.cu",
+                            "serenade_tpu/ops/resblock_pallas.py:154",
+                            check_resblock),
+    }
+    for name, (src, replaces, check) in sources.items():
+        main_row, rows = check(torch, dev)
+        emit({"phase": "kernels", "kernel": name, "cases": rows})
+        ok &= all(r["ok"] for r in rows)
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"], "dtype": main_row["dtype"]})
+
     counters = {"flash_fwd": flash_cuda, "block1d_fwd": block1d_cuda,
                 "resblock_branch": resblock_cuda}
-    if not only or "main" in only:
-        main_ok, launches = main_path(torch, np, dev, counters)
-        ok &= main_ok
-        for e in entries:
-            e["launches"] = launches[e["name"]]
-    if not only or "parity" in only:
-        ok &= slice_parity(torch, np, dev)
+    main_ok, launches = main_path(torch, np, dev, counters)
+    ok &= main_ok
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    ok &= slice_parity(torch, np, dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi: no output", flush=True)
-    if not ok or only:
-        print("chip_smoke: FAILED" if not ok else "chip_smoke: partial run",
-              file=sys.stderr)
+    if not ok:
+        print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -24,7 +24,10 @@ import torch
 from serenade_tpu_torch import resolve_device
 from serenade_tpu_torch.collaters.ssc import bucket_length, pad_to
 from serenade_tpu_torch.convert import load_params
-from serenade_tpu_torch.models.layers import init_params_
+from serenade_tpu_torch.models.layers import (
+    init_params_,
+    store_compute_weights_,
+)
 from serenade_tpu_torch.models.serenade import Serenade
 from serenade_tpu_torch.vocoder.vocoder import Vocoder
 
@@ -43,7 +46,7 @@ class Converter:
             init_params_(model, seed)
         else:
             load_params(model, params)
-        self.model = model.to(self.device).eval()
+        self.model = store_compute_weights_(model.to(self.device).eval())
         self.scaler = {k: {kk: np.asarray(vv, np.float32)
                            for kk, vv in v.items()} for k, v in scaler.items()}
         self.n_timesteps, self.solver = n_timesteps, solver

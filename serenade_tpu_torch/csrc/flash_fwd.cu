@@ -38,6 +38,11 @@
 
 namespace {
 
+using serenade::ld32;
+using serenade::ldsm_x4_trans;
+using serenade::mma_16816;
+using serenade::pack_bf16;
+
 constexpr int BQ = 32;
 constexpr int BK = 32;
 constexpr int THREADS = 256;
@@ -186,34 +191,6 @@ constexpr int TC_BQ = 64;    // query rows per block (4 row groups of 16)
 constexpr int TC_BK = 32;    // keys per tile
 constexpr int TC_PAD = 8;    // bf16 row padding: fragment loads avoid conflicts
 constexpr int TC_MAX_NT = MAX_D / 16;   // n8 tiles in half of the head dim
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed on the way to registers.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Rows [t0, t0 + rows) of a (T, D) bf16 matrix with row stride st into
 // shared memory with row stride D + TC_PAD, 16 bytes a thread; zeros past T.

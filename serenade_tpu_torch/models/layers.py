@@ -4,8 +4,10 @@ Activations are channels-last ``(B, T, C)`` at every public function, as
 in the JAX package.  Parameters are stored float32 in PyTorch's own
 layouts (Linear ``(out, in)``, Conv1d ``(out, in, k)``, ConvTranspose1d
 ``(in, out, k)``); each module casts them to its compute ``dtype`` at use,
-as flax does with ``param_dtype=float32``.  ``convert.py`` maps the flax
-parameter tree onto these modules.
+as flax does with ``param_dtype=float32``, unless ``store_compute_weights_``
+stored them in that dtype once (the Converter does, so a bf16 forward pass
+casts no weights).  ``convert.py`` maps the flax parameter tree onto these
+modules.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ def as_dtype(dtype) -> torch.dtype:
 
 
 def mish(x):
-    return x * torch.tanh(F.softplus(x))
+    """x * tanh(softplus(x)), in one kernel."""
+    return F.mish(x)
 
 
 # ---------------------------------------------------------------------------
@@ -193,11 +196,8 @@ class LayerNorm(NormParams):
         self.dtype = as_dtype(dtype)
 
     def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale + self.bias).to(self.dtype)
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
+                            self.epsilon).to(self.dtype)
 
 
 class SpeakerAdaLayerNorm(nn.Module):
@@ -213,12 +213,10 @@ class SpeakerAdaLayerNorm(nn.Module):
         self.dtype = as_dtype(dtype)
 
     def forward(self, x, spk):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        y = F.layer_norm(x.float(), (x.shape[-1],), eps=self.epsilon)
         spk = spk.float()
-        y = y * self.w_scale(spk)[:, None, :] + self.w_bias(spk)[:, None, :]
+        y = torch.addcmul(self.w_bias(spk)[:, None, :], y,
+                          self.w_scale(spk)[:, None, :])
         return y.to(self.dtype)
 
 
@@ -248,6 +246,21 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, emb):
         return self.linear_2(F.silu(self.linear_1(emb)))
+
+
+def store_compute_weights_(module: nn.Module) -> nn.Module:
+    """Store the weights of every Dense / Conv1d / ConvTranspose1d in the
+    dtype those layers compute in, so a forward pass casts nothing (the same
+    values as casting at each use).  Norm parameters, weight-norm ``v``/``g``
+    and f32 layers are left as they are."""
+    from serenade_tpu_torch.models.gst import Conv2d
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Dense, Conv1d, ConvTranspose1d, Conv2d)):
+                for p in m.parameters(recurse=False):
+                    p.data = p.data.to(m.dtype)
+    return module
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,8 @@ from serenade_tpu_torch.ops.attention import multi_head_attention
 
 
 class GEGLU(nn.Module):
-    """value ⊙ gelu(gate) with exact (erf) GELU computed in f32."""
+    """value ⊙ gelu(gate) with exact (erf) GELU, which PyTorch computes in
+    f32 for bf16 inputs."""
 
     def __init__(self, dim: int, features: int, dtype=torch.float32):
         super().__init__()
@@ -25,7 +26,7 @@ class GEGLU(nn.Module):
 
     def forward(self, x):
         value, gate = self.proj(x).chunk(2, dim=-1)
-        return value * F.gelu(gate.float()).to(gate.dtype)
+        return value * F.gelu(gate)
 
 
 class FeedForward(nn.Module):

@@ -32,12 +32,13 @@ SOURCES = ("flash_fwd", "block1d_fwd", "resblock_branch")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOGS: Dict[str, str] = {}   # ptxas report (registers, smem, spills)
 
 
 def build_dir() -> Path:
     forced = os.environ.get("SERENADE_TORCH_BUILD_DIR")
-    return Path(forced) if forced else _PKG_DIR.parent / "build" / "serenade_tpu_torch"
+    if forced:
+        return Path(forced)
+    return _PKG_DIR.parent / "build" / "serenade_tpu_torch"
 
 
 def _nvcc() -> str:
@@ -62,9 +63,11 @@ def _command(name: str, out: Path) -> List[str]:
             "-o", str(out) + ".tmp", str(CSRC_DIR / f"{name}.cu")]
 
 
-def build_all(names=SOURCES) -> None:
+def build_all(names=SOURCES) -> Dict[str, str]:
     """Compile every missing library, one ``nvcc`` process per source,
-    all started together.  Raises with the compiler's output on failure."""
+    all started together.  Returns each compiled source's ptxas report
+    (registers, shared memory, spills); raises with the compiler's output
+    on failure."""
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -73,16 +76,16 @@ def build_all(names=SOURCES) -> None:
             procs[name] = (out, subprocess.Popen(
                 _command(name, out), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
-    failed = []
+    logs, failed = {}, []
     for name, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOGS[name] = log
+        logs[name], _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu ---\n{log}")
+            failed.append(f"--- {name}.cu ---\n{logs[name]}")
         else:
             os.replace(str(out) + ".tmp", out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
 
 
 def library(name: str) -> ctypes.CDLL:

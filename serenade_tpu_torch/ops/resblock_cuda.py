@@ -22,13 +22,15 @@ from serenade_tpu_torch.ops import _cuda
 launches = 0   # wrapper calls that launched the kernel since the last reset
 
 SMEM_BUDGET = 200 * 1024   # bytes of dynamic shared memory per block
-MAX_TILE = 256
+MAX_TILE = 2048
+MAX_TN = 256                # output channels per pass of the kernel
 
 
 def resblock_branch_plain(x, w1, b1, w2, b2, *, kernel_size: int,
                           dilations: Tuple[int, ...],
                           use_additional_convs: bool = True):
-    """x ``(B,T,C)``; w1/w2 ``(n_dil, C, C, K)`` torch layout; b ``(n_dil, C)``."""
+    """x ``(B,T,C)``; w1/w2 ``(n_dil, C, C, K)`` in torch layout; b1/b2
+    ``(n_dil, C)``."""
     k = kernel_size
     h = x
     for i, d in enumerate(dilations):
@@ -41,19 +43,42 @@ def resblock_branch_plain(x, w1, b1, w2, b2, *, kernel_size: int,
     return h
 
 
+def _pass_shape(c: int):
+    """(columns, rows) of one pass of the kernel's conv: 256 threads with
+    8 x 8 tiles over min(C, 256) columns.  None if C does not split so."""
+    tn = min(c, MAX_TN)
+    if tn % 8 or 256 % (tn // 8) or c % tn:
+        return None
+    return tn, 8 * (256 // (tn // 8))
+
+
 def smem_bytes(c: int, k: int, d: int, add: bool, bt: int) -> int:
     """Shared memory of one stage block: the f32 input window (tile plus
-    both convs' halos), the conv1 output window, a 16x64 weight tile."""
+    both convs' halos) and the conv1 output window, rows padded to C + 1
+    floats, then a 16-row weight tile."""
     p1 = (k - 1) // 2 * d
     p2 = (k - 1) // 2 if add else 0
-    a1 = (bt + 2 * p2 + 2 * p1) * c
-    a2 = (bt + 2 * p2) * c if add else 0
-    return (a1 + a2 + 16 * 64) * 4
+    windows = (bt + 2 * p2 + 2 * p1) * (c + 1)
+    if add:
+        windows += (bt + 2 * p2) * (c + 1)
+    return ((windows + 3) // 4 * 4 + 16 * min(c, MAX_TN)) * 4
 
 
 def tile_rows(c: int, k: int, d: int, add: bool) -> int:
-    """Time rows per block for one stage: the largest multiple of 16, at
-    most MAX_TILE, whose windows fit SMEM_BUDGET."""
+    """Time rows per block for one stage: the first conv computes
+    BT + 2 p2 rows, so BT = n * (rows of a pass) - 2 p2 with the largest n
+    that fits SMEM_BUDGET; else the largest multiple of 16 that fits."""
+    tm = _pass_shape(c)[1]
+    p2 = (k - 1) // 2 if add else 0
+    best = 0
+    for n in range(1, MAX_TILE // tm + 2):
+        bt = n * tm - 2 * p2
+        if bt > MAX_TILE or smem_bytes(c, k, d, add, bt) > SMEM_BUDGET:
+            break
+        if bt > 0:
+            best = bt
+    if best:
+        return best
     for bt in range(MAX_TILE, 0, -16):
         if smem_bytes(c, k, d, add, bt) <= SMEM_BUDGET:
             return bt
@@ -67,7 +92,8 @@ def _branch_cuda(x, w1, b1, w2, b2, k, dilations, add):
     dev = x.device
     _cuda.require(x.dtype in _cuda.DTYPE_CODE, f"dtype {x.dtype}")
     _cuda.require(x.is_contiguous(), "x must be contiguous (B, T, C)")
-    _cuda.require(c % 4 == 0, f"C {c} must be a multiple of 4")
+    _cuda.require(_pass_shape(c) is not None,
+                  f"C {c}: min(C, 256) must be 8 x a power of two dividing C")
     for name, w in (("w1", w1), ("w2", w2)):
         _cuda.require(w.shape == (n, c, c, k) and w.device == dev,
                       f"{name} {tuple(w.shape)} != {(n, c, c, k)}")

@@ -9,8 +9,6 @@ before synthesis.  Statistics and parameters come in as arrays; reading
 
 from __future__ import annotations
 
-import logging
-import time
 from typing import Mapping, Optional
 
 import numpy as np
@@ -21,11 +19,8 @@ from serenade_tpu_torch.convert import load_params
 from serenade_tpu_torch.models.layers import init_params_
 from serenade_tpu_torch.vocoder.hifigan import HiFiGANGenerator
 
-logger = logging.getLogger(__name__)
 
-
-def generator_from_config(config: Mapping, dtype=torch.float32
-                          ) -> HiFiGANGenerator:
+def generator_from_config(config: Mapping) -> HiFiGANGenerator:
     gp = dict(config.get("generator_params", {}))
     if "upsample_kernal_sizes" in gp:   # the reference config's typo
         gp["upsample_kernel_sizes"] = gp.pop("upsample_kernal_sizes")
@@ -41,8 +36,7 @@ def generator_from_config(config: Mapping, dtype=torch.float32
             gp.get("resblock_kernel_sizes", (3, 7, 11))),
         resblock_dilations=tuple(
             tuple(d) for d in gp.get("resblock_dilations", ((1, 3, 5),) * 3)),
-        use_additional_convs=gp.get("use_additional_convs", True),
-        dtype=dtype)
+        use_additional_convs=gp.get("use_additional_convs", True))
 
 
 def _stats(stats, what: str):
@@ -66,8 +60,7 @@ class Vocoder:
 
     def __init__(self, config: Mapping, params, stats: Optional[Mapping],
                  trg_stats: Optional[Mapping] = None,
-                 take_norm_feat: bool = True, device=None, seed: int = 0,
-                 dtype=torch.float32):
+                 take_norm_feat: bool = True, device=None, seed: int = 0):
         if take_norm_feat and trg_stats is None:
             raise ValueError("trg_stats required when take_norm_feat=True")
         self.device = resolve_device(device)
@@ -81,7 +74,7 @@ class Vocoder:
                               "scale": torch.from_numpy(tscale).to(self.device)}
         self.config = dict(config)
         self.sampling_rate = int(self.config.get("sampling_rate", 24000))
-        model = generator_from_config(self.config, dtype)
+        model = generator_from_config(self.config)
         if params is None:
             init_params_(model, seed)
         else:
@@ -99,17 +92,3 @@ class Vocoder:
         """``(B, T, mels)`` normalized mels on the device -> ``(B, T*hop)``
         f32 waveforms on the device."""
         return self.model(self._normalize(c.to(self.device)))[..., 0].float()
-
-    def decode(self, c):
-        """c ``(T, mels)`` -> (``(T * hop,)`` waveform, sampling rate)."""
-        start = time.time()
-        y = self.synthesize(torch.as_tensor(np.asarray(c, np.float32))[None])
-        y = y[0].cpu().numpy()
-        rtf = (time.time() - start) / (len(y) / self.sampling_rate)
-        logger.info("waveform generated (RTF = %.3f)", rtf)
-        return y, self.sampling_rate
-
-    def decode_batch(self, c):
-        """c ``(B, T, mels)`` -> ``(B, T * hop)``."""
-        return self.synthesize(
-            torch.as_tensor(np.asarray(c, np.float32))).cpu().numpy()

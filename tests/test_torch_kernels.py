@@ -192,6 +192,22 @@ def test_k3_branch_matches_jax(c, k):
     assert resblock_cuda.launches == 0
 
 
+@pytest.mark.parametrize("c", [8, 16, 32, 64, 128, 256])
+def test_k3_stage_tiles_fit_shared_memory(c):
+    """Every stage of a generator branch (C up to 256, the first level of a
+    512-channel generator) gets a time tile whose windows fit the kernel's
+    shared-memory budget, and C that the 8 x 8 thread tiles cannot split
+    is refused."""
+    for k in (3, 7, 11):
+        for d in (1, 3, 5):
+            bt = resblock_cuda.tile_rows(c, k, d, True)
+            assert 0 < bt <= resblock_cuda.MAX_TILE
+            assert (resblock_cuda.smem_bytes(c, k, d, True, bt)
+                    <= resblock_cuda.SMEM_BUDGET)
+    assert resblock_cuda._pass_shape(c) is not None
+    assert resblock_cuda._pass_shape(c + 4) is None
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels themselves (need a card; skipped on the CPU)
 # ---------------------------------------------------------------------------
