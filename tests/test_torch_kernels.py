@@ -21,7 +21,10 @@ from serenade_tpu.models import unet as jax_unet
 from serenade_tpu.ops.attention import _xla_attention
 from serenade_tpu.ops.attention import multi_head_attention as jax_mha
 from serenade_tpu.ops.block1d_pallas import fused_block1d
-from serenade_tpu.ops.flash_pallas import _flash_forward
+from serenade_tpu.ops.flash_pallas import (
+    _flash_forward,
+    flash_attention_pallas,
+)
 from serenade_tpu.ops.resblock_pallas import resblock_branch_pallas
 from serenade_tpu.vocoder.layers import HiFiGANResidualBlock as JaxResBlock
 
@@ -63,9 +66,11 @@ def test_k1_flash_matches_jax_pallas_and_xla():
     scale = d ** -0.5
     out, lse = flash_cuda.flash_attention(_t(q), _t(k), _t(v), _t(mask),
                                           scale, return_lse=True)
-    j_out, j_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k),
-                                  jnp.asarray(v), jnp.asarray(mask), scale,
-                                  32, 32, True)
+    j_out = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(mask), scale,
+                                   32, 32, True)
+    _, j_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(mask), scale, 32, 32, True)
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **F32_TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[:, :, :t, 0],
                                **F32_TOL)
