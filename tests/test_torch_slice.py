@@ -127,6 +127,26 @@ def test_converter_draws_its_own_noise_reproducibly():
     np.testing.assert_array_equal(mels[0], mels[1])
 
 
+def test_params_as_state_dict_or_flax_tree():
+    """A state dict loads as it is; a flax tree with a leaf missing is
+    refused by name rather than loaded partly."""
+    from serenade_tpu_torch.convert import load_params, state_dict_from_flax
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.vocoder.hifigan import HiFiGANGenerator
+
+    src = init_params_(HiFiGANGenerator(**VOC), seed=4)
+    dst = load_params(HiFiGANGenerator(**VOC), src.state_dict())
+    for (name, a), (_, b) in zip(src.state_dict().items(),
+                                 dst.state_dict().items()):
+        assert torch.equal(a, b), name
+    jgen = JaxHiFiGAN(**VOC)
+    tree = jax.tree_util.tree_map(np.asarray, jax.jit(jgen.init)(
+        jax.random.key(2), jnp.zeros((1, 8, 80))))
+    del tree["params"]["block_1_2"]["conv2_1"]["bias"]
+    with pytest.raises(KeyError, match="block_1_2.conv2_1.bias"):
+        state_dict_from_flax(HiFiGANGenerator(**VOC), tree)
+
+
 # ---------------------------------------------------------------------------
 # rules of the port
 # ---------------------------------------------------------------------------
