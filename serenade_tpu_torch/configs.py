@@ -1,6 +1,6 @@
-"""Full-width configurations, carried as dicts (the machine with the card
-has no yaml reader).  ``tests/test_torch_slice.py`` holds them equal to
-the recipe files they cite."""
+"""Full-width configurations, carried as dicts so the port reads no YAML.
+``tests/test_torch_slice.py`` holds them equal to the recipe files they
+cite."""
 
 from __future__ import annotations
 

@@ -152,7 +152,7 @@ def test_params_as_state_dict_or_flax_tree():
 # ---------------------------------------------------------------------------
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "serenade_tpu",
-             # absent on the machine with the card
+             # the port's runtime needs none of these readers
              "h5py", "joblib", "yaml"}
 
 
