@@ -32,6 +32,20 @@ VOCODER_CONFIG = {
 }
 
 
+# egs/gtsinger/ssc1/conf/serenade.yaml, the training keys that
+# ``trainers.build_optimizer`` and a training loop read
+TRAIN_CONFIG = {
+    "batch_size": 4,
+    "gradient_accumulate_steps": 1,
+    "optimizer_type": "AdamW",
+    "optimizer_params": {"lr": 0.0008, "mu_dtype": "bfloat16"},
+    "grad_norm": 1.0,
+    "scheduler_type": "MultiStepLR",
+    "scheduler_params": {"gamma": 0.5,
+                         "milestones": [100000, 200000, 300000]},
+}
+
+
 def serenade_config(dtype: str = SERENADE_DTYPE) -> dict:
     """Serenade constructor arguments at full width."""
     return dict(SERENADE_MODEL_PARAMS, dtype=dtype)

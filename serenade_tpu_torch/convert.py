@@ -11,7 +11,10 @@ inverse of ``serenade_tpu/models/convert_serenade.py``:
   flax Conv2d   (kh, kw, in, out)  -> weight (out, in, kh, kw)
   weight norm   v (k, in, out), g  -> v (out, in, k), g
   GRUCell ir/iz/in, hr/hz/hn       -> weight_ih, weight_hh (r, z, n rows),
-                                      bias_ih (r, z, n), bias_hh (0, 0, n)
+                                      bias_ih (r, z, n), bias_hn (hn bias)
+
+Every mapping is a transpose or a concatenation, so it is linear and
+applies to gradients and optimizer updates of the same tree as well.
 
 Nothing here imports JAX; the caller converts JAX arrays to numpy.
 """
@@ -37,7 +40,6 @@ def _with_bias(p, out):
 
 
 def _gru(p):
-    zeros = np.zeros_like(np.asarray(p["hn"]["bias"]))
     return {
         "weight_ih": np.concatenate([np.asarray(p[g]["kernel"]).T
                                      for g in ("ir", "iz", "in")]),
@@ -45,7 +47,7 @@ def _gru(p):
                                      for g in ("hr", "hz", "hn")]),
         "bias_ih": np.concatenate([p["ir"]["bias"], p["iz"]["bias"],
                                    p["in"]["bias"]]),
-        "bias_hh": np.concatenate([zeros, zeros, p["hn"]["bias"]]),
+        "bias_hn": p["hn"]["bias"],
     }
 
 

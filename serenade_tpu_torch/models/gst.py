@@ -39,14 +39,16 @@ class Conv2d(nn.Module):
 class MaskedGRU(nn.Module):
     """Unidirectional GRU that freezes its state at padded steps; returns
     the hidden state at each sequence's last valid step.  Runs in f32 with
-    torch's gate layout (r, z, n)."""
+    torch's gate layout (r, z, n).  Like flax's ``GRUCell`` the hidden
+    projection has a bias for the n gate only (``bias_hn``), so training
+    updates the same degrees of freedom as JAX."""
 
     def __init__(self, in_features: int, hidden: int):
         super().__init__()
         self.weight_ih = nn.Parameter(torch.empty(3 * hidden, in_features))
         self.weight_hh = nn.Parameter(torch.empty(3 * hidden, hidden))
         self.bias_ih = nn.Parameter(torch.zeros(3 * hidden))
-        self.bias_hh = nn.Parameter(torch.zeros(3 * hidden))
+        self.bias_hn = nn.Parameter(torch.zeros(hidden))
         self.hidden = hidden
 
     def forward(self, x, mask):
@@ -55,12 +57,12 @@ class MaskedGRU(nn.Module):
         h = x.new_zeros((x.shape[0], self.hidden), dtype=torch.float32)
         for t in range(x.shape[1]):
             gi = gi_all[:, t]
-            gh = F.linear(h, self.weight_hh, self.bias_hh)
+            gh = F.linear(h, self.weight_hh)
             i_r, i_z, i_n = gi.chunk(3, dim=-1)
             h_r, h_z, h_n = gh.chunk(3, dim=-1)
             r = torch.sigmoid(i_r + h_r)
             z = torch.sigmoid(i_z + h_z)
-            n = torch.tanh(i_n + r * h_n)
+            n = torch.tanh(i_n + r * (h_n + self.bias_hn))
             new = (1.0 - z) * n + z * h
             keep = mask[:, t, None].float()
             h = new * keep + h * (1.0 - keep)

@@ -6,8 +6,8 @@ layouts (Linear ``(out, in)``, Conv1d ``(out, in, k)``, ConvTranspose1d
 ``(in, out, k)``); each module casts them to its compute ``dtype`` at use,
 as flax does with ``param_dtype=float32``, unless ``store_compute_weights_``
 stored them in that dtype once (the Converter does, so a bf16 forward pass
-casts no weights).  ``convert.py`` maps the flax parameter tree onto these
-modules.
+casts no weights; training keeps the f32 master weights and never does).
+``convert.py`` maps the flax parameter tree onto these modules.
 """
 
 from __future__ import annotations
@@ -25,9 +25,26 @@ def as_dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
+def accum_dtype(dtype) -> torch.dtype:
+    """The type sums accumulate in: f32, or f64 for f64 inputs (gradient
+    checks)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def mish(x):
     """x * tanh(softplus(x)), in one kernel."""
     return F.mish(x)
+
+
+def dropout(x, p: float, generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    ``1 - p`` and scale the kept ones by ``1 / (1 - p)``.  The mask comes
+    from ``generator`` (on x's device), so a run is reproducible; it cannot
+    reproduce the TPU's bits."""
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 # ---------------------------------------------------------------------------
@@ -155,23 +172,25 @@ class WNConv1d(nn.Module):
 
 def masked_group_norm(x, mask, scale, bias, *, num_groups: int = 8,
                       epsilon: float = 1e-5, out_dtype=None):
-    """GroupNorm over (time, channels/group) with f32 statistics over the
-    valid frames of ``mask`` ``(B, T, 1)`` only; variance in two passes."""
+    """GroupNorm over (time, channels/group) with f32 (f64 for f64 input)
+    statistics over the valid frames of ``mask`` ``(B, T, 1)`` only;
+    variance in two passes."""
     b, t, c = x.shape
     g = num_groups
     assert c % g == 0, f"channels {c} not divisible by groups {g}"
-    xf = x.float().reshape(b, t, g, c // g)
+    acc = accum_dtype(x.dtype)
+    xf = x.to(acc).reshape(b, t, g, c // g)
     if mask is None:
         mean = xf.mean(dim=(1, 3), keepdim=True)
         var = torch.square(xf - mean).mean(dim=(1, 3), keepdim=True)
     else:
-        m = mask.float().reshape(b, t, 1, 1)
+        m = mask.to(acc).reshape(b, t, 1, 1)
         denom = torch.clamp(m.sum(dim=1, keepdim=True) * (c // g), min=1.0)
         mean = (xf * m).sum(dim=(1, 3), keepdim=True) / denom
         var = (torch.square(xf - mean) * m).sum(dim=(1, 3),
                                                 keepdim=True) / denom
     y = (xf - mean) * torch.rsqrt(var + epsilon)
-    y = y.reshape(b, t, c) * scale.float() + bias.float()
+    y = y.reshape(b, t, c) * scale.to(acc) + bias.to(acc)
     if mask is not None:
         y = y * mask
     return y.to(out_dtype if out_dtype is not None else x.dtype)

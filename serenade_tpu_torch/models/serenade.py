@@ -1,17 +1,20 @@
-"""Serenade style conversion by infilling (counterpart of
-serenade_tpu/models/serenade.py ``Serenade.inference``).
+"""Serenade: flow-matching style conversion by infilling (counterpart of
+serenade_tpu/models/serenade.py).
 
-The reference clip with its conditioning mel is packed time-adjacent
-before the zero-conditioned source, the CFM samples the joint sequence and
-the source part is returned.  Batch rows may have different reference
-lengths.  The training losses and ReFlow pair generation wait for the
-training slice; the F0-fluctuation variant (``fluc_channels > 0``) is not
-ported.
+Training (``forward``) is masked segment infilling: a random contiguous
+segment of 10-50 % of the batch's longest length is the CFM target and
+the conditioning mel is zeroed inside it; a Gaussian prior loss ties the
+content encoder to the mel.  Inference packs the reference clip with its
+conditioning mel time-adjacent before the zero-conditioned source, the CFM
+samples the joint sequence and the source part is returned; batch rows may
+have different reference lengths.  ReFlow pair generation and the
+F0-fluctuation variant (``fluc_channels > 0``) are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,8 +26,10 @@ from serenade_tpu_torch.models.layers import as_dtype
 from serenade_tpu_torch.ops.sequence import pack_pair_time, unpack_suffix_time
 from serenade_tpu_torch.utils.masking import length_mask
 
-# accepted for config compatibility; they only act in training
-_TRAINING_ONLY = ("mask_size", "cfg_prob", "dropout", "remat")
+# accepted for config compatibility: cfg_prob is unused by the reference
+# too, and remat is not ported
+_ACCEPTED = ("cfg_prob", "remat")
+LOG_2PI = math.log(2.0 * math.pi)
 
 
 class Serenade(nn.Module):
@@ -36,15 +41,18 @@ class Serenade(nn.Module):
                  gst_norm_type: str = "masked_group", gst_tokens: int = 50,
                  gst_conv_chans: Tuple[int, ...] = (128, 128, 256, 256, 512,
                                                     512),
-                 gst_gru_units: int = 128, dtype="bfloat16", **training):
+                 gst_gru_units: int = 128,
+                 mask_size: Tuple[float, float] = (0.1, 0.5),
+                 dropout: float = 0.05, dtype="bfloat16", **accepted):
         super().__init__()
-        unknown = set(training) - set(_TRAINING_ONLY)
+        unknown = set(accepted) - set(_ACCEPTED)
         if unknown:
             raise TypeError(f"unknown Serenade parameters {sorted(unknown)}")
         if fluc_channels:
             raise NotImplementedError("the F0-fluctuation variant is not "
                                       "ported yet")
         self.output_dim = output_dim
+        self.mask_size = tuple(mask_size)
         self.dtype = as_dtype(dtype)
         conditioning_dim = encoder_channels + 1 + 1 + output_dim
         self.encoder = Conv1dResnet(input_dim, encoder_channels,
@@ -60,7 +68,66 @@ class Serenade(nn.Module):
             spk_embed_dim=gst_embed_dim,
             decoder_channels=(decoder_channels, decoder_channels),
             decoder_attention_head_dim=decoder_attention_head_dim,
-            dtype=dtype)
+            dropout=dropout, dtype=dtype)
+
+    def forward(self, x, lengths, logmel, midi, loud, *,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Training losses (``serenade_tpu/models/serenade.py:100-166``).
+
+        x ``(B, T, input_dim)``, lengths ``(B,)``, logmel
+        ``(B, T, output_dim)`` normalized target mels, midi and loud
+        ``(B, T, 1)``.  The segment fraction and start, the flow times and
+        the noise come from ``draws`` (``frac``, ``start`` scalars in
+        [0, 1), ``t`` ``(B,)``, ``z`` ``(B, T, output_dim)``) where given,
+        else from ``generator``, which also draws the dropout masks.
+
+        Returns ``cfm_loss``, ``prior_loss``, ``gauss_mel`` (the encoder
+        output) and ``loss``.
+        """
+        b, T, _ = x.shape
+        dev = x.device
+        draws = draws or {}
+        enc_outs = self.encoder(x, lengths)
+        spk = self.gst(logmel, lengths)
+        mask = length_mask(lengths, T)[..., None]
+
+        # random contiguous infill segment, scaled by the batch max length
+        maxlen = lengths.max()
+        lo, hi = self.mask_size
+        frac = draws.get("frac")
+        if frac is None:
+            frac = lo + (hi - lo) * torch.rand((), generator=generator,
+                                               device=dev)
+        start = draws.get("start")
+        if start is None:
+            start = torch.rand((), generator=generator, device=dev)
+        frac = torch.as_tensor(frac, dtype=torch.float32, device=dev)
+        start = torch.as_tensor(start, dtype=torch.float32, device=dev)
+        seg_len = torch.floor(frac * maxlen).to(torch.int32)
+        seg_start = torch.floor(start * (maxlen - seg_len + 1)).to(
+            torch.int32)
+        pos = torch.arange(T, device=dev)[None, :, None]
+        in_seg = ((pos >= seg_start) & (pos < seg_start + seg_len)).to(
+            mask.dtype)
+        mask_l = mask * in_seg           # loss mask: inside the segment
+        mask_c = mask * (1.0 - in_seg)   # conditioning: outside it
+
+        logmel_f = logmel.float()
+        prior = 0.5 * (torch.square(logmel_f - enc_outs.float()) + LOG_2PI)
+        prior_loss = (prior * mask).sum() / (
+            torch.clamp(mask.sum(), min=1.0) * self.output_dim)
+
+        dt = self.dtype
+        mu = torch.cat([p.to(dt) for p in (enc_outs, midi, loud,
+                                           logmel_f * mask_c)], dim=-1)
+        cfm_loss, _ = self.cfm_decoder.compute_loss(
+            logmel_f * mask_l, mask, mu, spk, mask_l=mask_l,
+            t=draws.get("t"), z=draws.get("z"), generator=generator,
+            train=True)
+        return {"cfm_loss": cfm_loss, "prior_loss": prior_loss,
+                "gauss_mel": enc_outs, "loss": cfm_loss + prior_loss}
 
     @torch.no_grad()
     def inference(self, x, lengths, midi, loud,

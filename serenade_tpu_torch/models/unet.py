@@ -41,9 +41,8 @@ class Block1D(nn.Module):
 
     def forward(self, x, mask):
         dt = self.dtype
-        return block1d(x.to(dt), mask, self.conv.weight.to(dt),
-                       self.conv.bias, self.norm.scale, self.norm.bias,
-                       groups=self.groups)
+        return block1d(x.to(dt), mask, self.conv.weight, self.conv.bias,
+                       self.norm.scale, self.norm.bias, groups=self.groups)
 
 
 class ResnetBlock1D(nn.Module):
@@ -76,7 +75,7 @@ class Decoder(nn.Module):
                  channels: Tuple[int, ...] = (512, 512),
                  attention_head_dim: int = 512, num_heads: int = 4,
                  num_mid_blocks: int = 2, spk_dim: int = 256,
-                 dtype=torch.float32):
+                 dropout: float = 0.05, dtype=torch.float32):
         super().__init__()
         self.in_channels = in_channels
         self.dtype = as_dtype(dtype)
@@ -87,7 +86,7 @@ class Decoder(nn.Module):
 
         def tx(dim):
             return BasicTransformerBlock(dim, num_heads, attention_head_dim,
-                                         dtype=dtype)
+                                         dropout=dropout, dtype=dtype)
 
         def resnet(cin, cout):
             return ResnetBlock1D(cin, cout, time_dim, spk_dim, dtype=dtype)
@@ -119,8 +118,12 @@ class Decoder(nn.Module):
         self.final_proj = Conv1d(up[-1], out_channels, 1, padding=0,
                                  dtype=dtype)
 
-    def forward(self, x, mask, mu, t, spk):
+    def forward(self, x, mask, mu, t, spk, *, train: bool = False,
+                generator=None):
+        """``train`` turns on the transformer blocks' dropout, its masks
+        drawn from ``generator``."""
         b, T, _ = x.shape
+        drop = dict(train=train, generator=generator)
         assert T % 2 == 0, "bucketed time must be even for the UNet downsample"
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         t_emb = self.time_mlp(
@@ -131,7 +134,7 @@ class Decoder(nn.Module):
         for i in range(self.n_levels):
             m = masks[-1]
             h = getattr(self, f"down{i}_resnet")(h, m, t_emb, spk)
-            h = getattr(self, f"down{i}_tx0")(h, key_mask=m[:, :, 0])
+            h = getattr(self, f"down{i}_tx0")(h, key_mask=m[:, :, 0], **drop)
             hiddens.append(h)
             h = getattr(self, f"down{i}_downsample")(h * m)
             if i < self.n_levels - 1:
@@ -139,12 +142,12 @@ class Decoder(nn.Module):
         m = masks[-1]
         for i in range(self.num_mid_blocks):
             h = getattr(self, f"mid{i}_resnet")(h, m, t_emb, spk)
-            h = getattr(self, f"mid{i}_tx0")(h, key_mask=m[:, :, 0])
+            h = getattr(self, f"mid{i}_tx0")(h, key_mask=m[:, :, 0], **drop)
         for i in range(self.n_levels):
             m = masks.pop()
             h = torch.cat([h, hiddens.pop()], dim=-1)
             h = getattr(self, f"up{i}_resnet")(h, m, t_emb, spk)
-            h = getattr(self, f"up{i}_tx0")(h, key_mask=m[:, :, 0])
+            h = getattr(self, f"up{i}_tx0")(h, key_mask=m[:, :, 0], **drop)
             h = getattr(self, f"up{i}_upsample")(h * m)
         h = self.final_block(h, mask)
         out = self.final_proj(h * mask)

@@ -28,7 +28,8 @@ import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
-SOURCES = ("flash_fwd", "block1d_fwd", "resblock_branch")
+SOURCES = ("flash_fwd", "flash_bwd", "block1d_fwd", "block1d_bwd",
+           "resblock_branch")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -6,6 +6,9 @@ lrelu(0.1) → dilated k-conv → [lrelu → k-conv] → +residual, with zeros
 outside [0, T) before every conv.  The wrapper launches the kernel once
 per dilation stage and counts one launch per branch.  CPU tensors run
 ``resblock_branch_plain`` (the conv chain of ``HiFiGANResidualBlock``).
+The Pallas kernel has no backward and neither has this one: on CUDA the
+wrapper refuses inputs that need a gradient, whose result would otherwise
+carry none.
 """
 
 from __future__ import annotations
@@ -134,5 +137,10 @@ def resblock_branch(x, w1, b1, w2, b2, *, kernel_size: int,
             x, w1.to(x.dtype), b1.to(x.dtype), w2.to(x.dtype),
             b2.to(x.dtype), kernel_size=kernel_size, dilations=dilations,
             use_additional_convs=use_additional_convs)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        raise RuntimeError(
+            "resblock_branch: the CUDA kernel has no backward; run it under "
+            "torch.no_grad() or with inputs that need no gradient")
     return _branch_cuda(x.contiguous(), w1, b1, w2, b2, kernel_size,
                         tuple(dilations), use_additional_convs)

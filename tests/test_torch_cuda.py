@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+forward (K1-K3) and, through the autograd Functions, backward (K4-K7).
 
 Needs an NVIDIA GPU and the CUDA toolkit (the kernels are built with nvcc
 at first use); skips without a card.  Imports only torch and the port, so
@@ -52,3 +53,48 @@ def test_kernels_match_plain_on_card():
         resblock_cuda.resblock_branch(x, w1, b1, w2, b2, **args),
         resblock_cuda.resblock_branch_plain(x, w1, b1, w2, b2, **args),
         rtol=1e-4, atol=1e-4)
+
+    # K4, K5 through the autograd Function against the plain backward
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_cuda.flash_attention(*qkv, mask, 0.2)
+    assert out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=g, device=dev)
+    out.backward(cot)
+    _, lse = flash_cuda.flash_attention_plain(q, k, v, mask, 0.2)
+    want = flash_cuda.flash_attention_backward_plain(q, k, v, mask, ref, lse,
+                                                     cot, 0.2)
+    for t, w_ in zip(qkv, want):
+        torch.testing.assert_close(t.grad, w_, rtol=1e-4, atol=1e-4)
+
+    # K6, K7 through the autograd Function against the plain backward
+    x = torch.randn((2, 70, 20), generator=g, device=dev)
+    w = torch.randn((64, 20, 3), generator=g, device=dev) * 0.1
+    params = [t.clone().requires_grad_(True) for t in (x, w, bias, gamma,
+                                                        beta)]
+    out = block1d_cuda.block1d(params[0], m, *params[1:])
+    assert out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=g, device=dev)
+    out.backward(cot)
+    want = block1d_cuda.block1d_backward_plain(x, m, w, bias, gamma, beta,
+                                               cot)
+    for t, w_ in zip(params, want):
+        torch.testing.assert_close(t.grad, w_, rtol=1e-4, atol=1e-4)
+    assert flash_cuda.dq_launches >= 1 and block1d_cuda.weight_launches >= 1
+
+
+@pytest.mark.cuda
+def test_resblock_kernel_refuses_inputs_that_need_gradients():
+    """K3 has no backward (nor has the Pallas kernel): on the card it
+    raises rather than return a result that carries no gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    x = torch.randn((1, 64, 32), device=dev, requires_grad=True)
+    w = torch.randn((3, 32, 32, 3), device=dev) * 0.1
+    b = torch.zeros((3, 32), device=dev)
+    args = dict(kernel_size=3, dilations=(1, 3, 5))
+    with pytest.raises(RuntimeError, match="no backward"):
+        resblock_cuda.resblock_branch(x, w, b, w, b, **args)
+    with torch.no_grad():
+        assert resblock_cuda.resblock_branch(x, w, b, w, b, **args).shape \
+            == x.shape

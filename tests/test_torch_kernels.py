@@ -211,3 +211,102 @@ def test_k3_stage_tiles_fit_shared_memory(c):
                     <= resblock_cuda.SMEM_BUDGET)
     assert resblock_cuda._pass_shape(c) is not None
     assert resblock_cuda._pass_shape(c + 4) is None
+
+
+# ---------------------------------------------------------------------------
+# K4, K5: flash backward; K6, K7: Block1D backward (the training slice)
+# ---------------------------------------------------------------------------
+
+
+def test_k4_k5_flash_backward_plain_matches_jax_pallas():
+    """dq, dk, dv of the port's plain backward against jax.grad through the
+    Pallas kernels in interpret mode (32-row blocks, so T = 75 leaves a
+    ragged tile), with the second row's keys padded past 40.  f32, 2e-5:
+    summation order only."""
+    rng = np.random.default_rng(20)
+    b, h, t, d = 2, 2, 75, 32
+    q, k, v, cot = (rng.normal(size=(b, h, t, d)).astype(np.float32)
+                    for _ in range(4))
+    mask = _prefix_mask([75, 40], t)
+    scale = d ** -0.5
+
+    def loss(q, k, v):
+        out = flash_attention_pallas(q, k, v, jnp.asarray(mask), scale,
+                                     32, 32, True)
+        return jnp.sum(out * cot)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    out, lse = flash_cuda.flash_attention_plain(_t(q), _t(k), _t(v),
+                                                _t(mask), scale)
+    got = flash_cuda.flash_attention_backward_plain(
+        _t(q), _t(k), _t(v), _t(mask), out, lse, _t(cot), scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL,
+                                   err_msg=name)
+    # the autograd Function's CPU branch runs the same backward
+    qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
+    torch.sum(flash_cuda.flash_attention(qt, kt, vt, _t(mask), scale)
+              * _t(cot)).backward()
+    for g, a in zip(got, (qt, kt, vt)):
+        torch.testing.assert_close(a.grad, g, rtol=1e-6, atol=1e-6)
+    assert flash_cuda.dq_launches == flash_cuda.dkv_launches == 0
+
+
+@pytest.mark.parametrize("cin,cout", [(20, 64), (128, 128)])
+def test_k6_k7_block1d_backward_plain_matches_jax_pallas(cin, cout):
+    """dx, dW, dbias, dgamma, dbeta of the port's plain backward against
+    jax.grad through the fused Pallas Block1D in interpret mode, prefix
+    masks of lengths 64 and 41.  The Pallas kernels take single-pass f32
+    statistics where the plain version takes two passes: 1e-4, as for K2."""
+    rng = np.random.default_rng(cin + 30)
+    b, t = 2, 64
+    x = rng.normal(size=(b, t, cin)).astype(np.float32)
+    mask = _prefix_mask([64, 41], t)[..., None]
+    kernel = (rng.normal(size=(3, cin, cout)) / np.sqrt(3 * cin)).astype(
+        np.float32)
+    bias, beta = (0.1 * rng.normal(size=(cout,)).astype(np.float32)
+                  for _ in range(2))
+    gamma = (1 + 0.1 * rng.normal(size=(cout,))).astype(np.float32)
+    cot = rng.normal(size=(b, t, cout)).astype(np.float32)
+
+    def loss(x, kernel, bias, gamma, beta):
+        out = fused_block1d(x, jnp.asarray(mask), kernel, bias, gamma, beta,
+                            groups=8, interpret=True)
+        return jnp.sum(out * cot)
+
+    jx, jw, jb, jg, jbeta = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (x, kernel, bias, gamma, beta)))
+    weight = np.transpose(kernel, (2, 1, 0))   # (Cout, Cin, 3)
+    dx, dw, db, dg, dbeta = block1d_cuda.block1d_backward_plain(
+        _t(x), _t(mask), _t(weight), _t(bias), _t(gamma), _t(beta), _t(cot))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jx), **tol)
+    np.testing.assert_allclose(dw.numpy(),
+                               np.transpose(np.asarray(jw), (2, 1, 0)), **tol)
+    for got, want in ((db, jb), (dg, jg), (dbeta, jbeta)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    assert not np.abs(dx.numpy()[1, 41:]).any()   # padded frames get none
+    assert block1d_cuda.data_launches == block1d_cuda.weight_launches == 0
+
+
+def test_backward_functions_pass_gradcheck_on_cpu():
+    """Both autograd Functions' CPU branches in float64 at tiny shapes: the
+    plain backward is the exact gradient of the plain forward (padded keys
+    and padded frames included)."""
+    gen = torch.Generator().manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           requires_grad=True)
+
+    key_mask = torch.ones((2, 6), dtype=torch.float64)
+    key_mask[1, 4:] = 0
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: flash_cuda.flash_attention(q, k, v, key_mask, 0.5),
+        (rand(2, 2, 6, 4), rand(2, 2, 6, 4), rand(2, 2, 6, 4)))
+    mask = torch.from_numpy(_prefix_mask([7, 4], 7)[..., None]).double()
+    assert torch.autograd.gradcheck(
+        lambda x, w, b, g, be: block1d_cuda.block1d(x, mask, w, b, g, be,
+                                                    groups=2),
+        (rand(2, 7, 3), rand(8, 3, 3), rand(8), rand(8), rand(8)))

@@ -198,6 +198,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         Vocoder({"generator_params": VOC}, None,
                 {"mean": np.zeros(80), "scale": np.ones(80)},
                 take_norm_feat=False)
+    from serenade_tpu_torch.models.serenade import Serenade
+    from serenade_tpu_torch.trainers import build_optimizer, build_train_step
+
+    model = Serenade(**dict(CFG, dtype="float32"))
+    opt, _ = build_optimizer({"optimizer_type": "AdamW"})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_train_step(model, opt)
+    build_train_step(model, opt, device="cpu")
 
 
 @pytest.mark.parametrize("stats", [None, {"mean": np.zeros(80)},
