@@ -118,6 +118,7 @@ def check_flash(torch, dev):
             row["library_ms"] = cuda_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=bmask, scale=scale), 20)
+            row["plain_scope"], row["library_scope"] = ["out", "lse"], ["out"]
         rows.append(row)
         return row
 
@@ -154,13 +155,13 @@ def check_block1d(torch, dev):
             nbytes = es * (b * t * (cin + cout) + 3 * cin * cout) + 12 * cout
             row["bound_ms"], row["bound_by"] = bound_ms(
                 2.0 * b * t * 3 * cin * cout, nbytes, dtype == torch.bfloat16)
-            lens = mask[:, :, 0].sum(dim=1).to(torch.int32)
-            bias_c = bias.to(dtype).float()
+            args = K.prepare_forward(x, mask, w, bias, gamma, beta)
             row["ms"] = cuda_ms(torch, lambda: K._block1d_cuda(
-                x, lens, w, bias_c, gamma, beta, 8, 1e-5), 20)
+                *args, 8, 1e-5), 20)
             row["plain_ms"] = cuda_ms(torch, lambda: K.block1d_plain(
                 x, mask, w, bias, gamma, beta), 20)
             row["library_ms"] = None
+            row["plain_scope"], row["library_scope"] = ["out"], None
         rows.append(row)
         return row
 
@@ -251,10 +252,12 @@ def check_flash_bwd(torch, dev):
                 q, k, v, mask, g, lse, dsum, scale), 10)
             row["dkv"]["ms"] = cuda_ms(torch, lambda: K.flash_bwd_dkv(
                 q, k, v, mask, g, lse, dsum, scale), 10)
-            # the plain version computes dq, dk and dv together
+            # the plain version and SDPA's backward compute dq, dk and dv
+            # together: each stands beside K4 and K5 with that scope
             row["plain_ms"] = cuda_ms(
                 torch, lambda: K.flash_attention_backward_plain(
                     q, k, v, mask, out, lse, g, scale), 5)
+            row["plain_scope"] = row["library_scope"] = ["dq", "dk", "dv"]
             row["library_ms"], row["library_backend"] = sdpa_backward_ms(
                 torch, q, k, v, mask.bool()[:, None, None, :], scale)
         rows.append(row)
@@ -271,7 +274,10 @@ def check_flash_bwd(torch, dev):
 
 def check_block1d_bwd(torch, dev):
     """K6 and K7 against block1d_backward_plain on the same x, weights,
-    output cotangent and K2's y and statistics."""
+    output cotangent and K2's y and statistics.  K7's yardstick is cuDNN's
+    conv1d weight gradient on the same x·mask and dy."""
+    from torch.nn.grad import conv1d_weight
+
     from serenade_tpu_torch.ops import block1d_cuda as K
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -285,12 +291,12 @@ def check_block1d_bwd(torch, dev):
                                                device=dev) for _ in range(3))
         gamma = gamma + 1.0
         g = torch.randn((b, t, cout), generator=gen, device=dev).to(dtype)
-        lens = torch.tensor(lengths, device=dev)
         mask = (torch.arange(t, device=dev)[None, :]
-                < lens[:, None]).float()[..., None]
-        lens = lens.to(torch.int32)
-        _, y, stats = K._block1d_cuda(x, lens, w, bias.to(dtype).float(),
-                                      gamma, beta, 8, 1e-5)
+                < torch.tensor(lengths, device=dev)[:, None]).float()[..., None]
+        _, lens, _, bias_c, _, _ = K.prepare_forward(x, mask, w, bias, gamma,
+                                                      beta)
+        _, y, stats = K._block1d_cuda(x, lens, w, bias_c, gamma, beta, 8,
+                                      1e-5)
         dx, dy, (dgam, dbet, db) = K.block1d_bwd_data(
             x, lens, w, gamma, beta, y, stats, g)
         dw = K.block1d_bwd_weight(x, lens, dy)
@@ -320,10 +326,29 @@ def check_block1d_bwd(torch, dev):
                 x, lens, w, gamma, beta, y, stats, g), 10)
             row["weight"]["ms"] = cuda_ms(
                 torch, lambda: K.block1d_bwd_weight(x, lens, dy), 10)
-            # the plain version computes all five gradients together
-            row["plain_ms"] = cuda_ms(torch, lambda: K.block1d_backward_plain(
-                x, mask, w, bias, gamma, beta, g), 5)
-            row["library_ms"] = None
+            # the plain version computes all five gradients together, its
+            # weight part dW alone; no single call computes K6's outputs
+            row["data"]["plain_ms"] = cuda_ms(
+                torch, lambda: K.block1d_backward_plain(
+                    x, mask, w, bias, gamma, beta, g), 5)
+            row["data"]["plain_scope"] = list(names)
+            row["data"]["library_ms"] = None
+            row["weight"]["plain_ms"] = cuda_ms(
+                torch, lambda: K.block1d_weight_grad_plain(x, mask, dy), 5)
+            row["weight"]["plain_scope"] = ["dw"]
+            # cuDNN's weight gradient of conv1d (k 3, padding 1) on the same
+            # x·mask and dy, both (B, C, T) as cuDNN takes them
+            xm_bct = (x * mask).to(dtype).transpose(1, 2).contiguous()
+            dy_bct = dy.transpose(1, 2).contiguous()
+            lib = conv1d_weight(xm_bct, (cout, cin, 3), dy_bct, padding=1)
+            torch.cuda.synchronize()
+            row["weight"]["library_max_abs_err"], lib_rel = rel_err(
+                torch, lib, refs[1])
+            row["ok"] &= lib_rel <= tol
+            row["weight"]["library_ms"] = cuda_ms(
+                torch, lambda: conv1d_weight(xm_bct, (cout, cin, 3), dy_bct,
+                                             padding=1), 10)
+            row["weight"]["library_scope"] = ["dw"]
         rows.append(row)
         return row
 
@@ -372,6 +397,7 @@ def check_resblock(torch, dev):
                 x, ws[0], bs[0].to(dtype), ws[1], bs[1].to(dtype),
                 kernel_size=k, dilations=dils), 5)
             row["library_ms"] = None
+            row["plain_scope"], row["library_scope"] = ["out"], None
         rows.append(row)
         return row
 
@@ -678,7 +704,10 @@ KERNELS = {
                         "serenade_tpu/ops/resblock_pallas.py:154",
                         "resblock_cuda", "launches"),
 }
-# the gradients each backward kernel writes
+# what each forward kernel writes, and the gradients each backward kernel
+# writes
+FORWARD_OUTPUTS = {"flash_fwd": ("out", "lse"), "block1d_fwd": ("out",),
+                   "resblock_branch": ("out",)}
 OUTPUTS = {"flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv"),
            "block1d_bwd_data": ("dx", "dbias", "dgamma", "dbeta"),
            "block1d_bwd_weight": ("dw",)}
@@ -708,12 +737,19 @@ def kernel_entries(torch, dev):
         err = row["max_abs_err"]
         if isinstance(err, dict):   # a backward check: this kernel's outputs
             err = max(err[k] for k in OUTPUTS[name])
+        # a kernel's own plain and library times where the check took them,
+        # else its pair's; the scopes name the outputs each timed call made
+        own = {k: timing.get(k, row.get(k)) for k in (
+            "plain_ms", "plain_scope", "library_ms", "library_scope")}
         entries[name] = {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": None,
             "max_abs_err": err, "ms": timing["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": row["library_ms"],
+            "plain_ms": own["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"], "library_ms": own["library_ms"],
+            "outputs": list(OUTPUTS.get(name) or FORWARD_OUTPUTS[name]),
+            "plain_scope": own["plain_scope"],
+            "library_scope": own["library_scope"],
             "shape": row["shape"], "dtype": row["dtype"]}
 
     for name, check in (("flash_fwd", check_flash),

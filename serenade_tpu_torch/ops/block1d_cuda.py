@@ -16,7 +16,8 @@
 K2's f32 conv output y and f64 group sums for K6, where the Pallas
 backward recomputes them.  CPU tensors run ``block1d_plain`` (conv1d +
 two-pass ``masked_group_norm`` + mish, the unfused JAX ``Block1D``) and
-``block1d_backward_plain`` (the Pallas backward's formulas step by step).
+``block1d_backward_plain`` (the Pallas backward's formulas step by step;
+K7's part alone is ``block1d_weight_grad_plain``).
 """
 
 from __future__ import annotations
@@ -94,10 +95,20 @@ def block1d_backward_plain(x, mask, weight, bias, gamma, beta, g, *,
     dyc = dy.to(x.dtype).to(acc)
     # dx[s] = sum_j dy[s+1-j] W[j]^T: a conv by the flipped, transposed taps
     dx = conv1d(dyc, w.flip(2).transpose(0, 1), padding=(1, 1)) * m
-    xp = F.pad(xm.transpose(1, 2), (1, 1))              # (B, Cin, T+2)
-    dw = torch.stack([torch.einsum("bit,bto->oi", xp[:, :, j:j + t], dyc)
-                      for j in range(3)], dim=-1)
-    return (dx.to(x.dtype), dw.to(acc), dbias, dgamma, dbeta)
+    dw = block1d_weight_grad_plain(x, mask, dy.to(x.dtype))
+    return (dx.to(x.dtype), dw, dbias, dgamma, dbeta)
+
+
+def block1d_weight_grad_plain(x, mask, dy):
+    """dW ``(Cout, Cin, 3)`` of ``_bwd_w_kernel``:
+    ``dW[:, :, j] = Σ_{b,t} dy[t]ᵀ·(x·m)[t-1+j]`` from x's-type values,
+    accumulated in f32 (the plain version of K7 alone)."""
+    acc = accum_dtype(x.dtype)
+    t = x.shape[1]
+    xp = F.pad((x * mask).to(x.dtype).to(acc).transpose(1, 2), (1, 1))
+    dyc = dy.to(x.dtype).to(acc)                         # (B, T, Cout)
+    return torch.stack([torch.einsum("bit,bto->oi", xp[:, :, j:j + t], dyc)
+                        for j in range(3)], dim=-1)
 
 
 def _check_params(x, weight, params, groups):
@@ -122,6 +133,17 @@ def _lengths(mask, b):
     _cuda.require(lengths.shape == (b,) and lengths.device == mask.device,
                   "mask must be (B, T, 1) on the input's device")
     return lengths
+
+
+def prepare_forward(x, mask, weight, bias, gamma, beta):
+    """K2's arguments from ``block1d``'s: x contiguous, lengths from the
+    prefix mask, the weight in x's type, the conv bias rounded to the
+    compute type (as the Pallas kernel takes it) and held in f32, the
+    affine in f32."""
+    x = x.contiguous()
+    return (x, _lengths(mask, x.shape[0]), weight.to(x.dtype).contiguous(),
+            bias.to(x.dtype).float().contiguous(),
+            gamma.float().contiguous(), beta.float().contiguous())
 
 
 def _block1d_cuda(x, lengths, weight, bias, gamma, beta, groups, eps):
@@ -233,14 +255,10 @@ class Block1DFunction(torch.autograd.Function):
             ctx.save_for_backward(x, mask, weight, bias, gamma, beta)
             return block1d_plain(x, mask, weight, bias, gamma, beta,
                                  groups=groups, eps=eps)
-        x = x.contiguous()
-        lengths = _lengths(mask, x.shape[0])
-        w = weight.to(x.dtype).contiguous()
-        gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
-        # the conv bias in the compute type, as the Pallas kernel takes it
-        out, y, stats = _block1d_cuda(
-            x, lengths, w, bias.to(x.dtype).float().contiguous(), gamma,
-            beta, groups, eps)
+        x, lengths, w, bias, gamma, beta = prepare_forward(
+            x, mask, weight, bias, gamma, beta)
+        out, y, stats = _block1d_cuda(x, lengths, w, bias, gamma, beta,
+                                      groups, eps)
         ctx.save_for_backward(x, lengths, w, gamma, beta, y, stats)
         return out
 

@@ -82,10 +82,13 @@ class Optimizer:
             torch.stack(torch._foreach_norm(grads)))
         g = grads
         if self.grad_norm is not None:
-            n = norm.item()
-            if n >= self.grad_norm:
-                g = torch._foreach_div(grads, n)
-                torch._foreach_mul_(g, self.grad_norm)
+            # optax's select, kept on the device: t when ‖g‖ < max_norm,
+            # else (t / ‖g‖) · max_norm (t / 1 · 1 is t exactly)
+            keep = norm < self.grad_norm
+            one = torch.ones_like(norm)
+            g = torch._foreach_div(grads, torch.where(keep, one, norm))
+            torch._foreach_mul_(g, torch.where(
+                keep, one, torch.full_like(norm, self.grad_norm)))
         count = state["count"]
         lr = self.schedule(count)
         if self.kind == "SGD":
