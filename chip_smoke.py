@@ -29,12 +29,21 @@ Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
 no result, when CUDA is absent, the package is missing, or any phase
 fails.
+
+    python3 chip_smoke.py --time-redesigned [PACKAGE_ROOT]
+
+only times K1 and K7 (the kernels redesigned for Hopper) at the shapes
+PERF.md keeps for them, from the ``serenade_tpu_torch`` under
+PACKAGE_ROOT (this checkout by default), and prints one JSON line: run it
+on a parent commit's unpacked tree and on this one, in turns, to compare
+the two on one card.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -50,10 +59,15 @@ def emit(obj) -> None:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` runs (CUDA events).  A
+    device-side wait (about 25 ms) ahead of the first event holds the
+    queue while the host enqueues every run, so that a kernel shorter than
+    its wrapper's host time is timed back to back and not at the host's
+    pace."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -62,6 +76,25 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(torch, fn, reps: int) -> float:
+    """Mean host time of one call of ``fn`` in microseconds: the wrapper's
+    checks, allocations and launch, not the device's work (the calls are
+    queued without a synchronise in between)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e6
+
+
+def sm_count(torch, dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def rel_err(torch, got, ref) -> tuple:
@@ -82,6 +115,13 @@ def bound_ms(flops: float, nbytes: float, bf16: bool) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def _heads(torch, gen, dev, b, h, t, d, dtype):
+    """A (B, H, T, D) view of a (B, T, H, D) buffer, as the attention's
+    head split makes them."""
+    return (torch.randn((b, t, h, d), generator=gen, device=dev)
+            .to(dtype).transpose(1, 2))
+
+
 def check_flash(torch, dev):
     import torch.nn.functional as F
 
@@ -91,8 +131,9 @@ def check_flash(torch, dev):
     rows = []
 
     def case(b, h, t, d, dtype, valid, tol, timed):
-        q, k, v = (torch.randn((b, h, t, d), generator=gen, device=dev)
-                   .to(dtype) for _ in range(3))
+        # the (B, H, T, D) views of (B, T, H, D) buffers the path hands K1
+        q, k, v = (_heads(torch, gen, dev, b, h, t, d, dtype)
+                   for _ in range(3))
         mask = (torch.arange(t, device=dev)[None, :]
                 < torch.tensor(valid, device=dev)[:, None]).float()
         scale = d ** -0.5
@@ -112,6 +153,9 @@ def check_flash(torch, dev):
                 4.0 * b * h * t * t * d, nbytes, dtype == torch.bfloat16)
             row["ms"] = cuda_ms(torch, lambda: K._flash_cuda(
                 q, k, v, mask, scale), 20)
+            row["host_us"] = host_us(torch, lambda: K._flash_cuda(
+                q, k, v, mask, scale), 50)
+            row["plan"] = K.k1_plan(b, h, t, d, dtype, sm_count(torch, dev))
             row["plain_ms"] = cuda_ms(torch, lambda: K.flash_attention_plain(
                 q, k, v, mask, scale), 20)
             bmask = mask.bool()[:, None, None, :]
@@ -126,6 +170,10 @@ def check_flash(torch, dev):
     main = case(1, 4, 1536, 512, torch.bfloat16, [1536], 2e-2, True)
     case(1, 4, 768, 512, torch.bfloat16, [768], 2e-2, True)
     case(2, 4, 200, 512, torch.bfloat16, [200, 131], 2e-2, False)
+    # ragged: the half-resolution attention of a (1200, 200) request, and
+    # the train step's forward
+    case(1, 4, 736, 512, torch.bfloat16, [700], 2e-2, True)
+    case(16, 4, 512, 512, torch.bfloat16, [512] + [475] * 15, 2e-2, True)
     return main, rows
 
 
@@ -170,13 +218,6 @@ def check_block1d(torch, dev):
     for t, cin in ((1536, 242), (1536, 512), (768, 512), (768, 1024)):
         case(1, t, cin, 512, torch.bfloat16, [t - 5], 2e-2, True)
     return main, rows
-
-
-def _heads(torch, gen, dev, b, h, t, d, dtype):
-    """A (B, H, T, D) view of a (B, T, H, D) buffer, as the attention's
-    head split makes them."""
-    return (torch.randn((b, t, h, d), generator=gen, device=dev)
-            .to(dtype).transpose(1, 2))
 
 
 def sdpa_backward_ms(torch, q, k, v, bmask, scale):
@@ -326,6 +367,9 @@ def check_block1d_bwd(torch, dev):
                 x, lens, w, gamma, beta, y, stats, g), 10)
             row["weight"]["ms"] = cuda_ms(
                 torch, lambda: K.block1d_bwd_weight(x, lens, dy), 10)
+            plan = K.k7_plan(b, t, cin, cout, dtype, sm_count(torch, dev))
+            row["weight"]["plan"] = {k: plan[k] for k in (
+                "grid", "splits", "smem_bytes", "x_loader")}
             # the plain version computes all five gradients together, its
             # weight part dW alone; no single call computes K6's outputs
             row["data"]["plain_ms"] = cuda_ms(
@@ -360,6 +404,27 @@ def check_block1d_bwd(torch, dev):
     for t, cin in ((512, 242), (256, 512), (256, 1024)):
         case(16, t, cin, 512, torch.bfloat16,
              [t] + [t - (37 if t == 512 else 18)] * 15, 2e-2, True)
+
+    def k7_case(b, t, cin, cout, lengths, tol):
+        x = torch.randn((b, t, cin), generator=gen, device=dev).bfloat16()
+        dy = torch.randn((b, t, cout), generator=gen, device=dev).bfloat16()
+        mask = (torch.arange(t, device=dev)[None, :]
+                < torch.tensor(lengths, device=dev)[:, None]).float()[..., None]
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        dw = K.block1d_bwd_weight(x, lens, dy)
+        ref = K.block1d_weight_grad_plain(x, mask, dy)
+        torch.cuda.synchronize()
+        err, rel = rel_err(torch, dw, ref)
+        return {"kernel": "block1d_bwd_weight", "shape": [b, t, cin, cout],
+                "lengths": lengths, "dtype": "bfloat16",
+                "max_abs_err": {"dw": err}, "tol": tol, "ok": rel <= tol}
+
+    # K7 alone, dy nonzero on padded frames (neither the Pallas kernel nor
+    # the plain version masks dy): n_b a multiple of 64, n_b = T, n_b = 1,
+    # through both of its loaders (Cin 1024 by TMA, Cin 242 by cp.async)
+    for cin in (1024, 242):
+        for lengths in ([64, 512, 1, 128], [64] * 4, [1] * 4):
+            rows.append(k7_case(4, 512, cin, 512, lengths, 2e-2))
     return main, rows
 
 
@@ -481,6 +546,13 @@ def main_path(torch, np, dev, counters):
     return counts_ok and all(r["ok"] for r in results), launches
 
 
+# device symbols of the port's CUDA kernels, as the profiler names them
+KERNEL_SYMBOLS = ("k1::flash_fwd_bf16_kernel", "dq_bf16_kernel",
+                  "dkv_bf16_kernel", "conv_stats_bf16",
+                  "norm_mish", "gn_reduce_kernel", "gn_dy_kernel",
+                  "dx_bf16_kernel", "k7::dw_bf16_kernel", "stage_kernel")
+
+
 def device_time(torch, fn) -> dict:
     """One run of ``fn`` under torch.profiler: the device's busy time (the
     sum of its kernel and copy times; one stream, so they do not overlap)
@@ -495,10 +567,19 @@ def device_time(torch, fn) -> dict:
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA
                    and ev.self_device_time_total > 0), reverse=True)
+    # the port's own kernels, each summed over its launches
+    ours = {}
+    for us, key, count in rows:
+        for name in KERNEL_SYMBOLS:
+            if name in key:
+                ms, n = ours.get(name, (0.0, 0))
+                ours[name] = (ms + us / 1e3, n + count)
     return {"device_busy_s": sum(us for us, _, _ in rows) / 1e6,
             "device_launches": sum(count for _, _, count in rows),
             "top": [{"kernel": key[:60], "ms": us / 1e3, "count": count}
-                    for us, key, count in rows[:10]]}
+                    for us, key, count in rows[:10]],
+            "port_kernels": {name: {"ms": ms, "count": n}
+                             for name, (ms, n) in ours.items()}}
 
 
 def slice_parity(torch, np, dev):
@@ -777,6 +858,38 @@ def kernel_entries(torch, dev):
     return ok, entries
 
 
+def time_redesigned(torch, dev) -> dict:
+    """K1 and K7, the two kernels redesigned for Hopper, at the shapes
+    PERF.md keeps for them, from whichever ``serenade_tpu_torch`` imports
+    first: device ms a call (CUDA events) and K1's host us a call."""
+    from serenade_tpu_torch.ops import _cuda, block1d_cuda, flash_cuda
+
+    _cuda.build_all(("flash_fwd", "block1d_bwd"))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {"package": flash_cuda.__file__, "k1": [], "k7": []}
+    for b, t, valid in ((1, 1536, [1536]), (1, 768, [768]), (1, 736, [700]),
+                        (16, 512, [512] + [475] * 15)):
+        q, k, v = (_heads(torch, gen, dev, b, 4, t, 512, torch.bfloat16)
+                   for _ in range(3))
+        mask = (torch.arange(t, device=dev)[None, :]
+                < torch.tensor(valid, device=dev)[:, None]).float()
+
+        def call():
+            flash_cuda._flash_cuda(q, k, v, mask, 512 ** -0.5)
+
+        out["k1"].append({"shape": [b, 4, t, 512], "valid": valid[:2],
+                          "ms": cuda_ms(torch, call, 20),
+                          "host_us": host_us(torch, call, 50)})
+    for t, cin in ((512, 1024), (512, 242), (256, 512), (256, 1024)):
+        x = torch.randn((16, t, cin), generator=gen, device=dev).bfloat16()
+        dy = torch.randn((16, t, 512), generator=gen, device=dev).bfloat16()
+        lens = torch.tensor([t] + [t - (37 if t == 512 else 18)] * 15,
+                            dtype=torch.int32, device=dev)
+        out["k7"].append({"shape": [16, t, cin, 512], "ms": cuda_ms(
+            torch, lambda: block1d_cuda.block1d_bwd_weight(x, lens, dy), 20)})
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -784,6 +897,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--time-redesigned"]:
+        # times K1 and K7 of the package under the given root (this
+        # checkout's by default), e.g. a parent commit's unpacked tree
+        if len(sys.argv) > 2:
+            sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        emit(time_redesigned(torch, torch.device("cuda")))
+        return 0
     try:
         from serenade_tpu_torch.ops import (
             _cuda, block1d_cuda, flash_cuda, resblock_cuda,

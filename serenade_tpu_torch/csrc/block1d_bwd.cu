@@ -30,17 +30,48 @@
 //   (2) gn_dy: the same tiles form dy, store it in x's type and add dbias;
 //   (3) dx: K2's conv with the taps flipped and transposed (bf16 on tensor
 //       cores through mma.sync, f32 on FMA units), output masked.
-// K7 reduces B T rows into (Cout, Cin, 3): one block per (64 Cout x 64
-// Cin) tile and all three taps runs over a chunk of 64-row time tiles
-// (split-K; the wrapper picks the chunk count for ~4 waves) and adds its
-// sums to dW with f32 atomics.  In bf16 the products run on tensor cores
-// with time as the reduction axis: dy and the x window are staged
-// transposed, and the x window twice (shifted by one row) so every tap's
-// pairs of rows stay 4-byte aligned.
+// K7 reduces B T rows into (Cout, Cin, 3), time being the reduction axis
+// of a plain GEMM: A = dy [t][co] (M = Cout), B = the x window [t][ci]
+// (N = Cin), both with their M or N axis contiguous in memory.
+//   f32 (parity checks): one block per (64 Cout x 64 Cin) tile and all
+//   three taps over a split of the 64-row time tiles, FMA units, f32
+//   atomics into dW.
+//   bf16 (the train step), designed for Hopper: one CTA of 384 threads per
+//   (128 Cout x 64 Cin) tile and split.  Warpgroup 0 loads a ring of 4
+//   stages of 40 KB: two 64 x 64 dy boxes and three 64 x 64 x windows
+//   starting at rows t0 - 1, t0 and t0 + 1 (one box per tap, since a
+//   one-row shift breaks the 8-row swizzle atom; L2 serves the repeats),
+//   completed through mbarriers.  Warpgroups 1 and 2 (setmaxnreg 232)
+//   each own 64 Cout rows x 64 Cin x 3 taps of f32 accumulators and run
+//   wgmma m64n64k16 on both operands MN-major (the descriptors' transpose
+//   bits), one dy tile feeding three products.  x is read through a 3-D
+//   (Cin, T, B) tensor map, which zero-fills t = -1 and t >= T; rows with
+//   n_b <= t < T are zeroed in shared memory by the consumers, only in the
+//   tile that straddles n_b, and tiles whose window starts past n_b are
+//   skipped.  TMA needs row strides in multiples of 16 bytes: the train
+//   step's first Block1D (Cin 242, 484-byte rows) loads x by 4-byte
+//   cp.async into the same swizzled layout instead (zeros for padding);
+//   its three other shapes (Cin 1024 at T 512, Cin 512 and 1024 at T 256)
+//   load x by TMA; dy (Cout 512) always takes TMA.
+//   The split of the time tiles fills the card (ops/block1d_cuda.py
+//   k7_plan).  Each CTA stages its sums in the ring, laid out as dW is,
+//   and adds each Cout row (64 Cin x 3 taps, 768 contiguous bytes) to dW
+//   with one bulk f32 reduction in L2 (cp.reduce.async.bulk); where Cin
+//   is not a multiple of 4 or the Cin tile is partial, with coalesced
+//   f32 atomics, in place of 24,576 scattered atomics a CTA.
+//   Bound at (16, 512, 1024 -> 512): 25.8 GFLOP, 26 us at 989 TFLOP/s
+//   against 31 MB (9 us): operations; the kernel takes 68 us there, where
+//   cuDNN's conv1d weight gradient takes 101 us (NVIDIA H100 80GB HBM3,
+//   700 W).
 //
 // Atomics make the order of the sums over blocks change from run to run.
-// Not yet used: wgmma, TMA, and a pipeline overlapping loads with math.
+// Not yet used in K6 and K7: a persistent grid, a cluster multicast of
+// the dy tile, the descriptors' base offset in place of three x boxes;
+// K6 still runs on mma.sync without a pipeline.
+#include <string.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -409,81 +440,219 @@ dw_f32_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                acc[j][i][c]);
 }
 
-constexpr int LDT = BM + 10;   // staged time rows: 66 used, odd word count
+// bf16 on Hopper: one CTA per (128 Cout x 64 Cin) tile and split of the
+// 64-row time tiles; warpgroup 0 loads, warpgroups 1 and 2 each own 64 Cout
+// rows x 64 Cin x 3 taps of f32 accumulators (96 registers a thread) and
+// run wgmma m64n64k16 with A = dy [t][co] and B = the x window [t][ci],
+// both MN-major, so nothing is transposed in software.
+namespace k7 {
 
-// bf16: 8 warps on tensor cores, warp w owns Cout rows 16 (w % 4) and Cin
-// columns 32 (w / 4) for all three taps; time is the reduction axis
-__global__ void __launch_bounds__(THREADS)
-dw_bf16_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
-               const bf16* __restrict__ dy, float* __restrict__ dw, int B,
-               int Tlen, int Cin, int Cout, int nchunks) {
-  __shared__ __align__(16) bf16 dyT[BN][LDT];   // [co][t]
-  __shared__ __align__(16) bf16 xe[BN][LDT];    // [ci][window row]
-  __shared__ __align__(16) bf16 xo[BN][LDT];    // xe shifted by one row
-  const int co0 = blockIdx.x * BN, ci0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = 16 * (warp & 3), wn = 32 * (warp >> 2);
-  const int tps = (Tlen + BM - 1) / BM;
-  const bf16 zero = __float2bfloat16(0.f);
-  int first, last;
-  chunk_range(B * tps, nchunks, first, last);
-  float acc[3][4][4];
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][nn][e] = 0.f;
+constexpr int BT = 64;          // time rows a stage (the reduction)
+constexpr int BCO = 128;        // Cout a CTA: 64 a consumer warpgroup
+constexpr int BCI = 64;         // Cin a CTA
+constexpr int STAGES = 4;
+constexpr int BOX = 64 * 128;   // one 64-row x 64-element bf16 box, bytes
+constexpr int STAGE = 5 * BOX;  // dy for both consumers, x for 3 taps
+constexpr int SMEM = STAGES * STAGE + 1024;   // + alignment of the ring
+constexpr int OUT_LD = 3 * BCI + 4;   // floats a row of the staged sums
+static_assert(BCO * OUT_LD * 4 <= STAGES * STAGE, "sums fit in the ring");
+constexpr int THREADS = 384;
 
-  for (int tile = first; tile < last; ++tile) {
-    const int b = tile / tps, t0 = (tile - b * tps) * BM, n = lengths[b];
-    __syncthreads();
-    for (int i = tid; i < BM * BN; i += THREADS) {
-      const int r = i / BN, c = i - r * BN;
-      const int t = t0 + r, co = co0 + c;
-      dyT[c][r] = (t < Tlen && co < Cout)
-                      ? dy[((size_t)b * Tlen + t) * Cout + co] : zero;
+// the time tiles [first, last) of this CTA's split; tile i is sample
+// i / tps, rows 64 (i % tps) ..; a tile whose window starts at or past
+// the sample's last valid row adds nothing and is skipped by both roles
+struct Tiles {
+  int first, last, tps;
+  __device__ Tiles(int B, int T, int splits) {
+    tps = (T + BT - 1) / BT;
+    const int total = B * tps;
+    first = (int)((long long)blockIdx.z * total / splits);
+    last = (int)((long long)(blockIdx.z + 1) * total / splits);
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+dw_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
+               const __grid_constant__ CUtensorMap x_map,
+               const bf16* __restrict__ x, const int* __restrict__ lengths,
+               float* __restrict__ dw, int B, int Tlen, int Cin, int Cout,
+               int splits, int x_by_tma) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int co0 = blockIdx.x * BCO, ci0 = blockIdx.y * BCI;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const Tiles tiles(B, Tlen, splits);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // TMA: one arrival with the bytes; cp.async: and one when the
+      // producer's copies of the stage have landed
+      hopper::mbar_init(&full[s], x_by_tma ? 1 : 2);
+      hopper::mbar_init(&empty[s], 2);
     }
-    for (int i = tid; i < (BM + 2) * BN; i += THREADS) {
-      const int r = i / BN, c = i - r * BN;
-      const int t = t0 - 1 + r, ci = ci0 + c;
-      const bf16 v = (t >= 0 && t < n && ci < Cin)
-                         ? x[((size_t)b * Tlen + t) * Cin + ci] : zero;
-      xe[c][r] = v;
-      if (r > 0) xo[c][r - 1] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BM / 16; ++ks) {
-      const bf16* ap = &dyT[wm + g][16 * ks + 2 * t4];
-      const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * LDT), ld32(ap + 8),
-                             ld32(ap + 8 * LDT + 8)};
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        // tap j reads window row r + j: rows r + 1 sit at xo[.][r]
-        const int off = 16 * ks + 2 * t4 + (j == 2 ? 2 : 0);
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {
-          const bf16* bp = j == 1 ? &xo[wn + 8 * nn + g][off]
-                                  : &xe[wn + 8 * nn + g][off];
-          mma_16816(acc[j][nn], a, ld32(bp), ld32(bp + 8));
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----
+    hopper::setmaxnreg_dec<40>();
+    int s = 0, ph = 0, prev = -1;
+    for (int i = tiles.first; i < tiles.last; ++i) {
+      const int b = i / tiles.tps, t0 = (i % tiles.tps) * BT;
+      const int n = lengths[b];
+      if (t0 - 1 >= n) continue;
+      uint8_t* st = ring + s * STAGE;
+      if (x_by_tma) {
+        if (tid == 0) {
+          hopper::mbar_wait(&empty[s], ph ^ 1);
+          hopper::mbar_expect_tx(&full[s], STAGE);
+          hopper::tma_load_3d(st, &dy_map, &full[s], co0, t0, b);
+          hopper::tma_load_3d(st + BOX, &dy_map, &full[s], co0 + 64, t0, b);
+          for (int j = 0; j < 3; ++j)
+            hopper::tma_load_3d(st + (2 + j) * BOX, &x_map, &full[s], ci0,
+                                t0 - 1 + j, b);
         }
+      } else {
+        // Cin rows that TMA cannot take (row stride not a multiple of 16
+        // bytes): 4-byte cp.async into the same swizzled layout, rows
+        // outside [0, n) and channels past Cin written as zeros
+        hopper::mbar_wait(&empty[s], ph ^ 1);
+        if (tid == 0) {
+          hopper::mbar_expect_tx(&full[s], 2 * BOX);
+          hopper::tma_load_3d(st, &dy_map, &full[s], co0, t0, b);
+          hopper::tma_load_3d(st + BOX, &dy_map, &full[s], co0 + 64, t0, b);
+        }
+        const bf16* xb = x + (size_t)b * Tlen * Cin;
+        for (int e = tid; e < 3 * BT * 32; e += 128) {
+          const int j = e / (BT * 32), r = (e / 32) % BT, p = e % 32;
+          const int t = t0 - 1 + j + r, ci = ci0 + 2 * p;
+          const bool ok = t >= 0 && t < n && ci < Cin;
+          const bf16* src = ok ? xb + (size_t)t * Cin + ci : x;
+          hopper::cp_async_4(st + (2 + j) * BOX + hopper::sw128(r, 4 * p),
+                             src, ok);
+        }
+        hopper::cp_async_commit();
+        if (prev >= 0) {
+          hopper::cp_async_wait<1>();   // the previous stage has landed
+          hopper::fence_async_shared();
+          hopper::named_barrier(1, 128);
+          if (tid == 0) hopper::mbar_arrive(&full[prev]);
+        }
+        prev = s;
+      }
+      if (++s == STAGES) {
+        s = 0;
+        ph ^= 1;
       }
     }
+    if (!x_by_tma && prev >= 0) {
+      hopper::cp_async_wait<0>();
+      hopper::fence_async_shared();
+      hopper::named_barrier(1, 128);
+      if (tid == 0) hopper::mbar_arrive(&full[prev]);
+    }
+  } else {
+    // ---- consumers ----
+    hopper::setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    float acc[3][32];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+    int s = 0, ph = 0, prev = -1;
+    for (int i = tiles.first; i < tiles.last; ++i) {
+      const int b = i / tiles.tps, t0 = (i % tiles.tps) * BT;
+      const int n = lengths[b];
+      if (t0 - 1 >= n) continue;
+      uint8_t* st = ring + s * STAGE;
+      hopper::mbar_wait(&full[s], ph);
+      if (t0 + BT >= n) {
+        // x rows at or past n are not zero in memory: zero them here (a
+        // whole 128-byte row, so the swizzle does not matter); both
+        // consumers write the same zeros
+        for (int e = tid; e < 3 * BT * 8; e += 128) {
+          const int j = e / (BT * 8), r = (e / 8) % BT, c = e % 8;
+          if (t0 - 1 + j + r >= n)
+            *reinterpret_cast<uint4*>(st + (2 + j) * BOX + r * 128 + 16 * c) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
+        hopper::fence_async_shared();
+        hopper::named_barrier(2 + cw, 128);
+      }
+      const uint32_t a0 = hopper::smem_addr(st + cw * BOX);
+      const uint32_t b0 = hopper::smem_addr(st + 2 * BOX);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 3; ++j) hopper::fence_regs(acc[j]);
+#pragma unroll
+      for (int ks = 0; ks < BT / 16; ++ks) {
+        const uint64_t da = hopper::desc_sw128(a0 + ks * 2048, BOX, 1024);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          hopper::wgmma_m64n64k16_ss<1, 1>(
+              acc[j], da,
+              hopper::desc_sw128(b0 + j * BOX + ks * 2048, BOX, 1024), 1);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < 3; ++j) hopper::fence_regs(acc[j]);
+      if (prev >= 0) {
+        hopper::wgmma_wait<1>();   // the previous stage's products are done
+        if (tid == 0) hopper::mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++s == STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 3; ++j) hopper::fence_regs(acc[j]);
+    // The CTA's sums go to dW (Cout, Cin, 3) through shared memory, laid
+    // out as dW is: row co holds ci0 .. ci0 + 63 x 3 taps, 768 contiguous
+    // bytes of dW.  Both consumers must be done with the ring first.
+    hopper::named_barrier(4, 256);
+    float* out = reinterpret_cast<float*>(ring);
+    // element e of a tap's m64n64 accumulator: Cout row 16 w + g + 8
+    // ((e >> 1) & 1), Cin column 8 (e >> 2) + 2 t + (e & 1)
+    const int w = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        out[(64 * cw + 16 * w + g + 8 * ((e >> 1) & 1)) * OUT_LD +
+            3 * (8 * (e >> 2) + 2 * t4 + (e & 1)) + j] = acc[j][e];
+    hopper::fence_async_shared();
+    hopper::named_barrier(4, 256);
+    const int rows = min(BCO, Cout - co0), cols = 3 * min(BCI, Cin - ci0);
+    const int r0 = 64 * cw;   // this consumer's rows
+    if (Cin % 4 == 0 && cols == 3 * BCI) {
+      // one bulk reduction (f32 add in L2) per row: 16-byte aligned since
+      // Cin % 4 == 0 and ci0 % 64 == 0
+      if (tid < 64 && r0 + tid < rows) {
+        const int r = r0 + tid;
+        hopper::bulk_reduce_add_f32(
+            dw + ((size_t)(co0 + r) * Cin + ci0) * 3, out + r * OUT_LD,
+            3 * BCI * 4);
+        hopper::bulk_commit();
+        hopper::bulk_wait_read();
+      }
+    } else {
+      // coalesced atomics: neighbouring threads add neighbouring floats
+      for (int r = r0; r < min(r0 + 64, rows); ++r)
+        for (int c = tid; c < cols; c += 128)
+          atomicAdd(&dw[((size_t)(co0 + r) * Cin + ci0) * 3 + c],
+                    out[r * OUT_LD + c]);
+    }
   }
-  // element e of tile (j, nn): Cout row wm + g + 8 (e >> 1), Cin column
-  // wn + 8 nn + 2 t4 + (e & 1)
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        add_dw(dw, co0 + wm + g + 8 * (e >> 1),
-               ci0 + wn + 8 * nn + 2 * t4 + (e & 1), j, Cin, Cout,
-               acc[j][nn][e]);
 }
+
+}  // namespace k7
 
 }  // namespace
 
@@ -523,23 +692,50 @@ extern "C" int serenade_block1d_bwd_data(
   return (int)cudaGetLastError();
 }
 
-// dw (Cout, Cin, 3) f32, zeroed
+// dw (Cout, Cin, 3) f32, zeroed.  bf16: grid (Cout / 128, Cin / 64,
+// splits) of the Hopper kernel, x by TMA when its row stride allows it
+// (Cin % 8 == 0) and by cp.async otherwise (Cin even); f32: grid
+// (Cout / 64, Cin / 64, splits) on FMA units.
 extern "C" int serenade_block1d_bwd_weight(const void* x, const int* lengths,
                                            const void* dy, float* dw, int B,
                                            int Tlen, int Cin, int Cout,
-                                           int nchunks, int dtype,
+                                           int splits, int dtype,
                                            cudaStream_t stream) {
-  if (B <= 0 || Tlen <= 0 || Cin <= 0 || Cout <= 0 || nchunks <= 0)
+  if (B <= 0 || Tlen <= 0 || Cin <= 0 || Cout <= 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((Cout + BN - 1) / BN, (Cin + BN - 1) / BN, nchunks);
   if (dtype == 1) {
-    dw_bf16_kernel<<<grid, THREADS, 0, stream>>>(
-        static_cast<const bf16*>(x), lengths, static_cast<const bf16*>(dy),
-        dw, B, Tlen, Cin, Cout, nchunks);
+    if (Cin % 2 != 0 || Cout % 8 != 0) return (int)cudaErrorInvalidValue;
+    const int x_by_tma = Cin % 8 == 0;
+    // (C, T, B) maps, innermost first; boxes of 64 channels x 64 rows
+    CUtensorMap dy_map, x_map;
+    memset(&x_map, 0, sizeof(x_map));
+    const cuuint32_t box[3] = {64, 64, 1};
+    const cuuint64_t dy_dims[3] = {(cuuint64_t)Cout, (cuuint64_t)Tlen,
+                                   (cuuint64_t)B};
+    const cuuint64_t dy_strides[2] = {2ull * Cout, 2ull * Cout * Tlen};
+    int e = hopper::encode_map_bf16(&dy_map, dy, 3, dy_dims, dy_strides, box);
+    if (e) return e;
+    if (x_by_tma) {
+      const cuuint64_t x_dims[3] = {(cuuint64_t)Cin, (cuuint64_t)Tlen,
+                                    (cuuint64_t)B};
+      const cuuint64_t x_strides[2] = {2ull * Cin, 2ull * Cin * Tlen};
+      e = hopper::encode_map_bf16(&x_map, x, 3, x_dims, x_strides, box);
+      if (e) return e;
+    }
+    const cudaError_t a = cudaFuncSetAttribute(
+        k7::dw_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        k7::SMEM);
+    if (a != cudaSuccess) return (int)a;
+    const dim3 grid((Cout + k7::BCO - 1) / k7::BCO,
+                    (Cin + k7::BCI - 1) / k7::BCI, splits);
+    k7::dw_bf16_kernel<<<grid, k7::THREADS, k7::SMEM, stream>>>(
+        dy_map, x_map, static_cast<const bf16*>(x), lengths, dw, B, Tlen,
+        Cin, Cout, splits, x_by_tma);
   } else if (dtype == 0) {
+    const dim3 grid((Cout + BN - 1) / BN, (Cin + BN - 1) / BN, splits);
     dw_f32_kernel<<<grid, THREADS, 0, stream>>>(
         static_cast<const float*>(x), lengths, static_cast<const float*>(dy),
-        dw, B, Tlen, Cin, Cout, nchunks);
+        dw, B, Tlen, Cin, Cout, splits);
   } else {
     return (int)cudaErrorInvalidValue;
   }

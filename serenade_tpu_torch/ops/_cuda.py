@@ -4,10 +4,13 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/serenade_tpu_torch/lib<name>-<hash>.so
+         -Xcompiler -fPIC -o build/serenade_tpu_torch/lib<name>-<hash>.so \\
+         csrc/<name>.cu -lcuda
 
-The file name carries a hash of the source, so an edited kernel is rebuilt
-and a stale library is never loaded.  Builds go to
+The file name carries a hash of the source and of every ``csrc/*.cuh``
+header, so an edited kernel or header is rebuilt and a stale library is
+never loaded.  Each library links libcuda (``-lcuda``) for the TMA
+descriptors that K1 and K7 encode at launch.  Builds go to
 ``build/serenade_tpu_torch/`` beside the package (``SERENADE_TORCH_BUILD_DIR``
 overrides it).  Nothing here runs at import time: ``library(name)`` builds
 on first use, and ``build_all()`` starts one ``nvcc`` per source at once.
@@ -50,18 +53,28 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    common = (CSRC_DIR / "common.cuh").read_bytes()
-    digest = hashlib.sha1(src + common).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
+def _target(name: str, csrc: Path = CSRC_DIR) -> Path:
+    """The library of ``<name>.cu``, named by a hash of that source and of
+    every header in ``csrc`` (any of them may be included)."""
+    digest = hashlib.sha1((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> List[str]:
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+    nvcc = _nvcc()
+    # libcuda, for cuTensorMapEncodeTiled (TMA descriptors); the toolkit's
+    # stub satisfies the link, the installed libcuda is loaded at run time
+    home = Path(nvcc).resolve().parent.parent
+    stubs = [f"-L{d}" for d in (home / "lib64" / "stubs",
+                                home / "targets" / "x86_64-linux" / "lib"
+                                / "stubs") if d.is_dir()]
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-I", str(CSRC_DIR),
-            "-o", str(out) + ".tmp", str(CSRC_DIR / f"{name}.cu")]
+            "-o", str(out) + ".tmp", str(CSRC_DIR / f"{name}.cu"),
+            *stubs[:1], "-lcuda"]
 
 
 def build_all(names=SOURCES) -> Dict[str, str]:

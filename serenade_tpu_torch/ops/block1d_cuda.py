@@ -171,13 +171,48 @@ def _block1d_cuda(x, lengths, weight, bias, gamma, beta, groups, eps):
     return out, y, stats
 
 
-def k7_chunks(b: int, t: int, cin: int, cout: int, sm_count: int) -> int:
-    """Time chunks of K7's split-K grid: enough blocks for ~4 waves of the
-    card's ``sm_count`` multiprocessors, never more chunks than 64-row
-    tiles."""
-    tiles = b * -(-t // 64)
-    blocks = -(-cout // 64) * -(-cin // 64)
-    return max(1, min(tiles, 4 * sm_count // blocks))
+# K7's bf16 kernel: a CTA per (128 Cout x 64 Cin) tile and split of the
+# 64-row time tiles, a ring of 4 stages of five 64 x 64 bf16 boxes (dy for
+# two consumer warpgroups, x for three taps) and 1 KB for its alignment
+K7_TILE = {torch.bfloat16: (128, 64), torch.float32: (64, 64)}
+K7_ROWS = 64
+K7_BF16_SMEM = 4 * 5 * 64 * 128 + 1024
+
+
+def k7_split_ranges(tiles: int, splits: int):
+    """The 64-row time tiles ``[first, last)`` of each split, as the kernel
+    computes them from ``blockIdx.z``; tile i is sample ``i // tps``, rows
+    ``64 (i % tps)`` onward."""
+    return [(s * tiles // splits, (s + 1) * tiles // splits)
+            for s in range(splits)]
+
+
+def k7_plan(b: int, t: int, cin: int, cout: int, dtype,
+            sm_count: int) -> dict:
+    """K7's launch for a shape and a card of ``sm_count`` multiprocessors:
+    the grid (Cout tiles, Cin tiles, splits), the split of the time tiles,
+    the dynamic shared memory and how x is loaded.  bf16 runs one CTA per
+    SM (its ring takes 165 KB), so the split fills one wave; f32 aims at
+    about four waves of its 64 x 64 blocks.  Raises ``ValueError`` on a
+    bf16 shape the Hopper kernel does not take."""
+    bco, bci = K7_TILE[dtype]
+    tiles = b * -(-t // K7_ROWS)
+    out_tiles = -(-cout // bco) * -(-cin // bci)
+    if dtype == torch.bfloat16:
+        _cuda.require(cin % 2 == 0, f"bf16 dW: Cin {cin} must be even (x "
+                      "rows load by 4-byte cp.async or TMA)")
+        _cuda.require(cout % 8 == 0, f"bf16 dW: Cout {cout} must be a "
+                      "multiple of 8 (dy rows load by TMA)")
+        splits = max(1, min(tiles, sm_count // out_tiles))
+        smem = K7_BF16_SMEM
+        loader = "tma" if cin % 8 == 0 else "cp.async"
+    else:
+        splits = max(1, min(tiles, 4 * sm_count // out_tiles))
+        smem, loader = 0, "plain"
+    return {"grid": (-(-cout // bco), -(-cin // bci), splits),
+            "splits": splits, "time_tiles": tiles,
+            "ranges": k7_split_ranges(tiles, splits), "smem_bytes": smem,
+            "x_loader": loader}
 
 
 def block1d_bwd_data(x, lengths, weight, gamma, beta, y, stats, g, *,
@@ -224,18 +259,22 @@ def block1d_bwd_weight(x, lengths, dy):
     dev = x.device
     _cuda.require(x.dtype in _cuda.DTYPE_CODE and x.is_contiguous(),
                   f"x {x.dtype} must be contiguous (B, T, Cin)")
+    _cuda.require(x.dtype != torch.bfloat16 or (
+        x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0),
+        "bf16 dW: x and dy must be 16-byte aligned (TMA)")
     _cuda.require(dy.shape == (b, t, cout) and dy.dtype == x.dtype
                   and dy.is_contiguous() and dy.device == dev,
                   f"dy {tuple(dy.shape)} {dy.dtype}")
     _cuda.require(lengths.shape == (b,) and lengths.dtype == torch.int32
                   and lengths.device == dev, "lengths must be int32 (B,)")
+    plan = k7_plan(b, t, cin, cout, x.dtype, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     dw = torch.zeros((cout, cin, 3), dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     fn = _cuda.library("block1d_bwd").serenade_block1d_bwd_weight
     fn.restype = ctypes.c_int
     err = fn(_cuda.ptr(x), _cuda.ptr(lengths), _cuda.ptr(dy), _cuda.ptr(dw),
              ctypes.c_int(b), ctypes.c_int(t), ctypes.c_int(cin),
-             ctypes.c_int(cout), ctypes.c_int(k7_chunks(b, t, cin, cout, sms)),
+             ctypes.c_int(cout), ctypes.c_int(plan["splits"]),
              ctypes.c_int(_cuda.DTYPE_CODE[x.dtype]), _cuda.stream())
     _cuda.check(err, "block1d_bwd_weight")
     weight_launches += 1

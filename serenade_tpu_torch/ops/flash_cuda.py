@@ -112,11 +112,45 @@ def _mask_ptr(key_mask):
     return ctypes.c_void_p(0 if key_mask is None else key_mask.data_ptr())
 
 
+# K1's bf16 kernel: head_dim 512, a CTA of 384 threads per 64 query rows,
+# Q (64 KB), two stages of K and V (64 KB each) and the S exchange (32 KB)
+# in shared memory, plus 1 KB for alignment
+K1_BF16_HEAD_DIM = 512
+K1_BF16_ROWS = 64
+K1_BF16_SMEM = 64 * 1024 + 2 * 64 * 1024 + 32 * 1024 + 1024
+K1_F32_ROWS, K1_F32_KEYS = 32, 32
+
+
+def _require_k1_head_dim(d: int) -> None:
+    _cuda.require(d == K1_BF16_HEAD_DIM, f"bf16 flash forward: head_dim {d}; "
+                  f"the Hopper kernel takes {K1_BF16_HEAD_DIM} only")
+
+
+def k1_plan(b: int, h: int, tq: int, d: int, dtype, sm_count: int) -> dict:
+    """K1's launch for a shape and a card of ``sm_count`` multiprocessors:
+    the grid, threads, dynamic shared memory, CTAs and the SMs they occupy
+    (one CTA per SM: either kernel's shared memory holds one).  Raises ``ValueError`` on a bf16 head dim
+    the Hopper kernel does not take."""
+    if dtype == torch.bfloat16:
+        _require_k1_head_dim(d)
+        rows, threads, smem = K1_BF16_ROWS, 384, K1_BF16_SMEM
+    else:
+        rows, threads = K1_F32_ROWS, 256
+        smem = 4 * ((K1_F32_ROWS + K1_F32_KEYS) * (d + 4) + K1_F32_KEYS * d
+                    + K1_F32_ROWS * (K1_F32_KEYS + 1))
+    grid = (-(-tq // rows), h, b)
+    ctas = grid[0] * h * b
+    return {"grid": grid, "threads": threads, "smem_bytes": smem,
+            "ctas": ctas, "sms_used": min(ctas, sm_count)}
+
+
 def _flash_cuda(q, k, v, key_mask, scale):
     global launches
     b, h, tq, d = q.shape
     tk = k.shape[2]
     key_mask = _check_inputs(q, k, v, key_mask)
+    if q.dtype == torch.bfloat16:
+        _require_k1_head_dim(d)
     # O is written (B, Tq, H, D): the caller's head merge is then free
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     out_bhtd = out.transpose(1, 2)

@@ -98,3 +98,51 @@ def test_resblock_kernel_refuses_inputs_that_need_gradients():
     with torch.no_grad():
         assert resblock_cuda.resblock_branch(x, w, b, w, b, **args).shape \
             == x.shape
+
+
+@pytest.mark.cuda
+def test_hopper_flash_forward_at_a_ragged_bf16_shape():
+    """K1's wgmma/TMA kernel on the (B, H, T, D) views of a (B, T, H, D)
+    buffer at T 736 (not a multiple of 64) with 36 padded keys, against
+    the plain version: O and L within 2e-2 of max(1, |ref|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((1, 736, 4, 512), generator=g, device=dev)
+               .bfloat16().transpose(1, 2) for _ in range(3))
+    mask = (torch.arange(736, device=dev) < 700).float()[None]
+    before = flash_cuda.launches
+    out, lse = flash_cuda.flash_attention(q, k, v, mask, 512 ** -0.5,
+                                          return_lse=True)
+    ref, ref_lse = flash_cuda.flash_attention_plain(q, k, v, mask,
+                                                    512 ** -0.5)
+    assert flash_cuda.launches == before + 1
+    for got, want in ((out, ref), (lse, ref_lse)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_cuda.flash_attention(q[..., :256], k[..., :256],
+                                   v[..., :256], mask, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [1024, 242])
+def test_hopper_weight_gradient_at_ragged_bf16_shapes(cin):
+    """K7's wgmma kernel (x by TMA at Cin 1024, by cp.async at Cin 242)
+    with dy nonzero on padded frames and n_b = 200 (= T), 64 and 1,
+    against the plain dW: within 2e-2 of max(1, |ref|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    lengths = [200, 64, 1]
+    x = torch.randn((3, 200, cin), generator=g, device=dev).bfloat16()
+    dy = torch.randn((3, 200, 512), generator=g, device=dev).bfloat16()
+    mask = (torch.arange(200, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None]).float()[..., None]
+    dw = block1d_cuda.block1d_bwd_weight(
+        x, torch.tensor(lengths, dtype=torch.int32, device=dev), dy)
+    ref = block1d_cuda.block1d_weight_grad_plain(x, mask, dy)
+    err = (dw - ref).abs().max().item()
+    assert err <= 2e-2 * max(1.0, ref.abs().max().item())

@@ -310,3 +310,102 @@ def test_backward_functions_pass_gradcheck_on_cpu():
         lambda x, w, b, g, be: block1d_cuda.block1d(x, mask, w, b, g, be,
                                                     groups=2),
         (rand(2, 7, 3), rand(8, 3, 3), rand(8), rand(8), rand(8)))
+
+
+# ---------------------------------------------------------------------------
+# The build and the launch plans of the Hopper kernels (K1, K7)
+# ---------------------------------------------------------------------------
+
+SM_COUNT = 132          # an H100 SXM
+SMEM_LIMIT = 232448     # dynamic shared memory a block may use on it
+TRAIN_K7_SHAPES = [(16, 512, 1024, 512), (16, 512, 242, 512),
+                   (16, 256, 512, 512), (16, 256, 1024, 512)]
+
+
+def test_editing_any_header_renames_every_library(tmp_path, monkeypatch):
+    """A library's name hashes its source and every ``csrc/*.cuh``: after
+    an edit to any header, no kernel can load a stale build."""
+    import shutil
+
+    from serenade_tpu_torch.ops import _cuda
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC_DIR, csrc)
+    headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    assert {"common.cuh", "hopper.cuh"} <= set(headers)
+    before = {n: _cuda._target(n, csrc) for n in _cuda.SOURCES}
+    assert before == {n: _cuda._target(n) for n in _cuda.SOURCES}
+    for header in headers:
+        path = csrc / header
+        original = path.read_bytes()
+        path.write_bytes(original + b"\n// edited\n")
+        after = {n: _cuda._target(n, csrc) for n in _cuda.SOURCES}
+        assert all(after[n] != before[n] for n in _cuda.SOURCES), header
+        path.write_bytes(original)
+    assert {n: _cuda._target(n, csrc) for n in _cuda.SOURCES} == before
+    # the libraries link libcuda for the TMA descriptors
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    assert "-lcuda" in _cuda._command("flash_fwd", tmp_path / "lib.so")
+
+
+@pytest.mark.parametrize("b,t,cin,cout", TRAIN_K7_SHAPES
+                         + [(3, 130, 96, 128), (1, 64, 2, 8), (2, 700, 1000,
+                                                              520)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k7_plan_covers_every_tile_once(b, t, cin, cout, dtype):
+    plan = block1d_cuda.k7_plan(b, t, cin, cout, dtype, SM_COUNT)
+    bco, bci = block1d_cuda.K7_TILE[dtype]
+    gx, gy, splits = plan["grid"]
+    # every (Cout, Cin) output tile has a column of CTAs, none past the end
+    assert gx * bco >= cout > (gx - 1) * bco
+    assert gy * bci >= cin > (gy - 1) * bci
+    assert splits == plan["splits"] == len(plan["ranges"]) >= 1
+    # every (sample, 64-row tile) of every sample's time range belongs to
+    # exactly one split
+    tps = -(-t // block1d_cuda.K7_ROWS)
+    seen = [i for first, last in plan["ranges"] for i in range(first, last)]
+    assert sorted(seen) == list(range(b * tps)) == list(range(
+        plan["time_tiles"]))
+    rows = {(i // tps, (i % tps) * 64 + r) for i in seen for r in range(64)
+            if (i % tps) * 64 + r < t}
+    assert rows == {(s, u) for s in range(b) for u in range(t)}
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    if dtype == torch.bfloat16:
+        # one CTA per SM: the split fills at most one wave
+        assert gx * gy * splits <= max(SM_COUNT, gx * gy)
+        assert plan["x_loader"] == ("tma" if cin % 8 == 0 else "cp.async")
+
+
+def test_k7_plan_takes_cin_242_by_cp_async_and_refuses_what_it_cannot_load():
+    loaders = [block1d_cuda.k7_plan(*s, torch.bfloat16, SM_COUNT)["x_loader"]
+               for s in TRAIN_K7_SHAPES]
+    assert loaders == ["tma", "cp.async", "tma", "tma"]
+    with pytest.raises(ValueError, match="Cin 241 must be even"):
+        block1d_cuda.k7_plan(16, 512, 241, 512, torch.bfloat16, SM_COUNT)
+    with pytest.raises(ValueError, match="Cout 500 must be a multiple of 8"):
+        block1d_cuda.k7_plan(16, 512, 242, 500, torch.bfloat16, SM_COUNT)
+    # f32 takes any shape
+    assert block1d_cuda.k7_plan(2, 70, 21, 63, torch.float32, SM_COUNT)
+
+
+@pytest.mark.parametrize("t,ctas", [(1536, 96), (1024, 64), (768, 48),
+                                    (736, 48), (512, 32)])
+def test_k1_plan_fill_and_shared_memory(t, ctas):
+    plan = flash_cuda.k1_plan(1, 4, t, 512, torch.bfloat16, SM_COUNT)
+    assert plan["grid"] == (-(-t // 64), 4, 1)
+    assert plan["ctas"] == plan["sms_used"] == ctas
+    assert plan["threads"] == 384
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    f32 = flash_cuda.k1_plan(1, 4, t, 512, torch.float32, SM_COUNT)
+    assert f32["smem_bytes"] <= SMEM_LIMIT
+    # the train step's forward fills the card several times over
+    assert flash_cuda.k1_plan(16, 4, 512, 512, torch.bfloat16,
+                              SM_COUNT)["ctas"] == 512
+
+
+@pytest.mark.parametrize("d", [32, 128, 256])
+def test_k1_refuses_a_bf16_head_dim_it_does_not_take(d):
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
+        flash_cuda.k1_plan(1, 4, 256, d, torch.bfloat16, SM_COUNT)
+    # the f32 kernel keeps every head dim up to 512
+    assert flash_cuda.k1_plan(1, 4, 256, d, torch.float32, SM_COUNT)
