@@ -29,21 +29,12 @@ Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
 no result, when CUDA is absent, the package is missing, or any phase
 fails.
-
-    python3 chip_smoke.py --time-redesigned [PACKAGE_ROOT]
-
-only times K1 and K7 (the kernels redesigned for Hopper) at the shapes
-PERF.md keeps for them, from the ``serenade_tpu_torch`` under
-PACKAGE_ROOT (this checkout by default), and prints one JSON line: run it
-on a parent commit's unpacked tree and on this one, in turns, to compare
-the two on one card.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import os
 import subprocess
 import sys
 import time
@@ -58,24 +49,44 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# what cuda_ms saw: timed calls, those it had to time again with a longer
+# device-side wait, and the longest wait it used (ms, CUDA events)
+TIMING = {"calls": 0, "retried": 0, "max_wait_ms": 0.0}
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` runs (CUDA events).  A
-    device-side wait (about 25 ms) ahead of the first event holds the
-    queue while the host enqueues every run, so that a kernel shorter than
-    its wrapper's host time is timed back to back and not at the host's
-    pace."""
+    device-side wait ahead of the first event holds the queue while the
+    host enqueues every run, so that a kernel shorter than its wrapper's
+    host time is timed back to back and not at the host's pace.  If the
+    device reached the first event before the host had enqueued the last
+    run, the wait was too short: it is doubled and the runs timed again,
+    up to 400 ms of wait, and past that the timing fails."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    TIMING["calls"] += 1
+    cycles = 50_000_000                  # about 25 ms at the H100's clock
+    for attempt in range(5):
+        wait = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        wait.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()         # still waiting: every run queued
+        end.synchronize()
+        TIMING["max_wait_ms"] = max(TIMING["max_wait_ms"],
+                                    wait.elapsed_time(start))
+        if held:
+            return start.elapsed_time(end) / reps
+        TIMING["retried"] += attempt == 0
+        cycles *= 2
+    raise RuntimeError("cuda_ms: the host did not enqueue the timed runs "
+                       "within a 400 ms device-side wait")
 
 
 def host_us(torch, fn, reps: int) -> float:
@@ -91,10 +102,6 @@ def host_us(torch, fn, reps: int) -> float:
     elapsed = time.perf_counter() - start
     torch.cuda.synchronize()
     return elapsed / reps * 1e6
-
-
-def sm_count(torch, dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def rel_err(torch, got, ref) -> tuple:
@@ -125,7 +132,7 @@ def _heads(torch, gen, dev, b, h, t, d, dtype):
 def check_flash(torch, dev):
     import torch.nn.functional as F
 
-    from serenade_tpu_torch.ops import flash_cuda as K
+    from serenade_tpu_torch.ops import _cuda, flash_cuda as K
 
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
@@ -155,7 +162,7 @@ def check_flash(torch, dev):
                 q, k, v, mask, scale), 20)
             row["host_us"] = host_us(torch, lambda: K._flash_cuda(
                 q, k, v, mask, scale), 50)
-            row["plan"] = K.k1_plan(b, h, t, d, dtype, sm_count(torch, dev))
+            row["plan"] = K.k1_plan(b, h, t, d, dtype, _cuda.sm_count(dev))
             row["plain_ms"] = cuda_ms(torch, lambda: K.flash_attention_plain(
                 q, k, v, mask, scale), 20)
             bmask = mask.bool()[:, None, None, :]
@@ -319,7 +326,7 @@ def check_block1d_bwd(torch, dev):
     conv1d weight gradient on the same x·mask and dy."""
     from torch.nn.grad import conv1d_weight
 
-    from serenade_tpu_torch.ops import block1d_cuda as K
+    from serenade_tpu_torch.ops import _cuda, block1d_cuda as K
 
     gen = torch.Generator(device=dev).manual_seed(12)
     rows = []
@@ -367,7 +374,7 @@ def check_block1d_bwd(torch, dev):
                 x, lens, w, gamma, beta, y, stats, g), 10)
             row["weight"]["ms"] = cuda_ms(
                 torch, lambda: K.block1d_bwd_weight(x, lens, dy), 10)
-            plan = K.k7_plan(b, t, cin, cout, dtype, sm_count(torch, dev))
+            plan = K.k7_plan(b, t, cin, cout, dtype, _cuda.sm_count(dev))
             row["weight"]["plan"] = {k: plan[k] for k in (
                 "grid", "splits", "smem_bytes", "x_loader")}
             # the plain version computes all five gradients together, its
@@ -858,38 +865,6 @@ def kernel_entries(torch, dev):
     return ok, entries
 
 
-def time_redesigned(torch, dev) -> dict:
-    """K1 and K7, the two kernels redesigned for Hopper, at the shapes
-    PERF.md keeps for them, from whichever ``serenade_tpu_torch`` imports
-    first: device ms a call (CUDA events) and K1's host us a call."""
-    from serenade_tpu_torch.ops import _cuda, block1d_cuda, flash_cuda
-
-    _cuda.build_all(("flash_fwd", "block1d_bwd"))
-    gen = torch.Generator(device=dev).manual_seed(21)
-    out = {"package": flash_cuda.__file__, "k1": [], "k7": []}
-    for b, t, valid in ((1, 1536, [1536]), (1, 768, [768]), (1, 736, [700]),
-                        (16, 512, [512] + [475] * 15)):
-        q, k, v = (_heads(torch, gen, dev, b, 4, t, 512, torch.bfloat16)
-                   for _ in range(3))
-        mask = (torch.arange(t, device=dev)[None, :]
-                < torch.tensor(valid, device=dev)[:, None]).float()
-
-        def call():
-            flash_cuda._flash_cuda(q, k, v, mask, 512 ** -0.5)
-
-        out["k1"].append({"shape": [b, 4, t, 512], "valid": valid[:2],
-                          "ms": cuda_ms(torch, call, 20),
-                          "host_us": host_us(torch, call, 50)})
-    for t, cin in ((512, 1024), (512, 242), (256, 512), (256, 1024)):
-        x = torch.randn((16, t, cin), generator=gen, device=dev).bfloat16()
-        dy = torch.randn((16, t, 512), generator=gen, device=dev).bfloat16()
-        lens = torch.tensor([t] + [t - (37 if t == 512 else 18)] * 15,
-                            dtype=torch.int32, device=dev)
-        out["k7"].append({"shape": [16, t, cin, 512], "ms": cuda_ms(
-            torch, lambda: block1d_cuda.block1d_bwd_weight(x, lens, dy), 20)})
-    return out
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -897,13 +872,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--time-redesigned"]:
-        # times K1 and K7 of the package under the given root (this
-        # checkout's by default), e.g. a parent commit's unpacked tree
-        if len(sys.argv) > 2:
-            sys.path.insert(0, os.path.abspath(sys.argv[2]))
-        emit(time_redesigned(torch, torch.device("cuda")))
-        return 0
     try:
         from serenade_tpu_torch.ops import (
             _cuda, block1d_cuda, flash_cuda, resblock_cuda,
@@ -940,6 +908,8 @@ def main() -> int:
     for name in OUTPUTS:
         entries[name]["launches"] = launches[name]
     ok &= train_parity(torch, np, dev)
+    # every time above was taken with the queue held (cuda_ms fails if not)
+    emit({"phase": "timing", **TIMING})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -364,12 +364,14 @@ dx_bf16_kernel(const bf16* __restrict__ dy, const int* __restrict__ lengths,
 // K7: dW[co, ci, j] = sum over (b, t) of xm[t - 1 + j, ci] dy[t, co]
 // ---------------------------------------------------------------------------
 
-// the 64-row time tiles [first, last) of this block's chunk
-__device__ __forceinline__ void chunk_range(int total, int nchunks, int& first,
-                                            int& last) {
-  first = (int)((long long)blockIdx.z * total / nchunks);
-  last = (int)((long long)(blockIdx.z + 1) * total / nchunks);
-}
+// The split of the time reduction, as the caller planned it
+// (ops/block1d_cuda.py k7_plan): split z takes the 64-row time tiles
+// [first[z], first[z + 1]); tile i is sample i / tps, rows 64 (i % tps) ..
+// Passed by value, read in parameter space.
+constexpr int MAX_SPLITS = 512;
+struct Splits {
+  int first[MAX_SPLITS + 1];
+};
 
 __device__ __forceinline__ void add_dw(float* dw, int co, int ci, int j,
                                        int Cin, int Cout, float v) {
@@ -380,15 +382,16 @@ __device__ __forceinline__ void add_dw(float* dw, int co, int ci, int j,
 // f32: 256 threads, each 4 Cout x 4 Cin x 3 taps
 __global__ void __launch_bounds__(THREADS)
 dw_f32_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
-              const float* __restrict__ dy, float* __restrict__ dw, int B,
-              int Tlen, int Cin, int Cout, int nchunks) {
+              const float* __restrict__ dy, float* __restrict__ dw,
+              int Tlen, int Cin, int Cout,
+              const __grid_constant__ Splits splits) {
   __shared__ __align__(16) float dys[BM][BN];       // [t][co]
   __shared__ __align__(16) float xw[BM + 2][BN];    // [window row][ci]
   const int co0 = blockIdx.x * BN, ci0 = blockIdx.y * BN;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int tps = (Tlen + BM - 1) / BM;
-  int first, last;
-  chunk_range(B * tps, nchunks, first, last);
+  const int first = splits.first[blockIdx.z];
+  const int last = splits.first[blockIdx.z + 1];
   float acc[3][4][4];
 #pragma unroll
   for (int j = 0; j < 3; ++j)
@@ -458,32 +461,30 @@ constexpr int OUT_LD = 3 * BCI + 4;   // floats a row of the staged sums
 static_assert(BCO * OUT_LD * 4 <= STAGES * STAGE, "sums fit in the ring");
 constexpr int THREADS = 384;
 
-// the time tiles [first, last) of this CTA's split; tile i is sample
-// i / tps, rows 64 (i % tps) ..; a tile whose window starts at or past
-// the sample's last valid row adds nothing and is skipped by both roles
+// the time tiles [first, last) of this CTA's split; a tile whose window
+// starts at or past the sample's last valid row adds nothing and is
+// skipped by both roles
 struct Tiles {
   int first, last, tps;
-  __device__ Tiles(int B, int T, int splits) {
-    tps = (T + BT - 1) / BT;
-    const int total = B * tps;
-    first = (int)((long long)blockIdx.z * total / splits);
-    last = (int)((long long)(blockIdx.z + 1) * total / splits);
-  }
+  __device__ Tiles(int T, const Splits& splits)
+      : first(splits.first[blockIdx.z]),
+        last(splits.first[blockIdx.z + 1]),
+        tps((T + BT - 1) / BT) {}
 };
 
 __global__ void __launch_bounds__(THREADS, 1)
 dw_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
                const __grid_constant__ CUtensorMap x_map,
                const bf16* __restrict__ x, const int* __restrict__ lengths,
-               float* __restrict__ dw, int B, int Tlen, int Cin, int Cout,
-               int splits, int x_by_tma) {
+               float* __restrict__ dw, int Tlen, int Cin, int Cout,
+               const __grid_constant__ Splits splits, int x_by_tma) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int co0 = blockIdx.x * BCO, ci0 = blockIdx.y * BCI;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  const Tiles tiles(B, Tlen, splits);
+  const Tiles tiles(Tlen, splits);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -572,16 +573,17 @@ dw_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
       hopper::mbar_wait(&full[s], ph);
       if (t0 + BT >= n) {
         // x rows at or past n are not zero in memory: zero them here (a
-        // whole 128-byte row, so the swizzle does not matter); both
-        // consumers write the same zeros
-        for (int e = tid; e < 3 * BT * 8; e += 128) {
+        // whole 128-byte row, so the swizzle does not matter), each
+        // consumer half of the 3 x 64 rows; both wait for all the zeros
+        // before either product reads the boxes
+        for (int e = 128 * cw + tid; e < 3 * BT * 8; e += 256) {
           const int j = e / (BT * 8), r = (e / 8) % BT, c = e % 8;
           if (t0 - 1 + j + r >= n)
             *reinterpret_cast<uint4*>(st + (2 + j) * BOX + r * 128 + 16 * c) =
                 make_uint4(0u, 0u, 0u, 0u);
         }
         hopper::fence_async_shared();
-        hopper::named_barrier(2 + cw, 128);
+        hopper::named_barrier(2, 256);
       }
       const uint32_t a0 = hopper::smem_addr(st + cw * BOX);
       const uint32_t b0 = hopper::smem_addr(st + 2 * BOX);
@@ -616,7 +618,7 @@ dw_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
     // The CTA's sums go to dW (Cout, Cin, 3) through shared memory, laid
     // out as dW is: row co holds ci0 .. ci0 + 63 x 3 taps, 768 contiguous
     // bytes of dW.  Both consumers must be done with the ring first.
-    hopper::named_barrier(4, 256);
+    hopper::named_barrier(3, 256);
     float* out = reinterpret_cast<float*>(ring);
     // element e of a tap's m64n64 accumulator: Cout row 16 w + g + 8
     // ((e >> 1) & 1), Cin column 8 (e >> 2) + 2 t + (e & 1)
@@ -628,7 +630,7 @@ dw_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
         out[(64 * cw + 16 * w + g + 8 * ((e >> 1) & 1)) * OUT_LD +
             3 * (8 * (e >> 2) + 2 * t4 + (e & 1)) + j] = acc[j][e];
     hopper::fence_async_shared();
-    hopper::named_barrier(4, 256);
+    hopper::named_barrier(3, 256);
     const int rows = min(BCO, Cout - co0), cols = 3 * min(BCI, Cin - ci0);
     const int r0 = 64 * cw;   // this consumer's rows
     if (Cin % 4 == 0 && cols == 3 * BCI) {
@@ -692,20 +694,35 @@ extern "C" int serenade_block1d_bwd_data(
   return (int)cudaGetLastError();
 }
 
-// dw (Cout, Cin, 3) f32, zeroed.  bf16: grid (Cout / 128, Cin / 64,
-// splits) of the Hopper kernel, x by TMA when its row stride allows it
-// (Cin % 8 == 0) and by cp.async otherwise (Cin even); f32: grid
-// (Cout / 64, Cin / 64, splits) on FMA units.
-extern "C" int serenade_block1d_bwd_weight(const void* x, const int* lengths,
-                                           const void* dy, float* dw, int B,
-                                           int Tlen, int Cin, int Cout,
-                                           int splits, int dtype,
-                                           cudaStream_t stream) {
-  if (B <= 0 || Tlen <= 0 || Cin <= 0 || Cout <= 0 || splits <= 0)
+// dw (Cout, Cin, 3) f32, zeroed.  The caller plans the launch
+// (ops/block1d_cuda.py k7_plan) and this entry checks the plan against the
+// kernels' own tiles and shared memory: grid (grid_x, grid_y, splits),
+// `first` the splits + 1 bounds of the time tiles, `smem` the dynamic
+// shared memory and `x_by_tma` x's loader.  bf16 runs the Hopper kernel on
+// (128 Cout x 64 Cin) tiles, x by TMA (Cin % 8 == 0) or by cp.async (Cin
+// even); f32 runs (64 x 64) tiles on FMA units, with no shared memory
+// beyond its static arrays.  A plan that does not match returns
+// cudaErrorInvalidValue.
+extern "C" int serenade_block1d_bwd_weight(
+    const void* x, const int* lengths, const void* dy, float* dw, int B,
+    int Tlen, int Cin, int Cout, int grid_x, int grid_y, int splits,
+    const int* first, int smem, int x_by_tma, int dtype,
+    cudaStream_t stream) {
+  if (B <= 0 || Tlen <= 0 || Cin <= 0 || Cout <= 0 || splits <= 0 ||
+      splits > MAX_SPLITS || first[0] != 0 ||
+      first[splits] != B * ((Tlen + BM - 1) / BM))
     return (int)cudaErrorInvalidValue;
+  Splits sp;
+  for (int z = 0; z <= splits; ++z) {
+    if (z > 0 && first[z] < first[z - 1]) return (int)cudaErrorInvalidValue;
+    sp.first[z] = first[z];
+  }
   if (dtype == 1) {
-    if (Cin % 2 != 0 || Cout % 8 != 0) return (int)cudaErrorInvalidValue;
-    const int x_by_tma = Cin % 8 == 0;
+    static_assert(k7::BT == BM, "both kernels split 64-row time tiles");
+    if (Cin % 2 != 0 || Cout % 8 != 0 || (x_by_tma && Cin % 8 != 0) ||
+        grid_x != (Cout + k7::BCO - 1) / k7::BCO ||
+        grid_y != (Cin + k7::BCI - 1) / k7::BCI || smem != k7::SMEM)
+      return (int)cudaErrorInvalidValue;
     // (C, T, B) maps, innermost first; boxes of 64 channels x 64 rows
     CUtensorMap dy_map, x_map;
     memset(&x_map, 0, sizeof(x_map));
@@ -724,18 +741,19 @@ extern "C" int serenade_block1d_bwd_weight(const void* x, const int* lengths,
     }
     const cudaError_t a = cudaFuncSetAttribute(
         k7::dw_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        k7::SMEM);
+        smem);
     if (a != cudaSuccess) return (int)a;
-    const dim3 grid((Cout + k7::BCO - 1) / k7::BCO,
-                    (Cin + k7::BCI - 1) / k7::BCI, splits);
-    k7::dw_bf16_kernel<<<grid, k7::THREADS, k7::SMEM, stream>>>(
-        dy_map, x_map, static_cast<const bf16*>(x), lengths, dw, B, Tlen,
-        Cin, Cout, splits, x_by_tma);
+    k7::dw_bf16_kernel<<<dim3(grid_x, grid_y, splits), k7::THREADS, smem,
+                         stream>>>(dy_map, x_map, static_cast<const bf16*>(x),
+                                   lengths, dw, Tlen, Cin, Cout, sp,
+                                   x_by_tma);
   } else if (dtype == 0) {
-    const dim3 grid((Cout + BN - 1) / BN, (Cin + BN - 1) / BN, splits);
-    dw_f32_kernel<<<grid, THREADS, 0, stream>>>(
+    if (x_by_tma || smem != 0 || grid_x != (Cout + BN - 1) / BN ||
+        grid_y != (Cin + BN - 1) / BN)
+      return (int)cudaErrorInvalidValue;
+    dw_f32_kernel<<<dim3(grid_x, grid_y, splits), THREADS, 0, stream>>>(
         static_cast<const float*>(x), lengths, static_cast<const float*>(dy),
-        dw, B, Tlen, Cin, Cout, splits);
+        dw, Tlen, Cin, Cout, sp);
   } else {
     return (int)cudaErrorInvalidValue;
   }

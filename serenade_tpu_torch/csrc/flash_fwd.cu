@@ -407,16 +407,24 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 
 }  // namespace
 
+// The caller plans the launch (ops/flash_cuda.py k1_plan): grid
+// (grid_x, H, B), `threads` a CTA and `smem` bytes of dynamic shared
+// memory.  A plan that does not match the kernel's own rows a CTA, threads
+// and shared memory returns cudaErrorInvalidValue.
 extern "C" int serenade_flash_fwd(
     const void* q, long long qsb, long long qsh, long long qst, const void* k,
     long long ksb, long long ksh, long long kst, const void* v, long long vsb,
     long long vsh, long long vst, const float* mask, void* out, long long osb,
     long long osh, long long ost, float* lse, int B, int H, int Tq, int Tk,
-    int D, float scale, int dtype, cudaStream_t stream) {
+    int D, float scale, int dtype, int grid_x, int threads, int smem,
+    cudaStream_t stream) {
   if (D % 32 != 0 || D > MAX_D || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x, H, B);
   if (dtype == 1) {
-    if (D != k1::HD) return (int)cudaErrorInvalidValue;
+    if (D != k1::HD || grid_x != (Tq + k1::BQ - 1) / k1::BQ ||
+        threads != k1::THREADS || smem != k1::SMEM)
+      return (int)cudaErrorInvalidValue;
     // (D, T, H, B) or (D, H, T, B) maps, whichever keeps the strides
     // increasing; the (B, H, T, D) views of (B, T, H, D) buffers take the
     // second.  Boxes of 64 columns x 64 (Q) or 32 (K, V) rows.
@@ -442,25 +450,25 @@ extern "C" int serenade_flash_fwd(
                                             strides, box);
       if (e) return e;
     }
-    const dim3 grid((Tq + k1::BQ - 1) / k1::BQ, H, B);
     cudaError_t e = cudaFuncSetAttribute(
         k1::flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        k1::SMEM);
+        smem);
     if (e != cudaSuccess) return (int)e;
-    k1::flash_fwd_bf16_kernel<<<grid, k1::THREADS, k1::SMEM, stream>>>(
+    k1::flash_fwd_bf16_kernel<<<grid, threads, smem, stream>>>(
         maps[0], maps[1], maps[2], order, mask,
         static_cast<__nv_bfloat16*>(out), osb, osh, ost, lse, H, Tq, Tk,
         scale);
   } else if (dtype == 0) {
-    const size_t smem =
-        sizeof(float) * ((size_t)(BQ + BK) * (D + 4) + (size_t)BK * D +
-                         (size_t)BQ * (BK + 1));
-    const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+    if (grid_x != (Tq + BQ - 1) / BQ || threads != THREADS ||
+        (size_t)smem != sizeof(float) * ((size_t)(BQ + BK) * (D + 4) +
+                                         (size_t)BK * D +
+                                         (size_t)BQ * (BK + 1)))
+      return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        smem);
     if (e != cudaSuccess) return (int)e;
-    flash_fwd_f32_kernel<<<grid, THREADS, smem, stream>>>(
+    flash_fwd_f32_kernel<<<grid, threads, smem, stream>>>(
         static_cast<const float*>(q), qsb, qsh, qst,
         static_cast<const float*>(k), ksb, ksh, kst,
         static_cast<const float*>(v), vsb, vsh, vst, mask,

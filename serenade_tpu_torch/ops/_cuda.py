@@ -19,6 +19,7 @@ on first use, and ``build_all()`` starts one ``nvcc`` per source at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -113,6 +114,17 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out))
             _LIBS[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The multiprocessors of a CUDA device, which the launch plans read."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -23,6 +23,7 @@ K7's part alone is ``block1d_weight_grad_plain``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -173,28 +174,27 @@ def _block1d_cuda(x, lengths, weight, bias, gamma, beta, groups, eps):
 
 # K7's bf16 kernel: a CTA per (128 Cout x 64 Cin) tile and split of the
 # 64-row time tiles, a ring of 4 stages of five 64 x 64 bf16 boxes (dy for
-# two consumer warpgroups, x for three taps) and 1 KB for its alignment
+# two consumer warpgroups, x for three taps) and 1 KB for its alignment.
+# The C entry checks a plan against the kernel's own constants and
+# refuses one that does not match them.
 K7_TILE = {torch.bfloat16: (128, 64), torch.float32: (64, 64)}
 K7_ROWS = 64
 K7_BF16_SMEM = 4 * 5 * 64 * 128 + 1024
+K7_MAX_SPLITS = 512
 
 
-def k7_split_ranges(tiles: int, splits: int):
-    """The 64-row time tiles ``[first, last)`` of each split, as the kernel
-    computes them from ``blockIdx.z``; tile i is sample ``i // tps``, rows
-    ``64 (i % tps)`` onward."""
-    return [(s * tiles // splits, (s + 1) * tiles // splits)
-            for s in range(splits)]
-
-
+@functools.lru_cache(maxsize=64)
 def k7_plan(b: int, t: int, cin: int, cout: int, dtype,
             sm_count: int) -> dict:
-    """K7's launch for a shape and a card of ``sm_count`` multiprocessors:
-    the grid (Cout tiles, Cin tiles, splits), the split of the time tiles,
-    the dynamic shared memory and how x is loaded.  bf16 runs one CTA per
-    SM (its ring takes 165 KB), so the split fills one wave; f32 aims at
-    about four waves of its 64 x 64 blocks.  Raises ``ValueError`` on a
-    bf16 shape the Hopper kernel does not take."""
+    """K7's launch for a shape and a card of ``sm_count`` multiprocessors,
+    as the wrapper passes it to the kernel: the grid (Cout tiles, Cin
+    tiles, splits), ``bounds`` (split z takes the 64-row time tiles
+    ``bounds[z]`` to ``bounds[z + 1]``; tile i is sample ``i // tps``,
+    rows ``64 (i % tps)`` onward), the dynamic shared memory and how x is
+    loaded.  bf16 runs one CTA per SM (its ring takes 165 KB), so the
+    split fills one wave; f32 aims at about four waves of its 64 x 64
+    blocks.  Raises ``ValueError`` on a bf16 shape the Hopper kernel does
+    not take.  Cached: treat the result as read-only."""
     bco, bci = K7_TILE[dtype]
     tiles = b * -(-t // K7_ROWS)
     out_tiles = -(-cout // bco) * -(-cin // bci)
@@ -203,16 +203,16 @@ def k7_plan(b: int, t: int, cin: int, cout: int, dtype,
                       "rows load by 4-byte cp.async or TMA)")
         _cuda.require(cout % 8 == 0, f"bf16 dW: Cout {cout} must be a "
                       "multiple of 8 (dy rows load by TMA)")
-        splits = max(1, min(tiles, sm_count // out_tiles))
-        smem = K7_BF16_SMEM
+        waves, smem = 1, K7_BF16_SMEM
         loader = "tma" if cin % 8 == 0 else "cp.async"
     else:
-        splits = max(1, min(tiles, 4 * sm_count // out_tiles))
-        smem, loader = 0, "plain"
+        waves, smem, loader = 4, 0, "plain"
+    splits = max(1, min(tiles, K7_MAX_SPLITS, waves * sm_count // out_tiles))
+    bounds = tuple(z * tiles // splits for z in range(splits + 1))
     return {"grid": (-(-cout // bco), -(-cin // bci), splits),
-            "splits": splits, "time_tiles": tiles,
-            "ranges": k7_split_ranges(tiles, splits), "smem_bytes": smem,
-            "x_loader": loader}
+            "splits": splits, "time_tiles": tiles, "bounds": bounds,
+            "bounds_c": (ctypes.c_int * (splits + 1))(*bounds),
+            "smem_bytes": smem, "x_loader": loader}
 
 
 def block1d_bwd_data(x, lengths, weight, gamma, beta, y, stats, g, *,
@@ -267,14 +267,17 @@ def block1d_bwd_weight(x, lengths, dy):
                   f"dy {tuple(dy.shape)} {dy.dtype}")
     _cuda.require(lengths.shape == (b,) and lengths.dtype == torch.int32
                   and lengths.device == dev, "lengths must be int32 (B,)")
-    plan = k7_plan(b, t, cin, cout, x.dtype, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    plan = k7_plan(b, t, cin, cout, x.dtype, _cuda.sm_count(dev))
+    grid_x, grid_y, splits = plan["grid"]
     dw = torch.zeros((cout, cin, 3), dtype=torch.float32, device=dev)
     fn = _cuda.library("block1d_bwd").serenade_block1d_bwd_weight
     fn.restype = ctypes.c_int
     err = fn(_cuda.ptr(x), _cuda.ptr(lengths), _cuda.ptr(dy), _cuda.ptr(dw),
              ctypes.c_int(b), ctypes.c_int(t), ctypes.c_int(cin),
-             ctypes.c_int(cout), ctypes.c_int(plan["splits"]),
+             ctypes.c_int(cout), ctypes.c_int(grid_x), ctypes.c_int(grid_y),
+             ctypes.c_int(splits), plan["bounds_c"],
+             ctypes.c_int(plan["smem_bytes"]),
+             ctypes.c_int(plan["x_loader"] == "tma"),
              ctypes.c_int(_cuda.DTYPE_CODE[x.dtype]), _cuda.stream())
     _cuda.check(err, "block1d_bwd_weight")
     weight_launches += 1

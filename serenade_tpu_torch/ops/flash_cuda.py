@@ -114,25 +114,23 @@ def _mask_ptr(key_mask):
 
 # K1's bf16 kernel: head_dim 512, a CTA of 384 threads per 64 query rows,
 # Q (64 KB), two stages of K and V (64 KB each) and the S exchange (32 KB)
-# in shared memory, plus 1 KB for alignment
+# in shared memory, plus 1 KB for alignment.  The C entry checks a plan
+# against the kernels' own constants and refuses one that does not match.
 K1_BF16_HEAD_DIM = 512
 K1_BF16_ROWS = 64
 K1_BF16_SMEM = 64 * 1024 + 2 * 64 * 1024 + 32 * 1024 + 1024
 K1_F32_ROWS, K1_F32_KEYS = 32, 32
 
 
-def _require_k1_head_dim(d: int) -> None:
-    _cuda.require(d == K1_BF16_HEAD_DIM, f"bf16 flash forward: head_dim {d}; "
-                  f"the Hopper kernel takes {K1_BF16_HEAD_DIM} only")
-
-
 def k1_plan(b: int, h: int, tq: int, d: int, dtype, sm_count: int) -> dict:
-    """K1's launch for a shape and a card of ``sm_count`` multiprocessors:
-    the grid, threads, dynamic shared memory, CTAs and the SMs they occupy
-    (one CTA per SM: either kernel's shared memory holds one).  Raises ``ValueError`` on a bf16 head dim
-    the Hopper kernel does not take."""
+    """K1's launch for a shape and a card of ``sm_count`` multiprocessors,
+    as ``_flash_cuda`` passes it to the kernel: the grid, threads and
+    dynamic shared memory; with the CTAs and the SMs they occupy (one CTA
+    per SM: either kernel's shared memory holds one).  Raises
+    ``ValueError`` on a bf16 head dim the Hopper kernel does not take."""
     if dtype == torch.bfloat16:
-        _require_k1_head_dim(d)
+        _cuda.require(d == K1_BF16_HEAD_DIM, f"bf16 flash forward: head_dim "
+                      f"{d}; the Hopper kernel takes {K1_BF16_HEAD_DIM} only")
         rows, threads, smem = K1_BF16_ROWS, 384, K1_BF16_SMEM
     else:
         rows, threads = K1_F32_ROWS, 256
@@ -149,8 +147,7 @@ def _flash_cuda(q, k, v, key_mask, scale):
     b, h, tq, d = q.shape
     tk = k.shape[2]
     key_mask = _check_inputs(q, k, v, key_mask)
-    if q.dtype == torch.bfloat16:
-        _require_k1_head_dim(d)
+    plan = k1_plan(b, h, tq, d, q.dtype, _cuda.sm_count(q.device))
     # O is written (B, Tq, H, D): the caller's head merge is then free
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     out_bhtd = out.transpose(1, 2)
@@ -162,7 +159,9 @@ def _flash_cuda(q, k, v, key_mask, scale):
              _cuda.ptr(out), *_strides(out_bhtd), _cuda.ptr(lse),
              ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(tq),
              ctypes.c_int(tk), ctypes.c_int(d), ctypes.c_float(scale),
-             ctypes.c_int(_cuda.DTYPE_CODE[q.dtype]), _cuda.stream())
+             ctypes.c_int(_cuda.DTYPE_CODE[q.dtype]),
+             ctypes.c_int(plan["grid"][0]), ctypes.c_int(plan["threads"]),
+             ctypes.c_int(plan["smem_bytes"]), _cuda.stream())
     _cuda.check(err, "flash_fwd")
     launches += 1
     return out_bhtd, lse

@@ -350,7 +350,8 @@ def test_editing_any_header_renames_every_library(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("b,t,cin,cout", TRAIN_K7_SHAPES
                          + [(3, 130, 96, 128), (1, 64, 2, 8), (2, 700, 1000,
-                                                              520)])
+                                                              520),
+                            (9, 4096, 64, 64)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k7_plan_covers_every_tile_once(b, t, cin, cout, dtype):
     plan = block1d_cuda.k7_plan(b, t, cin, cout, dtype, SM_COUNT)
@@ -359,11 +360,16 @@ def test_k7_plan_covers_every_tile_once(b, t, cin, cout, dtype):
     # every (Cout, Cin) output tile has a column of CTAs, none past the end
     assert gx * bco >= cout > (gx - 1) * bco
     assert gy * bci >= cin > (gy - 1) * bci
-    assert splits == plan["splits"] == len(plan["ranges"]) >= 1
+    # the split bounds the wrapper hands the kernel, one more than splits
+    bounds = plan["bounds"]
+    assert splits == plan["splits"] == len(bounds) - 1 >= 1
+    assert splits <= block1d_cuda.K7_MAX_SPLITS
+    assert list(plan["bounds_c"]) == list(bounds)
     # every (sample, 64-row tile) of every sample's time range belongs to
     # exactly one split
     tps = -(-t // block1d_cuda.K7_ROWS)
-    seen = [i for first, last in plan["ranges"] for i in range(first, last)]
+    seen = [i for first, last in zip(bounds, bounds[1:])
+            for i in range(first, last)]
     assert sorted(seen) == list(range(b * tps)) == list(range(
         plan["time_tiles"]))
     rows = {(i // tps, (i % tps) * 64 + r) for i in seen for r in range(64)
