@@ -29,6 +29,13 @@ Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
 no result, when CUDA is absent, the package is missing, or any phase
 fails.
+
+    python3 chip_smoke.py --compare ROOT
+
+instead times the redesigned kernels (K2, K3) of the tree at ROOT (an
+unpacked ``git archive`` of another commit) and of this one in turns,
+ROOT, this, this, ROOT, each in its own process on the same card, and
+prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import time
 
 PEAK_BF16 = 989e12     # H100 SXM dense tensor-core FLOP/s
 PEAK_F32 = 67e12       # H100 SXM FP32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12     # H100 SXM dense TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 SR, HOP = 24000, 240
 
@@ -185,7 +193,12 @@ def check_flash(torch, dev):
 
 
 def check_block1d(torch, dev):
-    from serenade_tpu_torch.ops import block1d_cuda as K
+    """K2 against block1d_plain.  Its yardstick is cuDNN's conv1d alone on
+    the same x·mask: no one call computes all of K2, and the conv is what
+    its Hopper kernel runs."""
+    import torch.nn.functional as F
+
+    from serenade_tpu_torch.ops import _cuda, block1d_cuda as K
 
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
@@ -213,10 +226,24 @@ def check_block1d(torch, dev):
             args = K.prepare_forward(x, mask, w, bias, gamma, beta)
             row["ms"] = cuda_ms(torch, lambda: K._block1d_cuda(
                 *args, 8, 1e-5), 20)
+            plan = K.k2_plan(b, t, cin, cout, dtype, _cuda.sm_count(dev))
+            row["plan"] = {k: plan[k] for k in (
+                "wn", "grid", "ctas", "stages", "smem_bytes", "x_loader")}
             row["plain_ms"] = cuda_ms(torch, lambda: K.block1d_plain(
                 x, mask, w, bias, gamma, beta), 20)
-            row["library_ms"] = None
-            row["plain_scope"], row["library_scope"] = ["out"], None
+            # cuDNN's conv1d (k 3, padding 1) on the same x·mask, (B, C, T)
+            # as cuDNN takes it, held against K2's y before it is timed
+            xm_bct = (x * mask).to(dtype).transpose(1, 2).contiguous()
+            wc = w.to(dtype)
+            lib = F.conv1d(xm_bct, wc, padding=1)
+            _, y, _ = K._block1d_cuda(*args, 8, 1e-5)
+            torch.cuda.synchronize()
+            row["library_max_abs_err"], lib_rel = rel_err(
+                torch, lib.transpose(1, 2) + args[3], y)
+            row["ok"] &= lib_rel <= tol
+            row["library_ms"] = cuda_ms(
+                torch, lambda: F.conv1d(xm_bct, wc, padding=1), 20)
+            row["plain_scope"], row["library_scope"] = ["out"], ["conv"]
         rows.append(row)
         return row
 
@@ -224,6 +251,10 @@ def check_block1d(torch, dev):
     main = case(1, 1536, 1024, 512, torch.bfloat16, [1536], 2e-2, True)
     for t, cin in ((1536, 242), (1536, 512), (768, 512), (768, 1024)):
         case(1, t, cin, 512, torch.bfloat16, [t - 5], 2e-2, True)
+    # the Hopper kernel at ragged tiles: lengths in the middle of a tile,
+    # a tile past the length, the cp.async loader at batch > 1
+    case(3, 200, 1024, 512, torch.bfloat16, [200, 131, 1], 2e-2, False)
+    case(2, 150, 242, 512, torch.bfloat16, [150, 77], 2e-2, False)
     return main, rows
 
 
@@ -436,7 +467,11 @@ def check_block1d_bwd(torch, dev):
 
 
 def check_resblock(torch, dev):
-    from serenade_tpu_torch.ops import resblock_cuda as K
+    """K3 against resblock_branch_plain (cuDNN without TF32).  Its bound
+    is stated two ways: the f32 operations at the FMA units' rate (the
+    kernels line's bound_ms) and the three TF32 products a split-TF32
+    kernel makes of each, at the tensor cores' TF32 rate."""
+    from serenade_tpu_torch.ops import _cuda, resblock_cuda as K
 
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
@@ -455,14 +490,24 @@ def check_resblock(torch, dev):
             kernel_size=k, dilations=dils)
         torch.cuda.synchronize()
         err, rel = rel_err(torch, out, ref)
+        plan = K.k3_plan(b, t, c, k, dils[-1], True, dtype,
+                         _cuda.sm_count(dev))
         row = {"shape": [b, t, c, k], "dtype": str(dtype)[6:],
-               "max_abs_err": err, "tol": tol, "ok": rel <= tol}
+               "route": plan["route"], "max_abs_err": err, "tol": tol,
+               "ok": rel <= tol}
         if timed:
             es = x.element_size()
             nbytes = es * (2 * b * t * c + 2 * 3 * k * c * c) + 24 * c
+            flops = 3 * 2 * 2.0 * b * t * k * c * c
             row["bound_ms"], row["bound_by"] = bound_ms(
-                3 * 2 * 2.0 * b * t * k * c * c, nbytes,
-                dtype == torch.bfloat16)
+                flops, nbytes, dtype == torch.bfloat16)
+            if dtype == torch.float32:
+                row["bound_split_tf32_ms"] = max(
+                    3 * flops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
+            if plan["route"] == "tf32":
+                row["plan"] = [{k: p[k] for k in ("bm", "ctas", "stages",
+                                                  "smem_bytes")}
+                               for p in plan["convs"]]
             row["ms"] = cuda_ms(torch, lambda: K.resblock_branch(
                 *args, kernel_size=k, dilations=dils), 5)
             row["plain_ms"] = cuda_ms(torch, lambda: K.resblock_branch_plain(
@@ -555,9 +600,10 @@ def main_path(torch, np, dev, counters):
 
 # device symbols of the port's CUDA kernels, as the profiler names them
 KERNEL_SYMBOLS = ("k1::flash_fwd_bf16_kernel", "dq_bf16_kernel",
-                  "dkv_bf16_kernel", "conv_stats_bf16",
+                  "dkv_bf16_kernel", "k2::conv_stats_kernel",
                   "norm_mish", "gn_reduce_kernel", "gn_dy_kernel",
-                  "dx_bf16_kernel", "k7::dw_bf16_kernel", "stage_kernel")
+                  "dx_bf16_kernel", "k7::dw_bf16_kernel",
+                  "k3::conv_tf32_kernel", "stage_kernel")
 
 
 def device_time(torch, fn) -> dict:
@@ -839,6 +885,8 @@ def kernel_entries(torch, dev):
             "plain_scope": own["plain_scope"],
             "library_scope": own["library_scope"],
             "shape": row["shape"], "dtype": row["dtype"]}
+        if "bound_split_tf32_ms" in timing:
+            entries[name]["bound_split_tf32_ms"] = timing["bound_split_tf32_ms"]
 
     for name, check in (("flash_fwd", check_flash),
                         ("block1d_fwd", check_block1d),
@@ -863,6 +911,64 @@ def kernel_entries(torch, dev):
             entries[names[1][0]]["library_backend"] = \
                 main_row["library_backend"]
     return ok, entries
+
+
+# the redesigned kernels' shapes on the main paths: K2 (b, t, cin, cout)
+# bf16, K3 (t, c, k) f32 at batch 1, dilations 1, 3, 5
+COMPARE_K2 = [(1, 1536, 1024, 512), (1, 1536, 242, 512), (1, 1536, 512, 512),
+              (1, 768, 512, 512), (1, 768, 1024, 512), (16, 512, 1024, 512),
+              (16, 512, 242, 512)]
+COMPARE_K3 = [(t, c, k) for t, c in ((8192, 256), (49152, 128),
+                                     (245760, 64)) for k in (3, 7, 11)]
+
+
+def time_tree(root: str) -> int:
+    """Times K2's and K3's wrappers of the package under ``root`` (its own
+    build directory) at the COMPARE shapes; one JSON line."""
+    import torch
+
+    sys.path.insert(0, root)
+    from serenade_tpu_torch.ops import block1d_cuda, resblock_cuda
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(9)
+    k2, k3 = {}, {}
+    for b, t, cin, cout in COMPARE_K2:
+        x = torch.randn((b, t, cin), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((cout, cin, 3), generator=gen, device=dev)
+             / math.sqrt(3 * cin)).bfloat16()
+        p = [0.1 * torch.randn((cout,), generator=gen, device=dev) + i
+             for i in (0, 1, 0)]
+        mask = torch.ones((b, t, 1), device=dev)
+        args = block1d_cuda.prepare_forward(x, mask, w, *p)
+        k2[str([b, t, cin, cout])] = cuda_ms(
+            torch, lambda: block1d_cuda._block1d_cuda(*args, 8, 1e-5), 20)
+    for t, c, k in COMPARE_K3:
+        x = torch.randn((1, t, c), generator=gen, device=dev)
+        w = torch.randn((3, c, c, k), generator=gen, device=dev) / math.sqrt(
+            k * c)
+        bias = 0.1 * torch.randn((3, c), generator=gen, device=dev)
+        k3[str([1, t, c, k])] = cuda_ms(torch, lambda: resblock_cuda.
+                                        resblock_branch(
+                                            x, w, bias, w, bias,
+                                            kernel_size=k,
+                                            dilations=(1, 3, 5)), 5)
+    emit({"tree": root, "block1d_fwd_ms": k2, "resblock_branch_ms": k3})
+    return 0
+
+
+def compare(root: str) -> int:
+    from pathlib import Path
+
+    script = Path(__file__).resolve()
+    root = str(Path(root).resolve())
+    for tree in (root, str(script.parent), str(script.parent), root):
+        proc = subprocess.run([sys.executable, str(script), "--time-tree",
+                               tree], cwd=tree)
+        if proc.returncode:
+            return proc.returncode
+    return 0
 
 
 def main() -> int:
@@ -927,4 +1033,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] in ("--compare", "--time-tree"):
+        sys.exit((compare if sys.argv[1] == "--compare" else time_tree)(
+            sys.argv[2]))
     sys.exit(main())

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) device helpers of the port's redesigned kernels (K1 flash
-// forward, K7 Block1D weight gradient): shared-memory matrix descriptors
-// and wgmma.mma_async wrappers with their fence, commit and wait;
-// mbarrier init, arrive, expect-tx and try-wait; TMA tensor loads
-// (cp.async.bulk.tensor), bulk f32 reductions to global memory and 4-byte
-// cp.async with zero fill; register reallocation (setmaxnreg) and named
-// barriers.
+// forward, K2 Block1D forward, K3 residual branch, K7 Block1D weight
+// gradient): shared-memory matrix descriptors and wgmma.mma_async wrappers
+// (bf16, and TF32 with A from registers) with their fence, commit and
+// wait; mbarrier init, arrive, expect-tx and try-wait; TMA tensor loads
+// (cp.async.bulk.tensor), bulk f32 reductions to global memory and 4- and
+// 16-byte cp.async with zero fill; TF32 rounding; register reallocation
+// (setmaxnreg) and named barriers.
 //
 // Layout convention: every operand tile is stored as TMA's 128-byte
 // swizzle writes it, 64 bf16 (128 bytes) a row, rows consecutive, the
@@ -17,6 +18,10 @@
 //     indices, 64 M (or N) values a row; K steps of 16 advance the start
 //     by 2048 bytes (16 rows); further 64-wide M / N blocks lie LBO bytes
 //     apart.
+// K3's f32 weight tiles use the 64-byte swizzle instead: 16 floats (64
+// bytes) a row, the 16-byte chunk c of row r at c ^ ((r / 2) % 4), 8-row
+// groups 512 bytes apart; a K step of 8 TF32 values advances the start
+// address by 32 bytes.
 #pragma once
 
 #include <cuda.h>
@@ -40,6 +45,25 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo,
   d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
   d |= (uint64_t)1 << 62;   // layout type 1: 128-byte swizzle
   return d;
+}
+
+// the same with 64-byte swizzle (layout type 2), K-major: 8-row groups
+// `sbo` bytes apart
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr, uint32_t sbo) {
+  uint64_t d = 0;
+  d |= (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;   // leading byte offset: unused when K-major
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)2 << 62;
+  return d;
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+// as a 32-bit pattern whose low 13 bits are 0
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -119,9 +143,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA ---------------------------------------------------------------------
 
-// One box of a 3-D / 4-D tensor map into shared memory, completing
+// One box of a 2-D / 3-D / 4-D tensor map into shared memory, completing
 // `bytes` of the barrier's expected transaction count.  Coordinates are
 // innermost first and may lie outside the tensor: those elements read 0.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -151,6 +184,15 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+// copies 16 bytes, or writes 16 zero bytes when `valid` is false; both
+// addresses 16-byte aligned
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -310,27 +352,137 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
         "r"(scale_d), "n"(TB));
 }
 
+// D (64 x N f32, N / 2 registers a thread) += A B in TF32 (m64nNk8), A
+// from registers, B K-major in shared memory.  The thread's A elements
+// a[0..3] are those of its warp's 16 x 8 slice as mma.m16n8k8 holds them:
+// rows 16 w + g, + 8, + 0, + 8 and columns t, t, t + 4, t + 4 (w the warp
+// of the warpgroup, g = lane / 4, t = lane % 4), each a TF32 value in a
+// 32-bit register (the hardware reads its top 19 bits).  D's element e
+// is row 16 w + g + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 t + (e & 1).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<16>(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 }  // namespace hopper
 
 // ---- host: tensor maps -------------------------------------------------------
 
 namespace hopper {
 
-// A bf16 tensor map of `rank` dims (innermost first; the innermost is
+// A tensor map of `rank` dims (innermost first; the innermost is
 // contiguous), strides in bytes of dims 1.., boxes of `box` elements, with
-// 128-byte swizzle and zeros for elements outside the tensor.  Returns 0,
-// or cudaErrorInvalidValue when the driver refuses the layout (strides
+// the given swizzle and zeros for elements outside the tensor.  Returns
+// 0, or cudaErrorInvalidValue when the driver refuses the layout (strides
 // not multiples of 16 bytes, a base not 16-byte aligned).
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      CUtensorMapSwizzle swizzle, const void* base, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box) {
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
+      box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// bf16 with 128-byte swizzle, the layout of K1, K2 and K7's tiles
 inline int encode_map_bf16(CUtensorMap* map, const void* base, int rank,
                            const cuuint64_t* dims, const cuuint64_t* strides,
                            const cuuint32_t* box) {
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-      const_cast<void*>(base), dims, strides, box, ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                    box);
 }
 
 }  // namespace hopper

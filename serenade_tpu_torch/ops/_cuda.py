@@ -25,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 from typing import Dict, List
 
@@ -125,6 +126,45 @@ def sm_count(device: torch.device) -> int:
     """The multiprocessors of a CUDA device, which the launch plans read."""
     return _sm_count(device.index if device.index is not None
                      else torch.cuda.current_device())
+
+
+def _stamp(t: torch.Tensor) -> tuple:
+    # an inference tensor keeps no version counter (and cannot be changed
+    # in place outside inference mode)
+    return (-1 if t.is_inference() else t._version, t.data_ptr(), t.dtype,
+            t.device, tuple(t.shape))
+
+
+class VersionCache:
+    """Operands a kernel derives from its weights (a relayout, a split into
+    parts), made once per version of the weight tensors instead of once a
+    call.  An entry is reused while every source tensor is the same live
+    object with the same version counter (bumped by every in-place
+    update), storage, type and shape; it is dropped when a source tensor
+    is freed."""
+
+    def __init__(self, make):
+        self._make = make
+        self._entries = {}
+
+    def __call__(self, *tensors):
+        key = tuple(map(id, tensors))
+        stamp = tuple(map(_stamp, tensors))
+        hit = self._entries.get(key)
+        if (hit is not None and hit[1] == stamp
+                and all(ref() is t for ref, t in zip(hit[0], tensors))):
+            return hit[2]
+        value = self._make(*tensors)
+        drop = functools.partial(self._drop, key)
+        self._entries[key] = (tuple(weakref.ref(t, drop) for t in tensors),
+                              stamp, value)
+        return value
+
+    def _drop(self, key, _ref):
+        self._entries.pop(key, None)
+
+    def __len__(self):
+        return len(self._entries)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -6,7 +6,9 @@
   ``mish(masked_group_norm(conv_k3(x·mask)))·mask`` with prefix masks.
   One wrapper call launches two kernels (conv + bias + per-group
   statistics, then normalize + affine + Mish + mask) and counts as one
-  launch.
+  launch.  In bf16 the conv runs on Hopper's wgmma as ``k2_plan`` lays it
+  out, from the weight's taps laid out once per weight version
+  (``k2_taps``).
 - K6 replaces ``block1d_pallas.py:296`` (``_bwd_data_kernel``): Mish′,
   the GroupNorm backward, dγ, dβ, dbias and dx by the transposed taps.
 - K7 replaces ``block1d_pallas.py:343`` (``_bwd_w_kernel``): dW, reduced
@@ -147,25 +149,105 @@ def prepare_forward(x, mask, weight, bias, gamma, beta):
             gamma.float().contiguous(), beta.float().contiguous())
 
 
-def _block1d_cuda(x, lengths, weight, bias, gamma, beta, groups, eps):
+# K2's bf16 kernel: a CTA per 64 time rows x 2 WN output channels (WN 64
+# or 32 a consumer warpgroup), a ring of stages of 64 input channels: x
+# boxes of 64 rows for three taps and each tap's 2 WN weight rows, 128
+# bytes a row.  The C entry checks a plan against the kernel's constants
+# and refuses one that does not match them.
+K2_ROWS = 64
+K2_WN = (64, 32)
+K2_MAX_STAGES = 6
+# the card's 232,448 bytes less 4 KB for the static barriers and sums
+K2_SMEM_LIMIT = 232448 - 4096
+
+
+def k2_stage_bytes(wn: int) -> int:
+    return 3 * K2_ROWS * 128 + 3 * 2 * wn * 128
+
+
+@functools.lru_cache(maxsize=64)
+def k2_plan(b: int, t: int, cin: int, cout: int, dtype,
+            sm_count: int) -> dict:
+    """K2's conv launch for a shape and a card of ``sm_count``
+    multiprocessors, as the wrapper passes it to the kernel: the columns
+    ``wn`` a consumer warpgroup owns, the grid (64-row tiles, Cout tiles,
+    batch), the ring's stages, the dynamic shared memory and how x is
+    loaded.  bf16 runs one CTA per SM; of WN 64 and 32 it takes the one
+    with the shorter makespan, waves x 2 WN (a CTA's work grows with its
+    columns), the larger on a tie: 96 CTAs at batch 1, T 1536, Cout 512,
+    and WN 32 (96 CTAs, not 48) at T 768.  No split of the 3 Cin depth:
+    the statistics need whole conv outputs.  f32 runs 64 x 64 FMA tiles.
+    Raises ``ValueError`` on a bf16 shape the Hopper kernel does not take.
+    Cached: treat the result as read-only."""
+    tiles = -(-t // K2_ROWS)
+    if dtype != torch.bfloat16:
+        return {"wn": 0, "grid": (tiles, -(-cout // 64), b), "ctas": None,
+                "stages": 0, "smem_bytes": 0, "x_loader": "plain"}
+    _cuda.require(cin % 2 == 0, f"bf16 Block1D: Cin {cin} must be even (x "
+                  "rows load by 4-byte cp.async or TMA)")
+    best = None
+    for wn in K2_WN:
+        ctas = tiles * -(-cout // (2 * wn)) * b
+        est = -(-ctas // sm_count) * 2 * wn
+        if best is None or est < best[0]:
+            best = (est, wn, ctas)
+    _, wn, ctas = best
+    stages = min(K2_MAX_STAGES, (K2_SMEM_LIMIT - 1024) // k2_stage_bytes(wn))
+    return {"wn": wn, "grid": (tiles, -(-cout // (2 * wn)), b), "ctas": ctas,
+            "stages": stages,
+            "smem_bytes": stages * k2_stage_bytes(wn) + 1024,
+            "x_loader": "tma" if cin % 8 == 0 else "cp.async"}
+
+
+def _k2_taps(weight):
+    """K2's bf16 weight: ``(3, Cout, Cin8)``, each tap's (Cout, Cin) with
+    Cin contiguous (K-major, as wgmma reads B) and padded with zeros to a
+    multiple of 8 (TMA's 16-byte rows)."""
+    taps = weight.to(torch.bfloat16).permute(2, 0, 1)
+    return F.pad(taps, (0, -weight.shape[1] % 8)).contiguous()
+
+
+# made once per version of the weight it is given
+k2_taps = _cuda.VersionCache(_k2_taps)
+
+
+def _block1d_cuda(x, lengths, weight, bias, gamma, beta, groups, eps, *,
+                  taps=None):
     """K2.  Returns (out, y, stats): y the f32 conv output, stats the f64
-    per-(sample, group) sum and sum of squares over valid frames."""
+    per-(sample, group) sum and sum of squares over valid frames.  bf16
+    reads ``taps`` (``k2_taps`` of the weight; made from ``weight`` when
+    not given)."""
     global launches
     b, t, cin = x.shape
     cout = weight.shape[0]
     dev = x.device
     _check_params(x, weight, {"bias": bias, "gamma": gamma, "beta": beta},
                   groups)
+    plan = k2_plan(b, t, cin, cout, x.dtype, _cuda.sm_count(dev))
+    if x.dtype == torch.bfloat16:
+        _cuda.require(x.data_ptr() % 16 == 0,
+                      "bf16 Block1D: x must be 16-byte aligned (TMA)")
+        taps = k2_taps(weight) if taps is None else taps
+        _cuda.require(taps.shape == (3, cout, cin + -cin % 8)
+                      and taps.dtype == torch.bfloat16
+                      and taps.is_contiguous() and taps.device == dev,
+                      f"taps {tuple(taps.shape)} {taps.dtype}")
     y = torch.empty((b, t, cout), dtype=torch.float32, device=dev)
     stats = torch.zeros((b, groups, 2), dtype=torch.float64, device=dev)
     out = torch.empty((b, t, cout), dtype=x.dtype, device=dev)
     fn = _cuda.library("block1d_fwd").serenade_block1d_fwd
     fn.restype = ctypes.c_int
+    grid_x, grid_y, _ = plan["grid"]
     err = fn(_cuda.ptr(x), _cuda.ptr(lengths), _cuda.ptr(weight),
+             ctypes.c_void_p(None if taps is None else taps.data_ptr()),
              _cuda.ptr(bias), _cuda.ptr(gamma), _cuda.ptr(beta),
              _cuda.ptr(y), _cuda.ptr(stats), _cuda.ptr(out),
              ctypes.c_int(b), ctypes.c_int(t), ctypes.c_int(cin),
              ctypes.c_int(cout), ctypes.c_int(groups), ctypes.c_float(eps),
+             ctypes.c_int(plan["wn"]), ctypes.c_int(grid_x),
+             ctypes.c_int(grid_y), ctypes.c_int(plan["stages"]),
+             ctypes.c_int(plan["smem_bytes"]),
+             ctypes.c_int(plan["x_loader"] == "tma"),
              ctypes.c_int(_cuda.DTYPE_CODE[x.dtype]), _cuda.stream())
     _cuda.check(err, "block1d_fwd")
     launches += 1
@@ -299,8 +381,9 @@ class Block1DFunction(torch.autograd.Function):
                                  groups=groups, eps=eps)
         x, lengths, w, bias, gamma, beta = prepare_forward(
             x, mask, weight, bias, gamma, beta)
+        taps = k2_taps(weight) if x.dtype == torch.bfloat16 else None
         out, y, stats = _block1d_cuda(x, lengths, w, bias, gamma, beta,
-                                      groups, eps)
+                                      groups, eps, taps=taps)
         ctx.save_for_backward(x, lengths, w, gamma, beta, y, stats)
         return out
 

@@ -1,19 +1,23 @@
-"""K3: HiFiGAN residual branch, CUDA kernel ``csrc/resblock_branch.cu``.
+"""K3: HiFiGAN residual branch, CUDA kernels ``csrc/resblock_branch.cu``.
 
 Replaces ``serenade_tpu/ops/resblock_pallas.py:154``
 (``resblock_branch_pallas`` → ``_branch_kernel``).  Per dilation d:
 lrelu(0.1) → dilated k-conv → [lrelu → k-conv] → +residual, with zeros
-outside [0, T) before every conv.  The wrapper launches the kernel once
-per dilation stage and counts one launch per branch.  CPU tensors run
-``resblock_branch_plain`` (the conv chain of ``HiFiGANResidualBlock``).
-The Pallas kernel has no backward and neither has this one: on CUDA the
-wrapper refuses inputs that need a gradient, whose result would otherwise
-carry none.
+outside [0, T) before every conv.  The wrapper counts one launch per
+branch.  f32 branches at C 16, 32, 64, 128 and 256 run on the tensor
+cores by split TF32 (one kernel launch per conv, planned by ``k3_plan``,
+the weights split into TF32 hi and lo parts once per weight version);
+bf16 branches and other widths run the FMA kernel, one launch per
+dilation stage.  CPU tensors run ``resblock_branch_plain`` (the conv chain
+of ``HiFiGANResidualBlock``).  The Pallas kernel has no backward and
+neither has this one: on CUDA the wrapper refuses inputs that need a
+gradient, whose result would otherwise carry none.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -24,9 +28,23 @@ from serenade_tpu_torch.ops import _cuda
 
 launches = 0   # wrapper calls that launched the kernel since the last reset
 
-SMEM_BUDGET = 200 * 1024   # bytes of dynamic shared memory per block
+SMEM_BUDGET = 200 * 1024   # bytes of dynamic shared memory per FMA block
 MAX_TILE = 2048
-MAX_TN = 256                # output channels per pass of the kernel
+MAX_TN = 256                # output channels per pass of the FMA kernel
+
+# The split-TF32 kernel (k3::conv_tf32_kernel): columns a consumer
+# warpgroup owns at each width C it takes (two warpgroups split C 256),
+# the 64-row blocks it may own (accumulators and two sets of A fragments
+# within the 168 registers a thread of 384 gets), 16 input channels a
+# ring stage of hi and lo weight boxes, windows padded by 4 floats a row,
+# 2 to 8 stages, and the card's 232,448 bytes of shared memory less 1 KB
+# for static barriers.
+K3_WN = {16: 16, 32: 32, 64: 64, 128: 128, 256: 128}
+K3_MB = {16: (1, 2, 4), 32: (1, 2, 4), 64: (1, 2), 128: (1,)}
+K3_KC = 16
+K3_LD_PAD = 4
+K3_STAGES = (2, 8)
+K3_SMEM_LIMIT = 232448 - 1024
 
 
 def resblock_branch_plain(x, w1, b1, w2, b2, *, kernel_size: int,
@@ -46,9 +64,40 @@ def resblock_branch_plain(x, w1, b1, w2, b2, *, kernel_size: int,
     return h
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped
+    bits' unit to the bit pattern and clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): hi = x in TF32, lo = the rest in TF32; hi + lo keeps all
+    but about 2^-22 of x."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def _tf32_weights(w1, w2):
+    """The TF32 kernel's weights: ``(n_dil, 2, K, 2, Cout, Cin)`` f32 —
+    conv1 then conv2, each tap's hi then lo part, Cin contiguous (K-major,
+    as TF32 wgmma reads B)."""
+    parts = []
+    for w in (w1, w2):
+        taps = w.float().permute(0, 3, 1, 2)             # (n, K, Cout, Cin)
+        parts.append(torch.stack(tf32_split(taps), dim=2))
+    return torch.stack(parts, dim=1).contiguous()
+
+
+# made once per version of the (stacked) weights the wrapper is given
+_TF32_WEIGHTS = _cuda.VersionCache(_tf32_weights)
+
+
 def _pass_shape(c: int):
-    """(columns, rows) of one pass of the kernel's conv: 256 threads with
-    8 x 8 tiles over min(C, 256) columns.  None if C does not split so."""
+    """(columns, rows) of one pass of the FMA kernel's conv: 256 threads
+    with 8 x 8 tiles over min(C, 256) columns.  None if C does not split
+    so."""
     tn = min(c, MAX_TN)
     if tn % 8 or 256 % (tn // 8) or c % tn:
         return None
@@ -56,9 +105,9 @@ def _pass_shape(c: int):
 
 
 def smem_bytes(c: int, k: int, d: int, add: bool, bt: int) -> int:
-    """Shared memory of one stage block: the f32 input window (tile plus
-    both convs' halos) and the conv1 output window, rows padded to C + 1
-    floats, then a 16-row weight tile."""
+    """Shared memory of one FMA stage block: the f32 input window (tile
+    plus both convs' halos) and the conv1 output window, rows padded to
+    C + 1 floats, then a 16-row weight tile."""
     p1 = (k - 1) // 2 * d
     p2 = (k - 1) // 2 if add else 0
     windows = (bt + 2 * p2 + 2 * p1) * (c + 1)
@@ -68,7 +117,7 @@ def smem_bytes(c: int, k: int, d: int, add: bool, bt: int) -> int:
 
 
 def tile_rows(c: int, k: int, d: int, add: bool) -> int:
-    """Time rows per block for one stage: the first conv computes
+    """Time rows per FMA block for one stage: the first conv computes
     BT + 2 p2 rows, so BT = n * (rows of a pass) - 2 p2 with the largest n
     that fits SMEM_BUDGET; else the largest multiple of 16 that fits."""
     tm = _pass_shape(c)[1]
@@ -88,6 +137,87 @@ def tile_rows(c: int, k: int, d: int, add: bool) -> int:
     raise ValueError(f"branch stage C={c} k={k} d={d} does not fit")
 
 
+def tf32_smem_bytes(c: int, rows: int, stages: int) -> int:
+    """Shared memory of a TF32 conv CTA: the weight ring, the window of
+    ``rows`` padded rows and 1 KB to align the ring."""
+    return stages * 2 * c * K3_KC * 4 + rows * (c + K3_LD_PAD) * 4 + 1024
+
+
+def _conv_plan(b: int, t: int, c: int, k: int, dil: int, sm_count: int):
+    """The TF32 kernel's launch of one conv, or None if no tile fits.  The
+    candidates are the 64-row blocks a consumer may own; each is scored by
+    a model of its makespan, waves x (max(BM, 120) + 2 p + 64): a CTA
+    streams all of its k C / 16 weight stages whatever BM, which the
+    tensor cores hide only from about 120 rows up (a stage feeds 0.75 BM
+    FLOP a byte, where L2 gives about 90 a byte at full rate), and every
+    CTA loads a window of BM + 2 p rows and fills and drains its pipeline.
+    Ties go to the larger tile."""
+    wn = K3_WN[c]
+    ns = c // wn
+    p = (k - 1) // 2 * dil
+    best = None
+    for mb in K3_MB[wn]:
+        bm = 64 * mb * (2 // ns)
+        rows = bm + 2 * p
+        fixed = tf32_smem_bytes(c, rows, 0)
+        stages = min(K3_STAGES[1],
+                     (K3_SMEM_LIMIT - fixed) // (2 * c * K3_KC * 4))
+        if stages < K3_STAGES[0]:
+            continue
+        tiles = -(-t // bm)
+        ctas = b * tiles
+        waves = -(-ctas // sm_count)
+        est = waves * (max(bm, 120) + 2 * p + 64)
+        if best is None or (est, -bm) < (best["est"], -best["bm"]):
+            best = {"wn": wn, "mb": mb, "ns": ns, "bm": bm, "rows": rows,
+                    "stages": stages, "grid": (tiles, b), "ctas": ctas,
+                    "waves": waves, "est": est,
+                    "smem_bytes": tf32_smem_bytes(c, rows, stages)}
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def k3_plan(b: int, t: int, c: int, k: int, d: int, add: bool, dtype,
+            sm_count: int) -> dict:
+    """K3's launches for one dilation stage on a card of ``sm_count``
+    multiprocessors, as the wrapper passes them to the kernels.
+
+    ``route`` "tf32": f32 at C 16, 32, 64, 128 or 256 where a tile fits;
+    ``convs`` holds conv1's launch (dilation d) and, with additional
+    convs, conv2's (dilation 1): ``wn`` columns and ``mb`` 64-row blocks
+    a consumer warpgroup owns, ``ns`` 2 when the two consumers split the
+    columns (C 256) and 1 when they split the rows, ``bm`` rows a CTA,
+    the grid (row tiles, batch), the ring's ``stages``, the dynamic shared
+    memory and the model's score.
+    ``route`` "fma": bf16, and f32 at other widths: one launch of the FMA
+    kernel with ``tile_rows`` rows a block.  Raises ``ValueError`` on a
+    width neither takes.  Cached: treat the result as read-only."""
+    if dtype == torch.float32 and c in K3_WN:
+        convs = [_conv_plan(b, t, c, k, d, sm_count)]
+        if add:
+            convs.append(_conv_plan(b, t, c, k, 1, sm_count))
+        if all(convs):
+            return {"route": "tf32", "convs": convs}
+    _cuda.require(_pass_shape(c) is not None,
+                  f"C {c}: min(C, 256) must be 8 x a power of two dividing C")
+    bt = tile_rows(c, k, d, add)
+    return {"route": "fma", "tile_rows": bt, "grid": (-(-t // bt), b),
+            "smem_bytes": smem_bytes(c, k, d, add, bt)}
+
+
+def _conv_tf32(fn, x, w, bias, res, out, k, dil, plan):
+    b, t, c = x.shape
+    err = fn(_cuda.ptr(x), _cuda.ptr(w), _cuda.ptr(bias),
+             ctypes.c_void_p(None if res is None else res.data_ptr()),
+             _cuda.ptr(out), ctypes.c_int(b), ctypes.c_int(t),
+             ctypes.c_int(c), ctypes.c_int(k), ctypes.c_int(dil),
+             ctypes.c_int(plan["wn"]), ctypes.c_int(plan["mb"]),
+             ctypes.c_int(plan["ns"]), ctypes.c_int(plan["grid"][0]),
+             ctypes.c_int(plan["stages"]), ctypes.c_int(plan["smem_bytes"]),
+             _cuda.stream())
+    _cuda.check(err, "resblock_conv_tf32")
+
+
 def _branch_cuda(x, w1, b1, w2, b2, k, dilations, add):
     global launches
     b, t, c = x.shape
@@ -95,30 +225,47 @@ def _branch_cuda(x, w1, b1, w2, b2, k, dilations, add):
     dev = x.device
     _cuda.require(x.dtype in _cuda.DTYPE_CODE, f"dtype {x.dtype}")
     _cuda.require(x.is_contiguous(), "x must be contiguous (B, T, C)")
-    _cuda.require(_pass_shape(c) is not None,
-                  f"C {c}: min(C, 256) must be 8 x a power of two dividing C")
     for name, w in (("w1", w1), ("w2", w2)):
         _cuda.require(w.shape == (n, c, c, k) and w.device == dev,
                       f"{name} {tuple(w.shape)} != {(n, c, c, k)}")
-    # the kernel reads taps as (n, K, Cin, Cout): Cout contiguous
-    w1t = w1.to(x.dtype).permute(0, 3, 2, 1).contiguous()
-    w2t = w2.to(x.dtype).permute(0, 3, 2, 1).contiguous()
+    sms = _cuda.sm_count(dev)
+    plans = [k3_plan(b, t, c, k, d, add, x.dtype, sms) for d in dilations]
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous()
-    fn = _cuda.library("resblock_branch").serenade_resblock_stage
-    fn.restype = ctypes.c_int
     h = x
-    for i, d in enumerate(dilations):
-        bt = tile_rows(c, k, d, add)
-        out = torch.empty_like(x)
-        err = fn(_cuda.ptr(h), _cuda.ptr(w1t[i]), _cuda.ptr(b1f[i]),
-                 _cuda.ptr(w2t[i]), _cuda.ptr(b2f[i]), _cuda.ptr(out),
-                 ctypes.c_int(b), ctypes.c_int(t), ctypes.c_int(c),
-                 ctypes.c_int(k), ctypes.c_int(d), ctypes.c_int(int(add)),
-                 ctypes.c_int(bt), ctypes.c_int(smem_bytes(c, k, d, add, bt)),
-                 ctypes.c_int(_cuda.DTYPE_CODE[x.dtype]), _cuda.stream())
-        _cuda.check(err, "resblock_stage")
-        h = out
+    if plans[0]["route"] == "tf32":
+        wp = _TF32_WEIGHTS(w1, w2)
+        fn = _cuda.library("resblock_branch").serenade_resblock_conv_tf32
+        fn.restype = ctypes.c_int
+        mid = torch.empty_like(x) if add else None
+        for i, (d, plan) in enumerate(zip(dilations, plans)):
+            out = torch.empty_like(x)
+            if add:
+                _conv_tf32(fn, h, wp[i, 0], b1f[i], None, mid, k, d,
+                           plan["convs"][0])
+                _conv_tf32(fn, mid, wp[i, 1], b2f[i], h, out, k, 1,
+                           plan["convs"][1])
+            else:
+                _conv_tf32(fn, h, wp[i, 0], b1f[i], h, out, k, d,
+                           plan["convs"][0])
+            h = out
+    else:
+        # the FMA kernel reads taps as (n, K, Cin, Cout): Cout contiguous
+        w1t = w1.to(x.dtype).permute(0, 3, 2, 1).contiguous()
+        w2t = w2.to(x.dtype).permute(0, 3, 2, 1).contiguous()
+        fn = _cuda.library("resblock_branch").serenade_resblock_stage
+        fn.restype = ctypes.c_int
+        for i, (d, plan) in enumerate(zip(dilations, plans)):
+            out = torch.empty_like(x)
+            err = fn(_cuda.ptr(h), _cuda.ptr(w1t[i]), _cuda.ptr(b1f[i]),
+                     _cuda.ptr(w2t[i]), _cuda.ptr(b2f[i]), _cuda.ptr(out),
+                     ctypes.c_int(b), ctypes.c_int(t), ctypes.c_int(c),
+                     ctypes.c_int(k), ctypes.c_int(d), ctypes.c_int(int(add)),
+                     ctypes.c_int(plan["tile_rows"]),
+                     ctypes.c_int(plan["smem_bytes"]),
+                     ctypes.c_int(_cuda.DTYPE_CODE[x.dtype]), _cuda.stream())
+            _cuda.check(err, "resblock_stage")
+            h = out
     launches += 1
     return h
 
@@ -129,7 +276,9 @@ def resblock_branch(x, w1, b1, w2, b2, *, kernel_size: int,
     """One HiFiGAN residual branch on ``(B, T, C)``.
 
     w1/w2: ``(n_dil, C, C, K)`` conv kernels in torch layout (w2 unused
-    without additional convs); b1/b2: ``(n_dil, C)``.
+    without additional convs); b1/b2: ``(n_dil, C)``.  On CUDA the f32
+    kernel splits the weights once per version of w1 and w2: pass the same
+    tensors from call to call (``HiFiGANResidualBlock`` does).
     """
     assert kernel_size % 2 == 1
     if not x.is_cuda:

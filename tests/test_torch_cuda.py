@@ -146,3 +146,55 @@ def test_hopper_weight_gradient_at_ragged_bf16_shapes(cin):
     ref = block1d_cuda.block1d_weight_grad_plain(x, mask, dy)
     err = (dw - ref).abs().max().item()
     assert err <= 2e-2 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(256, 11), (128, 7), (64, 3)])
+def test_split_tf32_residual_branch_at_ragged_f32_shapes(c, k):
+    """K3's split-TF32 kernel at each vocoder width, batch 2 and a T that
+    leaves a partial tile, against the plain f32 branch (cuDNN without
+    TF32): within 1e-4 of max(1, |ref|), the tolerance a single TF32
+    product misses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((2, 333, c), generator=g, device=dev)
+    w1, w2 = (torch.randn((3, c, c, k), generator=g, device=dev)
+              / (k * c) ** 0.5 for _ in range(2))
+    b1, b2 = (0.1 * torch.randn((3, c), generator=g, device=dev)
+              for _ in range(2))
+    args = dict(kernel_size=k, dilations=(1, 3, 5))
+    assert resblock_cuda.k3_plan(2, 333, c, k, 5, True, torch.float32,
+                                 132)["route"] == "tf32"
+    out = resblock_cuda.resblock_branch(x, w1, b1, w2, b2, **args)
+    ref = resblock_cuda.resblock_branch_plain(x, w1, b1, w2, b2, **args)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [1024, 242])
+def test_hopper_block1d_forward_at_ragged_bf16_shapes(cin):
+    """K2's wgmma kernel (x by TMA at Cin 1024, by cp.async at Cin 242)
+    with lengths inside a tile, at a tile boundary and 1, against the
+    plain Block1D: within 2e-2 of max(1, |ref|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    lengths = [200, 131, 64, 1]
+    x = torch.randn((4, 200, cin), generator=g, device=dev).bfloat16()
+    w = (torch.randn((512, cin, 3), generator=g, device=dev)
+         / (3 * cin) ** 0.5).bfloat16()
+    bias, gamma, beta = (0.1 * torch.randn((512,), generator=g, device=dev)
+                         for _ in range(3))
+    mask = (torch.arange(200, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None]).float()[..., None]
+    before = block1d_cuda.launches
+    out = block1d_cuda.block1d(x, mask, w, bias, gamma + 1.0, beta)
+    ref = block1d_cuda.block1d_plain(x, mask, w, bias, gamma + 1.0, beta)
+    assert block1d_cuda.launches == before + 1
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * max(1.0, ref.float().abs().max().item())

@@ -13,6 +13,7 @@ kernels themselves are held against the same plain versions on the card
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -211,6 +212,54 @@ def test_k3_stage_tiles_fit_shared_memory(c):
                     <= resblock_cuda.SMEM_BUDGET)
     assert resblock_cuda._pass_shape(c) is not None
     assert resblock_cuda._pass_shape(c + 4) is None
+
+
+def test_k3_split_tf32_keeps_f32_accuracy_where_one_tf32_product_does_not():
+    """Why K3's kernel takes three tensor-core products: with TF32 emulated
+    here (operands rounded to 10 mantissa bits as ``cvt.rna.tf32`` does,
+    products summed in f32), a branch at C 64, k 11, dilations 1, 3, 5
+    whose convs take a_lo w_hi + a_hi w_lo + a_hi w_hi stays within K3's
+    1e-4 of max(1, |ref|) of the plain f32 branch, and one whose convs take
+    a_hi w_hi alone does not."""
+    from serenade_tpu_torch.models.layers import conv1d
+
+    rng = np.random.default_rng(64)
+    c, k, t, dils = 64, 11, 256, (1, 3, 5)
+    x = _t(rng.normal(size=(1, t, c)))
+    w1, w2 = (_t(rng.normal(size=(3, c, c, k)) / np.sqrt(k * c))
+              for _ in range(2))
+    b1, b2 = (_t(0.1 * rng.normal(size=(3, c))) for _ in range(2))
+    ref = resblock_cuda.resblock_branch_plain(x, w1, b1, w2, b2,
+                                              kernel_size=k, dilations=dils)
+
+    def branch(products):
+        def conv(a, w, b, d):
+            ah, al = resblock_cuda.tf32_split(a)
+            wh, wl = resblock_cuda.tf32_split(w)
+            parts = {"lo hi": (al, wh), "hi lo": (ah, wl), "hi hi": (ah, wh)}
+            out = b.expand(a.shape[0], a.shape[1], c)
+            for name in products:
+                aa, ww = parts[name]
+                out = out + conv1d(aa, ww, None, dilation=d,
+                                   padding=((k - 1) // 2 * d,) * 2)
+            return out
+
+        h = x
+        for i, d in enumerate(dils):
+            o = conv(F.leaky_relu(h, 0.1), w1[i], b1[i], d)
+            h = h + conv(F.leaky_relu(o, 0.1), w2[i], b2[i], 1)
+        return h
+
+    scale = max(1.0, ref.abs().max().item())
+    split = (branch(("lo hi", "hi lo", "hi hi")) - ref).abs().max().item()
+    single = (branch(("hi hi",)) - ref).abs().max().item()
+    assert split / scale <= 1e-4 < single / scale
+    # the parts are TF32 values (low 13 bits clear) and hi + lo keeps all
+    # but about 2^-22 of each weight
+    hi, lo = resblock_cuda.tf32_split(w1)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((hi + lo - w1).abs() <= 2.0 ** -21 * w1.abs()).all()
 
 
 # ---------------------------------------------------------------------------
@@ -415,3 +464,174 @@ def test_k1_refuses_a_bf16_head_dim_it_does_not_take(d):
         flash_cuda.k1_plan(1, 4, 256, d, torch.bfloat16, SM_COUNT)
     # the f32 kernel keeps every head dim up to 512
     assert flash_cuda.k1_plan(1, 4, 256, d, torch.float32, SM_COUNT)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K2 on Hopper: the launch planners and the weight caches
+# ---------------------------------------------------------------------------
+
+VOCODER_LEVELS = [(8192, 256), (49152, 128), (245760, 64)]
+
+
+@pytest.mark.parametrize("b,t,c", [(1, t, c) for t, c in VOCODER_LEVELS]
+                         + [(1, 300, 32), (2, 150, 128), (2, 333, 256),
+                            (1, 1200, 16), (3, 100, 64)])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_k3_plan_covers_every_output_once(b, t, c, k):
+    """Each conv launch of each dilation stage: its row tiles cover [0, T)
+    of every sample exactly once, its two consumers all C columns, its
+    window the tile and both halos, within the kernel's shared memory and
+    ring depth."""
+    for d in (1, 3, 5):
+        plan = resblock_cuda.k3_plan(b, t, c, k, d, True, torch.float32,
+                                     SM_COUNT)
+        assert plan["route"] == "tf32" and len(plan["convs"]) == 2
+        for conv, dil in zip(plan["convs"], (d, 1)):
+            bm, (tiles, batch) = conv["bm"], conv["grid"]
+            assert batch == b and conv["ctas"] == b * tiles
+            assert bm == 64 * conv["mb"] * (2 // conv["ns"])
+            rows = [r for i in range(tiles) for r in range(i * bm,
+                                                           (i + 1) * bm)
+                    if r < t]
+            assert rows == list(range(t))
+            assert conv["wn"] * conv["ns"] == c
+            # accumulators within the 168 registers of a 384-thread CTA
+            assert conv["mb"] * conv["wn"] // 2 <= 64
+            assert conv["rows"] == bm + 2 * ((k - 1) // 2 * dil)
+            assert 2 <= conv["stages"] <= 8
+            assert conv["smem_bytes"] == resblock_cuda.tf32_smem_bytes(
+                c, conv["rows"], conv["stages"])
+            assert conv["smem_bytes"] <= SMEM_LIMIT - 1024
+
+
+@pytest.mark.parametrize("t,c,bm,ctas", [(8192, 256, 64, 128),
+                                         (49152, 128, 128, 384),
+                                         (245760, 64, 256, 960)])
+def test_k3_plan_fills_the_card_at_every_vocoder_level(t, c, bm, ctas):
+    """A 1024-frame conversion's three levels: at C 256 the consumers split
+    the columns so that T 8192 gives 128 CTAs of 64 rows for 132 SMs (one
+    of 128 rows would give 64); C 128 and 64 give several waves."""
+    for k in (3, 7, 11):
+        for d in (1, 3, 5):
+            conv1, conv2 = resblock_cuda.k3_plan(
+                1, t, c, k, d, True, torch.float32, SM_COUNT)["convs"]
+            assert conv1["bm"] == conv2["bm"] == bm
+            assert conv1["ctas"] == ctas
+            assert conv1["ns"] == (2 if c == 256 else 1)
+    assert resblock_cuda.k3_plan(1, 8192, 256, 11, 5, True, torch.float32,
+                                 SM_COUNT)["convs"][0]["ctas"] <= SM_COUNT
+
+
+def test_k3_plan_routes_what_the_tf32_kernel_does_not_take_to_fma():
+    """bf16, and f32 at widths other than 16, 32, 64, 128 and 256, run the
+    FMA kernel (a stage a launch); a width neither kernel takes raises; a
+    branch without additional convs has one conv a stage."""
+    for c, dtype in ((256, torch.bfloat16), (8, torch.float32),
+                     (512, torch.float32)):
+        plan = resblock_cuda.k3_plan(1, 1000, c, 11, 3, True, dtype,
+                                     SM_COUNT)
+        assert plan["route"] == "fma"
+        assert plan["tile_rows"] == resblock_cuda.tile_rows(c, 11, 3, True)
+        assert plan["smem_bytes"] <= resblock_cuda.SMEM_BUDGET
+    for c in (24, 96):
+        with pytest.raises(ValueError, match=f"C {c}"):
+            resblock_cuda.k3_plan(1, 1000, c, 3, 1, True, torch.float32,
+                                  SM_COUNT)
+    plan = resblock_cuda.k3_plan(1, 1000, 64, 3, 1, False, torch.float32,
+                                 SM_COUNT)
+    assert plan["route"] == "tf32" and len(plan["convs"]) == 1
+
+
+K2_SHAPES = [(1, 1536, 1024, 512), (1, 1536, 242, 512), (1, 1536, 512, 512),
+             (1, 768, 512, 512), (1, 768, 1024, 512), (1, 736, 1024, 512),
+             (16, 512, 1024, 512), (16, 512, 242, 512), (16, 256, 512, 512),
+             (3, 200, 1024, 512), (2, 150, 242, 64)]
+
+
+@pytest.mark.parametrize("b,t,cin,cout", K2_SHAPES)
+def test_k2_plan_covers_every_tile_once(b, t, cin, cout):
+    plan = block1d_cuda.k2_plan(b, t, cin, cout, torch.bfloat16, SM_COUNT)
+    gx, gy, gb = plan["grid"]
+    bn = 2 * plan["wn"]
+    assert plan["wn"] in block1d_cuda.K2_WN and gb == b
+    rows = [r for i in range(gx) for r in range(64 * i, 64 * i + 64)
+            if r < t]
+    cols = [co for j in range(gy) for co in range(bn * j, bn * j + bn)
+            if co < cout]
+    assert rows == list(range(t)) and cols == list(range(cout))
+    assert plan["ctas"] == gx * gy * gb
+    assert 2 <= plan["stages"] <= block1d_cuda.K2_MAX_STAGES
+    assert plan["smem_bytes"] == (plan["stages"]
+                                  * block1d_cuda.k2_stage_bytes(plan["wn"])
+                                  + 1024)
+    assert plan["smem_bytes"] <= SMEM_LIMIT - 4096
+    assert plan["x_loader"] == ("tma" if cin % 8 == 0 else "cp.async")
+
+
+@pytest.mark.parametrize("b,t,wn,ctas", [(1, 1536, 64, 96), (1, 768, 32, 96),
+                                         (1, 736, 32, 96),
+                                         (16, 512, 64, 512),
+                                         (16, 256, 64, 256)])
+def test_k2_plan_fill_at_the_main_shapes(b, t, wn, ctas):
+    """Batch 1 at T 1536 takes 96 CTAs of 64 x 128; at T 768 tiles of
+    64 x 128 would give 48 CTAs, so it takes 96 of 64 x 64; the train
+    step's batch 16 fills the card several times over."""
+    for cin in (242, 512, 1024):
+        plan = block1d_cuda.k2_plan(b, t, cin, 512, torch.bfloat16, SM_COUNT)
+        assert (plan["wn"], plan["ctas"]) == (wn, ctas)
+
+
+def test_k2_plan_refuses_what_the_hopper_kernel_cannot_load():
+    with pytest.raises(ValueError, match="Cin 241 must be even"):
+        block1d_cuda.k2_plan(1, 1536, 241, 512, torch.bfloat16, SM_COUNT)
+    # f32 runs the FMA kernel at any shape, with no ring
+    f32 = block1d_cuda.k2_plan(2, 70, 21, 64, torch.float32, SM_COUNT)
+    assert f32["grid"] == (2, 1, 2) and f32["smem_bytes"] == 0
+
+
+def test_k2_taps_lay_out_each_tap_k_major_and_padded():
+    rng = np.random.default_rng(5)
+    w = _t(rng.normal(size=(64, 242, 3)))
+    taps = block1d_cuda.k2_taps(w)
+    assert taps.shape == (3, 64, 248) and taps.dtype == torch.bfloat16
+    for j in range(3):
+        assert torch.equal(taps[j, :, :242], w[:, :, j].bfloat16())
+    assert not taps[:, :, 242:].any()
+
+
+def test_version_cache_makes_once_per_version_and_drops_freed_tensors():
+    """The kernels' weight operands are made once per version of the
+    weights: reused while the tensor is unchanged, made again after an
+    in-place update, dropped when the tensor is freed."""
+    import gc
+
+    from serenade_tpu_torch.ops import _cuda
+
+    made = []
+    cache = _cuda.VersionCache(lambda a, b: made.append(1) or a + b)
+    a, b = torch.ones(4), torch.zeros(4)
+    first = cache(a, b)
+    assert cache(a, b) is first and len(made) == 1
+    a.add_(1)                               # bumps a's version counter
+    assert torch.equal(cache(a, b), a + b) and len(made) == 2
+    assert len(cache) == 1
+    del a
+    gc.collect()
+    assert len(cache) == 0
+    # the residual block stacks its parameters once per version, so the
+    # wrapper is handed the same tensors from call to call
+    from serenade_tpu_torch.vocoder import layers
+
+    block = HiFiGANResidualBlock(3, 16, (1, 3, 5))
+    x = torch.randn(1, 40, 16)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.normal_(0.0, 0.1)
+        n0 = len(layers._STACKED)
+        out1 = block(x)
+        n1 = len(layers._STACKED)
+        out2 = block(x)
+        assert n1 == n0 + 4 == len(layers._STACKED)
+        assert torch.equal(out1, out2)
+        block.conv1_0.weight.mul_(2.0)
+        assert not torch.equal(block(x), out1)
