@@ -217,7 +217,8 @@ def check_block1d(torch, dev):
         torch.cuda.synchronize()
         err, rel = rel_err(torch, out, ref)
         row = {"shape": [b, t, cin, cout], "dtype": str(dtype)[6:],
-               "max_abs_err": err, "tol": tol, "ok": rel <= tol}
+               "max_abs_err": err, "rel_err": rel, "tol": tol,
+               "ok": rel <= tol}
         if timed:
             es = x.element_size()
             nbytes = es * (b * t * (cin + cout) + 3 * cin * cout) + 12 * cout
@@ -493,8 +494,8 @@ def check_resblock(torch, dev):
         plan = K.k3_plan(b, t, c, k, dils[-1], True, dtype,
                          _cuda.sm_count(dev))
         row = {"shape": [b, t, c, k], "dtype": str(dtype)[6:],
-               "route": plan["route"], "max_abs_err": err, "tol": tol,
-               "ok": rel <= tol}
+               "route": plan["route"], "max_abs_err": err, "rel_err": rel,
+               "tol": tol, "ok": rel <= tol}
         if timed:
             es = x.element_size()
             nbytes = es * (2 * b * t * c + 2 * 3 * k * c * c) + 24 * c
@@ -931,7 +932,6 @@ def time_tree(root: str) -> int:
     from serenade_tpu_torch.ops import block1d_cuda, resblock_cuda
 
     dev = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(9)
     k2, k3 = {}, {}
     for b, t, cin, cout in COMPARE_K2:

@@ -462,8 +462,8 @@ namespace hopper {
 // A tensor map of `rank` dims (innermost first; the innermost is
 // contiguous), strides in bytes of dims 1.., boxes of `box` elements, with
 // the given swizzle and zeros for elements outside the tensor.  Returns
-// 0, or cudaErrorInvalidValue when the driver refuses the layout (strides
-// not multiples of 16 bytes, a base not 16-byte aligned).
+// 0, or cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses the
+// layout (strides not multiples of 16 bytes, a base not 16-byte aligned).
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
                       CUtensorMapSwizzle swizzle, const void* base, int rank,
                       const cuuint64_t* dims, const cuuint64_t* strides,
