@@ -140,8 +140,10 @@ class VersionCache:
     parts), made once per version of the weight tensors instead of once a
     call.  An entry is reused while every source tensor is the same live
     object with the same version counter (bumped by every in-place
-    update), storage, type and shape; it is dropped when a source tensor
-    is freed."""
+    update, the optimizer's ``torch._foreach_*`` ones included), storage,
+    type and shape; it is dropped when a source tensor is freed.  Writes
+    through ``tensor.data`` bypass the version counter and are not seen:
+    update weights in place under ``torch.no_grad()`` instead."""
 
     def __init__(self, make):
         self._make = make
