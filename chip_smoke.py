@@ -29,13 +29,6 @@ Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
 no result, when CUDA is absent, the package is missing, or any phase
 fails.
-
-    python3 chip_smoke.py --compare ROOT
-
-instead times the redesigned kernels (K2, K3) of the tree at ROOT (an
-unpacked ``git archive`` of another commit) and of this one in turns,
-ROOT, this, this, ROOT, each in its own process on the same card, and
-prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -113,13 +106,16 @@ def host_us(torch, fn, reps: int) -> float:
 
 
 def rel_err(torch, got, ref) -> tuple:
-    """(max |got - ref|, that over max(1, max |ref|))."""
-    diff = (got.float() - ref.float()).abs().max().item()
-    return diff, diff / max(1.0, ref.float().abs().max().item())
+    """(max |got - ref|, that over max(1, max |ref|)), in f64."""
+    diff = (got.double() - ref.double()).abs().max().item()
+    return diff, diff / max(1.0, ref.double().abs().max().item())
 
 
-def bound_ms(flops: float, nbytes: float, bf16: bool) -> tuple:
-    t_ops = flops / (PEAK_BF16 if bf16 else PEAK_F32)
+def bound_ms(flops: float, nbytes: float, bf16: bool,
+             peak: float = None) -> tuple:
+    """(ms, what bounds it) of ``flops`` at the bf16 or f32 peak, or at
+    ``peak`` FLOP/s where given, against ``nbytes`` at the HBM rate."""
+    t_ops = flops / (peak or (PEAK_BF16 if bf16 else PEAK_F32))
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -467,18 +463,44 @@ def check_block1d_bwd(torch, dev):
     return main, rows
 
 
+def split_tf32_plain(torch, x, w1, b1, w2, b2, k, dils):
+    """K3's f32 arithmetic with plain operations: each conv as the three
+    products a_lo w_hi + a_hi w_lo + a_hi w_hi of TF32 parts, each exact
+    in f32 (no TF32 in the conv), summed in f32."""
+    import torch.nn.functional as F
+
+    from serenade_tpu_torch.models.layers import conv1d
+    from serenade_tpu_torch.ops.resblock_cuda import tf32_split
+
+    def conv(a, w, b, d):
+        (ah, al), (wh, wl) = tf32_split(a), tf32_split(w)
+        out = b
+        for aa, ww in ((al, wh), (ah, wl), (ah, wh)):
+            out = out + conv1d(aa, ww, None, dilation=d,
+                               padding=((k - 1) // 2 * d,) * 2)
+        return out
+
+    h = x
+    for i, d in enumerate(dils):
+        o = conv(F.leaky_relu(h, 0.1), w1[i], b1[i], d)
+        h = h + conv(F.leaky_relu(o, 0.1), w2[i], b2[i], 1)
+    return h
+
+
 def check_resblock(torch, dev):
-    """K3 against resblock_branch_plain (cuDNN without TF32).  Its bound
-    is stated two ways: the f32 operations at the FMA units' rate (the
-    kernels line's bound_ms) and the three TF32 products a split-TF32
-    kernel makes of each, at the tensor cores' TF32 rate."""
+    """K3 against resblock_branch_plain (cuDNN without TF32).  f32 rows
+    also hold both against the plain branch in f64, and the small C 64,
+    k 11 case against ``split_tf32_plain`` on the CPU.  The f32 bound is
+    the work as split TF32, three TF32 products for each f32 one at the
+    tensor cores' TF32 rate, the least time f32 accuracy takes on the
+    card; ``bound_f32_fma_ms`` states it at the FMA units' rate."""
     from serenade_tpu_torch.ops import _cuda, resblock_cuda as K
 
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
     dils = (1, 3, 5)
 
-    def case(b, t, c, k, dtype, tol, timed):
+    def case(b, t, c, k, dtype, tol, timed, emulate=False):
         x = torch.randn((b, t, c), generator=gen, device=dev).to(dtype)
         ws = [(torch.randn((3, c, c, k), generator=gen, device=dev)
                / math.sqrt(k * c)).to(dtype) for _ in range(2)]
@@ -496,15 +518,30 @@ def check_resblock(torch, dev):
         row = {"shape": [b, t, c, k], "dtype": str(dtype)[6:],
                "route": plan["route"], "max_abs_err": err, "rel_err": rel,
                "tol": tol, "ok": rel <= tol}
+        if dtype == torch.float32:
+            ref64 = K.resblock_branch_plain(
+                *(a.double() for a in args), kernel_size=k, dilations=dils)
+            row["rel_err_f64"] = rel_err(torch, out, ref64)[1]
+            row["plain_rel_err_f64"] = rel_err(torch, ref, ref64)[1]
+            if emulate:
+                emu = split_tf32_plain(torch, *(a.cpu() for a in args), k,
+                                       dils)
+                row["rel_err_split_plain"] = rel_err(torch, out.cpu(), emu)[1]
+                row["split_plain_rel_err"] = rel_err(torch, emu,
+                                                     ref.cpu())[1]
+                row["split_plain_rel_err_f64"] = rel_err(torch, emu,
+                                                         ref64.cpu())[1]
         if timed:
             es = x.element_size()
             nbytes = es * (2 * b * t * c + 2 * 3 * k * c * c) + 24 * c
             flops = 3 * 2 * 2.0 * b * t * k * c * c
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                flops, nbytes, dtype == torch.bfloat16)
             if dtype == torch.float32:
-                row["bound_split_tf32_ms"] = max(
-                    3 * flops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    3 * flops, nbytes, False, PEAK_TF32)
+                row["bound_f32_fma_ms"] = bound_ms(flops, nbytes, False)[0]
+            else:
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    flops, nbytes, True)
             if plan["route"] == "tf32":
                 row["plan"] = [{k: p[k] for k in ("bm", "ctas", "stages",
                                                   "smem_bytes")}
@@ -516,11 +553,14 @@ def check_resblock(torch, dev):
                 kernel_size=k, dilations=dils), 5)
             row["library_ms"] = None
             row["plain_scope"], row["library_scope"] = ["out"], None
+            # a bound is a least time: a kernel under it means a wrong bound
+            row["ok"] &= row["ms"] >= row["bound_ms"]
         rows.append(row)
         return row
 
     case(1, 300, 32, 3, torch.float32, 1e-4, False)
     case(2, 150, 128, 11, torch.float32, 1e-4, False)
+    case(1, 256, 64, 11, torch.float32, 1e-4, False, emulate=True)
     main = case(1, 8192, 256, 11, torch.float32, 1e-4, True)
     for t, c in ((8192, 256), (49152, 128), (245760, 64)):
         for k in (3, 7, 11):
@@ -886,8 +926,8 @@ def kernel_entries(torch, dev):
             "plain_scope": own["plain_scope"],
             "library_scope": own["library_scope"],
             "shape": row["shape"], "dtype": row["dtype"]}
-        if "bound_split_tf32_ms" in timing:
-            entries[name]["bound_split_tf32_ms"] = timing["bound_split_tf32_ms"]
+        if "bound_f32_fma_ms" in timing:
+            entries[name]["bound_f32_fma_ms"] = timing["bound_f32_fma_ms"]
 
     for name, check in (("flash_fwd", check_flash),
                         ("block1d_fwd", check_block1d),
@@ -912,63 +952,6 @@ def kernel_entries(torch, dev):
             entries[names[1][0]]["library_backend"] = \
                 main_row["library_backend"]
     return ok, entries
-
-
-# the redesigned kernels' shapes on the main paths: K2 (b, t, cin, cout)
-# bf16, K3 (t, c, k) f32 at batch 1, dilations 1, 3, 5
-COMPARE_K2 = [(1, 1536, 1024, 512), (1, 1536, 242, 512), (1, 1536, 512, 512),
-              (1, 768, 512, 512), (1, 768, 1024, 512), (16, 512, 1024, 512),
-              (16, 512, 242, 512)]
-COMPARE_K3 = [(t, c, k) for t, c in ((8192, 256), (49152, 128),
-                                     (245760, 64)) for k in (3, 7, 11)]
-
-
-def time_tree(root: str) -> int:
-    """Times K2's and K3's wrappers of the package under ``root`` (its own
-    build directory) at the COMPARE shapes; one JSON line."""
-    import torch
-
-    sys.path.insert(0, root)
-    from serenade_tpu_torch.ops import block1d_cuda, resblock_cuda
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(9)
-    k2, k3 = {}, {}
-    for b, t, cin, cout in COMPARE_K2:
-        x = torch.randn((b, t, cin), generator=gen, device=dev).bfloat16()
-        w = (torch.randn((cout, cin, 3), generator=gen, device=dev)
-             / math.sqrt(3 * cin)).bfloat16()
-        p = [0.1 * torch.randn((cout,), generator=gen, device=dev) + i
-             for i in (0, 1, 0)]
-        mask = torch.ones((b, t, 1), device=dev)
-        args = block1d_cuda.prepare_forward(x, mask, w, *p)
-        k2[str([b, t, cin, cout])] = cuda_ms(
-            torch, lambda: block1d_cuda._block1d_cuda(*args, 8, 1e-5), 20)
-    for t, c, k in COMPARE_K3:
-        x = torch.randn((1, t, c), generator=gen, device=dev)
-        w = torch.randn((3, c, c, k), generator=gen, device=dev) / math.sqrt(
-            k * c)
-        bias = 0.1 * torch.randn((3, c), generator=gen, device=dev)
-        k3[str([1, t, c, k])] = cuda_ms(torch, lambda: resblock_cuda.
-                                        resblock_branch(
-                                            x, w, bias, w, bias,
-                                            kernel_size=k,
-                                            dilations=(1, 3, 5)), 5)
-    emit({"tree": root, "block1d_fwd_ms": k2, "resblock_branch_ms": k3})
-    return 0
-
-
-def compare(root: str) -> int:
-    from pathlib import Path
-
-    script = Path(__file__).resolve()
-    root = str(Path(root).resolve())
-    for tree in (root, str(script.parent), str(script.parent), root):
-        proc = subprocess.run([sys.executable, str(script), "--time-tree",
-                               tree], cwd=tree)
-        if proc.returncode:
-            return proc.returncode
-    return 0
 
 
 def main() -> int:
@@ -1033,7 +1016,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] in ("--compare", "--time-tree"):
-        sys.exit((compare if sys.argv[1] == "--compare" else time_tree)(
-            sys.argv[2]))
     sys.exit(main())

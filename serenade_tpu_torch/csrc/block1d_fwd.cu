@@ -169,6 +169,10 @@ constexpr int KC = 64;               // input channels a stage (128 bytes)
 constexpr int THREADS = 384;
 constexpr int XBOX = BM * 128;       // one tap's x box, bytes
 constexpr int MAX_STAGES = 6;
+// the cp.async producer completes stage c - 1 only after it has waited for
+// stage c's slot, which the consumers free only after stage c - 1: two
+// stages would wait on each other
+constexpr int MIN_STAGES_CP_ASYNC = 3;
 
 __host__ __device__ constexpr int stage_bytes(int wn) {
   return 3 * XBOX + 3 * 2 * wn * 128;
@@ -460,7 +464,8 @@ extern "C" int serenade_block1d_fwd(
     const int cin8 = (Cin + 7) / 8 * 8;
     if ((wn != 32 && wn != 64) || Cin % 2 != 0 || (x_by_tma && Cin % 8) ||
         grid_x != (Tlen + k2::BM - 1) / k2::BM ||
-        grid_y != (Cout + 2 * wn - 1) / (2 * wn) || stages < 2 ||
+        grid_y != (Cout + 2 * wn - 1) / (2 * wn) ||
+        stages < (x_by_tma ? 2 : k2::MIN_STAGES_CP_ASYNC) ||
         stages > k2::MAX_STAGES ||
         smem != stages * k2::stage_bytes(wn) + 1024)
       return (int)cudaErrorInvalidValue;

@@ -157,6 +157,9 @@ def prepare_forward(x, mask, weight, bias, gamma, beta):
 K2_ROWS = 64
 K2_WN = (64, 32)
 K2_MAX_STAGES = 6
+# least stages a ring may have, by x's loader: the cp.async producer
+# completes a stage only after it has waited for the next one's slot
+K2_MIN_STAGES = {"tma": 2, "cp.async": 3}
 # the card's 232,448 bytes less 4 KB for the static barriers and sums
 K2_SMEM_LIMIT = 232448 - 4096
 
@@ -193,10 +196,13 @@ def k2_plan(b: int, t: int, cin: int, cout: int, dtype,
             best = (est, wn, ctas)
     _, wn, ctas = best
     stages = min(K2_MAX_STAGES, (K2_SMEM_LIMIT - 1024) // k2_stage_bytes(wn))
+    loader = "tma" if cin % 8 == 0 else "cp.async"
+    _cuda.require(stages >= K2_MIN_STAGES[loader],
+                  f"K2: {stages} stages of {loader} loads would deadlock")
     return {"wn": wn, "grid": (tiles, -(-cout // (2 * wn)), b), "ctas": ctas,
             "stages": stages,
             "smem_bytes": stages * k2_stage_bytes(wn) + 1024,
-            "x_loader": "tma" if cin % 8 == 0 else "cp.async"}
+            "x_loader": loader}
 
 
 def _k2_taps(weight):

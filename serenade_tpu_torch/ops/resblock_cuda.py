@@ -79,19 +79,44 @@ def tf32_split(x: torch.Tensor):
     return hi, tf32_round(x.float() - hi)
 
 
-def _tf32_weights(w1, w2):
-    """The TF32 kernel's weights: ``(n_dil, 2, K, 2, Cout, Cin)`` f32 —
-    conv1 then conv2, each tap's hi then lo part, Cin contiguous (K-major,
-    as TF32 wgmma reads B)."""
+def _group(p) -> tuple:
+    """A branch parameter's tensors: a stacked ``(n_dil, ...)`` tensor, or
+    the sequence of its n_dil per-dilation tensors."""
+    return (p,) if torch.is_tensor(p) else tuple(p)
+
+
+def _stacked(ps: tuple, rank: int) -> torch.Tensor:
+    """A ``_group`` as one ``(n_dil, ...)`` tensor of ``rank`` dimensions."""
+    return ps[0] if len(ps) == 1 and ps[0].dim() == rank else torch.stack(ps)
+
+
+def _tf32_operands(*params):
+    """The TF32 kernel's operands from the tensors of w1, w2, b1 and b2,
+    four ``_group``s of one length: the weights ``(n_dil, 2, K, 2, Cout,
+    Cin)`` f32 — conv1 then conv2, each tap's hi then lo part, Cin
+    contiguous (K-major, as TF32 wgmma reads B) — and the biases
+    ``(n_dil, C)`` f32."""
+    q = len(params) // 4
+    w1, w2, b1, b2 = (_stacked(params[i * q:(i + 1) * q], rank)
+                      for i, rank in enumerate((4, 4, 2, 2)))
     parts = []
     for w in (w1, w2):
         taps = w.float().permute(0, 3, 1, 2)             # (n, K, Cout, Cin)
         parts.append(torch.stack(tf32_split(taps), dim=2))
-    return torch.stack(parts, dim=1).contiguous()
+    return (torch.stack(parts, dim=1).contiguous(),
+            b1.float().contiguous(), b2.float().contiguous())
 
 
-# made once per version of the (stacked) weights the wrapper is given
-_TF32_WEIGHTS = _cuda.VersionCache(_tf32_weights)
+# made once per version of the parameter tensors the wrapper is given
+_TF32_OPERANDS = _cuda.VersionCache(_tf32_operands)
+
+
+def tf32_operands(w1, b1, w2, b2):
+    """(weights, b1, b2) of the TF32 kernel, made once per version of the
+    given tensors (each parameter stacked or per dilation, as
+    ``resblock_branch`` takes them)."""
+    return _TF32_OPERANDS(*_group(w1), *_group(w2), *_group(b1),
+                          *_group(b2))
 
 
 def _pass_shape(c: int):
@@ -225,16 +250,20 @@ def _branch_cuda(x, w1, b1, w2, b2, k, dilations, add):
     dev = x.device
     _cuda.require(x.dtype in _cuda.DTYPE_CODE, f"dtype {x.dtype}")
     _cuda.require(x.is_contiguous(), "x must be contiguous (B, T, C)")
-    for name, w in (("w1", w1), ("w2", w2)):
-        _cuda.require(w.shape == (n, c, c, k) and w.device == dev,
-                      f"{name} {tuple(w.shape)} != {(n, c, c, k)}")
+    groups = [_group(p) for p in (w1, b1, w2, b2)]
+    _cuda.require(len({len(g) for g in groups}) == 1,
+                  "w1, b1, w2, b2: each stacked, or each per dilation")
+    for name, ws in (("w1", groups[0]), ("w2", groups[2])):
+        shape = (tuple(ws[0].shape) if ws[0].dim() == 4
+                 else (len(ws), *ws[0].shape))
+        _cuda.require(shape == (n, c, c, k)
+                      and all(w.device == dev for w in ws),
+                      f"{name} {shape} != {(n, c, c, k)} on {dev}")
     sms = _cuda.sm_count(dev)
     plans = [k3_plan(b, t, c, k, d, add, x.dtype, sms) for d in dilations]
-    b1f = b1.float().contiguous()
-    b2f = b2.float().contiguous()
     h = x
     if plans[0]["route"] == "tf32":
-        wp = _TF32_WEIGHTS(w1, w2)
+        wp, b1f, b2f = tf32_operands(w1, b1, w2, b2)
         fn = _cuda.library("resblock_branch").serenade_resblock_conv_tf32
         fn.restype = ctypes.c_int
         mid = torch.empty_like(x) if add else None
@@ -251,8 +280,10 @@ def _branch_cuda(x, w1, b1, w2, b2, k, dilations, add):
             h = out
     else:
         # the FMA kernel reads taps as (n, K, Cin, Cout): Cout contiguous
-        w1t = w1.to(x.dtype).permute(0, 3, 2, 1).contiguous()
-        w2t = w2.to(x.dtype).permute(0, 3, 2, 1).contiguous()
+        w1t, w2t = (_stacked(_group(w), 4).to(x.dtype).permute(0, 3, 2, 1)
+                    .contiguous() for w in (w1, w2))
+        b1f, b2f = (_stacked(_group(p), 2).float().contiguous()
+                    for p in (b1, b2))
         fn = _cuda.library("resblock_branch").serenade_resblock_stage
         fn.restype = ctypes.c_int
         for i, (d, plan) in enumerate(zip(dilations, plans)):
@@ -276,18 +307,21 @@ def resblock_branch(x, w1, b1, w2, b2, *, kernel_size: int,
     """One HiFiGAN residual branch on ``(B, T, C)``.
 
     w1/w2: ``(n_dil, C, C, K)`` conv kernels in torch layout (w2 unused
-    without additional convs); b1/b2: ``(n_dil, C)``.  On CUDA the f32
-    kernel splits the weights once per version of w1 and w2: pass the same
-    tensors from call to call (``HiFiGANResidualBlock`` does).
+    without additional convs); b1/b2: ``(n_dil, C)``.  Each may also be
+    given as the sequence of its n_dil per-dilation tensors, as
+    ``HiFiGANResidualBlock`` passes its parameters.  On CUDA the f32 kernel
+    splits the weights once per version of the tensors given
+    (``tf32_operands``): pass the same tensors from call to call.
     """
     assert kernel_size % 2 == 1
     if not x.is_cuda:
+        w1, w2 = (_stacked(_group(w), 4).to(x.dtype) for w in (w1, w2))
+        b1, b2 = (_stacked(_group(p), 2).to(x.dtype) for p in (b1, b2))
         return resblock_branch_plain(
-            x, w1.to(x.dtype), b1.to(x.dtype), w2.to(x.dtype),
-            b2.to(x.dtype), kernel_size=kernel_size, dilations=dilations,
+            x, w1, b1, w2, b2, kernel_size=kernel_size, dilations=dilations,
             use_additional_convs=use_additional_convs)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w1, b1, w2, b2)):
+            t.requires_grad for p in (x, w1, b1, w2, b2) for t in _group(p)):
         raise RuntimeError(
             "resblock_branch: the CUDA kernel has no backward; run it under "
             "torch.no_grad() or with inputs that need no gradient")

@@ -12,13 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from serenade_tpu_torch.models.layers import Conv1d, as_dtype
-from serenade_tpu_torch.ops import _cuda
 from serenade_tpu_torch.ops.resblock_cuda import resblock_branch
-
-# the branch's stacked parameters, made once per version of the parameters
-# when no gradient flows, so that the wrapper is handed the same tensors
-# from call to call and prepares its kernel's weights once
-_STACKED = _cuda.VersionCache(lambda *ps: torch.stack(ps))
 
 
 def leaky_relu_01(x):
@@ -48,14 +42,11 @@ class HiFiGANResidualBlock(nn.Module):
         convs1 = [getattr(self, f"conv1_{i}") for i in range(n)]
         convs2 = ([getattr(self, f"conv2_{i}") for i in range(n)]
                   if self.use_additional_convs else convs1)
-        grad = torch.is_grad_enabled() and any(
-            p.requires_grad for p in self.parameters())
-        stack = torch.stack if grad else (lambda ps: _STACKED(*ps))
-        w1 = stack([c.weight for c in convs1])
-        b1 = stack([c.bias for c in convs1])
-        w2 = stack([c.weight for c in convs2])
-        b2 = stack([c.bias for c in convs2])
+        # the parameters themselves, per dilation: the wrapper prepares its
+        # kernel's weights once per version of these tensors
         return resblock_branch(
-            x.to(self.dtype), w1, b1, w2, b2, kernel_size=self.kernel_size,
+            x.to(self.dtype), [c.weight for c in convs1],
+            [c.bias for c in convs1], [c.weight for c in convs2],
+            [c.bias for c in convs2], kernel_size=self.kernel_size,
             dilations=self.dilations,
             use_additional_convs=self.use_additional_convs)

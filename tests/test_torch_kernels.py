@@ -560,7 +560,8 @@ def test_k2_plan_covers_every_tile_once(b, t, cin, cout):
             if co < cout]
     assert rows == list(range(t)) and cols == list(range(cout))
     assert plan["ctas"] == gx * gy * gb
-    assert 2 <= plan["stages"] <= block1d_cuda.K2_MAX_STAGES
+    assert (block1d_cuda.K2_MIN_STAGES[plan["x_loader"]] <= plan["stages"]
+            <= block1d_cuda.K2_MAX_STAGES)
     assert plan["smem_bytes"] == (plan["stages"]
                                   * block1d_cuda.k2_stage_bytes(plan["wn"])
                                   + 1024)
@@ -587,6 +588,20 @@ def test_k2_plan_refuses_what_the_hopper_kernel_cannot_load():
     # f32 runs the FMA kernel at any shape, with no ring
     f32 = block1d_cuda.k2_plan(2, 70, 21, 64, torch.float32, SM_COUNT)
     assert f32["grid"] == (2, 1, 2) and f32["smem_bytes"] == 0
+    # room for two stages only: enough for TMA loads, not for cp.async ones
+    two = 2 * block1d_cuda.k2_stage_bytes(64) + 1024
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(block1d_cuda, "K2_SMEM_LIMIT", two)
+        block1d_cuda.k2_plan.cache_clear()
+        try:
+            plan = block1d_cuda.k2_plan(1, 1536, 1024, 512, torch.bfloat16,
+                                        SM_COUNT)
+            assert (plan["wn"], plan["stages"]) == (64, 2)
+            with pytest.raises(ValueError, match="2 stages of cp.async"):
+                block1d_cuda.k2_plan(1, 1536, 242, 512, torch.bfloat16,
+                                     SM_COUNT)
+        finally:
+            block1d_cuda.k2_plan.cache_clear()
 
 
 def test_k2_taps_lay_out_each_tap_k_major_and_padded():
@@ -618,20 +633,33 @@ def test_version_cache_makes_once_per_version_and_drops_freed_tensors():
     del a
     gc.collect()
     assert len(cache) == 0
-    # the residual block stacks its parameters once per version, so the
-    # wrapper is handed the same tensors from call to call
+    # the residual block hands the wrapper its parameters themselves, per
+    # dilation, so K3's split weights are made once per version of them
     from serenade_tpu_torch.vocoder import layers
 
     block = HiFiGANResidualBlock(3, 16, (1, 3, 5))
     x = torch.randn(1, 40, 16)
-    with torch.no_grad():
+    seen = []
+
+    def spy(x, *params, **kw):
+        seen.append(params)
+        return resblock_cuda.resblock_branch(x, *params, **kw)
+
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "resblock_branch", spy)
         for p in block.parameters():
             p.normal_(0.0, 0.1)
-        n0 = len(layers._STACKED)
         out1 = block(x)
-        n1 = len(layers._STACKED)
         out2 = block(x)
-        assert n1 == n0 + 4 == len(layers._STACKED)
         assert torch.equal(out1, out2)
+        assert all(a is b for pa, pb in zip(*seen) for a, b in zip(pa, pb))
+        ops = resblock_cuda.tf32_operands(*seen[0])
+        assert resblock_cuda.tf32_operands(*seen[1]) is ops
+        w1 = torch.stack([block.conv1_0.weight, block.conv1_1.weight,
+                          block.conv1_2.weight])
+        assert torch.equal(ops[0][:, 0, :, 0],
+                           resblock_cuda.tf32_round(w1.permute(0, 3, 1, 2)))
+        assert torch.equal(ops[1][0], block.conv1_0.bias)
         block.conv1_0.weight.mul_(2.0)
         assert not torch.equal(block(x), out1)
+        assert resblock_cuda.tf32_operands(*seen[2]) is not ops
