@@ -290,7 +290,7 @@ def sdpa_backward_ms(torch, q, k, v, bmask, scale):
 def check_flash_bwd(torch, dev):
     """K4 and K5 against flash_attention_backward_plain on the same q, k,
     v, dO and K1's O and L."""
-    from serenade_tpu_torch.ops import flash_cuda as K
+    from serenade_tpu_torch.ops import _cuda, flash_cuda as K
 
     gen = torch.Generator(device=dev).manual_seed(11)
     rows = []
@@ -328,6 +328,10 @@ def check_flash_bwd(torch, dev):
                 q, k, v, mask, g, lse, dsum, scale), 10)
             row["dkv"]["ms"] = cuda_ms(torch, lambda: K.flash_bwd_dkv(
                 q, k, v, mask, g, lse, dsum, scale), 10)
+            plan = K.k5_plan(b, h, t, t, d, dtype, _cuda.sm_count(dev))
+            row["dkv"]["plan"] = {k: plan[k] for k in (
+                "grid", "threads", "smem_bytes", "keys", "query_tile",
+                "stages", "ctas")}
             # the plain version and SDPA's backward compute dq, dk and dv
             # together: each stands beside K4 and K5 with that scope
             row["plain_ms"] = cuda_ms(
@@ -342,6 +346,10 @@ def check_flash_bwd(torch, dev):
     case(2, 2, 75, 32, torch.float32, [75, 40], 1e-4, False)
     case(2, 2, 130, 128, torch.float32, [130, 77], 1e-4, False)
     case(2, 4, 200, 512, torch.bfloat16, [200, 131], 2e-2, False)
+    # K5's Hopper kernel at Tk 200 (Tq not a multiple of 64): key blocks
+    # 96-127 and on of the second sample wholly padded (they store zeros),
+    # one valid key in the third
+    case(3, 4, 200, 512, torch.bfloat16, [200, 96, 1], 2e-2, False)
     main = case(16, 4, 512, 512, torch.bfloat16, [512] + [475] * 15, 2e-2,
                 True)
     case(16, 4, 256, 512, torch.bfloat16, [256] + [219] * 15, 2e-2, True)
@@ -350,9 +358,10 @@ def check_flash_bwd(torch, dev):
 
 def check_block1d_bwd(torch, dev):
     """K6 and K7 against block1d_backward_plain on the same x, weights,
-    output cotangent and K2's y and statistics.  K7's yardstick is cuDNN's
-    conv1d weight gradient on the same x·mask and dy."""
-    from torch.nn.grad import conv1d_weight
+    output cotangent and K2's y and statistics.  K6's yardstick is cuDNN's
+    conv1d data gradient on the same dy and weight (its dx product alone),
+    K7's cuDNN's conv1d weight gradient on the same x·mask and dy."""
+    from torch.nn.grad import conv1d_input, conv1d_weight
 
     from serenade_tpu_torch.ops import _cuda, block1d_cuda as K
 
@@ -411,14 +420,29 @@ def check_block1d_bwd(torch, dev):
                 torch, lambda: K.block1d_backward_plain(
                     x, mask, w, bias, gamma, beta, g), 5)
             row["data"]["plain_scope"] = list(names)
-            row["data"]["library_ms"] = None
+            plan = K.k6_plan(b, t, cin, cout, dtype, _cuda.sm_count(dev))
+            row["data"]["plan"] = {k: plan[k] for k in (
+                "bn", "grid", "ctas", "stages", "smem_bytes")}
+            # cuDNN's data gradient of conv1d (k 3, padding 1) on the same
+            # dy and weight, (B, C, T) as cuDNN takes them, held against
+            # the plain dx on the valid frames (cuDNN does not mask) before
+            # it is timed
+            dy_bct = dy.transpose(1, 2).contiguous()
+            lib = conv1d_input((b, cin, t), w, dy_bct, padding=1)
+            torch.cuda.synchronize()
+            row["data"]["library_max_abs_err"], lib_rel = rel_err(
+                torch, lib.transpose(1, 2) * mask, refs[0])
+            row["ok"] &= lib_rel <= tol
+            row["data"]["library_ms"] = cuda_ms(
+                torch, lambda: conv1d_input((b, cin, t), w, dy_bct,
+                                            padding=1), 10)
+            row["data"]["library_scope"] = ["dx"]
             row["weight"]["plain_ms"] = cuda_ms(
                 torch, lambda: K.block1d_weight_grad_plain(x, mask, dy), 5)
             row["weight"]["plain_scope"] = ["dw"]
             # cuDNN's weight gradient of conv1d (k 3, padding 1) on the same
             # x·mask and dy, both (B, C, T) as cuDNN takes them
             xm_bct = (x * mask).to(dtype).transpose(1, 2).contiguous()
-            dy_bct = dy.transpose(1, 2).contiguous()
             lib = conv1d_weight(xm_bct, (cout, cin, 3), dy_bct, padding=1)
             torch.cuda.synchronize()
             row["weight"]["library_max_abs_err"], lib_rel = rel_err(
@@ -434,6 +458,9 @@ def check_block1d_bwd(torch, dev):
     case(2, 70, 20, 64, torch.float32, [70, 33], 1e-4, False)
     case(3, 130, 96, 128, torch.float32, [130, 100, 1], 1e-4, False)
     case(2, 150, 242, 512, torch.bfloat16, [150, 77], 2e-2, False)
+    # K6's Hopper kernel at T 200 (not a multiple of 64): n_b a multiple of
+    # 64 and 1, whose second 128-row tile lies past n_b (stores zeros)
+    case(3, 200, 1024, 512, torch.bfloat16, [200, 128, 1], 2e-2, False)
     main = case(16, 512, 1024, 512, torch.bfloat16, [512] + [475] * 15,
                 2e-2, True)
     for t, cin in ((512, 242), (256, 512), (256, 1024)):
@@ -641,9 +668,9 @@ def main_path(torch, np, dev, counters):
 
 # device symbols of the port's CUDA kernels, as the profiler names them
 KERNEL_SYMBOLS = ("k1::flash_fwd_bf16_kernel", "dq_bf16_kernel",
-                  "dkv_bf16_kernel", "k2::conv_stats_kernel",
+                  "k5::dkv_bf16_kernel", "k2::conv_stats_kernel",
                   "norm_mish", "gn_reduce_kernel", "gn_dy_kernel",
-                  "dx_bf16_kernel", "k7::dw_bf16_kernel",
+                  "k6::dx_bf16_kernel", "k7::dw_bf16_kernel",
                   "k3::conv_tf32_kernel", "stage_kernel")
 
 
@@ -797,7 +824,7 @@ def train_path(torch, np, dev, counters):
                                        torch.cuda.synchronize()))
     prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / step_s
     emit(dict(phase="train_profile", **prof))
-    return ok, launches
+    return ok, launches, prof["port_kernels"]
 
 
 def train_parity(torch, np, dev):
@@ -926,8 +953,9 @@ def kernel_entries(torch, dev):
             "plain_scope": own["plain_scope"],
             "library_scope": own["library_scope"],
             "shape": row["shape"], "dtype": row["dtype"]}
-        if "bound_f32_fma_ms" in timing:
-            entries[name]["bound_f32_fma_ms"] = timing["bound_f32_fma_ms"]
+        for key in ("bound_f32_fma_ms", "plan"):
+            if key in timing:
+                entries[name][key] = timing[key]
 
     for name, check in (("flash_fwd", check_flash),
                         ("block1d_fwd", check_block1d),
@@ -952,6 +980,70 @@ def kernel_entries(torch, dev):
             entries[names[1][0]]["library_backend"] = \
                 main_row["library_backend"]
     return ok, entries
+
+
+def time_tree(root: str) -> None:
+    """``--time-tree ROOT``: K5's and K6's device ms at the train step's
+    shapes through the wrappers of the tree at ROOT (first on sys.path,
+    its kernels built into its own build directory), one JSON line."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from serenade_tpu_torch.ops import block1d_cuda as B, flash_cuda as F
+
+    assert F.__file__.startswith(os.path.abspath(root)), F.__file__
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+    out = {"root": root, "flash_bwd_dkv": {}, "block1d_bwd_data": {}}
+    for t in (512, 256):
+        q, k, v, g = (_heads(torch, gen, dev, 16, 4, t, 512, bf16)
+                      for _ in range(4))
+        valid = t - 37
+        mask = (torch.arange(t, device=dev)[None, :]
+                < torch.tensor([t] + [valid] * 15, device=dev)[:, None]
+                ).float()
+        o, lse = F._flash_cuda(q, k, v, mask, 512 ** -0.5)
+        g, dsum = F.flash_bwd_prepare(o, g, bf16)
+        out["flash_bwd_dkv"][f"16,4,{t},512"] = cuda_ms(
+            torch, lambda: F.flash_bwd_dkv(q, k, v, mask, g, lse, dsum,
+                                           512 ** -0.5), 10)
+    for t, cin in ((512, 1024), (512, 242), (256, 512), (256, 1024)):
+        x = torch.randn((16, t, cin), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((512, cin, 3), generator=gen, device=dev)
+             / math.sqrt(3 * cin)).to(bf16)
+        bias, gamma, beta = (0.1 * torch.randn((512,), generator=gen,
+                                               device=dev) for _ in range(3))
+        g = torch.randn((16, t, 512), generator=gen, device=dev).to(bf16)
+        lens = torch.tensor([t] + [t - (37 if t == 512 else 18)] * 15,
+                            dtype=torch.int32, device=dev)
+        gamma = gamma + 1.0
+        _, y, stats = B._block1d_cuda(x, lens, w, bias, gamma, beta, 8, 1e-5)
+        out["block1d_bwd_data"][f"16,{t},{cin},512"] = cuda_ms(
+            torch, lambda: B.block1d_bwd_data(x, lens, w, gamma, beta, y,
+                                              stats, g), 10)
+    emit(out)
+
+
+def compare(root: str) -> int:
+    """``--compare ROOT``: this tree's and ROOT's K5 and K6 timed in turns
+    (ROOT, this, this, ROOT), each run in its own process on this card."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for tree in (root, here, here, root):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--time-tree", tree], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    emit({"phase": "compare", "runs": runs})
+    return 0
 
 
 def main() -> int:
@@ -992,10 +1084,17 @@ def main() -> int:
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch"):
         entries[name]["launches"] = launches[name]
     ok &= slice_parity(torch, np, dev)
-    train_ok, launches = train_path(torch, np, dev, counters)
+    train_ok, launches, kernels = train_path(torch, np, dev, counters)
     ok &= train_ok
     for name in OUTPUTS:
         entries[name]["launches"] = launches[name]
+    # K6's three kernels in the profiled train step, ms a call each: which
+    # part of it is left to the next redesign
+    entries["block1d_bwd_data"]["profile_ms"] = {
+        part: kernels[sym]["ms"] / kernels[sym]["count"]
+        for part, sym in (("dx", "k6::dx_bf16_kernel"),
+                          ("gn_reduce", "gn_reduce_kernel"),
+                          ("gn_dy", "gn_dy_kernel")) if sym in kernels}
     ok &= train_parity(torch, np, dev)
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
@@ -1016,4 +1115,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-tree":
+        sys.exit(time_tree(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        sys.exit(compare(sys.argv[2]))
     sys.exit(main())

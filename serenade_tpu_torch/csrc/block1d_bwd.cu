@@ -28,8 +28,23 @@
 //       dyhat, adds dgamma and dbeta per channel (f32 atomics) and the two
 //       group sums (shared-memory then global f64 atomics, K2's pattern);
 //   (2) gn_dy: the same tiles form dy, store it in x's type and add dbias;
-//   (3) dx: K2's conv with the taps flipped and transposed (bf16 on tensor
-//       cores through mma.sync, f32 on FMA units), output masked.
+//   (3) dx: K2's conv with the taps flipped and transposed, output masked.
+//   f32 (parity checks): 64 x 64 tiles on FMA units.  bf16 (the train
+//   step), designed for Hopper: one CTA of 384 threads per (128 rows x BN
+//   Cin) tile, BN 256 or 128 as ops/block1d_cuda.py k6_plan fills the
+//   card (K2's 64 x 128 tile reached 15 % of its bound at this product's
+//   size).  The weight is laid out once per weight version as (3, Cin256,
+//   Cout) by k6_taps: tap 2 - j at index j, Cout contiguous (K-major B),
+//   Cin padded with zero rows to 256, so no CTA transposes it.  Warpgroup
+//   0 keeps a TMA ring of (64-channel chunk, tap) stages full: a 128-row
+//   dy box at rows t0 - 1 + j through a 3-D (Cout, T, B) map, which
+//   zero-fills t = -1 and t >= T (dy is 0 on n <= t < T, as gn_dy writes
+//   it, so nothing is masked in shared memory), and that tap's BN weight
+//   rows.  Warpgroups 1 and 2 each own 64 rows x BN columns and run wgmma
+//   m64nBNk16, one group in flight while the next stage is waited for.
+//   The epilogue zeroes rows >= n and stores bf16 pairs (4 bytes: Cin 242
+//   rows are 484 bytes, which TMA cannot store); tiles wholly at or past
+//   n store zeros and skip the products.
 // K7 reduces B T rows into (Cout, Cin, 3), time being the reduction axis
 // of a plain GEMM: A = dy [t][co] (M = Cout), B = the x window [t][ci]
 // (N = Cin), both with their M or N axis contiguous in memory.
@@ -66,8 +81,8 @@
 //
 // Atomics make the order of the sums over blocks change from run to run.
 // Not yet used in K6 and K7: a persistent grid, a cluster multicast of
-// the dy tile, the descriptors' base offset in place of three x boxes;
-// K6 still runs on mma.sync without a pipeline.
+// the dy tile or of K6's weight, the descriptors' base offset in place of
+// three boxes a tap, a TMA store of K6's dx.
 #include <string.h>
 
 #include "common.cuh"
@@ -76,8 +91,6 @@
 namespace {
 
 using serenade::from_f;
-using serenade::ld32;
-using serenade::mma_16816;
 using serenade::to_f;
 using bf16 = __nv_bfloat16;
 
@@ -287,78 +300,165 @@ dx_f32_kernel(const float* __restrict__ dy, const int* __restrict__ lengths,
   }
 }
 
-constexpr int TC_THREADS = 128;
-constexpr int XS_LD = BKC + 8;   // staged row: 16 channels + 8 padding
+// bf16 on Hopper: one CTA of 384 threads per (128 time rows x BN input
+// channels) tile of dx, BN 256 or 128 (ops/block1d_cuda.py k6_plan).
+// The reduction runs over (dy channel chunk, tap) steps: each stage holds
+// one tap's 128-row dy box, starting at row t0 - 1 + j (one box a tap,
+// since a one-row shift breaks the 8-row swizzle atom; L2 serves the
+// repeats), and that tap's BN rows of the flipped, transposed weight (64
+// Cout values a row, laid out once per weight version by k6_taps).
+// Warpgroup 0 keeps the ring full by TMA; warpgroups 1 and 2 (setmaxnreg
+// 232) each own 64 rows x BN columns (BN / 2 f32 registers a thread) and
+// run wgmma m64nBNk16 with both operands K-major, one group in flight
+// while the next stage is waited for.
+namespace k6 {
 
-// bf16 dx on tensor cores: K2's conv_stats_bf16_kernel (4 warps, each 16
-// rows x 64 output channels) with the weight read flipped and transposed
-__global__ void __launch_bounds__(TC_THREADS)
-dx_bf16_kernel(const bf16* __restrict__ dy, const int* __restrict__ lengths,
-               const bf16* __restrict__ w, bf16* __restrict__ dx, int Tlen,
-               int Cin, int Cout) {
-  __shared__ __align__(16) bf16 Xs[BM + 2][XS_LD];
-  __shared__ __align__(16) bf16 Ws[3][BN][XS_LD];
-  const int b = blockIdx.z, t0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+constexpr int BM = 128;            // time rows a CTA: 64 a consumer
+constexpr int KC = 64;             // dy channels a stage (128 bytes)
+constexpr int THREADS = 384;
+constexpr int ABOX = BM * 128;     // one tap's dy box, bytes
+constexpr int MAX_STAGES = 8;
+constexpr int TAPS_ROWS = 256;     // k6_taps pads Cin to a multiple of this
+
+__host__ __device__ constexpr int stage_bytes(int bn) {
+  return ABOX + bn * 128;
+}
+
+template <int BN>
+__device__ __forceinline__ void mma(float (&acc)[BN / 2], uint64_t da,
+                                    uint64_t db);
+template <>
+__device__ __forceinline__ void mma<256>(float (&acc)[128], uint64_t da,
+                                         uint64_t db) {
+  hopper::wgmma_m64n256k16_ss<0, 0>(acc, da, db, 1);
+}
+template <>
+__device__ __forceinline__ void mma<128>(float (&acc)[64], uint64_t da,
+                                         uint64_t db) {
+  hopper::wgmma_m64n128k16_ss<0, 0>(acc, da, db, 1);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+dx_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
+               const __grid_constant__ CUtensorMap w_map,
+               const int* __restrict__ lengths, bf16* __restrict__ dx,
+               int Tlen, int Cin, int Cout, int stages) {
+  constexpr int SB = stage_bytes(BN);
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int t0 = blockIdx.x * BM, o0 = blockIdx.y * BN, b = blockIdx.z;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int n = lengths[b];
-  const bf16 zero = __float2bfloat16(0.f);
+  // dx rows at or past n are 0: a tile that lies wholly there stores
+  // zeros and skips its products
+  const bool active = t0 < n;
+  const int steps = 3 * ((Cout + KC - 1) / KC);
 
-  float acc[BN / 8][4];
-#pragma unroll
-  for (int nn = 0; nn < BN / 8; ++nn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  const bf16* db = dy + (size_t)b * Tlen * Cout;
-  for (int i0 = 0; i0 < Cout; i0 += BKC) {
-    __syncthreads();
-    for (int i = tid; i < (BM + 2) * BKC; i += TC_THREADS) {
-      const int rr = i / BKC, il = i - rr * BKC;
-      const int t = t0 - 1 + rr, ch = i0 + il;
-      Xs[rr][il] = (t >= 0 && t < n && ch < Cout) ? db[(size_t)t * Cout + ch]
-                                                  : zero;
-    }
-    for (int i = tid; i < BKC * BN * 3; i += TC_THREADS) {
-      const int il = i / (BN * 3), rem = i - il * (BN * 3);
-      const int o = rem / 3, jj = rem - o * 3;
-      const int gi = i0 + il, go = c0 + o;
-      Ws[2 - jj][o][il] = (gi < Cout && go < Cin)
-                              ? w[((size_t)gi * Cin + go) * 3 + jj] : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      // output row r reads dy row r - 1 + j, staged at Xs row r + j
-      const int r = 16 * warp + g + j;
-      const uint32_t a[4] = {ld32(&Xs[r][2 * t4]), ld32(&Xs[r + 8][2 * t4]),
-                             ld32(&Xs[r][2 * t4 + 8]),
-                             ld32(&Xs[r + 8][2 * t4 + 8])};
-#pragma unroll
-      for (int nn = 0; nn < BN / 8; ++nn) {
-        const bf16* wp = &Ws[j][8 * nn + g][2 * t4];
-        mma_16816(acc[nn], a, ld32(wp), ld32(wp + 8));
+  if (wg == 0) {
+    // ---- producer: one thread keeps the TMA loads in flight.  dy rows
+    // n <= t < T are 0 in memory (gn_dy writes them) and the map
+    // zero-fills t = -1 and t >= T, so A needs no masking ----
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0 && active) {
+      int s = 0, ph = 0;
+      for (int i = 0; i < steps; ++i) {
+        const int c = i / 3, j = i - 3 * c;
+        uint8_t* st = ring + s * SB;
+        hopper::mbar_wait(&empty[s], ph ^ 1);
+        hopper::mbar_expect_tx(&full[s], SB);
+        hopper::tma_load_3d(st, &dy_map, &full[s], c * KC, t0 - 1 + j, b);
+        hopper::tma_load_3d(st + ABOX, &w_map, &full[s], c * KC, o0, j);
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
       }
     }
+    return;
   }
-  // element e of tile nn: row 16 warp + g + 8 (e >> 1), column
-  // 8 nn + 2 t4 + (e & 1)
+
+  // ---- consumers: warpgroup cw owns rows t0 + 64 cw .. + 63 ----
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;
+  float acc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+  if (active) {
+    int s = 0, ph = 0, prev = -1;
+    for (int i = 0; i < steps; ++i) {
+      uint8_t* st = ring + s * SB;
+      hopper::mbar_wait(&full[s], ph);
+      const uint32_t a = hopper::smem_addr(st) + cw * 64 * 128;
+      const uint32_t w = hopper::smem_addr(st + ABOX);
+      hopper::wgmma_fence();
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks)
+        mma<BN>(acc, hopper::desc_sw128(a + 32 * ks, 16, 1024),
+                hopper::desc_sw128(w + 32 * ks, 16, 1024));
+      hopper::wgmma_commit();
+      hopper::fence_regs(acc);
+      if (prev >= 0) {
+        hopper::wgmma_wait<1>();   // the previous stage's products are done
+        if (tid == 0) hopper::mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+  }
+
+  // epilogue: rows past n get 0; element e is row 16 w + g + 8 ((e >> 1)
+  // & 1), column 8 (e >> 2) + 2 t + (e & 1) of this consumer's 64 x BN
+  // tile; Cin is even, so a pair of columns is in or out together
+  const int w = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int t = t0 + 16 * warp + g + 8 * h;
+    const int t = t0 + 64 * cw + 16 * w + g + 8 * h;
     if (t >= Tlen) continue;
+    const bool keep = t < n;
+    bf16* row = dx + ((size_t)b * Tlen + t) * Cin;
 #pragma unroll
-    for (int nn = 0; nn < BN / 8; ++nn) {
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int o = c0 + 8 * nn + 2 * t4 + p;
-        if (o < Cin)
-          dx[((size_t)b * Tlen + t) * Cin + o] =
-              __float2bfloat16(t < n ? acc[nn][2 * h + p] : 0.f);
-      }
+    for (int i = 0; i < BN / 8; ++i) {
+      const int o = o0 + 8 * i + 2 * t4;
+      if (o < Cin)
+        *reinterpret_cast<uint32_t*>(row + o) = serenade::pack_bf16(
+            keep ? acc[4 * i + 2 * h] : 0.f,
+            keep ? acc[4 * i + 2 * h + 1] : 0.f);
     }
   }
 }
+
+template <int BN>
+int launch(const CUtensorMap& dy_map, const CUtensorMap& w_map,
+           const int* lengths, bf16* dx, int B, int Tlen, int Cin, int Cout,
+           int grid_x, int grid_y, int stages, int smem,
+           cudaStream_t stream) {
+  const cudaError_t a = cudaFuncSetAttribute(
+      dx_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (a != cudaSuccess) return (int)a;
+  dx_bf16_kernel<BN><<<dim3(grid_x, grid_y, B), THREADS, smem, stream>>>(
+      dy_map, w_map, lengths, dx, Tlen, Cin, Cout, stages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k6
 
 // ---------------------------------------------------------------------------
 // K7: dW[co, ci, j] = sum over (b, t) of xm[t - 1 + j, ci] dy[t, co]
@@ -659,16 +759,51 @@ dw_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
 }  // namespace
 
 // dparams (3, Cout) f32, zeroed: dgamma, dbeta, dbias; gsum (B, G, 2) f64,
-// zeroed: the group sums of dyhat and dyhat yhat
+// zeroed: the group sums of dyhat and dyhat yhat.  The caller plans the dx
+// launch (ops/block1d_cuda.py k6_plan) and this entry checks the plan
+// against the kernels' constants before anything runs: bf16 takes `bn`
+// input channels a CTA (256 or 128), the grid (128-row tiles, Cin tiles),
+// the ring's stages and the dynamic shared memory, and reads `w_taps`
+// (3, Cin256, Cout), k6_taps of the weight; f32 reads `w` (Cout, Cin, 3),
+// runs 64 x 64 FMA tiles and takes bn = stages = smem = 0.  A plan that
+// does not match returns cudaErrorInvalidValue.
 extern "C" int serenade_block1d_bwd_data(
-    const int* lengths, const void* w, const float* y,
+    const int* lengths, const void* w, const void* w_taps, const float* y,
     const double* stats, const float* gamma, const float* beta, const void* g,
     double* gsum, void* dx, void* dy, float* dparams, int B, int Tlen,
-    int Cin, int Cout, int G, float eps, int dtype, cudaStream_t stream) {
+    int Cin, int Cout, int G, float eps, int bn, int grid_x, int grid_y,
+    int stages, int smem, int dtype, cudaStream_t stream) {
   if (B <= 0 || Tlen <= 0 || Cin <= 0 || Cout <= 0 || Cout % G != 0)
     return (int)cudaErrorInvalidValue;
   const dim3 gn_grid((Tlen + BM - 1) / BM, (Cout + BN - 1) / BN, B);
-  const dim3 dx_grid((Tlen + BM - 1) / BM, (Cin + BN - 1) / BN, B);
+  CUtensorMap dy_map, w_map;
+  if (dtype == 1) {
+    if ((bn != 128 && bn != 256) || Cin % 2 != 0 || Cout % 8 != 0 ||
+        grid_x != (Tlen + k6::BM - 1) / k6::BM ||
+        grid_y != (Cin + bn - 1) / bn || stages < 2 ||
+        stages > k6::MAX_STAGES ||
+        smem != stages * k6::stage_bytes(bn) + 1024)
+      return (int)cudaErrorInvalidValue;
+    // dy as (Cout, T, B) in boxes of 64 channels x 128 rows; the taps as
+    // (Cout, Cin256, 3) in boxes of 64 channels x bn rows
+    const int cin_pad = (Cin + k6::TAPS_ROWS - 1) / k6::TAPS_ROWS *
+                        k6::TAPS_ROWS;
+    const cuuint64_t dims[3] = {(cuuint64_t)Cout, (cuuint64_t)Tlen,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[2] = {2ull * Cout, 2ull * Cout * Tlen};
+    const cuuint32_t box[3] = {64, (cuuint32_t)k6::BM, 1};
+    int e = hopper::encode_map_bf16(&dy_map, dy, 3, dims, strides, box);
+    if (e) return e;
+    const cuuint64_t wdims[3] = {(cuuint64_t)Cout, (cuuint64_t)cin_pad, 3};
+    const cuuint64_t wstrides[2] = {2ull * Cout, 2ull * Cout * cin_pad};
+    const cuuint32_t wbox[3] = {64, (cuuint32_t)bn, 1};
+    e = hopper::encode_map_bf16(&w_map, w_taps, 3, wdims, wstrides, wbox);
+    if (e) return e;
+  } else if (dtype == 0) {
+    if (bn || stages || smem || grid_x != (Tlen + BM - 1) / BM ||
+        grid_y != (Cin + BN - 1) / BN)
+      return (int)cudaErrorInvalidValue;
+  }
   SERENADE_DISPATCH(dtype, {
     gn_reduce_kernel<T><<<gn_grid, THREADS, 0, stream>>>(
         y, lengths, stats, gamma, beta, static_cast<const T*>(g), gsum,
@@ -680,17 +815,19 @@ extern "C" int serenade_block1d_bwd_data(
         static_cast<T*>(dy), dparams + 2 * Cout, Tlen, Cout, G, eps);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    if (dtype == 1) {
-      dx_bf16_kernel<<<dx_grid, TC_THREADS, 0, stream>>>(
-          static_cast<const bf16*>(dy), lengths, static_cast<const bf16*>(w),
-          static_cast<bf16*>(dx), Tlen, Cin, Cout);
-    } else {
-      dx_f32_kernel<<<dx_grid, THREADS, 0, stream>>>(
-          static_cast<const float*>(dy), lengths,
-          static_cast<const float*>(w), static_cast<float*>(dx), Tlen, Cin,
-          Cout);
-    }
   });
+  if (dtype == 1) {
+    return bn == 256
+               ? k6::launch<256>(dy_map, w_map, lengths,
+                                 static_cast<bf16*>(dx), B, Tlen, Cin, Cout,
+                                 grid_x, grid_y, stages, smem, stream)
+               : k6::launch<128>(dy_map, w_map, lengths,
+                                 static_cast<bf16*>(dx), B, Tlen, Cin, Cout,
+                                 grid_x, grid_y, stages, smem, stream);
+  }
+  dx_f32_kernel<<<dim3(grid_x, grid_y, B), THREADS, 0, stream>>>(
+      static_cast<const float*>(dy), lengths, static_cast<const float*>(w),
+      static_cast<float*>(dx), Tlen, Cin, Cout);
   return (int)cudaGetLastError();
 }
 

@@ -20,10 +20,9 @@
 // in registers, and the dK + dV accumulators of 64 keys (256 KB) exceed
 // the 227 KB of shared memory.
 //
-// bf16 (the training path), tensor cores through mma.sync m16n8k16 with
-// f32 accumulation, one block of 16 warps (512 threads, one block an SM):
-//
-// K4: a block owns 64 query rows of one (b, h) and keeps Q and dO for
+// K4, bf16 (the training path): tensor cores through mma.sync m16n8k16
+// with f32 accumulation, one block of 16 warps (512 threads, one block an
+// SM).  A block owns 64 query rows of one (b, h) and keeps Q and dO for
 // them in shared memory (133 KB at D 512); it loops over 32-key tiles of
 // K and V (67 KB).  Phase 1: warp w computes the 16 x 8 patch (query rows
 // 16 (w / 4), keys 8 (w % 4)) of both S and dP over the whole head dim,
@@ -32,24 +31,44 @@
 // the head dim (D / 4 columns, 64 f32 accumulators a thread), reading K
 // with ldmatrix.trans.  No product is computed twice.
 //
-// K5: a block owns 32 keys of one (b, h) and all D columns of their dK and
-// dV, so the accumulators (2 x 32 x 512 f32) are spread over 512 threads,
-// 64 registers each: the choice of fewer keys per block over splitting
-// the head dim across blocks, which would recompute S and dP once per
-// split.  It loops over 64-query tiles of Q and dO.  Phase 1: warp w
-// computes the 16 x 8 patch (keys 16 (w / 8), queries 8 (w % 8)) of S^T
-// and dP^T, and stores P^T and dS^T.  P stays f32 in JAX's dV product, so
-// it is stored as two bf16 terms (hi + lo, 16 bits of mantissa) and dV
-// takes two products, one more product per tile (5 instead of 4).
-// Phase 2: warp w adds P^T dO and dS^T Q for keys 16 (w / 8) and an eighth
-// of the head dim.
+// K5, bf16 (the training path), designed for Hopper; head_dim 512 only
+// (ops/flash_cuda.py k5_plan raises on another).  One CTA of 384 threads
+// per 32 keys of one (b, h): the dK + dV accumulators of 32 keys x 512
+// columns in f32 take 128 KB, half the register file, and K, V (64 KB)
+// plus one 64-query tile of Q and of dO (128 KB) leave no room in the
+// 227 KB of shared memory for a second tile.  Warpgroup 0 loads K and V
+// once and keeps the Q and dO tiles coming by TMA (4-D tensor maps over
+// the strided (B, H, T, D) views, as K1), each tile on its own pair of
+// mbarriers and its own producer thread.  The two consumer warpgroups
+// (setmaxnreg 232) split the work by tile, so that each frees its tile
+// after its own last product and the next load overlaps the other's
+// products: warpgroup 1 computes S = Q K^T (wgmma m64n32k16 over D 512),
+// P = exp(S scale + bias - L) and dK^T += Q^T dS; warpgroup 2 computes dP
+// = dO V^T, dS = P (dP - D) scale and dV^T += dO^T P.  Neither
+// product is computed twice: P passes in f32 through shared memory in
+// the accumulator layout; dS and P (as bf16 hi + lo, since JAX keeps P
+// f32 for dV: 16 bits of mantissa, one more product) are stored as
+// [key][query] rows of 64 bf16, one 128-byte swizzle row each, K-major B
+// operands.  The gradients accumulate transposed (M = head dim, eight m64
+// tiles; N = 32 keys) with A = Q^T or dO^T read MN-major from the TMA
+// tiles through the descriptors' transpose bit: each consumer holds its
+// gradient's 512 x 32 in 128 registers a thread.  The epilogue stages
+// dK or dV as [key][d] rows in its own tile and stores 16 bytes a thread
+// in the (B, Tk, H, D) layout.  A block whose 32 keys are all masked
+// stores zeros and exits when its sample has a valid key; query tiles are
+// never skipped (no query mask).
 //
 // f32 (parity checks): FMA units, 256 threads, 16 rows by 16 columns of
 // S per tile, one entry a thread; each thread then accumulates one row of
 // its block over the columns c + 16 j.
 //
-// Not yet used: wgmma, TMA, and a pipeline overlapping loads with math.
+// Not yet used: K4 on wgmma; in K5 a second Q / dO stage (no room at D
+// 512), a 2-CTA cluster splitting the head dim, a TMA multicast of the Q
+// and dO tiles to the CTAs of neighbouring key blocks.
+#include <string.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -245,7 +264,6 @@ constexpr int TC_THREADS = 512;  // 16 warps
 constexpr int PAD = 8;           // bf16 row padding: fragment loads avoid
                                  // bank conflicts, rows stay 16-byte aligned
 constexpr int DQ_BQ = 64, DQ_BK = 32;    // K4: queries a block, keys a tile
-constexpr int KV_BK = 32, KV_BQ = 64;    // K5: keys a block, queries a tile
 
 // rows [t0, t0 + rows) of a (T, D) bf16 matrix with row stride st into
 // shared memory with row stride D + PAD, 16 bytes a thread; zeros past T
@@ -388,128 +406,270 @@ dq_bf16_kernel(Heads a, Out dq) {
   }
 }
 
-__global__ void __launch_bounds__(TC_THREADS, 1)
-dkv_bf16_kernel(Heads a, Out dk, Out dv) {
-  extern __shared__ float4 smem4[];
-  const int D = a.D, ld = D + PAD;
-  constexpr int LDP = KV_BQ + PAD;
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);
-  bf16* Vs = Ks + KV_BK * ld;
-  bf16* Qs = Vs + KV_BK * ld;
-  bf16* Gs = Qs + KV_BQ * ld;
-  bf16* Phi = Gs + KV_BQ * ld;       // P^T [key][query], high bf16 term
-  bf16* Plo = Phi + KV_BK * LDP;     // P^T, the rest of f32 P
-  bf16* dSt = Plo + KV_BK * LDP;     // dS^T
-  float* Ls = reinterpret_cast<float*>(dSt + KV_BK * LDP);  // KV_BQ
-  float* Dsum = Ls + KV_BQ;                                 // KV_BQ
-  float* bias_s = Dsum + KV_BQ;                             // KV_BK
+// ---------------------------------------------------------------------------
+// K5 bf16 on Hopper: wgmma, TMA, warp specialisation
+// ---------------------------------------------------------------------------
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * KV_BK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kg = 16 * (warp >> 3);        // this warp's 16 keys
-  const int qt = 8 * (warp & 7);          // phase 1: its 8 queries of a tile
-  const int dbase = (warp & 7) * (D / 8);  // phase 2: its eighth of D
-  const int nt = D / 64;                  // n8 tiles in an eighth
+namespace k5 {
 
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ksb + h * a.ksh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vsb + h * a.vsh;
-  const bf16* gb = static_cast<const bf16*>(a.g) + b * a.gsb + h * a.gsh;
-  const float* mb = a.mask ? a.mask + (long long)b * a.Tk : nullptr;
-  const long long row0 = ((long long)b * a.H + h) * a.Tq;
+constexpr int HD = 512;               // the head dim this design takes
+constexpr int BKEY = 32;              // keys a CTA
+constexpr int BQ = 64;                // queries a tile
+constexpr int THREADS = 384;
+constexpr int QBOX = BQ * 128;        // 64 rows x 64 d, bytes
+constexpr int KBOX = BKEY * 128;      // 32 rows x 64 d
+constexpr int TILE = 8 * QBOX;        // a Q or dO tile, 64 KB
+constexpr int KV = 8 * KBOX;          // K or V, 32 KB
+constexpr int PT = BKEY * 128;        // a [key][query] bf16 tile, 4 KB
+constexpr int OFF_Q = 0, OFF_G = TILE, OFF_K = 2 * TILE, OFF_V = OFF_K + KV;
+constexpr int OFF_PHI = OFF_V + KV, OFF_PLO = OFF_PHI + PT;
+constexpr int OFF_DS = OFF_PLO + PT, OFF_XCH = OFF_DS + PT;
+constexpr int XCH = 4 * 128 * 16;     // P in f32, in the accumulator layout
+constexpr int SMEM = OFF_XCH + XCH + 1024;   // + alignment
+// the epilogue stages dK (in the Q tile) and dV (in the dO tile) as
+// [key][d] rows, padded by 16 bytes so neighbouring keys change bank
+constexpr int OUT_LD = HD * 2 + 16;
+static_assert(BKEY * OUT_LD <= TILE, "a staged gradient fits in its tile");
 
-  load_bf16(Ks, kb, a.kst, k0, KV_BK, a.Tk, D);
-  load_bf16(Vs, vb, a.vst, k0, KV_BK, a.Tk, D);
-  if (threadIdx.x < KV_BK)
-    bias_s[threadIdx.x] = key_bias(mb, k0 + threadIdx.x, a.Tk);
+// the row of key `t` of head h of sample b in dK or dV
+__device__ __forceinline__ bf16* out_row(const Out& o, int b, int h, int t) {
+  return static_cast<bf16*>(o.p) + b * o.sb + h * o.sh + (long long)t * o.st;
+}
 
-  float dka[MAX_D / 64][4], dva[MAX_D / 64][4];
-#pragma unroll
-  for (int n = 0; n < MAX_D / 64; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+__global__ void __launch_bounds__(THREADS, 1)
+dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap g_map, int order,
+                const float* __restrict__ mask,
+                const float* __restrict__ lse,
+                const float* __restrict__ dsum, Out dk, Out dv, int H,
+                int Tq, int Tk, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // full / empty [0]: the Q tile, [1]: the dO tile
+  __shared__ __align__(8) uint64_t kvfull, full[2], empty[2];
+  __shared__ float kbias[BKEY];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BKEY;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int nq = (Tq + BQ - 1) / BQ;
+  const float* mb = mask ? mask + (long long)b * Tk : nullptr;
 
-  for (int q0 = 0; q0 < a.Tq; q0 += KV_BQ) {
-    __syncthreads();  // K, V loaded / previous tile consumed
-    load_bf16(Qs, qb, a.qst, q0, KV_BQ, a.Tq, D);
-    load_bf16(Gs, gb, a.gst, q0, KV_BQ, a.Tq, D);
-    if (threadIdx.x < KV_BQ) {
-      const int t = q0 + threadIdx.x;
-      Ls[threadIdx.x] = t < a.Tq ? a.lse[row0 + t] : INFINITY;
-      Dsum[threadIdx.x] = t < a.Tq ? a.dsum[row0 + t] : 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&kvfull, 1);
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 1);
     }
-    __syncthreads();
+    hopper::mbar_fence_init();
+  }
+  if (threadIdx.x < BKEY) kbias[threadIdx.x] = key_bias(mb, k0 + threadIdx.x,
+                                                        Tk);
+  // A block whose keys are all masked (mask 0) gets exactly zero dK and
+  // dV when its sample has a valid key (mask 1): every P of it is then
+  // exp(s - 1e30 - L) = 0 with L finite.  It stores zeros and skips the
+  // loads and products.  (With no valid key L is about -1e30 as well and
+  // P is not 0, so then no block skips.)
+  int any = 0, mine = 0;
+  if (mb) {
+    for (int t = threadIdx.x; t < Tk; t += THREADS) {
+      const float m = mb[t];
+      any |= m == 1.f;
+      mine |= t >= k0 && t < k0 + BKEY && m != 0.f;
+    }
+  }
+  // the barriers also publish the mbarrier inits and the key bias
+  const int sample_valid = __syncthreads_or(any);
+  const int block_valid = __syncthreads_or(mine);
+  if (mb && sample_valid && !block_valid) {
+    for (int c = threadIdx.x; c < 2 * BKEY * 64; c += THREADS) {
+      const int key = (c / 64) % BKEY, ch = c % 64;
+      if (k0 + key < Tk)
+        *reinterpret_cast<uint4*>(
+            out_row(c < BKEY * 64 ? dk : dv, b, h, k0 + key) + 8 * ch) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
 
-    // phase 1: S^T and dP^T for keys kg + g (+8), queries qt + 2 t4 (+1)
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    patch_dot(s, Ks, kg + g, Qs, qt + g, ld, D, t4);
-    patch_dot(dp, Vs, kg + g, Gs, qt + g, ld, D, t4);
-#pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const int key = kg + g + 4 * e;
-      const int qc = qt + 2 * t4;
-      float p[2], ds[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        p[u] = expf(s[e + u] * a.scale + bias_s[key] - Ls[qc + u]);
-        ds[u] = p[u] * (dp[e + u] - Dsum[qc + u]) * a.scale;
+  if (wg == 0) {
+    // ---- producer: thread 0 loads K and V once, then the Q tiles;
+    // thread 32 the dO tiles, each on its own pair of barriers ----
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      hopper::mbar_expect_tx(&kvfull, 2 * KV);
+      for (int i = 0; i < 8; ++i) {
+        hopper::tma_load_heads(sm + OFF_K + i * KBOX, &k_map, &kvfull,
+                               (order >> 1) & 1, 64 * i, k0, h, b);
+        hopper::tma_load_heads(sm + OFF_V + i * KBOX, &v_map, &kvfull,
+                               (order >> 2) & 1, 64 * i, k0, h, b);
       }
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(p[0], p[1]);
-      const float2 hf = __bfloat1622float2(hi);
-      *reinterpret_cast<__nv_bfloat162*>(Phi + key * LDP + qc) = hi;
-      *reinterpret_cast<uint32_t*>(Plo + key * LDP + qc) =
-          pack_bf16(p[0] - hf.x, p[1] - hf.y);
-      *reinterpret_cast<uint32_t*>(dSt + key * LDP + qc) =
-          pack_bf16(ds[0], ds[1]);
     }
-    __syncthreads();
+    if (tid == 0 || tid == 32) {
+      const int which = tid / 32;
+      const CUtensorMap* map = which ? &g_map : &q_map;
+      const bool h_inner = (order >> (which ? 3 : 0)) & 1;
+      uint8_t* dst = sm + (which ? OFF_G : OFF_Q);
+      for (int qt = 0, ph = 0; qt < nq; ++qt, ph ^= 1) {
+        hopper::mbar_wait(&empty[which], ph ^ 1);
+        hopper::mbar_expect_tx(&full[which], TILE);
+        for (int i = 0; i < 8; ++i)
+          hopper::tma_load_heads(dst + i * QBOX, map, &full[which], h_inner,
+                                 64 * i, qt * BQ, h, b);
+      }
+    }
+    return;
+  }
 
-    // phase 2: dV += P^T dO and dK += dS^T Q over this warp's eighth of D
+  // ---- consumers.  Warpgroup 1 (cw 0): S = Q K^T, P, and dK^T += Q^T dS;
+  // warpgroup 2 (cw 1): dP = dO V^T, dS, and dV^T += dO^T P.  Each
+  // holds its gradient's 512 x 32 accumulator (128 registers a thread)
+  // and reads only its own tile, which it frees after its last product.
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;
+  const int w = tid / 32, g8 = (tid % 32) / 4, t4 = tid % 4;
+  uint8_t* own = sm + (cw ? OFF_G : OFF_Q);
+  const uint32_t oa = hopper::smem_addr(own);
+  const uint32_t kva = hopper::smem_addr(sm + (cw ? OFF_V : OFF_K));
+  const uint32_t phi = hopper::smem_addr(sm + OFF_PHI);
+  const uint32_t plo = hopper::smem_addr(sm + OFF_PLO);
+  const uint32_t dsa = hopper::smem_addr(sm + OFF_DS);
+  float4* xch = reinterpret_cast<float4*>(sm + OFF_XCH);
+  // the row term: L for consumer 0 (P = 0 past Tq), D for consumer 1
+  const float* rowterm = (cw ? dsum : lse) + ((long long)b * H + h) * Tq;
+  float acc[8][16];
 #pragma unroll
-    for (int ks = 0; ks < KV_BQ / 16; ++ks) {
-      uint32_t ahi[4], alo[4], ads[4];
-      a_frag(ahi, Phi, kg, ks, LDP, g, t4);
-      a_frag(alo, Plo, kg, ks, LDP, g, t4);
-      a_frag(ads, dSt, kg, ks, LDP, g, t4);
-      const int off = (16 * ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld +
-                      dbase + 8 * (lane >> 4);
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int n = 0; n < MAX_D / 64; n += 2) {
-        if (n < nt) {
-          uint32_t bg[4], bq[4];
-          ldsm_x4_trans(bg, Gs + off + 8 * n);
-          ldsm_x4_trans(bq, Qs + off + 8 * n);
-          mma_16816(dva[n], ahi, bg[0], bg[1]);
-          mma_16816(dva[n], alo, bg[0], bg[1]);
-          mma_16816(dva[n + 1], ahi, bg[2], bg[3]);
-          mma_16816(dva[n + 1], alo, bg[2], bg[3]);
-          mma_16816(dka[n], ads, bq[0], bq[1]);
-          mma_16816(dka[n + 1], ads, bq[2], bq[3]);
+    for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
+  hopper::mbar_wait(&kvfull, 0);
+
+  for (int qt = 0, ph = 0; qt < nq; ++qt, ph ^= 1) {
+    float rt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qt * BQ + 16 * w + g8 + 8 * r;
+      rt[r] = q < Tq ? rowterm[q] : (cw ? 0.f : INFINITY);
+    }
+    // phase 1: S or dP, 64 queries x 32 keys over the head dim; element e
+    // is query 16 w + g8 + 8 ((e >> 1) & 1), key 8 (e >> 2) + 2 t4 + (e & 1)
+    float sc[16];
+    hopper::mbar_wait(&full[cw], ph);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int db = 0; db < 8; ++db)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n32k16_ss<0, 0>(
+            sc, hopper::desc_sw128(oa + db * QBOX + 32 * kk, 16, 1024),
+            hopper::desc_sw128(kva + db * KBOX + 32 * kk, 16, 1024),
+            (db | kk) != 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // phase 2: the gradient^T (M = head dim, eight m64 tiles; N = 32
+    // keys; K = 64 queries) += own tile^T (MN-major, the descriptors'
+    // transpose bit) times a [key][query] tile
+    if (cw == 0) {
+      // P = exp(S scale + key bias - L) in f32, to consumer 1
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        sc[e] = expf(sc[e] * scale + kbias[8 * (e >> 2) + 2 * t4 + (e & 1)] -
+                     rt[(e >> 1) & 1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xch[i * 128 + tid] = make_float4(sc[4 * i], sc[4 * i + 1],
+                                         sc[4 * i + 2], sc[4 * i + 3]);
+      hopper::named_barrier(1, 256);   // P is in xch
+      hopper::named_barrier(2, 256);   // dS is in its tile
+      // dK^T += Q^T dS
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          hopper::wgmma_m64n32k16_ss<1, 0>(
+              acc[i], hopper::desc_sw128(oa + i * QBOX + ks * 2048, QBOX, 1024),
+              hopper::desc_sw128(dsa + 32 * ks, 16, 1024), 1);
+    } else {
+      hopper::named_barrier(1, 256);
+      // dS = P (dP - D) scale, cast to bf16 for dK as JAX casts it; P^T
+      // as bf16 hi + lo (16 bits of mantissa) for dV, where JAX keeps P
+      // f32.  All three as [key][query] rows, 128-byte swizzled: K-major B
+      // operands.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 p4 = xch[i * 128 + tid];
+        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 4 * i + u;
+          const int q = 16 * w + g8 + 8 * ((e >> 1) & 1);
+          const int key = 8 * (e >> 2) + 2 * t4 + (e & 1);
+          const uint32_t off = hopper::sw128(key, 2 * q);
+          const float p = pv[u];
+          const bf16 hi = __float2bfloat16(p);
+          *reinterpret_cast<bf16*>(sm + OFF_PHI + off) = hi;
+          *reinterpret_cast<bf16*>(sm + OFF_PLO + off) =
+              __float2bfloat16(p - __bfloat162float(hi));
+          *reinterpret_cast<bf16*>(sm + OFF_DS + off) =
+              __float2bfloat16(p * (sc[e] - rt[(e >> 1) & 1]) * scale);
         }
       }
+      hopper::fence_async_shared();
+      hopper::named_barrier(2, 256);
+      // dV^T += dO^T P, P as hi then lo on the same A
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t da =
+              hopper::desc_sw128(oa + i * QBOX + ks * 2048, QBOX, 1024);
+          hopper::wgmma_m64n32k16_ss<1, 0>(
+              acc[i], da, hopper::desc_sw128(phi + 32 * ks, 16, 1024), 1);
+          hopper::wgmma_m64n32k16_ss<1, 0>(
+              acc[i], da, hopper::desc_sw128(plo + 32 * ks, 16, 1024), 1);
+        }
     }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+    // the tile is free: the producer may load the next one
+    if (tid == 0) hopper::mbar_arrive(&empty[cw]);
   }
 
+  // epilogue: the gradient^T through shared memory (its own tile, free
+  // now) to (key, d) rows of dK or dV, 16 bytes a store.  Element e of
+  // acc[i] is d 64 i + 16 w + g8 + 8 ((e >> 1) & 1), key 8 (e >> 2) + 2 t4
+  // + (e & 1).
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = k0 + kg + g + 8 * half;
-    if (t >= a.Tk) continue;
-    bf16* krow = static_cast<bf16*>(dk.p) + b * dk.sb + h * dk.sh + t * dk.st +
-                 dbase;
-    bf16* vrow = static_cast<bf16*>(dv.p) + b * dv.sb + h * dv.sh + t * dv.st +
-                 dbase;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int n = 0; n < MAX_D / 64; ++n) {
-      if (n < nt) {
-        *reinterpret_cast<uint32_t*>(krow + 8 * n + 2 * t4) =
-            pack_bf16(dka[n][2 * half], dka[n][2 * half + 1]);
-        *reinterpret_cast<uint32_t*>(vrow + 8 * n + 2 * t4) =
-            pack_bf16(dva[n][2 * half], dva[n][2 * half + 1]);
-      }
+    for (int e = 0; e < 16; ++e) {
+      const int d = 64 * i + 16 * w + g8 + 8 * ((e >> 1) & 1);
+      const int key = 8 * (e >> 2) + 2 * t4 + (e & 1);
+      *reinterpret_cast<bf16*>(own + key * OUT_LD + 2 * d) =
+          __float2bfloat16(acc[i][e]);
     }
+  hopper::named_barrier(3 + cw, 128);
+  const Out& o = cw ? dv : dk;
+  for (int c = tid; c < BKEY * 64; c += 128) {
+    const int key = c / 64, ch = c % 64;
+    if (k0 + key < Tk)
+      *reinterpret_cast<uint4*>(out_row(o, b, h, k0 + key) + 8 * ch) =
+          *reinterpret_cast<const uint4*>(own + key * OUT_LD + 16 * ch);
   }
 }
+
+}  // namespace k5
 
 Heads make_heads(const void* q, long long qsb, long long qsh, long long qst,
                  const void* k, long long ksb, long long ksh, long long kst,
@@ -589,12 +749,18 @@ extern "C" int serenade_flash_bwd_dq(SERENADE_HEAD_ARGS, void* dq,
                 smem, stream, a, o);
 }
 
+// The caller plans the launch (ops/flash_cuda.py k5_plan): grid
+// (grid_x, H, B), `threads` a CTA and `smem` bytes of dynamic shared
+// memory.  bf16 takes head_dim 512 only, on the Hopper kernel; a plan that
+// does not match either kernel's own keys a CTA, threads and shared
+// memory returns cudaErrorInvalidValue.
 extern "C" int serenade_flash_bwd_dkv(SERENADE_HEAD_ARGS, void* dk,
                                       long long dksb, long long dksh,
                                       long long dkst, void* dv,
                                       long long dvsb, long long dvsh,
                                       long long dvst, int B, int H, int Tq,
                                       int Tk, int D, float scale, int dtype,
+                                      int grid_x, int threads, int smem,
                                       cudaStream_t stream) {
   const Heads a = make_heads(q, qsb, qsh, qst, k, ksb, ksh, kst, v, vsb, vsh,
                              vst, mask, g, gsb, gsh, gst, lse, dsum, H, Tq,
@@ -603,16 +769,39 @@ extern "C" int serenade_flash_bwd_dkv(SERENADE_HEAD_ARGS, void* dk,
   if (bad) return bad;
   const Out ok{dk, dksb, dksh, dkst}, ov{dv, dvsb, dvsh, dvst};
   if (dtype == 1) {
-    if (dkst % 2 || dvst % 2) return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(bf16) * ((size_t)(2 * KV_BK + 2 * KV_BQ) *
-                                            (D + PAD) +
-                                        (size_t)3 * KV_BK * (KV_BQ + PAD)) +
-                        sizeof(float) * (2 * KV_BQ + KV_BK);
-    return launch(dkv_bf16_kernel, dim3((Tk + KV_BK - 1) / KV_BK, H, B),
-                  TC_THREADS, smem, stream, a, ok, ov);
+    // 16-byte stores of dK and dV rows
+    const long long st[] = {dksb, dksh, dkst, dvsb, dvsh, dvst};
+    for (long long x : st)
+      if (x % 8) return (int)cudaErrorInvalidValue;
+    if (D != k5::HD || grid_x != (Tk + k5::BKEY - 1) / k5::BKEY ||
+        threads != k5::THREADS || smem != k5::SMEM ||
+        (reinterpret_cast<size_t>(dk) | reinterpret_cast<size_t>(dv)) % 16)
+      return (int)cudaErrorInvalidValue;
+    // 4-D maps over the strided (B, H, T, D) views (bit i of `order`:
+    // q, k, v, dO); boxes of 64 columns x 64 (Q, dO) or 32 (K, V) rows
+    CUtensorMap maps[4];
+    const void* ptrs[4] = {q, k, v, g};
+    const long long sb[4] = {qsb, ksb, vsb, gsb}, sh[4] = {qsh, ksh, vsh, gsh},
+                    stt[4] = {qst, kst, vst, gst};
+    const int rows[4] = {k5::BQ, k5::BKEY, k5::BKEY, k5::BQ};
+    const int lens[4] = {Tq, Tk, Tk, Tq};
+    int order = 0;
+    for (int i = 0; i < 4; ++i) {
+      bool h_inner;
+      const int e = hopper::encode_heads_map(&maps[i], ptrs[i], sb[i], sh[i],
+                                             stt[i], B, H, lens[i], D,
+                                             rows[i], &h_inner);
+      if (e) return e;
+      order |= (int)h_inner << i;
+    }
+    return launch(k5::dkv_bf16_kernel, dim3(grid_x, H, B), threads, smem,
+                  stream, maps[0], maps[1], maps[2], maps[3], order, mask,
+                  lse, dsum, ok, ov, H, Tq, Tk, scale);
   }
-  const size_t smem = sizeof(float) * ((size_t)4 * F_T * (D + 1) +
-                                       2 * F_T * (F_T + 1) + 2 * F_T);
-  return launch(dkv_f32_kernel, dim3((Tk + F_T - 1) / F_T, H, B), F_THREADS,
-                smem, stream, a, ok, ov);
+  if (grid_x != (Tk + F_T - 1) / F_T || threads != F_THREADS ||
+      (size_t)smem != sizeof(float) * ((size_t)4 * F_T * (D + 1) +
+                                       2 * F_T * (F_T + 1) + 2 * F_T))
+    return (int)cudaErrorInvalidValue;
+  return launch(dkv_f32_kernel, dim3(grid_x, H, B), threads, smem, stream, a,
+                ok, ov);
 }

@@ -11,6 +11,8 @@
   (``k2_taps``).
 - K6 replaces ``block1d_pallas.py:296`` (``_bwd_data_kernel``): Mish′,
   the GroupNorm backward, dγ, dβ, dbias and dx by the transposed taps.
+  In bf16 dx runs on Hopper's wgmma as ``k6_plan`` lays it out, from the
+  flipped, transposed taps made once per weight version (``k6_taps``).
 - K7 replaces ``block1d_pallas.py:343`` (``_bwd_w_kernel``): dW, reduced
   over batch and time.
 
@@ -303,13 +305,78 @@ def k7_plan(b: int, t: int, cin: int, cout: int, dtype,
             "smem_bytes": smem, "x_loader": loader}
 
 
+# K6's bf16 dx kernel: a CTA per 128 time rows x BN input channels (BN 256
+# or 128), a ring of (64-channel chunk, tap) stages: one tap's 128-row dy
+# box and its BN weight rows, 128 bytes a row.  The C entry checks a plan
+# against the kernel's constants and refuses one that does not match.
+K6_ROWS = 128
+K6_BN = (256, 128)
+K6_MAX_STAGES = 8
+# k6_taps pads Cin with zero rows to a multiple of the widest tile
+K6_TAPS_ROWS = 256
+# the card's 232,448 bytes less 1 KB for the static barriers
+K6_SMEM_LIMIT = 232448 - 1024
+
+
+def k6_stage_bytes(bn: int) -> int:
+    return K6_ROWS * 128 + bn * 128
+
+
+@functools.lru_cache(maxsize=64)
+def k6_plan(b: int, t: int, cin: int, cout: int, dtype,
+            sm_count: int) -> dict:
+    """K6's dx launch for a shape and a card of ``sm_count``
+    multiprocessors, as ``block1d_bwd_data`` passes it to the kernel: the
+    input channels ``bn`` a CTA owns, the grid (128-row tiles, Cin tiles,
+    batch), the ring's stages and the dynamic shared memory.  bf16 runs
+    one CTA per SM; of BN 256 and 128 it takes the one with the shorter
+    makespan, waves x BN (a CTA's work grows with its columns), the larger
+    on a tie: BN 256 at (16, 512, 1024) (256 CTAs), BN 128 at (16, 512,
+    242) and (16, 256, 512) (128 CTAs, not 64).  f32 runs 64 x 64 FMA
+    tiles.  Raises ``ValueError`` on a bf16 shape the Hopper kernel does
+    not take.  Cached: treat the result as read-only."""
+    if dtype != torch.bfloat16:
+        return {"bn": 0, "grid": (-(-t // 64), -(-cin // 64), b),
+                "ctas": None, "stages": 0, "smem_bytes": 0}
+    _cuda.require(cin % 2 == 0, f"bf16 dx: Cin {cin} must be even (dx "
+                  "stores pairs of channels)")
+    _cuda.require(cout % 8 == 0, f"bf16 dx: Cout {cout} must be a multiple "
+                  "of 8 (dy and the taps load by TMA)")
+    tiles = -(-t // K6_ROWS)
+    best = None
+    for bn in K6_BN:
+        ctas = tiles * -(-cin // bn) * b
+        est = -(-ctas // sm_count) * bn
+        if best is None or est < best[0]:
+            best = (est, bn, ctas)
+    _, bn, ctas = best
+    stages = min(K6_MAX_STAGES, (K6_SMEM_LIMIT - 1024) // k6_stage_bytes(bn))
+    return {"bn": bn, "grid": (tiles, -(-cin // bn), b), "ctas": ctas,
+            "stages": stages,
+            "smem_bytes": stages * k6_stage_bytes(bn) + 1024}
+
+
+def _k6_taps(weight):
+    """K6's bf16 weight: ``(3, Cin256, Cout)``, tap j holding
+    ``W[:, :, 2 - j]ᵀ`` (the taps flipped and transposed) with Cout
+    contiguous (K-major, as wgmma reads B) and Cin padded with zero rows
+    to a multiple of 256, the widest tile."""
+    taps = weight.to(torch.bfloat16).flip(2).permute(2, 1, 0)
+    return F.pad(taps, (0, 0, 0, -weight.shape[1] % K6_TAPS_ROWS)).contiguous()
+
+
+# made once per version of the weight it is given
+k6_taps = _cuda.VersionCache(_k6_taps)
+
+
 def block1d_bwd_data(x, lengths, weight, gamma, beta, y, stats, g, *,
-                     groups: int = 8, eps: float = 1e-5):
+                     groups: int = 8, eps: float = 1e-5, taps=None):
     """K6 (three kernels, one launch count).  ``weight`` in x's type, y and
-    stats from K2.  Returns (dx, dy in x's type, (3, Cout) f32 rows dgamma,
-    dbeta, dbias)."""
+    stats from K2; bf16 reads ``taps`` (``k6_taps`` of the weight; made
+    from ``weight`` when not given).  Returns (dx, dy in x's type, (3,
+    Cout) f32 rows dgamma, dbeta, dbias)."""
     global data_launches
-    b, t, _ = x.shape
+    b, t, cin = x.shape
     cout = weight.shape[0]
     dev = x.device
     _check_params(x, weight, {"gamma": gamma, "beta": beta}, groups)
@@ -321,18 +388,32 @@ def block1d_bwd_data(x, lengths, weight, gamma, beta, y, stats, g, *,
                   f"grad {tuple(g.shape)} {g.dtype}")
     _cuda.require(lengths.shape == (b,) and lengths.dtype == torch.int32
                   and lengths.device == dev, "lengths must be int32 (B,)")
+    plan = k6_plan(b, t, cin, cout, x.dtype, _cuda.sm_count(dev))
+    if x.dtype == torch.bfloat16:
+        taps = k6_taps(weight) if taps is None else taps
+        _cuda.require(taps.shape == (3, cin + -cin % K6_TAPS_ROWS, cout)
+                      and taps.dtype == torch.bfloat16
+                      and taps.is_contiguous() and taps.device == dev,
+                      f"taps {tuple(taps.shape)} {taps.dtype}")
+    else:
+        taps = None
     gsum = torch.zeros((b, groups, 2), dtype=torch.float64, device=dev)
     dx = torch.empty_like(x)
     dy = torch.empty((b, t, cout), dtype=x.dtype, device=dev)
     dparams = torch.zeros((3, cout), dtype=torch.float32, device=dev)
     fn = _cuda.library("block1d_bwd").serenade_block1d_bwd_data
     fn.restype = ctypes.c_int
-    err = fn(_cuda.ptr(lengths), _cuda.ptr(weight), _cuda.ptr(y),
-             _cuda.ptr(stats), _cuda.ptr(gamma), _cuda.ptr(beta),
-             _cuda.ptr(g), _cuda.ptr(gsum), _cuda.ptr(dx), _cuda.ptr(dy),
-             _cuda.ptr(dparams), ctypes.c_int(b), ctypes.c_int(t),
-             ctypes.c_int(x.shape[2]), ctypes.c_int(cout),
+    grid_x, grid_y, _ = plan["grid"]
+    err = fn(_cuda.ptr(lengths), _cuda.ptr(weight),
+             ctypes.c_void_p(None if taps is None else taps.data_ptr()),
+             _cuda.ptr(y), _cuda.ptr(stats), _cuda.ptr(gamma),
+             _cuda.ptr(beta), _cuda.ptr(g), _cuda.ptr(gsum), _cuda.ptr(dx),
+             _cuda.ptr(dy), _cuda.ptr(dparams), ctypes.c_int(b),
+             ctypes.c_int(t), ctypes.c_int(cin), ctypes.c_int(cout),
              ctypes.c_int(groups), ctypes.c_float(eps),
+             ctypes.c_int(plan["bn"]), ctypes.c_int(grid_x),
+             ctypes.c_int(grid_y), ctypes.c_int(plan["stages"]),
+             ctypes.c_int(plan["smem_bytes"]),
              ctypes.c_int(_cuda.DTYPE_CODE[x.dtype]), _cuda.stream())
     _cuda.check(err, "block1d_bwd_data")
     data_launches += 1
@@ -390,16 +471,19 @@ class Block1DFunction(torch.autograd.Function):
         taps = k2_taps(weight) if x.dtype == torch.bfloat16 else None
         out, y, stats = _block1d_cuda(x, lengths, w, bias, gamma, beta,
                                       groups, eps, taps=taps)
-        ctx.save_for_backward(x, lengths, w, gamma, beta, y, stats)
+        # the weight itself too: K6's taps are made once per its version
+        ctx.save_for_backward(x, lengths, w, gamma, beta, y, stats, weight)
         return out
 
     @staticmethod
     def backward(ctx, g):
         if g.is_cuda:
-            x, lengths, w, gamma, beta, y, stats = ctx.saved_tensors
+            x, lengths, w, gamma, beta, y, stats, weight = ctx.saved_tensors
+            taps = k6_taps(weight) if x.dtype == torch.bfloat16 else None
             dx, dy, (dgam, dbet, db) = block1d_bwd_data(
                 x, lengths, w, gamma, beta, y, stats,
-                g.to(x.dtype).contiguous(), groups=ctx.groups, eps=ctx.eps)
+                g.to(x.dtype).contiguous(), groups=ctx.groups, eps=ctx.eps,
+                taps=taps)
             dw = block1d_bwd_weight(x, lengths, dy)
         else:
             dx, dw, db, dgam, dbet = block1d_backward_plain(

@@ -8,7 +8,8 @@
 - K4 replaces ``flash_pallas.py:267`` (``_bwd_dq_kernel``) and K5
   ``flash_pallas.py:291`` (``_bwd_dkv_kernel``): the FlashAttention-2
   backward, recomputing ``P = exp(S - L)`` blockwise; ``D = rowsum(dO∘O)``
-  is one PyTorch op outside the kernels, as in JAX.
+  is one PyTorch op outside the kernels, as in JAX.  K5's bf16 kernel runs
+  on Hopper's wgmma as ``k5_plan`` lays it out (head_dim 512 only).
 
 ``flash_attention`` goes through ``FlashAttention`` (a
 ``torch.autograd.Function``): CUDA tensors launch K1 forward and K4, K5
@@ -218,19 +219,60 @@ def flash_bwd_dq(q, k, v, key_mask, g, lse, dsum, scale):
     return dq_v
 
 
+# K5's bf16 kernel: head_dim 512, a CTA of 384 threads per 32 keys of one
+# (b, h), looping over 64-query tiles with one stage each of Q and dO (64
+# KB each), K and V (32 KB each), the P and dS tiles (3 x 4 KB), the f32 P
+# exchange (8 KB) and 1 KB for alignment.  The C entry checks a plan
+# against the kernels' own constants and refuses one that does not match.
+K5_BF16_HEAD_DIM = 512
+K5_BF16_KEYS, K5_BF16_QUERIES = 32, 64
+K5_BF16_SMEM = 2 * 64 * 1024 + 2 * 32 * 1024 + 3 * 4096 + 8192 + 1024
+K5_F32_KEYS = 16
+
+
+def k5_plan(b: int, h: int, tq: int, tk: int, d: int, dtype,
+            sm_count: int) -> dict:
+    """K5's launch for a shape and a card of ``sm_count`` multiprocessors,
+    as ``flash_bwd_dkv`` passes it to the kernel: the grid (key blocks, H,
+    B), threads and dynamic shared memory; with the keys a CTA owns, the
+    query tile it loops over, its Q / dO stages, the CTAs and the SMs
+    they occupy (one CTA per SM).  Raises ``ValueError`` on a bf16 head
+    dim the Hopper kernel does not take; never falls back."""
+    if dtype == torch.bfloat16:
+        _cuda.require(d == K5_BF16_HEAD_DIM, f"bf16 flash dK/dV: head_dim "
+                      f"{d}; the Hopper kernel takes {K5_BF16_HEAD_DIM} only")
+        keys, queries, stages = K5_BF16_KEYS, K5_BF16_QUERIES, 1
+        threads, smem = 384, K5_BF16_SMEM
+    else:
+        keys, queries, stages, threads = K5_F32_KEYS, K5_F32_KEYS, 0, 256
+        smem = 4 * (4 * K5_F32_KEYS * (d + 1) + 2 * K5_F32_KEYS
+                    * (K5_F32_KEYS + 1) + 2 * K5_F32_KEYS)
+    grid = (-(-tk // keys), h, b)
+    ctas = grid[0] * h * b
+    return {"grid": grid, "threads": threads, "smem_bytes": smem,
+            "keys": keys, "query_tile": queries, "stages": stages,
+            "query_tiles": -(-tq // queries), "ctas": ctas,
+            "sms_used": min(ctas, sm_count)}
+
+
 def flash_bwd_dkv(q, k, v, key_mask, g, lse, dsum, scale):
     """K5: (dK, dV), written (B, Tk, H, D) and returned as views."""
     global dkv_launches
-    b, h, _, d = q.shape
+    b, h, tq, d = q.shape
     tk = k.shape[2]
     args, key_mask = _bwd_args(q, k, v, key_mask, g, lse, dsum)
+    plan = k5_plan(b, h, tq, tk, d, q.dtype, _cuda.sm_count(q.device))
     dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     dk_v, dv_v = dk.transpose(1, 2), dv.transpose(1, 2)
     fn = _cuda.library("flash_bwd").serenade_flash_bwd_dkv
     fn.restype = ctypes.c_int
+    *dims, stream = _dims(q, k, scale)
     _cuda.check(fn(*args, _cuda.ptr(dk), *_strides(dk_v), _cuda.ptr(dv),
-                   *_strides(dv_v), *_dims(q, k, scale)), "flash_bwd_dkv")
+                   *_strides(dv_v), *dims, ctypes.c_int(plan["grid"][0]),
+                   ctypes.c_int(plan["threads"]),
+                   ctypes.c_int(plan["smem_bytes"]), stream),
+                "flash_bwd_dkv")
     dkv_launches += 1
     return dk_v, dv_v
 

@@ -198,3 +198,73 @@ def test_hopper_block1d_forward_at_ragged_bf16_shapes(cin):
     assert block1d_cuda.launches == before + 1
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 2e-2 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_hopper_flash_dkv_at_ragged_bf16_shapes():
+    """K5's wgmma/TMA kernel at Tq = Tk = 200 (not a multiple of 64) on
+    the (B, H, T, D) views of (B, T, H, D) buffers, with key lengths 200,
+    96 (key blocks 96-127 and on wholly padded: they store zeros) and 1,
+    against the plain backward: within 2e-2 of max(1, |ref|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v, cot = (torch.randn((3, 200, 4, 512), generator=g, device=dev)
+                    .bfloat16().transpose(1, 2) for _ in range(4))
+    mask = (torch.arange(200, device=dev)[None, :]
+            < torch.tensor([200, 96, 1], device=dev)[:, None]).float()
+    scale = 512 ** -0.5
+    out, lse = flash_cuda.flash_attention(q, k, v, mask, scale,
+                                          return_lse=True)
+    cot, dsum = flash_cuda.flash_bwd_prepare(out, cot, torch.bfloat16)
+    before = flash_cuda.dkv_launches
+    dk, dv = flash_cuda.flash_bwd_dkv(q, k, v, mask, cot, lse, dsum, scale)
+    assert flash_cuda.dkv_launches == before + 1
+    _, want_k, want_v = flash_cuda.flash_attention_backward_plain(
+        q, k, v, mask, out, lse, cot, scale)
+    for got, want in ((dk, want_k), (dv, want_v)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
+    # the padded key blocks get exactly zero
+    assert not dk[1, :, 96:].any() and not dv[1, :, 96:].any()
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_cuda.flash_bwd_dkv(*(t[..., :256] for t in (q, k, v)), mask,
+                                 cot[..., :256], lse, dsum, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [1024, 242])
+def test_hopper_block1d_data_gradient_at_ragged_bf16_shapes(cin):
+    """K6's wgmma/TMA dx at T 200 (not a multiple of 64) with n_b = 200,
+    131, 64 (a multiple of 64) and 1 (its second 128-row tile stores
+    zeros), Cin 1024 and 242 (484-byte rows, 4-byte stores), against the
+    plain backward: within 2e-2 of max(1, |ref|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    lengths = [200, 131, 64, 1]
+    x = torch.randn((4, 200, cin), generator=g, device=dev).bfloat16()
+    w = (torch.randn((512, cin, 3), generator=g, device=dev)
+         / (3 * cin) ** 0.5).bfloat16()
+    bias, gamma, beta = (0.1 * torch.randn((512,), generator=g, device=dev)
+                         for _ in range(3))
+    cot = torch.randn((4, 200, 512), generator=g, device=dev).bfloat16()
+    mask = (torch.arange(200, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None]).float()[..., None]
+    x_, lens, w_, bias_, gamma_, beta_ = block1d_cuda.prepare_forward(
+        x, mask, w, bias, gamma + 1.0, beta)
+    _, y, stats = block1d_cuda._block1d_cuda(x_, lens, w_, bias_, gamma_,
+                                             beta_, 8, 1e-5)
+    before = block1d_cuda.data_launches
+    dx, _, (dgam, dbet, db) = block1d_cuda.block1d_bwd_data(
+        x_, lens, w_, gamma_, beta_, y, stats, cot)
+    assert block1d_cuda.data_launches == before + 1
+    want = block1d_cuda.block1d_backward_plain(x, mask, w, bias, gamma + 1.0,
+                                               beta, cot)
+    for got, ref in zip((dx, db, dgam, dbet), (want[0], *want[2:])):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, ref.float().abs().max().item())
+    assert not dx[3, 1:].any() and not dx[2, 64:].any()
+    assert block1d_cuda.k6_taps(w_).shape == (3, cin + -cin % 256, 512)

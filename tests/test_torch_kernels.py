@@ -663,3 +663,117 @@ def test_version_cache_makes_once_per_version_and_drops_freed_tensors():
         block.conv1_0.weight.mul_(2.0)
         assert not torch.equal(block(x), out1)
         assert resblock_cuda.tf32_operands(*seen[2]) is not ops
+
+
+K6_SHAPES = TRAIN_K7_SHAPES + [(3, 200, 1024, 512), (2, 150, 242, 512),
+                               (4, 200, 242, 512), (1, 64, 2, 8)]
+
+
+@pytest.mark.parametrize("b,t,cin,cout", K6_SHAPES)
+def test_k6_plan_covers_every_tile_once(b, t, cin, cout):
+    """Every (128-row tile, Cin tile) of dx has one CTA, the ring fits the
+    card's shared memory, and the taps hold every weight row a tile reads."""
+    plan = block1d_cuda.k6_plan(b, t, cin, cout, torch.bfloat16, SM_COUNT)
+    gx, gy, gb = plan["grid"]
+    bn = plan["bn"]
+    assert bn in block1d_cuda.K6_BN and gb == b
+    rows = [r for i in range(gx) for r in range(128 * i, 128 * i + 128)
+            if r < t]
+    cols = [o for j in range(gy) for o in range(bn * j, bn * j + bn)
+            if o < cin]
+    assert rows == list(range(t)) and cols == list(range(cin))
+    assert (gx - 1) * 128 < t and (gy - 1) * bn < cin
+    assert plan["ctas"] == gx * gy * gb
+    assert 2 <= plan["stages"] <= block1d_cuda.K6_MAX_STAGES
+    assert plan["smem_bytes"] == (plan["stages"]
+                                  * block1d_cuda.k6_stage_bytes(bn) + 1024)
+    assert plan["smem_bytes"] <= SMEM_LIMIT - 1024
+    # the (Cin padded to 256) rows of k6_taps cover the last Cin tile
+    assert gy * bn <= cin + -cin % block1d_cuda.K6_TAPS_ROWS
+
+
+@pytest.mark.parametrize("t,cin,bn,ctas", [(512, 1024, 256, 256),
+                                           (512, 242, 128, 128),
+                                           (256, 512, 128, 128),
+                                           (256, 1024, 256, 128)])
+def test_k6_plan_fill_at_the_train_step_shapes(t, cin, bn, ctas):
+    """128 x 256 tiles where they fill the card (two waves at Cin 1024, T
+    512); 128 x 128 where 128 x 256 would leave half of it idle."""
+    plan = block1d_cuda.k6_plan(16, t, cin, 512, torch.bfloat16, SM_COUNT)
+    assert (plan["bn"], plan["ctas"]) == (bn, ctas)
+    assert plan["stages"] == (4 if bn == 256 else 7)
+
+
+def test_k6_plan_refuses_what_the_hopper_kernel_cannot_take():
+    with pytest.raises(ValueError, match="Cin 241 must be even"):
+        block1d_cuda.k6_plan(16, 512, 241, 512, torch.bfloat16, SM_COUNT)
+    with pytest.raises(ValueError, match="Cout 500 must be a multiple of 8"):
+        block1d_cuda.k6_plan(16, 512, 242, 500, torch.bfloat16, SM_COUNT)
+    # f32 runs the FMA kernel on 64 x 64 tiles at any shape, with no ring
+    f32 = block1d_cuda.k6_plan(2, 70, 21, 63, torch.float32, SM_COUNT)
+    assert f32["grid"] == (2, 1, 2)
+    assert (f32["bn"], f32["stages"], f32["smem_bytes"]) == (0, 0, 0)
+
+
+def test_k6_taps_flip_and_transpose_and_are_made_once_per_version():
+    """k6_taps holds tap j as W[:, :, 2 - j]^T, Cout contiguous, Cin padded
+    with zero rows to 256; the dx they give, sum_j dy[s - 1 + j] taps[j]^T,
+    is the plain version's; made once per weight version, again after an
+    in-place update."""
+    rng = np.random.default_rng(7)
+    w = _t(rng.normal(size=(64, 242, 3)))
+    taps = block1d_cuda.k6_taps(w)
+    assert taps.shape == (3, 256, 64) and taps.dtype == torch.bfloat16
+    assert taps.is_contiguous()
+    for j in range(3):
+        assert torch.equal(taps[j, :242], w[:, :, 2 - j].T.bfloat16())
+    assert not taps[:, 242:].any()
+    assert block1d_cuda.k6_taps(w) is taps
+    # the layout the kernel reads computes the plain dx
+    b, t = 2, 40
+    mask = _t(_prefix_mask([40, 23], t)[..., None])
+    dy = (_t(rng.normal(size=(b, t, 64))) * mask).bfloat16().float()
+    want = F.conv1d(dy.transpose(1, 2),
+                    w.bfloat16().float().flip(2).transpose(0, 1),
+                    padding=1).transpose(1, 2)
+    dyp = F.pad(dy, (0, 0, 1, 1))
+    got = sum(dyp[:, j:j + t] @ taps[j, :242].float().T for j in range(3))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = block1d_cuda.k6_taps(w)
+    assert again is not taps
+    assert torch.equal(again[0, :242], w[:, :, 2].T.bfloat16())
+
+
+@pytest.mark.parametrize("b,h,tq,tk", [(16, 4, 512, 512), (16, 4, 256, 256),
+                                       (2, 4, 200, 200), (3, 4, 200, 200),
+                                       (1, 4, 75, 200)])
+def test_k5_plan_covers_every_key_block_once(b, h, tq, tk):
+    """One CTA per 32 keys of each (b, h), every query tile visited by
+    each, and K, V, one Q and one dO tile, the P and dS tiles and the P
+    exchange within the card's shared memory."""
+    plan = flash_cuda.k5_plan(b, h, tq, tk, 512, torch.bfloat16, SM_COUNT)
+    gx, gh, gb = plan["grid"]
+    keys, queries = plan["keys"], plan["query_tile"]
+    assert (keys, queries, plan["stages"]) == (32, 64, 1)
+    assert (gh, gb) == (h, b) and plan["threads"] == 384
+    seen = [t for i in range(gx) for t in range(keys * i, keys * i + keys)
+            if t < tk]
+    assert seen == list(range(tk)) and (gx - 1) * keys < tk
+    assert [q for i in range(plan["query_tiles"])
+            for q in range(queries * i, queries * i + queries)
+            if q < tq] == list(range(tq))
+    assert plan["ctas"] == gx * h * b
+    assert plan["sms_used"] == min(plan["ctas"], SM_COUNT)
+    tiles = 2 * 64 * 512 * 2 + 2 * 32 * 512 * 2 + 3 * 32 * 64 * 2 + 64 * 32 * 4
+    assert plan["smem_bytes"] == tiles + 1024 <= SMEM_LIMIT - 1024
+    f32 = flash_cuda.k5_plan(b, h, tq, tk, 128, torch.float32, SM_COUNT)
+    assert f32["grid"] == (-(-tk // 16), h, b)
+    assert f32["smem_bytes"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 576])
+def test_k5_refuses_a_bf16_head_dim_it_does_not_take(d):
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
+        flash_cuda.k5_plan(16, 4, 512, 512, d, torch.bfloat16, SM_COUNT)
