@@ -423,9 +423,8 @@ constexpr int KV = 8 * KBOX;          // K or V, 32 KB
 constexpr int PT = BKEY * 128;        // a [key][query] bf16 tile, 4 KB
 constexpr int OFF_Q = 0, OFF_G = TILE, OFF_K = 2 * TILE, OFF_V = OFF_K + KV;
 constexpr int OFF_PHI = OFF_V + KV, OFF_PLO = OFF_PHI + PT;
-constexpr int OFF_DS = OFF_PLO + PT, OFF_XCH = OFF_DS + PT;
-constexpr int XCH = 4 * 128 * 16;     // P in f32, in the accumulator layout
-constexpr int SMEM = OFF_XCH + XCH + 1024;   // + alignment
+constexpr int OFF_DS = OFF_PLO + PT;
+constexpr int SMEM = OFF_DS + PT + 1024;   // + alignment
 // the epilogue stages dK (in the Q tile) and dV (in the dO tile) as
 // [key][d] rows, padded by 16 bytes so neighbouring keys change bank
 constexpr int OUT_LD = HD * 2 + 16;
@@ -434,6 +433,41 @@ static_assert(BKEY * OUT_LD <= TILE, "a staged gradient fits in its tile");
 // the row of key `t` of head h of sample b in dK or dV
 __device__ __forceinline__ bf16* out_row(const Out& o, int b, int h, int t) {
   return static_cast<bf16*>(o.p) + b * o.sb + h * o.sh + (long long)t * o.st;
+}
+
+// one 64-query tile of Q or dO: eight boxes of 64 columns
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, bool h_inner, int q0,
+                                          int h, int b) {
+  hopper::mbar_expect_tx(bar, TILE);
+  for (int i = 0; i < 8; ++i)
+    hopper::tma_load_heads(dst + i * QBOX, map, bar, h_inner, 64 * i, q0, h,
+                           b);
+}
+
+// acc (eight m64 tiles of the gradient^T: d 64 i + row, 32 keys) +=
+// tile^T B over the tile's 64 queries, for each B in `bs`; the tile is
+// read MN-major (the descriptors' transpose bit), B [key][query] K-major
+template <int NB>
+__device__ __forceinline__ void grad_products(float (&acc)[8][16],
+                                              uint32_t tile,
+                                              const uint32_t (&bs)[NB]) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        hopper::wgmma_m64n32k16_ss<1, 0>(
+            acc[i], hopper::desc_sw128(tile + i * QBOX + ks * 2048, QBOX, 1024),
+            hopper::desc_sw128(bs[j] + 32 * ks, 16, 1024), 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -446,18 +480,24 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                 const float* __restrict__ dsum, Out dk, Out dv, int H,
                 int Tq, int Tk, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  // full / empty [0]: the Q tile, [1]: the dO tile
-  __shared__ __align__(8) uint64_t kvfull, full[2], empty[2];
+  // full / empty [0]: the Q tile, [1]: the dO tile; ready: a tile's P and
+  // dS are in shared memory
+  __shared__ __align__(8) uint64_t kvfull, full[2], empty[2], ready;
   __shared__ float kbias[BKEY];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BKEY;
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  // the warpgroup, from lane 0: a value ptxas knows is the same in every
+  // thread of a warp, so that a branch on it is not divergent (a wgmma
+  // on a divergent path is serialised)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
   const int nq = (Tq + BQ - 1) / BQ;
   const float* mb = mask ? mask + (long long)b * Tk : nullptr;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(&kvfull, 1);
+    hopper::mbar_init(&ready, 1);
     for (int i = 0; i < 2; ++i) {
       hopper::mbar_init(&full[i], 1);
       hopper::mbar_init(&empty[i], 1);
@@ -493,10 +533,16 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     return;
   }
 
+  const uint32_t base = hopper::smem_addr(sm);
+  const bool q_inner = order & 1, g_inner = (order >> 3) & 1;
   if (wg == 0) {
-    // ---- producer: thread 0 loads K and V once, then the Q tiles;
-    // thread 32 the dO tiles, each on its own pair of barriers ----
-    hopper::setmaxnreg_dec<40>();
+    // ---- warpgroup 0: S = Q K^T and dP = dO V^T (wgmma m64n32k16 over the
+    // head dim; element e is query 16 w + g8 + 8 ((e >> 1) & 1), key
+    // 8 (e >> 2) + 2 t4 + (e & 1)), P and dS.  Its thread 0 issues every
+    // TMA load: K and V once, and a tile's Q (dO) once warpgroup 1 (2) has
+    // freed the slot, each at a point where no product is in flight.
+    const int w = tid / 32, g8 = (tid % 32) / 4, t4 = tid % 4;
+    const long long row0 = ((long long)b * H + h) * Tq;
     if (tid == 0) {
       hopper::mbar_expect_tx(&kvfull, 2 * KV);
       for (int i = 0; i < 8; ++i) {
@@ -505,151 +551,116 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         hopper::tma_load_heads(sm + OFF_V + i * KBOX, &v_map, &kvfull,
                                (order >> 2) & 1, 64 * i, k0, h, b);
       }
+      load_tile(sm + OFF_Q, &q_map, &full[0], q_inner, 0, h, b);
+      load_tile(sm + OFF_G, &g_map, &full[1], g_inner, 0, h, b);
     }
-    if (tid == 0 || tid == 32) {
-      const int which = tid / 32;
-      const CUtensorMap* map = which ? &g_map : &q_map;
-      const bool h_inner = (order >> (which ? 3 : 0)) & 1;
-      uint8_t* dst = sm + (which ? OFF_G : OFF_Q);
-      for (int qt = 0, ph = 0; qt < nq; ++qt, ph ^= 1) {
-        hopper::mbar_wait(&empty[which], ph ^ 1);
-        hopper::mbar_expect_tx(&full[which], TILE);
-        for (int i = 0; i < 8; ++i)
-          hopper::tma_load_heads(dst + i * QBOX, map, &full[which], h_inner,
-                                 64 * i, qt * BQ, h, b);
+    hopper::mbar_wait(&kvfull, 0);
+    for (int qt = 0; qt < nq; ++qt) {
+      const int ph = qt & 1;
+      float L[2], D[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = qt * BQ + 16 * w + g8 + 8 * r;
+        L[r] = q < Tq ? lse[row0 + q] : INFINITY;   // P = 0 past Tq
+        D[r] = q < Tq ? dsum[row0 + q] : 0.f;
       }
+      float s[16], dp[16];
+      if (qt > 0 && tid == 0) {
+        hopper::mbar_wait(&empty[0], ph ^ 1);   // dK of the last tile done
+        load_tile(sm + OFF_Q, &q_map, &full[0], q_inner, qt * BQ, h, b);
+      }
+      hopper::mbar_wait(&full[0], ph);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int db = 0; db < 8; ++db)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n32k16_ss<0, 0>(
+              s, hopper::desc_sw128(base + OFF_Q + db * QBOX + 32 * kk, 16,
+                                    1024),
+              hopper::desc_sw128(base + OFF_K + db * KBOX + 32 * kk, 16,
+                                 1024),
+              (db | kk) != 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      if (qt > 0 && tid == 0) {
+        hopper::mbar_wait(&empty[1], ph ^ 1);   // dV of the last tile done
+        load_tile(sm + OFF_G, &g_map, &full[1], g_inner, qt * BQ, h, b);
+      }
+      // P = exp(S scale + key bias - L) while dO loads
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        s[e] = expf(s[e] * scale + kbias[8 * (e >> 2) + 2 * t4 + (e & 1)] -
+                    L[(e >> 1) & 1]);
+      hopper::mbar_wait(&full[1], ph);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int db = 0; db < 8; ++db)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n32k16_ss<0, 0>(
+              dp, hopper::desc_sw128(base + OFF_G + db * QBOX + 32 * kk, 16,
+                                     1024),
+              hopper::desc_sw128(base + OFF_V + db * KBOX + 32 * kk, 16,
+                                 1024),
+              (db | kk) != 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      // dS = P (dP - D) scale, cast to bf16 for dK as JAX casts it; P as
+      // bf16 hi + lo (16 bits of mantissa) for dV, where JAX keeps P f32.
+      // All three as [key][query] rows, 128-byte swizzled: K-major B
+      // operands.  The slots are free: warpgroups 1 and 2 were done with
+      // the last tile's before its Q and dO were loaded.
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int q = 16 * w + g8 + 8 * ((e >> 1) & 1);
+        const int key = 8 * (e >> 2) + 2 * t4 + (e & 1);
+        const uint32_t off = hopper::sw128(key, 2 * q);
+        const bf16 hi = __float2bfloat16(s[e]);
+        *reinterpret_cast<bf16*>(sm + OFF_PHI + off) = hi;
+        *reinterpret_cast<bf16*>(sm + OFF_PLO + off) =
+            __float2bfloat16(s[e] - __bfloat162float(hi));
+        *reinterpret_cast<bf16*>(sm + OFF_DS + off) =
+            __float2bfloat16(s[e] * (dp[e] - D[(e >> 1) & 1]) * scale);
+      }
+      hopper::fence_async_shared();
+      hopper::named_barrier(1, 128);
+      if (tid == 0) hopper::mbar_arrive(&ready);
     }
     return;
   }
 
-  // ---- consumers.  Warpgroup 1 (cw 0): S = Q K^T, P, and dK^T += Q^T dS;
-  // warpgroup 2 (cw 1): dP = dO V^T, dS, and dV^T += dO^T P.  Each
-  // holds its gradient's 512 x 32 accumulator (128 registers a thread)
-  // and reads only its own tile, which it frees after its last product.
-  hopper::setmaxnreg_inc<232>();
+  // ---- warpgroup 1: dK^T += Q^T dS; warpgroup 2: dV^T += dO^T P, P as
+  // hi then lo.  M = head dim (eight m64 tiles), N = 32 keys, K = 64
+  // queries; each holds its gradient's 512 x 32 in 128 registers a
+  // thread, and frees its tile after its products.
   const int cw = wg - 1;
-  const int w = tid / 32, g8 = (tid % 32) / 4, t4 = tid % 4;
   uint8_t* own = sm + (cw ? OFF_G : OFF_Q);
-  const uint32_t oa = hopper::smem_addr(own);
-  const uint32_t kva = hopper::smem_addr(sm + (cw ? OFF_V : OFF_K));
-  const uint32_t phi = hopper::smem_addr(sm + OFF_PHI);
-  const uint32_t plo = hopper::smem_addr(sm + OFF_PLO);
-  const uint32_t dsa = hopper::smem_addr(sm + OFF_DS);
-  float4* xch = reinterpret_cast<float4*>(sm + OFF_XCH);
-  // the row term: L for consumer 0 (P = 0 past Tq), D for consumer 1
-  const float* rowterm = (cw ? dsum : lse) + ((long long)b * H + h) * Tq;
   float acc[8][16];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
-  hopper::mbar_wait(&kvfull, 0);
-
-  for (int qt = 0, ph = 0; qt < nq; ++qt, ph ^= 1) {
-    float rt[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int q = qt * BQ + 16 * w + g8 + 8 * r;
-      rt[r] = q < Tq ? rowterm[q] : (cw ? 0.f : INFINITY);
-    }
-    // phase 1: S or dP, 64 queries x 32 keys over the head dim; element e
-    // is query 16 w + g8 + 8 ((e >> 1) & 1), key 8 (e >> 2) + 2 t4 + (e & 1)
-    float sc[16];
-    hopper::mbar_wait(&full[cw], ph);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int db = 0; db < 8; ++db)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_m64n32k16_ss<0, 0>(
-            sc, hopper::desc_sw128(oa + db * QBOX + 32 * kk, 16, 1024),
-            hopper::desc_sw128(kva + db * KBOX + 32 * kk, 16, 1024),
-            (db | kk) != 0);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(sc);
-
-    // phase 2: the gradient^T (M = head dim, eight m64 tiles; N = 32
-    // keys; K = 64 queries) += own tile^T (MN-major, the descriptors'
-    // transpose bit) times a [key][query] tile
+  for (int qt = 0; qt < nq; ++qt) {
+    hopper::mbar_wait(&ready, qt & 1);
+    hopper::mbar_wait(&full[cw], qt & 1);
     if (cw == 0) {
-      // P = exp(S scale + key bias - L) in f32, to consumer 1
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        sc[e] = expf(sc[e] * scale + kbias[8 * (e >> 2) + 2 * t4 + (e & 1)] -
-                     rt[(e >> 1) & 1]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        xch[i * 128 + tid] = make_float4(sc[4 * i], sc[4 * i + 1],
-                                         sc[4 * i + 2], sc[4 * i + 3]);
-      hopper::named_barrier(1, 256);   // P is in xch
-      hopper::named_barrier(2, 256);   // dS is in its tile
-      // dK^T += Q^T dS
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          hopper::wgmma_m64n32k16_ss<1, 0>(
-              acc[i], hopper::desc_sw128(oa + i * QBOX + ks * 2048, QBOX, 1024),
-              hopper::desc_sw128(dsa + 32 * ks, 16, 1024), 1);
+      const uint32_t bs[1] = {base + OFF_DS};
+      grad_products(acc, base + OFF_Q, bs);
     } else {
-      hopper::named_barrier(1, 256);
-      // dS = P (dP - D) scale, cast to bf16 for dK as JAX casts it; P^T
-      // as bf16 hi + lo (16 bits of mantissa) for dV, where JAX keeps P
-      // f32.  All three as [key][query] rows, 128-byte swizzled: K-major B
-      // operands.
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 p4 = xch[i * 128 + tid];
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = 4 * i + u;
-          const int q = 16 * w + g8 + 8 * ((e >> 1) & 1);
-          const int key = 8 * (e >> 2) + 2 * t4 + (e & 1);
-          const uint32_t off = hopper::sw128(key, 2 * q);
-          const float p = pv[u];
-          const bf16 hi = __float2bfloat16(p);
-          *reinterpret_cast<bf16*>(sm + OFF_PHI + off) = hi;
-          *reinterpret_cast<bf16*>(sm + OFF_PLO + off) =
-              __float2bfloat16(p - __bfloat162float(hi));
-          *reinterpret_cast<bf16*>(sm + OFF_DS + off) =
-              __float2bfloat16(p * (sc[e] - rt[(e >> 1) & 1]) * scale);
-        }
-      }
-      hopper::fence_async_shared();
-      hopper::named_barrier(2, 256);
-      // dV^T += dO^T P, P as hi then lo on the same A
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          const uint64_t da =
-              hopper::desc_sw128(oa + i * QBOX + ks * 2048, QBOX, 1024);
-          hopper::wgmma_m64n32k16_ss<1, 0>(
-              acc[i], da, hopper::desc_sw128(phi + 32 * ks, 16, 1024), 1);
-          hopper::wgmma_m64n32k16_ss<1, 0>(
-              acc[i], da, hopper::desc_sw128(plo + 32 * ks, 16, 1024), 1);
-        }
+      const uint32_t bs[2] = {base + OFF_PHI, base + OFF_PLO};
+      grad_products(acc, base + OFF_G, bs);
     }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
-    // the tile is free: the producer may load the next one
     if (tid == 0) hopper::mbar_arrive(&empty[cw]);
   }
 
-  // epilogue: the gradient^T through shared memory (its own tile, free
-  // now) to (key, d) rows of dK or dV, 16 bytes a store.  Element e of
-  // acc[i] is d 64 i + 16 w + g8 + 8 ((e >> 1) & 1), key 8 (e >> 2) + 2 t4
-  // + (e & 1).
+  // epilogue: the gradient^T through shared memory (its own tile: nothing
+  // reads it any more) to (key, d) rows of dK or dV, 16 bytes a store.
+  // Element e of acc[i] is d 64 i + 16 w + g8 + 8 ((e >> 1) & 1), key
+  // 8 (e >> 2) + 2 t4 + (e & 1).
+  const int w = tid / 32, g8 = (tid % 32) / 4, t4 = tid % 4;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -659,7 +670,7 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       *reinterpret_cast<bf16*>(own + key * OUT_LD + 2 * d) =
           __float2bfloat16(acc[i][e]);
     }
-  hopper::named_barrier(3 + cw, 128);
+  hopper::named_barrier(2 + cw, 128);
   const Out& o = cw ? dv : dk;
   for (int c = tid; c < BKEY * 64; c += 128) {
     const int key = c / 64, ch = c % 64;

@@ -221,12 +221,12 @@ def flash_bwd_dq(q, k, v, key_mask, g, lse, dsum, scale):
 
 # K5's bf16 kernel: head_dim 512, a CTA of 384 threads per 32 keys of one
 # (b, h), looping over 64-query tiles with one stage each of Q and dO (64
-# KB each), K and V (32 KB each), the P and dS tiles (3 x 4 KB), the f32 P
-# exchange (8 KB) and 1 KB for alignment.  The C entry checks a plan
+# KB each), K and V (32 KB each), the P and dS tiles (3 x 4 KB) and 1 KB
+# for alignment.  The C entry checks a plan
 # against the kernels' own constants and refuses one that does not match.
 K5_BF16_HEAD_DIM = 512
 K5_BF16_KEYS, K5_BF16_QUERIES = 32, 64
-K5_BF16_SMEM = 2 * 64 * 1024 + 2 * 32 * 1024 + 3 * 4096 + 8192 + 1024
+K5_BF16_SMEM = 2 * 64 * 1024 + 2 * 32 * 1024 + 3 * 4096 + 1024
 K5_F32_KEYS = 16
 
 

@@ -751,8 +751,8 @@ def test_k6_taps_flip_and_transpose_and_are_made_once_per_version():
                                        (1, 4, 75, 200)])
 def test_k5_plan_covers_every_key_block_once(b, h, tq, tk):
     """One CTA per 32 keys of each (b, h), every query tile visited by
-    each, and K, V, one Q and one dO tile, the P and dS tiles and the P
-    exchange within the card's shared memory."""
+    each, and K, V, one Q and one dO tile and the P and dS tiles within
+    the card's shared memory."""
     plan = flash_cuda.k5_plan(b, h, tq, tk, 512, torch.bfloat16, SM_COUNT)
     gx, gh, gb = plan["grid"]
     keys, queries = plan["keys"], plan["query_tile"]
@@ -766,7 +766,7 @@ def test_k5_plan_covers_every_key_block_once(b, h, tq, tk):
             if q < tq] == list(range(tq))
     assert plan["ctas"] == gx * h * b
     assert plan["sms_used"] == min(plan["ctas"], SM_COUNT)
-    tiles = 2 * 64 * 512 * 2 + 2 * 32 * 512 * 2 + 3 * 32 * 64 * 2 + 64 * 32 * 4
+    tiles = 2 * 64 * 512 * 2 + 2 * 32 * 512 * 2 + 3 * 32 * 64 * 2
     assert plan["smem_bytes"] == tiles + 1024 <= SMEM_LIMIT - 1024
     f32 = flash_cuda.k5_plan(b, h, tq, tk, 128, torch.float32, SM_COUNT)
     assert f32["grid"] == (-(-tk // 16), h, b)
