@@ -435,39 +435,89 @@ __device__ __forceinline__ bf16* out_row(const Out& o, int b, int h, int t) {
   return static_cast<bf16*>(o.p) + b * o.sb + h * o.sh + (long long)t * o.st;
 }
 
-// one 64-query tile of Q or dO: eight boxes of 64 columns
+// the tile of Q or dO at queries q0.. into `dst`, each half (four boxes of
+// 64 columns) once its slot is free; called by one thread
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
-                                          uint64_t* bar, bool h_inner, int q0,
-                                          int h, int b) {
-  hopper::mbar_expect_tx(bar, TILE);
-  for (int i = 0; i < 8; ++i)
-    hopper::tma_load_heads(dst + i * QBOX, map, bar, h_inner, 64 * i, q0, h,
-                           b);
+                                          uint64_t (&full)[2],
+                                          uint64_t (&empty)[2], int parity,
+                                          bool h_inner, int q0, int h,
+                                          int b) {
+  for (int half = 0; half < 2; ++half) {
+    hopper::mbar_wait(&empty[half], parity);
+    hopper::mbar_expect_tx(&full[half], TILE / 2);
+    for (int i = 4 * half; i < 4 * half + 4; ++i)
+      hopper::tma_load_heads(dst + i * QBOX, map, &full[half], h_inner,
+                             64 * i, q0, h, b);
+  }
+}
+
+// S (or dP) = the tile's 64 queries x 32 keys of K (or V) over the head
+// dim, each half of the tile as it lands.  After each wait the products
+// are fenced anew: the wait is a loop, and without the fence ptxas puts
+// its own on the loop's path and serialises every product.
+__device__ __forceinline__ void scores(float (&d)[16], uint32_t tile,
+                                       uint32_t keys, uint64_t (&full)[2],
+                                       int ph) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    hopper::mbar_wait(&full[half], ph);
+    hopper::wgmma_fence();
+    hopper::fence_regs(d);
+#pragma unroll
+    for (int db = 4 * half; db < 4 * half + 4; ++db)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n32k16_ss<0, 0>(
+            d, hopper::desc_sw128(tile + db * QBOX + 32 * kk, 16, 1024),
+            hopper::desc_sw128(keys + db * KBOX + 32 * kk, 16, 1024),
+            (db | kk) != 0);
+    hopper::wgmma_commit();
+    hopper::fence_regs(d);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
 }
 
 // acc (eight m64 tiles of the gradient^T: d 64 i + row, 32 keys) +=
 // tile^T B over the tile's 64 queries, for each B in `bs`; the tile is
-// read MN-major (the descriptors' transpose bit), B [key][query] K-major
+// read MN-major (the descriptors' transpose bit), B [key][query] K-major.
+// Each half of the tile (four m64 tiles) is freed once its products are
+// done (every thread arrives: no branch while a product is in flight),
+// so that the next tile's half loads while the other is still read.
 template <int NB>
 __device__ __forceinline__ void grad_products(float (&acc)[8][16],
                                               uint32_t tile,
-                                              const uint32_t (&bs)[NB]) {
-  hopper::wgmma_fence();
+                                              const uint32_t (&bs)[NB],
+                                              uint64_t (&full)[2],
+                                              uint64_t (&empty)[2], int ph) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+  for (int half = 0; half < 2; ++half) {
+    hopper::mbar_wait(&full[half], ph);   // landed: warpgroup 0 saw it
+    hopper::wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+    for (int i = 4 * half; i < 4 * half + 4; ++i)
 #pragma unroll
-      for (int j = 0; j < NB; ++j)
-        hopper::wgmma_m64n32k16_ss<1, 0>(
-            acc[i], hopper::desc_sw128(tile + i * QBOX + ks * 2048, QBOX, 1024),
-            hopper::desc_sw128(bs[j] + 32 * ks, 16, 1024), 1);
-  hopper::wgmma_commit();
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          hopper::wgmma_m64n32k16_ss<1, 0>(
+              acc[i],
+              hopper::desc_sw128(tile + i * QBOX + ks * 2048, QBOX, 1024),
+              hopper::desc_sw128(bs[j] + 32 * ks, 16, 1024), 1);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+  }
+  hopper::wgmma_wait<1>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hopper::fence_regs(acc[i]);
+  hopper::mbar_arrive(&empty[0]);
   hopper::wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+  for (int i = 4; i < 8; ++i) hopper::fence_regs(acc[i]);
+  hopper::mbar_arrive(&empty[1]);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -480,9 +530,9 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                 const float* __restrict__ dsum, Out dk, Out dv, int H,
                 int Tq, int Tk, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  // full / empty [0]: the Q tile, [1]: the dO tile; ready: a tile's P and
-  // dS are in shared memory
-  __shared__ __align__(8) uint64_t kvfull, full[2], empty[2], ready;
+  // full / empty [0]: the Q tile, [1]: the dO tile, by halves of four
+  // boxes; ready: a tile's P and dS are in shared memory
+  __shared__ __align__(8) uint64_t kvfull, full[2][2], empty[2][2], ready;
   __shared__ float kbias[BKEY];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -498,10 +548,11 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x == 0) {
     hopper::mbar_init(&kvfull, 1);
     hopper::mbar_init(&ready, 1);
-    for (int i = 0; i < 2; ++i) {
-      hopper::mbar_init(&full[i], 1);
-      hopper::mbar_init(&empty[i], 1);
-    }
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 2; ++j) {
+        hopper::mbar_init(&full[i][j], 1);
+        hopper::mbar_init(&empty[i][j], 128);   // a warpgroup's threads
+      }
     hopper::mbar_fence_init();
   }
   if (threadIdx.x < BKEY) kbias[threadIdx.x] = key_bias(mb, k0 + threadIdx.x,
@@ -540,7 +591,8 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     // head dim; element e is query 16 w + g8 + 8 ((e >> 1) & 1), key
     // 8 (e >> 2) + 2 t4 + (e & 1)), P and dS.  Its thread 0 issues every
     // TMA load: K and V once, and a tile's Q (dO) once warpgroup 1 (2) has
-    // freed the slot, each at a point where no product is in flight.
+    // freed the slot, each at a point where no product is in flight (a
+    // thread-divergent branch beside one would serialise them).
     const int w = tid / 32, g8 = (tid % 32) / 4, t4 = tid % 4;
     const long long row0 = ((long long)b * H + h) * Tq;
     if (tid == 0) {
@@ -551,8 +603,8 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         hopper::tma_load_heads(sm + OFF_V + i * KBOX, &v_map, &kvfull,
                                (order >> 2) & 1, 64 * i, k0, h, b);
       }
-      load_tile(sm + OFF_Q, &q_map, &full[0], q_inner, 0, h, b);
-      load_tile(sm + OFF_G, &g_map, &full[1], g_inner, 0, h, b);
+      load_tile(sm + OFF_Q, &q_map, full[0], empty[0], 1, q_inner, 0, h, b);
+      load_tile(sm + OFF_G, &g_map, full[1], empty[1], 1, g_inner, 0, h, b);
     }
     hopper::mbar_wait(&kvfull, 0);
     for (int qt = 0; qt < nq; ++qt) {
@@ -565,49 +617,19 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         D[r] = q < Tq ? dsum[row0 + q] : 0.f;
       }
       float s[16], dp[16];
-      if (qt > 0 && tid == 0) {
-        hopper::mbar_wait(&empty[0], ph ^ 1);   // dK of the last tile done
-        load_tile(sm + OFF_Q, &q_map, &full[0], q_inner, qt * BQ, h, b);
-      }
-      hopper::mbar_wait(&full[0], ph);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int db = 0; db < 8; ++db)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          hopper::wgmma_m64n32k16_ss<0, 0>(
-              s, hopper::desc_sw128(base + OFF_Q + db * QBOX + 32 * kk, 16,
-                                    1024),
-              hopper::desc_sw128(base + OFF_K + db * KBOX + 32 * kk, 16,
-                                 1024),
-              (db | kk) != 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(s);
-      if (qt > 0 && tid == 0) {
-        hopper::mbar_wait(&empty[1], ph ^ 1);   // dV of the last tile done
-        load_tile(sm + OFF_G, &g_map, &full[1], g_inner, qt * BQ, h, b);
-      }
-      // P = exp(S scale + key bias - L) while dO loads
+      if (qt > 0 && tid == 0)   // dK of the last tile frees Q's halves
+        load_tile(sm + OFF_Q, &q_map, full[0], empty[0], ph ^ 1, q_inner,
+                  qt * BQ, h, b);
+      scores(s, base + OFF_Q, base + OFF_K, full[0], ph);
+      if (qt > 0 && tid == 0)   // dV of the last tile frees dO's halves
+        load_tile(sm + OFF_G, &g_map, full[1], empty[1], ph ^ 1, g_inner,
+                  qt * BQ, h, b);
+      // P = exp(S scale + key bias - L) while dO lands
 #pragma unroll
       for (int e = 0; e < 16; ++e)
         s[e] = expf(s[e] * scale + kbias[8 * (e >> 2) + 2 * t4 + (e & 1)] -
                     L[(e >> 1) & 1]);
-      hopper::mbar_wait(&full[1], ph);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int db = 0; db < 8; ++db)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          hopper::wgmma_m64n32k16_ss<0, 0>(
-              dp, hopper::desc_sw128(base + OFF_G + db * QBOX + 32 * kk, 16,
-                                     1024),
-              hopper::desc_sw128(base + OFF_V + db * KBOX + 32 * kk, 16,
-                                 1024),
-              (db | kk) != 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(dp);
+      scores(dp, base + OFF_G, base + OFF_V, full[1], ph);
       // dS = P (dP - D) scale, cast to bf16 for dK as JAX casts it; P as
       // bf16 hi + lo (16 bits of mantissa) for dV, where JAX keeps P f32.
       // All three as [key][query] rows, 128-byte swizzled: K-major B
@@ -645,15 +667,13 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
   for (int qt = 0; qt < nq; ++qt) {
     hopper::mbar_wait(&ready, qt & 1);
-    hopper::mbar_wait(&full[cw], qt & 1);
     if (cw == 0) {
       const uint32_t bs[1] = {base + OFF_DS};
-      grad_products(acc, base + OFF_Q, bs);
+      grad_products(acc, base + OFF_Q, bs, full[0], empty[0], qt & 1);
     } else {
       const uint32_t bs[2] = {base + OFF_PHI, base + OFF_PLO};
-      grad_products(acc, base + OFF_G, bs);
+      grad_products(acc, base + OFF_G, bs, full[1], empty[1], qt & 1);
     }
-    if (tid == 0) hopper::mbar_arrive(&empty[cw]);
   }
 
   // epilogue: the gradient^T through shared memory (its own tile: nothing
