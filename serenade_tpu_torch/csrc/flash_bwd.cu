@@ -617,14 +617,16 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         D[r] = q < Tq ? dsum[row0 + q] : 0.f;
       }
       float s[16], dp[16];
-      if (qt > 0 && tid == 0)   // dK of the last tile frees Q's halves
+      if (qt > 0 && tid == 0) {
+        // each half as the last tile's dK (Q) and dV (dO) free them, in
+        // that order: the dO load then overlaps Q's and S
         load_tile(sm + OFF_Q, &q_map, full[0], empty[0], ph ^ 1, q_inner,
                   qt * BQ, h, b);
-      scores(s, base + OFF_Q, base + OFF_K, full[0], ph);
-      if (qt > 0 && tid == 0)   // dV of the last tile frees dO's halves
         load_tile(sm + OFF_G, &g_map, full[1], empty[1], ph ^ 1, g_inner,
                   qt * BQ, h, b);
-      // P = exp(S scale + key bias - L) while dO lands
+      }
+      scores(s, base + OFF_Q, base + OFF_K, full[0], ph);
+      // P = exp(S scale + key bias - L)
 #pragma unroll
       for (int e = 0; e < 16; ++e)
         s[e] = expf(s[e] * scale + kbias[8 * (e >> 2) + 2 * t4 + (e & 1)] -
