@@ -36,35 +36,42 @@
 // per 32 keys of one (b, h): the dK + dV accumulators of 32 keys x 512
 // columns in f32 take 128 KB, half the register file, and K, V (64 KB)
 // plus one 64-query tile of Q and of dO (128 KB) leave no room in the
-// 227 KB of shared memory for a second tile.  Warpgroup 0 loads K and V
-// once and keeps the Q and dO tiles coming by TMA (4-D tensor maps over
-// the strided (B, H, T, D) views, as K1), each tile on its own pair of
-// mbarriers and its own producer thread.  The two consumer warpgroups
-// (setmaxnreg 232) split the work by tile, so that each frees its tile
-// after its own last product and the next load overlaps the other's
-// products: warpgroup 1 computes S = Q K^T (wgmma m64n32k16 over D 512),
-// P = exp(S scale + bias - L) and dK^T += Q^T dS; warpgroup 2 computes dP
-// = dO V^T, dS = P (dP - D) scale and dV^T += dO^T P.  Neither
-// product is computed twice: P passes in f32 through shared memory in
-// the accumulator layout; dS and P (as bf16 hi + lo, since JAX keeps P
-// f32 for dV: 16 bits of mantissa, one more product) are stored as
-// [key][query] rows of 64 bf16, one 128-byte swizzle row each, K-major B
-// operands.  The gradients accumulate transposed (M = head dim, eight m64
-// tiles; N = 32 keys) with A = Q^T or dO^T read MN-major from the TMA
-// tiles through the descriptors' transpose bit: each consumer holds its
-// gradient's 512 x 32 in 128 registers a thread.  The epilogue stages
-// dK or dV as [key][d] rows in its own tile and stores 16 bytes a thread
-// in the (B, Tk, H, D) layout.  A block whose 32 keys are all masked
-// stores zeros and exits when its sample has a valid key; query tiles are
-// never skipped (no query mask).
+// 227 KB of shared memory for a second tile.  ptxas gives a 384-thread
+// CTA 168 registers a thread whatever setmaxnreg asks, so the roles keep
+// the 128 accumulator registers apart from everything else:
+//   warpgroup 0 computes S = Q K^T and dP = dO V^T (wgmma m64n32k16 over
+//   D 512, 64 queries x 32 keys each), P = exp(S scale + bias - L) and
+//   dS = P (dP - D) scale, and writes dS and P (as bf16 hi + lo, since
+//   JAX keeps P f32 for dV: 16 bits of mantissa, one more product) as
+//   [key][query] rows of 64 bf16, one 128-byte swizzle row each: K-major
+//   B operands.  Its thread 0 issues every TMA load, at points where no
+//   product is in flight: K and V once, then each half (four 64-column
+//   blocks) of the next Q and dO tiles as the last tile's products free
+//   it, one instruction a half through 5-D tensor maps (64 columns, T,
+//   column block, H, B) over the strided (B, H, T, D) views;
+//   warpgroups 1 and 2 accumulate dK^T += Q^T dS and dV^T += dO^T P
+//   (M = head dim, eight m64 tiles; N = 32 keys; A read MN-major from the
+//   TMA tiles through the descriptors' transpose bit), 512 x 32 in 128
+//   registers a thread, and free each half of their tile as its four m64
+//   tiles finish.
+// No product is computed twice, and none waits on another: every branch
+// on the warpgroup is warp-uniform (its index from __shfl_sync) and
+// every wait is followed by a wgmma fence, else ptxas serialises the
+// products (C7512 / C7520).  The epilogue stages dK or dV as [key][d]
+// rows in its warpgroup's tile and stores 16 bytes a thread in the
+// (B, Tk, H, D) layout.  A block whose 32 keys are all masked stores
+// zeros and exits when its sample has a valid key; query tiles are never
+// skipped (no query mask).
 //
 // f32 (parity checks): FMA units, 256 threads, 16 rows by 16 columns of
 // S per tile, one entry a thread; each thread then accumulates one row of
 // its block over the columns c + 16 j.
 //
 // Not yet used: K4 on wgmma; in K5 a second Q / dO stage (no room at D
-// 512), a 2-CTA cluster splitting the head dim, a TMA multicast of the Q
-// and dO tiles to the CTAs of neighbouring key blocks.
+// 512) and a 2-CTA cluster splitting the head dim.  Tried in K5 and
+// slower (PERF.md): a TMA multicast of each Q and dO tile to a cluster of
+// two key blocks, a 13th warp issuing the loads (ptxas then allows 128
+// registers a thread).
 #include <string.h>
 
 #include "common.cuh"
@@ -435,19 +442,18 @@ __device__ __forceinline__ bf16* out_row(const Out& o, int b, int h, int t) {
   return static_cast<bf16*>(o.p) + b * o.sb + h * o.sh + (long long)t * o.st;
 }
 
-// the tile of Q or dO at queries q0.. into `dst`, each half (four boxes of
-// 64 columns) once its slot is free; called by one thread
+// the tile of Q or dO at queries q0.. into `dst`, each half (four
+// 64-column blocks, one TMA instruction) once its slot is free; called by
+// one thread
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
                                           uint64_t (&full)[2],
                                           uint64_t (&empty)[2], int parity,
-                                          bool h_inner, int q0, int h,
-                                          int b) {
+                                          int q0, int h, int b) {
   for (int half = 0; half < 2; ++half) {
     hopper::mbar_wait(&empty[half], parity);
     hopper::mbar_expect_tx(&full[half], TILE / 2);
-    for (int i = 4 * half; i < 4 * half + 4; ++i)
-      hopper::tma_load_heads(dst + i * QBOX, map, &full[half], h_inner,
-                             64 * i, q0, h, b);
+    hopper::tma_load_blocks(dst + 4 * half * QBOX, map, &full[half], q0,
+                            4 * half, h, b);
   }
 }
 
@@ -524,7 +530,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
-                const __grid_constant__ CUtensorMap g_map, int order,
+                const __grid_constant__ CUtensorMap g_map,
                 const float* __restrict__ mask,
                 const float* __restrict__ lse,
                 const float* __restrict__ dsum, Out dk, Out dv, int H,
@@ -585,7 +591,6 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   const uint32_t base = hopper::smem_addr(sm);
-  const bool q_inner = order & 1, g_inner = (order >> 3) & 1;
   if (wg == 0) {
     // ---- warpgroup 0: S = Q K^T and dP = dO V^T (wgmma m64n32k16 over the
     // head dim; element e is query 16 w + g8 + 8 ((e >> 1) & 1), key
@@ -597,14 +602,14 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     const long long row0 = ((long long)b * H + h) * Tq;
     if (tid == 0) {
       hopper::mbar_expect_tx(&kvfull, 2 * KV);
-      for (int i = 0; i < 8; ++i) {
-        hopper::tma_load_heads(sm + OFF_K + i * KBOX, &k_map, &kvfull,
-                               (order >> 1) & 1, 64 * i, k0, h, b);
-        hopper::tma_load_heads(sm + OFF_V + i * KBOX, &v_map, &kvfull,
-                               (order >> 2) & 1, 64 * i, k0, h, b);
-      }
-      load_tile(sm + OFF_Q, &q_map, full[0], empty[0], 1, q_inner, 0, h, b);
-      load_tile(sm + OFF_G, &g_map, full[1], empty[1], 1, g_inner, 0, h, b);
+      hopper::prefetch_map(&q_map);
+      hopper::prefetch_map(&k_map);
+      hopper::prefetch_map(&v_map);
+      hopper::prefetch_map(&g_map);
+      hopper::tma_load_blocks(sm + OFF_K, &k_map, &kvfull, k0, 0, h, b);
+      hopper::tma_load_blocks(sm + OFF_V, &v_map, &kvfull, k0, 0, h, b);
+      load_tile(sm + OFF_Q, &q_map, full[0], empty[0], 1, 0, h, b);
+      load_tile(sm + OFF_G, &g_map, full[1], empty[1], 1, 0, h, b);
     }
     hopper::mbar_wait(&kvfull, 0);
     for (int qt = 0; qt < nq; ++qt) {
@@ -620,10 +625,10 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       if (qt > 0 && tid == 0) {
         // each half as the last tile's dK (Q) and dV (dO) free them, in
         // that order: the dO load then overlaps Q's and S
-        load_tile(sm + OFF_Q, &q_map, full[0], empty[0], ph ^ 1, q_inner,
-                  qt * BQ, h, b);
-        load_tile(sm + OFF_G, &g_map, full[1], empty[1], ph ^ 1, g_inner,
-                  qt * BQ, h, b);
+        load_tile(sm + OFF_Q, &q_map, full[0], empty[0], ph ^ 1, qt * BQ, h,
+                  b);
+        load_tile(sm + OFF_G, &g_map, full[1], empty[1], ph ^ 1, qt * BQ, h,
+                  b);
       }
       scores(s, base + OFF_Q, base + OFF_K, full[0], ph);
       // P = exp(S scale + key bias - L)
@@ -810,26 +815,25 @@ extern "C" int serenade_flash_bwd_dkv(SERENADE_HEAD_ARGS, void* dk,
         threads != k5::THREADS || smem != k5::SMEM ||
         (reinterpret_cast<size_t>(dk) | reinterpret_cast<size_t>(dv)) % 16)
       return (int)cudaErrorInvalidValue;
-    // 4-D maps over the strided (B, H, T, D) views (bit i of `order`:
-    // q, k, v, dO); boxes of 64 columns x 64 (Q, dO) or 32 (K, V) rows
+    // 5-D maps over the strided (B, H, T, D) views: boxes of 64 columns x
+    // 64 rows x 4 column blocks (half a Q or dO tile) or x 32 rows x 8
+    // blocks (all of K or V)
     CUtensorMap maps[4];
     const void* ptrs[4] = {q, k, v, g};
     const long long sb[4] = {qsb, ksb, vsb, gsb}, sh[4] = {qsh, ksh, vsh, gsh},
                     stt[4] = {qst, kst, vst, gst};
     const int rows[4] = {k5::BQ, k5::BKEY, k5::BKEY, k5::BQ};
+    const int blocks[4] = {4, 8, 8, 4};
     const int lens[4] = {Tq, Tk, Tk, Tq};
-    int order = 0;
     for (int i = 0; i < 4; ++i) {
-      bool h_inner;
-      const int e = hopper::encode_heads_map(&maps[i], ptrs[i], sb[i], sh[i],
-                                             stt[i], B, H, lens[i], D,
-                                             rows[i], &h_inner);
+      const int e = hopper::encode_heads_blocks(&maps[i], ptrs[i], sb[i],
+                                                sh[i], stt[i], B, H, lens[i],
+                                                D, rows[i], blocks[i]);
       if (e) return e;
-      order |= (int)h_inner << i;
     }
     return launch(k5::dkv_bf16_kernel, dim3(grid_x, H, B), threads, smem,
-                  stream, maps[0], maps[1], maps[2], maps[3], order, mask,
-                  lse, dsum, ok, ov, H, Tq, Tk, scale);
+                  stream, maps[0], maps[1], maps[2], maps[3], mask, lse, dsum,
+                  ok, ov, H, Tq, Tk, scale);
   }
   if (grid_x != (Tk + F_T - 1) / F_T || threads != F_THREADS ||
       (size_t)smem != sizeof(float) * ((size_t)4 * F_T * (D + 1) +

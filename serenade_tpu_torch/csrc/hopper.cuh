@@ -1,9 +1,10 @@
 // Hopper (sm_90a) device helpers of the port's redesigned kernels (K1 flash
-// forward, K2 Block1D forward, K3 residual branch, K7 Block1D weight
-// gradient): shared-memory matrix descriptors and wgmma.mma_async wrappers
-// (bf16, and TF32 with A from registers) with their fence, commit and
-// wait; mbarrier init, arrive, expect-tx and try-wait; TMA tensor loads
-// (cp.async.bulk.tensor), bulk f32 reductions to global memory and 4- and
+// forward, K2 Block1D forward, K3 residual branch, K5 flash dK/dV, K6 and
+// K7 Block1D data and weight gradients): shared-memory matrix descriptors
+// and wgmma.mma_async wrappers (bf16, and TF32 with A from registers) with
+// their fence, commit and wait; mbarrier init, arrive, expect-tx and
+// try-wait; TMA tensor loads (cp.async.bulk.tensor, 2-D to 5-D) and
+// tensor-map prefetch, bulk f32 reductions to global memory and 4- and
 // 16-byte cp.async with zero fill; TF32 rounding; register reallocation
 // (setmaxnreg) and named barriers.
 //
@@ -186,6 +187,27 @@ __device__ __forceinline__ void tma_load_heads(void* dst, const CUtensorMap* map
     tma_load_4d(dst, map, bar, d0, h, t0, b);
   else
     tma_load_4d(dst, map, bar, d0, t0, h, b);
+}
+
+// One box of `rows` rows from t0 x `blocks` 64-column blocks from block d0
+// of head h of sample b, through a 5-D map made by encode_heads_blocks, as
+// `blocks` boxes of 64 columns x `rows` rows one after another: one
+// instruction where tma_load_heads takes `blocks`.
+__device__ __forceinline__ void tma_load_blocks(void* dst, const CUtensorMap* map,
+                                                uint64_t* bar, int t0, int d0,
+                                                int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0),
+      "r"(t0), "r"(d0), "r"(h), "r"(b)
+      : "memory");
+}
+// fetches a tensor map into the cache before its first load
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // ---- cp.async (4 bytes, for rows TMA cannot take) --------------------------
@@ -612,6 +634,21 @@ inline int encode_heads_map(CUtensorMap* map, const void* base, long long sb,
   const cuuint32_t box[4] = {64, *h_inner ? 1u : (cuuint32_t)rows,
                              *h_inner ? (cuuint32_t)rows : 1u, 1};
   return encode_map_bf16(map, base, 4, dims, strides, box);
+}
+
+// A bf16 map over the same view as a 5-D tensor (64 columns, T, D / 64
+// column blocks, H, B), in boxes of 64 columns x `rows` rows x `blocks`
+// blocks: tma_load_blocks lays each block out as a 64 x `rows` box of
+// encode_heads_map would.  Zeros past T.
+inline int encode_heads_blocks(CUtensorMap* map, const void* base,
+                               long long sb, long long sh, long long st,
+                               int B, int H, int T, int D, int rows,
+                               int blocks) {
+  const cuuint64_t dims[5] = {64, (cuuint64_t)T, (cuuint64_t)(D / 64),
+                              (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {2ull * st, 128, 2ull * sh, 2ull * sb};
+  const cuuint32_t box[5] = {64, (cuuint32_t)rows, (cuuint32_t)blocks, 1, 1};
+  return encode_map_bf16(map, base, 5, dims, strides, box);
 }
 
 }  // namespace hopper
