@@ -423,6 +423,17 @@ def check_block1d_bwd(torch, dev):
             plan = K.k6_plan(b, t, cin, cout, dtype, _cuda.sm_count(dev))
             row["data"]["plan"] = {k: plan[k] for k in (
                 "bn", "grid", "ctas", "stages", "smem_bytes")}
+            # K6's three kernels apart, ms a call from 10 profiled calls:
+            # the dx product beside the two GroupNorm passes
+            prof = device_time(torch, lambda: (
+                [K.block1d_bwd_data(x, lens, w, gamma, beta, y, stats, g)
+                 for _ in range(10)], torch.cuda.synchronize()))
+            row["data"]["profile_ms"] = {
+                part: prof["port_kernels"][sym]["ms"]
+                / prof["port_kernels"][sym]["count"]
+                for part, sym in (("dx", "k6::dx_bf16_kernel"),
+                                  ("gn_reduce", "gn_reduce_kernel"),
+                                  ("gn_dy", "gn_dy_kernel"))}
             # cuDNN's data gradient of conv1d (k 3, padding 1) on the same
             # dy and weight, (B, C, T) as cuDNN takes them, held against
             # the plain dx on the valid frames (cuDNN does not mask) before
@@ -824,7 +835,7 @@ def train_path(torch, np, dev, counters):
                                        torch.cuda.synchronize()))
     prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / step_s
     emit(dict(phase="train_profile", **prof))
-    return ok, launches, prof["port_kernels"]
+    return ok, launches
 
 
 def train_parity(torch, np, dev):
@@ -953,7 +964,7 @@ def kernel_entries(torch, dev):
             "plain_scope": own["plain_scope"],
             "library_scope": own["library_scope"],
             "shape": row["shape"], "dtype": row["dtype"]}
-        for key in ("bound_f32_fma_ms", "plan"):
+        for key in ("bound_f32_fma_ms", "plan", "profile_ms"):
             if key in timing:
                 entries[name][key] = timing[key]
 
@@ -1084,17 +1095,10 @@ def main() -> int:
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch"):
         entries[name]["launches"] = launches[name]
     ok &= slice_parity(torch, np, dev)
-    train_ok, launches, kernels = train_path(torch, np, dev, counters)
+    train_ok, launches = train_path(torch, np, dev, counters)
     ok &= train_ok
     for name in OUTPUTS:
         entries[name]["launches"] = launches[name]
-    # K6's three kernels in the profiled train step, ms a call each: which
-    # part of it is left to the next redesign
-    entries["block1d_bwd_data"]["profile_ms"] = {
-        part: kernels[sym]["ms"] / kernels[sym]["count"]
-        for part, sym in (("dx", "k6::dx_bf16_kernel"),
-                          ("gn_reduce", "gn_reduce_kernel"),
-                          ("gn_dy", "gn_dy_kernel")) if sym in kernels}
     ok &= train_parity(torch, np, dev)
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
