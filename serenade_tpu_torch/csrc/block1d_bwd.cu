@@ -42,9 +42,10 @@
 //   it, so nothing is masked in shared memory), and that tap's BN weight
 //   rows.  Warpgroups 1 and 2 each own 64 rows x BN columns and run wgmma
 //   m64nBNk16, one group in flight while the next stage is waited for.
-//   The epilogue zeroes rows >= n and stores bf16 pairs (4 bytes: Cin 242
-//   rows are 484 bytes, which TMA cannot store); tiles wholly at or past
-//   n store zeros and skip the products.
+//   The epilogue zeroes rows >= n and stages the tile in the ring, then
+//   stores 16 bytes a thread along dx's rows; Cin 242 (484-byte rows, not
+//   16-byte aligned) stores bf16 pairs from the registers.  Tiles wholly
+//   at or past n store zeros and skip the products.
 // K7 reduces B T rows into (Cout, Cin, 3), time being the reduction axis
 // of a plain GEMM: A = dy [t][co] (M = Cout), B = the x window [t][ci]
 // (N = Cin), both with their M or N axis contiguous in memory.
@@ -345,6 +346,8 @@ dx_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
                const int* __restrict__ lengths, bf16* __restrict__ dx,
                int Tlen, int Cin, int Cout, int stages) {
   constexpr int SB = stage_bytes(BN);
+  static_assert(2 * 64 * (BN * 2 + 16) <= 2 * SB,
+                "the epilogue's staged tiles fit in a two-stage ring");
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
@@ -428,6 +431,33 @@ dx_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
   // & 1), column 8 (e >> 2) + 2 t + (e & 1) of this consumer's 64 x BN
   // tile; Cin is even, so a pair of columns is in or out together
   const int w = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
+  if (Cin % 8 == 0) {
+    // through shared memory (the ring, once both consumers are done with
+    // it), rows padded by 16 bytes so that a store's 32 lanes take 32
+    // banks, then 16 bytes a thread along each row of dx
+    constexpr int LD = BN * 2 + 16;
+    hopper::named_barrier(1, 256);
+    uint8_t* stage = ring + cw * 64 * LD;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * w + g + 8 * h;
+      const bool keep = t0 + 64 * cw + r < n;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+        *reinterpret_cast<uint32_t*>(stage + r * LD + 2 * (8 * i + 2 * t4)) =
+            serenade::pack_bf16(keep ? acc[4 * i + 2 * h] : 0.f,
+                                keep ? acc[4 * i + 2 * h + 1] : 0.f);
+    }
+    hopper::named_barrier(2 + cw, 128);
+    for (int c = tid; c < 64 * (BN / 8); c += 128) {
+      const int r = c / (BN / 8), ch = c % (BN / 8);
+      const int t = t0 + 64 * cw + r, o = o0 + 8 * ch;
+      if (t < Tlen && o < Cin)
+        *reinterpret_cast<uint4*>(dx + ((size_t)b * Tlen + t) * Cin + o) =
+            *reinterpret_cast<const uint4*>(stage + r * LD + 16 * ch);
+    }
+    return;
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int t = t0 + 64 * cw + 16 * w + g + 8 * h;
