@@ -45,7 +45,11 @@
 //   The epilogue zeroes rows >= n and stages the tile in the ring, then
 //   stores 16 bytes a thread along dx's rows; Cin 242 (484-byte rows, not
 //   16-byte aligned) stores bf16 pairs from the registers.  Tiles wholly
-//   at or past n store zeros and skip the products.
+//   at or past n store zeros and skip the products.  At (16, 512, 1024 ->
+//   512) the dx product takes 39 us (its bound 26 us; its mainloop at
+//   87 % of the tensor cores' rate), cuDNN's conv1d data gradient 109 us,
+//   and the two GroupNorm passes 40 + 19 us (NVIDIA H100 80GB HBM3,
+//   700 W).
 // K7 reduces B T rows into (Cout, Cin, 3), time being the reduction axis
 // of a plain GEMM: A = dy [t][co] (M = Cout), B = the x window [t][ci]
 // (N = Cin), both with their M or N axis contiguous in memory.

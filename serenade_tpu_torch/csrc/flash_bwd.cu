@@ -61,7 +61,9 @@
 // rows in its warpgroup's tile and stores 16 bytes a thread in the
 // (B, Tk, H, D) layout.  A block whose 32 keys are all masked stores
 // zeros and exits when its sample has a valid key; query tiles are never
-// skipped (no query mask).
+// skipped (no query mask).  At (16, 4, 512, 512) it takes 0.30 ms against
+// a bound of 0.07 ms: each tile's loads wait for their one slot, and their
+// latency stays on the critical path (NVIDIA H100 80GB HBM3, 700 W).
 //
 // f32 (parity checks): FMA units, 256 threads, 16 rows by 16 columns of
 // S per tile, one entry a thread; each thread then accumulates one row of
