@@ -210,12 +210,15 @@ constexpr int XCH = 2 * 2 * 128 * 16 * 4;   // S partials: parity x half
 constexpr int SMEM = Q_BYTES + STAGES * STAGE + XCH + 1024;
 constexpr int THREADS = 384;
 
-// bit `which` of `order` says whether that tensor's 4-D map is
-// (D, H, T, B) (hopper::encode_heads_map)
+// one tensor's 4-D map holds (D, T, H, B) or (D, H, T, B), the order that
+// keeps its strides increasing; bit `which` of `order` says (D, H, T, B)
 __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
                                           uint64_t* bar, int order, int which,
                                           int d0, int t0, int h, int b) {
-  hopper::tma_load_heads(dst, map, bar, (order >> which) & 1, d0, t0, h, b);
+  if ((order >> which) & 1)
+    hopper::tma_load_4d(dst, map, bar, d0, h, t0, b);
+  else
+    hopper::tma_load_4d(dst, map, bar, d0, t0, h, b);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -422,8 +425,9 @@ extern "C" int serenade_flash_fwd(
     if (D != k1::HD || grid_x != (Tq + k1::BQ - 1) / k1::BQ ||
         threads != k1::THREADS || smem != k1::SMEM)
       return (int)cudaErrorInvalidValue;
-    // 4-D maps over the strided (B, H, T, D) views; boxes of 64 columns x
-    // 64 (Q) or 32 (K, V) rows
+    // (D, T, H, B) or (D, H, T, B) maps, whichever keeps the strides
+    // increasing; the (B, H, T, D) views of (B, T, H, D) buffers take the
+    // second.  Boxes of 64 columns x 64 (Q) or 32 (K, V) rows.
     CUtensorMap maps[3];
     const void* ptrs[3] = {q, k, v};
     const long long sb[3] = {qsb, ksb, vsb}, sh[3] = {qsh, ksh, vsh},
@@ -432,12 +436,19 @@ extern "C" int serenade_flash_fwd(
     const int lens[3] = {Tq, Tk, Tk};
     int order = 0;
     for (int i = 0; i < 3; ++i) {
-      bool h_inner;
-      const int e = hopper::encode_heads_map(&maps[i], ptrs[i], sb[i], sh[i],
-                                             stt[i], B, H, lens[i], D,
-                                             rows[i], &h_inner);
-      if (e) return e;
+      const bool h_inner = sh[i] < stt[i];
       order |= (int)h_inner << i;
+      const cuuint64_t dims[4] = {
+          (cuuint64_t)D, (cuuint64_t)(h_inner ? H : lens[i]),
+          (cuuint64_t)(h_inner ? lens[i] : H), (cuuint64_t)B};
+      const cuuint64_t strides[3] = {
+          2ull * (h_inner ? sh[i] : stt[i]), 2ull * (h_inner ? stt[i] : sh[i]),
+          2ull * sb[i]};
+      const cuuint32_t box[4] = {64, h_inner ? 1u : (cuuint32_t)rows[i],
+                                 h_inner ? (cuuint32_t)rows[i] : 1u, 1};
+      const int e = hopper::encode_map_bf16(&maps[i], ptrs[i], 4, dims,
+                                            strides, box);
+      if (e) return e;
     }
     cudaError_t e = cudaFuncSetAttribute(
         k1::flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -177,23 +177,12 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// One box of rows [t0, t0 + box rows) x columns [d0, d0 + 64) of head h of
-// sample b, through a 4-D map over a strided (B, H, T, D) view made by
-// encode_heads_map: dims (D, T, H, B), or (D, H, T, B) when `h_inner`.
-__device__ __forceinline__ void tma_load_heads(void* dst, const CUtensorMap* map,
-                                               uint64_t* bar, bool h_inner,
-                                               int d0, int t0, int h, int b) {
-  if (h_inner)
-    tma_load_4d(dst, map, bar, d0, h, t0, b);
-  else
-    tma_load_4d(dst, map, bar, d0, t0, h, b);
-}
-
 // One box of `rows` rows from t0 x `blocks` 64-column blocks from block d0
 // of head h of sample b, through a 5-D map made by encode_heads_blocks, as
-// `blocks` boxes of 64 columns x `rows` rows one after another: one
-// instruction where tma_load_heads takes `blocks`.
-__device__ __forceinline__ void tma_load_blocks(void* dst, const CUtensorMap* map,
+// `blocks` boxes of 64 columns x `rows` rows one after another: one TMA
+// instruction for what 4-D boxes of one block each take `blocks`.
+__device__ __forceinline__ void tma_load_blocks(void* dst,
+                                                const CUtensorMap* map,
                                                 uint64_t* bar, int t0, int d0,
                                                 int h, int b) {
   asm volatile(
@@ -618,28 +607,11 @@ inline int encode_map_bf16(CUtensorMap* map, const void* base, int rank,
 
 
 // A bf16 map over the (B, H, T, D) view at `base` with element strides
-// (sb, sh, st) and a contiguous D, in boxes of 64 columns x `rows` rows:
-// dims (D, T, H, B), or (D, H, T, B) when the head stride is the smaller
-// (the (B, H, T, D) views of (B, T, H, D) buffers), which keeps the
-// strides increasing; `h_inner` says which.  Zeros past T.
-inline int encode_heads_map(CUtensorMap* map, const void* base, long long sb,
-                            long long sh, long long st, int B, int H, int T,
-                            int D, int rows, bool* h_inner) {
-  *h_inner = sh < st;
-  const cuuint64_t dims[4] = {(cuuint64_t)D,
-                              (cuuint64_t)(*h_inner ? H : T),
-                              (cuuint64_t)(*h_inner ? T : H), (cuuint64_t)B};
-  const cuuint64_t strides[3] = {2ull * (*h_inner ? sh : st),
-                                 2ull * (*h_inner ? st : sh), 2ull * sb};
-  const cuuint32_t box[4] = {64, *h_inner ? 1u : (cuuint32_t)rows,
-                             *h_inner ? (cuuint32_t)rows : 1u, 1};
-  return encode_map_bf16(map, base, 4, dims, strides, box);
-}
-
-// A bf16 map over the same view as a 5-D tensor (64 columns, T, D / 64
+// (sb, sh, st) and a contiguous D, as a 5-D tensor (64 columns, T, D / 64
 // column blocks, H, B), in boxes of 64 columns x `rows` rows x `blocks`
-// blocks: tma_load_blocks lays each block out as a 64 x `rows` box of
-// encode_heads_map would.  Zeros past T.
+// blocks: tma_load_blocks lays the blocks out one after another, each a
+// 64-column x `rows`-row box in the 128-byte swizzle.  The strides need
+// not increase (the column block's is 128 bytes).  Zeros past T.
 inline int encode_heads_blocks(CUtensorMap* map, const void* base,
                                long long sb, long long sh, long long st,
                                int B, int H, int T, int D, int rows,
