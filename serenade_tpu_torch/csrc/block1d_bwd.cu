@@ -162,12 +162,21 @@ gn_reduce_kernel(const float* __restrict__ y, const int* __restrict__ lengths,
     float mean, rstd;
     group_stats(stats, b, G, co / cg, n, cg, eps, mean, rstd);
     const float gam = gamma[co], bet = beta[co];
-    for (int r = rs; r < BM; r += 4) {
-      const int t = t0 + r;
-      if (t >= n) break;
+    // all of this thread's rows are loaded before any is used: one trip
+    // to memory's latency a tile, not one a row
+    float yv[BM / 4], gv[BM / 4];
+#pragma unroll
+    for (int k = 0; k < BM / 4; ++k) {
+      const int t = t0 + rs + 4 * k;
       const size_t idx = ((size_t)b * Tlen + t) * Cout + co;
+      yv[k] = t < n ? y[idx] : 0.f;
+      gv[k] = t < n ? to_f(g[idx]) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < BM / 4; ++k) {
+      if (t0 + rs + 4 * k >= n) break;
       float yhat, dz;
-      mish_grad(y[idx], to_f(g[idx]), mean, rstd, gam, bet, yhat, dz);
+      mish_grad(yv[k], gv[k], mean, rstd, gam, bet, yhat, dz);
       dg += dz * yhat;
       db += dz;
       const float dyh = dz * gam;
@@ -182,9 +191,26 @@ gn_reduce_kernel(const float* __restrict__ y, const int* __restrict__ lengths,
   if (rs == 0 && col) {
     atomicAdd(&dparams[co], dg);
     atomicAdd(&dparams[Cout + co], db);
+  }
+  if (rs == 0) {
     const int gl = co / cg - g_first;
-    atomicAdd(&gred[gl][0], (double)s1);
-    atomicAdd(&gred[gl][1], (double)s2);
+    if (cg % 32 == 0) {
+      // a warp's 32 channels lie in one group: sum them in f64 across the
+      // warp and add once (64 lanes adding to one shared f64 contend)
+      double a = col ? (double)s1 : 0.0, c = col ? (double)s2 : 0.0;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        c += __shfl_xor_sync(0xffffffffu, c, off);
+      }
+      if ((threadIdx.x & 31) == 0 && col) {
+        atomicAdd(&gred[gl][0], a);
+        atomicAdd(&gred[gl][1], c);
+      }
+    } else if (col) {
+      atomicAdd(&gred[gl][0], (double)s1);
+      atomicAdd(&gred[gl][1], (double)s2);
+    }
   }
   __syncthreads();
   const int c_last = min(c0 + BN, Cout) - 1;
@@ -218,17 +244,26 @@ gn_dy_kernel(const float* __restrict__ y, const int* __restrict__ lengths,
     const float a1 = (float)(gsum[((size_t)b * G + gi) * 2] / cnt);
     const float a2 = (float)(gsum[((size_t)b * G + gi) * 2 + 1] / cnt);
     const float gam = gamma[co], bet = beta[co];
-    for (int r = rs; r < BM; r += 4) {
-      const int t = t0 + r;
-      if (t >= Tlen) break;
+    // all of this thread's rows are loaded before any is used
+    float yv[BM / 4], gv[BM / 4];
+#pragma unroll
+    for (int k = 0; k < BM / 4; ++k) {
+      const int t = t0 + rs + 4 * k;
       const size_t idx = ((size_t)b * Tlen + t) * Cout + co;
+      yv[k] = t < n ? y[idx] : 0.f;
+      gv[k] = t < n ? to_f(g[idx]) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < BM / 4; ++k) {
+      const int t = t0 + rs + 4 * k;
+      if (t >= Tlen) break;
       float d = 0.f;
       if (t < n) {
         float yhat, dz;
-        mish_grad(y[idx], to_f(g[idx]), mean, rstd, gam, bet, yhat, dz);
+        mish_grad(yv[k], gv[k], mean, rstd, gam, bet, yhat, dz);
         d = rstd * (dz * gam - a1 - yhat * a2);
       }
-      dy[idx] = from_f<T>(d);
+      dy[((size_t)b * Tlen + t) * Cout + co] = from_f<T>(d);
       acc += d;
     }
   }
