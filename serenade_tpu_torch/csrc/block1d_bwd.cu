@@ -26,8 +26,12 @@
 // block cannot see, so K6 is three kernels:
 //   (1) gn_reduce: one block per (64 rows x 64 channels) tile forms dz and
 //       dyhat, adds dgamma and dbeta per channel (f32 atomics) and the two
-//       group sums (shared-memory then global f64 atomics, K2's pattern);
-//   (2) gn_dy: the same tiles form dy, store it in x's type and add dbias;
+//       group sums (f64: a warp's channels by shuffles where they share a
+//       group, then shared-memory and global atomics, K2's pattern);
+//   (2) gn_dy: the same tiles form dy, store it in x's type and add dbias.
+//   Both load all of a thread's 16 rows before using any, so a tile waits
+//   on memory once; they still take some 3 x their bytes' time at the
+//   train shape, for reasons not yet settled;
 //   (3) dx: K2's conv with the taps flipped and transposed, output masked.
 //   f32 (parity checks): 64 x 64 tiles on FMA units.  bf16 (the train
 //   step), designed for Hopper: one CTA of 384 threads per (128 rows x BN
@@ -48,7 +52,7 @@
 //   at or past n store zeros and skip the products.  At (16, 512, 1024 ->
 //   512) the dx product takes 39 us (its bound 26 us; its mainloop at
 //   87 % of the tensor cores' rate), cuDNN's conv1d data gradient 109 us,
-//   and the two GroupNorm passes 40 + 19 us (NVIDIA H100 80GB HBM3,
+//   and the two GroupNorm passes 25 + 20 us (NVIDIA H100 80GB HBM3,
 //   700 W).
 // K7 reduces B T rows into (Cout, Cin, 3), time being the reduction axis
 // of a plain GEMM: A = dy [t][co] (M = Cout), B = the x window [t][ci]
