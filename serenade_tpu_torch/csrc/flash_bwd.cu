@@ -74,8 +74,6 @@
 // slower (PERF.md): a TMA multicast of each Q and dO tile to a cluster of
 // two key blocks, a 13th warp issuing the loads (ptxas then allows 128
 // registers a thread).
-#include <string.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
 
