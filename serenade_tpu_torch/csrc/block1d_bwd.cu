@@ -37,15 +37,18 @@
 //   step), designed for Hopper: one CTA of 384 threads per (128 rows x BN
 //   Cin) tile, BN 256 or 128 as ops/block1d_cuda.py k6_plan fills the
 //   card (K2's 64 x 128 tile reached 15 % of its bound at this product's
-//   size).  The weight is laid out once per weight version as (3, Cin256,
-//   Cout) by k6_taps: tap 2 - j at index j, Cout contiguous (K-major B),
-//   Cin padded with zero rows to 256, so no CTA transposes it.  Warpgroup
-//   0 keeps a TMA ring of (64-channel chunk, tap) stages full: a 128-row
-//   dy box at rows t0 - 1 + j through a 3-D (Cout, T, B) map, which
-//   zero-fills t = -1 and t >= T (dy is 0 on n <= t < T, as gn_dy writes
-//   it, so nothing is masked in shared memory), and that tap's BN weight
-//   rows.  Warpgroups 1 and 2 each own 64 rows x BN columns and run wgmma
-//   m64nBNk16, one group in flight while the next stage is waited for.
+//   size).  The weight is K2's own taps (ops/block1d_cuda.py k2_taps, (3,
+//   Cout, Cin8), Cin contiguous), made once per weight version by the
+//   forward and read here as B MN-major (the descriptor's transpose bit),
+//   tap 2 - j for step j, so no CTA transposes it and the backward makes
+//   no taps of its own.  Warpgroup 0 keeps a TMA ring of (64-channel
+//   chunk, tap) stages full: a 128-row dy box at rows t0 - 1 + j through
+//   a 3-D (Cout, T, B) map, which zero-fills t = -1 and t >= T (dy is 0
+//   on n <= t < T, as gn_dy writes it, so nothing is masked in shared
+//   memory), and BN / 64 boxes of 64 Cin x 64 Cout of that tap through a
+//   3-D (Cin8, Cout, 3) map, which zero-fills Cin >= Cin8.  Warpgroups 1
+//   and 2 each own 64 rows x BN columns and run wgmma m64nBNk16, one
+//   group in flight while the next stage is waited for.
 //   The epilogue zeroes rows >= n and stages the tile in the ring, then
 //   stores 16 bytes a thread along dx's rows; Cin 242 (484-byte rows, not
 //   16-byte aligned) stores bf16 pairs from the registers.  Tiles wholly
@@ -349,20 +352,20 @@ dx_f32_kernel(const float* __restrict__ dy, const int* __restrict__ lengths,
 // The reduction runs over (dy channel chunk, tap) steps: each stage holds
 // one tap's 128-row dy box, starting at row t0 - 1 + j (one box a tap,
 // since a one-row shift breaks the 8-row swizzle atom; L2 serves the
-// repeats), and that tap's BN rows of the flipped, transposed weight (64
-// Cout values a row, laid out once per weight version by k6_taps).
-// Warpgroup 0 keeps the ring full by TMA; warpgroups 1 and 2 (setmaxnreg
-// 232) each own 64 rows x BN columns (BN / 2 f32 registers a thread) and
-// run wgmma m64nBNk16 with both operands K-major, one group in flight
-// while the next stage is waited for.
+// repeats), and tap 2 - j of K2's taps as BN / 64 boxes of 64 Cout rows
+// x 64 Cin values (128 bytes a row, Cin contiguous).  Warpgroup 0 keeps
+// the ring full by TMA; warpgroups 1 and 2 (setmaxnreg 232) each own 64
+// rows x BN columns (BN / 2 f32 registers a thread) and run wgmma
+// m64nBNk16, A (dy) K-major and B (the taps) MN-major, one group in
+// flight while the next stage is waited for.
 namespace k6 {
 
 constexpr int BM = 128;            // time rows a CTA: 64 a consumer
 constexpr int KC = 64;             // dy channels a stage (128 bytes)
 constexpr int THREADS = 384;
 constexpr int ABOX = BM * 128;     // one tap's dy box, bytes
+constexpr int WBOX = 64 * 128;    // 64 Cin x 64 Cout of one tap, bytes
 constexpr int MAX_STAGES = 8;
-constexpr int TAPS_ROWS = 256;     // k6_taps pads Cin to a multiple of this
 
 __host__ __device__ constexpr int stage_bytes(int bn) {
   return ABOX + bn * 128;
@@ -374,12 +377,12 @@ __device__ __forceinline__ void mma(float (&acc)[BN / 2], uint64_t da,
 template <>
 __device__ __forceinline__ void mma<256>(float (&acc)[128], uint64_t da,
                                          uint64_t db) {
-  hopper::wgmma_m64n256k16_ss<0, 0>(acc, da, db, 1);
+  hopper::wgmma_m64n256k16_ss<0, 1>(acc, da, db, 1);
 }
 template <>
 __device__ __forceinline__ void mma<128>(float (&acc)[64], uint64_t da,
                                          uint64_t db) {
-  hopper::wgmma_m64n128k16_ss<0, 0>(acc, da, db, 1);
+  hopper::wgmma_m64n128k16_ss<0, 1>(acc, da, db, 1);
 }
 
 template <int BN>
@@ -425,7 +428,10 @@ dx_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
         hopper::mbar_wait(&empty[s], ph ^ 1);
         hopper::mbar_expect_tx(&full[s], SB);
         hopper::tma_load_3d(st, &dy_map, &full[s], c * KC, t0 - 1 + j, b);
-        hopper::tma_load_3d(st + ABOX, &w_map, &full[s], c * KC, o0, j);
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          hopper::tma_load_3d(st + ABOX + q * WBOX, &w_map, &full[s],
+                              o0 + 64 * q, c * KC, 2 - j);
         if (++s == stages) {
           s = 0;
           ph ^= 1;
@@ -453,7 +459,7 @@ dx_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
 #pragma unroll
       for (int ks = 0; ks < KC / 16; ++ks)
         mma<BN>(acc, hopper::desc_sw128(a + 32 * ks, 16, 1024),
-                hopper::desc_sw128(w + 32 * ks, 16, 1024));
+                hopper::desc_sw128(w + 2048 * ks, WBOX, 1024));
       hopper::wgmma_commit();
       hopper::fence_regs(acc);
       if (prev >= 0) {
@@ -837,7 +843,7 @@ dw_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,
 // against the kernels' constants before anything runs: bf16 takes `bn`
 // input channels a CTA (256 or 128), the grid (128-row tiles, Cin tiles),
 // the ring's stages and the dynamic shared memory, and reads `w_taps`
-// (3, Cin256, Cout), k6_taps of the weight; f32 reads `w` (Cout, Cin, 3),
+// (3, Cout, Cin8), k2_taps of the weight; f32 reads `w` (Cout, Cin, 3),
 // runs 64 x 64 FMA tiles and takes bn = stages = smem = 0.  A plan that
 // does not match returns cudaErrorInvalidValue.
 extern "C" int serenade_block1d_bwd_data(
@@ -858,18 +864,17 @@ extern "C" int serenade_block1d_bwd_data(
         smem != stages * k6::stage_bytes(bn) + 1024)
       return (int)cudaErrorInvalidValue;
     // dy as (Cout, T, B) in boxes of 64 channels x 128 rows; the taps as
-    // (Cout, Cin256, 3) in boxes of 64 channels x bn rows
-    const int cin_pad = (Cin + k6::TAPS_ROWS - 1) / k6::TAPS_ROWS *
-                        k6::TAPS_ROWS;
+    // (Cin8, Cout, 3) in boxes of 64 Cin x 64 Cout
+    const int cin8 = (Cin + 7) / 8 * 8;
     const cuuint64_t dims[3] = {(cuuint64_t)Cout, (cuuint64_t)Tlen,
                                 (cuuint64_t)B};
     const cuuint64_t strides[2] = {2ull * Cout, 2ull * Cout * Tlen};
     const cuuint32_t box[3] = {64, (cuuint32_t)k6::BM, 1};
     int e = hopper::encode_map_bf16(&dy_map, dy, 3, dims, strides, box);
     if (e) return e;
-    const cuuint64_t wdims[3] = {(cuuint64_t)Cout, (cuuint64_t)cin_pad, 3};
-    const cuuint64_t wstrides[2] = {2ull * Cout, 2ull * Cout * cin_pad};
-    const cuuint32_t wbox[3] = {64, (cuuint32_t)bn, 1};
+    const cuuint64_t wdims[3] = {(cuuint64_t)cin8, (cuuint64_t)Cout, 3};
+    const cuuint64_t wstrides[2] = {2ull * cin8, 2ull * cin8 * Cout};
+    const cuuint32_t wbox[3] = {64, 64, 1};
     e = hopper::encode_map_bf16(&w_map, w_taps, 3, wdims, wstrides, wbox);
     if (e) return e;
   } else if (dtype == 0) {

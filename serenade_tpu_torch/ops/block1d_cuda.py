@@ -11,8 +11,8 @@
   (``k2_taps``).
 - K6 replaces ``block1d_pallas.py:296`` (``_bwd_data_kernel``): Mish′,
   the GroupNorm backward, dγ, dβ, dbias and dx by the transposed taps.
-  In bf16 dx runs on Hopper's wgmma as ``k6_plan`` lays it out, from the
-  flipped, transposed taps made once per weight version (``k6_taps``).
+  In bf16 dx runs on Hopper's wgmma as ``k6_plan`` lays it out, reading
+  K2's taps (``k2_taps``) transposed, tap 2 - j for step j.
 - K7 replaces ``block1d_pallas.py:343`` (``_bwd_w_kernel``): dW, reduced
   over batch and time.
 
@@ -307,13 +307,12 @@ def k7_plan(b: int, t: int, cin: int, cout: int, dtype,
 
 # K6's bf16 dx kernel: a CTA per 128 time rows x BN input channels (BN 256
 # or 128), a ring of (64-channel chunk, tap) stages: one tap's 128-row dy
-# box and its BN weight rows, 128 bytes a row.  The C entry checks a plan
-# against the kernel's constants and refuses one that does not match.
+# box and 64 rows of BN Cin values of K2's taps, 128 bytes a row.  The C
+# entry checks a plan against the kernel's constants and refuses one that
+# does not match.
 K6_ROWS = 128
 K6_BN = (256, 128)
 K6_MAX_STAGES = 8
-# k6_taps pads Cin with zero rows to a multiple of the widest tile
-K6_TAPS_ROWS = 256
 # the card's 232,448 bytes less 1 KB for the static barriers
 K6_SMEM_LIMIT = 232448 - 1024
 
@@ -356,25 +355,13 @@ def k6_plan(b: int, t: int, cin: int, cout: int, dtype,
             "smem_bytes": stages * k6_stage_bytes(bn) + 1024}
 
 
-def _k6_taps(weight):
-    """K6's bf16 weight: ``(3, Cin256, Cout)``, tap j holding
-    ``W[:, :, 2 - j]ᵀ`` (the taps flipped and transposed) with Cout
-    contiguous (K-major, as wgmma reads B) and Cin padded with zero rows
-    to a multiple of 256, the widest tile."""
-    taps = weight.to(torch.bfloat16).flip(2).permute(2, 1, 0)
-    return F.pad(taps, (0, 0, 0, -weight.shape[1] % K6_TAPS_ROWS)).contiguous()
-
-
-# made once per version of the weight it is given
-k6_taps = _cuda.VersionCache(_k6_taps)
-
-
 def block1d_bwd_data(x, lengths, weight, gamma, beta, y, stats, g, *,
                      groups: int = 8, eps: float = 1e-5, taps=None):
     """K6 (three kernels, one launch count).  ``weight`` in x's type, y and
-    stats from K2; bf16 reads ``taps`` (``k6_taps`` of the weight; made
-    from ``weight`` when not given).  Returns (dx, dy in x's type, (3,
-    Cout) f32 rows dgamma, dbeta, dbias)."""
+    stats from K2; bf16 reads ``taps``, the ``k2_taps`` K2 read in the
+    forward (made from ``weight`` when not given), as its dx product's B
+    transposed.  Returns (dx, dy in x's type, (3, Cout) f32 rows dgamma,
+    dbeta, dbias)."""
     global data_launches
     b, t, cin = x.shape
     cout = weight.shape[0]
@@ -390,8 +377,8 @@ def block1d_bwd_data(x, lengths, weight, gamma, beta, y, stats, g, *,
                   and lengths.device == dev, "lengths must be int32 (B,)")
     plan = k6_plan(b, t, cin, cout, x.dtype, _cuda.sm_count(dev))
     if x.dtype == torch.bfloat16:
-        taps = k6_taps(weight) if taps is None else taps
-        _cuda.require(taps.shape == (3, cin + -cin % K6_TAPS_ROWS, cout)
+        taps = k2_taps(weight) if taps is None else taps
+        _cuda.require(taps.shape == (3, cout, cin + -cin % 8)
                       and taps.dtype == torch.bfloat16
                       and taps.is_contiguous() and taps.device == dev,
                       f"taps {tuple(taps.shape)} {taps.dtype}")
@@ -471,15 +458,14 @@ class Block1DFunction(torch.autograd.Function):
         taps = k2_taps(weight) if x.dtype == torch.bfloat16 else None
         out, y, stats = _block1d_cuda(x, lengths, w, bias, gamma, beta,
                                       groups, eps, taps=taps)
-        # the weight itself too: K6's taps are made once per its version
-        ctx.save_for_backward(x, lengths, w, gamma, beta, y, stats, weight)
+        # K6 reads K2's taps of this weight version too
+        ctx.save_for_backward(x, lengths, w, gamma, beta, y, stats, taps)
         return out
 
     @staticmethod
     def backward(ctx, g):
         if g.is_cuda:
-            x, lengths, w, gamma, beta, y, stats, weight = ctx.saved_tensors
-            taps = k6_taps(weight) if x.dtype == torch.bfloat16 else None
+            x, lengths, w, gamma, beta, y, stats, taps = ctx.saved_tensors
             dx, dy, (dgam, dbet, db) = block1d_bwd_data(
                 x, lengths, w, gamma, beta, y, stats,
                 g.to(x.dtype).contiguous(), groups=ctx.groups, eps=ctx.eps,

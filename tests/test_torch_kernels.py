@@ -688,8 +688,9 @@ def test_k6_plan_covers_every_tile_once(b, t, cin, cout):
     assert plan["smem_bytes"] == (plan["stages"]
                                   * block1d_cuda.k6_stage_bytes(bn) + 1024)
     assert plan["smem_bytes"] <= SMEM_LIMIT - 1024
-    # the (Cin padded to 256) rows of k6_taps cover the last Cin tile
-    assert gy * bn <= cin + -cin % block1d_cuda.K6_TAPS_ROWS
+    # a stage: one tap's 128-row dy box, then BN / 64 boxes of 64 Cout rows
+    # x 64 Cin of K2's taps, 128 bytes a row
+    assert block1d_cuda.k6_stage_bytes(bn) == 128 * 128 + bn // 64 * 64 * 128
 
 
 @pytest.mark.parametrize("t,cin,bn,ctas", [(512, 1024, 256, 256),
@@ -715,21 +716,17 @@ def test_k6_plan_refuses_what_the_hopper_kernel_cannot_take():
     assert (f32["bn"], f32["stages"], f32["smem_bytes"]) == (0, 0, 0)
 
 
-def test_k6_taps_flip_and_transpose_and_are_made_once_per_version():
-    """k6_taps holds tap j as W[:, :, 2 - j]^T, Cout contiguous, Cin padded
-    with zero rows to 256; the dx they give, sum_j dy[s - 1 + j] taps[j]^T,
-    is the plain version's; made once per weight version, again after an
-    in-place update."""
+def test_k2_taps_read_transposed_give_k6s_dx_and_are_made_once_per_version():
+    """K6 reads K2's taps, (3, Cout, Cin8) with Cin contiguous, as its B
+    MN-major: step j pairs dy[s - 1 + j] with tap 2 - j, and
+    sum_j dy[s - 1 + j] taps[2 - j] is the plain version's dx; the taps are
+    made once per weight version (the forward's serve the backward), again
+    after an in-place update."""
     rng = np.random.default_rng(7)
     w = _t(rng.normal(size=(64, 242, 3)))
-    taps = block1d_cuda.k6_taps(w)
-    assert taps.shape == (3, 256, 64) and taps.dtype == torch.bfloat16
-    assert taps.is_contiguous()
-    for j in range(3):
-        assert torch.equal(taps[j, :242], w[:, :, 2 - j].T.bfloat16())
-    assert not taps[:, 242:].any()
-    assert block1d_cuda.k6_taps(w) is taps
-    # the layout the kernel reads computes the plain dx
+    taps = block1d_cuda.k2_taps(w)
+    assert taps.shape == (3, 64, 248) and taps.is_contiguous()
+    assert block1d_cuda.k2_taps(w) is taps
     b, t = 2, 40
     mask = _t(_prefix_mask([40, 23], t)[..., None])
     dy = (_t(rng.normal(size=(b, t, 64))) * mask).bfloat16().float()
@@ -737,13 +734,14 @@ def test_k6_taps_flip_and_transpose_and_are_made_once_per_version():
                     w.bfloat16().float().flip(2).transpose(0, 1),
                     padding=1).transpose(1, 2)
     dyp = F.pad(dy, (0, 0, 1, 1))
-    got = sum(dyp[:, j:j + t] @ taps[j, :242].float().T for j in range(3))
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    got = sum(dyp[:, j:j + t] @ taps[2 - j].float() for j in range(3))
+    torch.testing.assert_close(got[..., :242], want, rtol=1e-5, atol=1e-5)
+    assert not got[..., 242:].any()
     with torch.no_grad():
         w.mul_(2.0)
-    again = block1d_cuda.k6_taps(w)
+    again = block1d_cuda.k2_taps(w)
     assert again is not taps
-    assert torch.equal(again[0, :242], w[:, :, 2].T.bfloat16())
+    assert torch.equal(again[2, :, :242], w[:, :, 2].bfloat16())
 
 
 @pytest.mark.parametrize("b,h,tq,tk", [(16, 4, 512, 512), (16, 4, 256, 256),
