@@ -993,75 +993,6 @@ def kernel_entries(torch, dev):
     return ok, entries
 
 
-def time_tree(root: str) -> None:
-    """``--time-tree ROOT``: K5's and K6's device ms at the train step's
-    shapes through the wrappers of the tree at ROOT (first on sys.path,
-    its kernels built into its own build directory), one JSON line."""
-    import os
-
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
-
-    from serenade_tpu_torch.ops import block1d_cuda as B, flash_cuda as F
-
-    assert F.__file__.startswith(os.path.abspath(root)), F.__file__
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(13)
-    bf16 = torch.bfloat16
-    out = {"root": root, "flash_bwd_dkv": {}, "block1d_bwd_data": {}}
-    for t in (512, 256):
-        q, k, v, g = (_heads(torch, gen, dev, 16, 4, t, 512, bf16)
-                      for _ in range(4))
-        valid = t - 37
-        mask = (torch.arange(t, device=dev)[None, :]
-                < torch.tensor([t] + [valid] * 15, device=dev)[:, None]
-                ).float()
-        o, lse = F._flash_cuda(q, k, v, mask, 512 ** -0.5)
-        g, dsum = F.flash_bwd_prepare(o, g, bf16)
-        out["flash_bwd_dkv"][f"16,4,{t},512"] = cuda_ms(
-            torch, lambda: F.flash_bwd_dkv(q, k, v, mask, g, lse, dsum,
-                                           512 ** -0.5), 10)
-    for t, cin in ((512, 1024), (512, 242), (256, 512), (256, 1024)):
-        x = torch.randn((16, t, cin), generator=gen, device=dev).to(bf16)
-        w = (torch.randn((512, cin, 3), generator=gen, device=dev)
-             / math.sqrt(3 * cin)).to(bf16)
-        bias, gamma, beta = (0.1 * torch.randn((512,), generator=gen,
-                                               device=dev) for _ in range(3))
-        g = torch.randn((16, t, 512), generator=gen, device=dev).to(bf16)
-        lens = torch.tensor([t] + [t - (37 if t == 512 else 18)] * 15,
-                            dtype=torch.int32, device=dev)
-        gamma = gamma + 1.0
-        _, y, stats = B._block1d_cuda(x, lens, w, bias, gamma, beta, 8, 1e-5)
-        out["block1d_bwd_data"][f"16,{t},{cin},512"] = cuda_ms(
-            torch, lambda: B.block1d_bwd_data(x, lens, w, gamma, beta, y,
-                                              stats, g), 10)
-        if hasattr(B, "_k6_taps"):
-            # a tree whose K6 lays its own taps out: that relayout, which
-            # a train step pays once per K6 call, outside K6's time above
-            out.setdefault("k6_taps", {})[f"16,{t},{cin},512"] = cuda_ms(
-                torch, lambda: B._k6_taps(w), 10)
-    emit(out)
-
-
-def compare(root: str) -> int:
-    """``--compare ROOT``: this tree's and ROOT's K5 and K6 timed in turns
-    (ROOT, this, this, ROOT), each run in its own process on this card."""
-    import os
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    runs = []
-    for tree in (root, here, here, root):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--time-tree", tree], capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
-            return 1
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    emit({"phase": "compare", "runs": runs})
-    return 0
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -1124,8 +1055,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--time-tree":
-        sys.exit(time_tree(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
-        sys.exit(compare(sys.argv[2]))
     sys.exit(main())
