@@ -209,8 +209,8 @@ def k2_plan(b: int, t: int, cin: int, cout: int, dtype,
 
 def _k2_taps(weight):
     """K2's bf16 weight: ``(3, Cout, Cin8)``, each tap's (Cout, Cin) with
-    Cin contiguous (K-major, as wgmma reads B) and padded with zeros to a
-    multiple of 8 (TMA's 16-byte rows)."""
+    Cin contiguous (K2's B K-major, K6's B MN-major) and padded with zeros
+    to a multiple of 8 (TMA's 16-byte rows)."""
     taps = weight.to(torch.bfloat16).permute(2, 0, 1)
     return F.pad(taps, (0, -weight.shape[1] % 8)).contiguous()
 
