@@ -12,16 +12,20 @@ Phases, each printing JSON lines:
                the roofline bound and a PyTorch yardstick;
 3. main     -- a full-width Converter (seeded random weights) answers four
                requests through Euler-10 and the HiFiGAN vocoder; the
-               launch counters must show every forward kernel ran; then one
-               more (1024, 512) request under torch.profiler gives the
-               device's busy time and the kernels that took it;
-4. parity   -- one small f32 conversion on the CPU (plain versions) and on
-               the card (kernels) with the same weights and noise;
+               launch counters must show every forward kernel ran, and the
+               routed-call counters that no call took the plain route
+               around a kernel; then one more (1024, 512) request under
+               torch.profiler gives the device's busy time and the kernels
+               that took it;
+4. parity   -- one small conversion on the CPU (plain versions) and on the
+               card (kernels) with the same weights and noise, in f32 and
+               in bf16 (head dim 32: its attention takes the plain route
+               on both, counted alike);
 5. train    -- a full-width Serenade and the recipe's optimizer take 2
                warm-up and 5 timed steps at B 16 x T 512; losses finite,
                every parameter with a nonzero gradient and changed, the
                launch counters at 6 (K1, K4, K5) and 13 (K2, K6, K7) a
-               step; then one step under torch.profiler;
+               step, no call routed; then one step under torch.profiler;
 6. train_parity -- one small f32 train step on the CPU and on the card
                from the same weights, batch and draws.
 
@@ -328,6 +332,10 @@ def check_flash_bwd(torch, dev):
                 q, k, v, mask, g, lse, dsum, scale), 10)
             row["dkv"]["ms"] = cuda_ms(torch, lambda: K.flash_bwd_dkv(
                 q, k, v, mask, g, lse, dsum, scale), 10)
+            plan = K.k4_plan(b, h, t, t, d, dtype, _cuda.sm_count(dev))
+            row["dq"]["plan"] = {k: plan[k] for k in (
+                "grid", "threads", "smem_bytes", "query_rows", "key_tile",
+                "slots", "ctas")}
             plan = K.k5_plan(b, h, t, t, d, dtype, _cuda.sm_count(dev))
             row["dkv"]["plan"] = {k: plan[k] for k in (
                 "grid", "threads", "smem_bytes", "keys", "query_tile",
@@ -657,16 +665,18 @@ def main_path(torch, np, dev, counters):
               and bool(np.isfinite(mel).all()) and bool(np.isfinite(wav).all()))
         results.append({"src_frames": s, "ref_frames": r, "wall_s": wall,
                         "rtf": wall / (s * HOP / SR), "ok": ok})
-    launches = counters.read()
+    launches, routed = counters.read(), counters.routed()
     n = len(requests)
     want = {"flash_fwd": 60 * n, "block1d_fwd": 130 * n, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "block1d_bwd_data": 0,
             "block1d_bwd_weight": 0}
+    # every call of the full-width path runs a kernel: none is routed
     counts_ok = (all(launches[k] == v for k, v in want.items())
-                 and launches["resblock_branch"] >= 9 * n)
+                 and launches["resblock_branch"] >= 9 * n
+                 and not any(routed.values()))
     emit({"phase": "main", "setup_s": setup_s, "requests": results,
           "launches": launches, "launches_expected": dict(
-              want, resblock_branch=f">= {9 * n}"),
+              want, resblock_branch=f">= {9 * n}"), "routed": routed,
           "ok": counts_ok and all(r["ok"] for r in results)})
     prof = device_time(torch, lambda: (conv.convert_features(*feats[0]),
                                        torch.cuda.synchronize()))
@@ -678,7 +688,7 @@ def main_path(torch, np, dev, counters):
 
 
 # device symbols of the port's CUDA kernels, as the profiler names them
-KERNEL_SYMBOLS = ("k1::flash_fwd_bf16_kernel", "dq_bf16_kernel",
+KERNEL_SYMBOLS = ("k1::flash_fwd_bf16_kernel", "k4::dq_bf16_kernel",
                   "k5::dkv_bf16_kernel", "k2::conv_stats_kernel",
                   "norm_mish", "gn_reduce_kernel", "gn_dy_kernel",
                   "k6::dx_bf16_kernel", "k7::dw_bf16_kernel",
@@ -714,7 +724,11 @@ def device_time(torch, fn) -> dict:
                              for name, (ms, n) in ours.items()}}
 
 
-def slice_parity(torch, np, dev):
+def slice_parity(torch, np, dev, counters):
+    """One small conversion on the CPU (plain versions) and on the card
+    (kernels) with the same weights and noise, in f32 and in bf16.  bf16
+    at head dim 32 and these widths also takes the routes around the
+    kernels that do not take its shapes (counted)."""
     from serenade_tpu_torch.api import Converter
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -722,8 +736,7 @@ def slice_parity(torch, np, dev):
     cfg = dict(input_dim=32, output_dim=80, encoder_channels=16,
                encoder_hidden_dim=32, decoder_channels=64, gst_embed_dim=32,
                decoder_attention_head_dim=32, gst_tokens=10,
-               gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16,
-               dtype="float32")
+               gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16)
     voc = {"sampling_rate": SR, "generator_params": {
         "channels": 64, "upsample_scales": [4, 3],
         "upsample_kernel_sizes": [8, 6]}}
@@ -731,25 +744,44 @@ def slice_parity(torch, np, dev):
     src = _features(np, rng, 150, False, input_dim=32)
     ref = _features(np, rng, 100, True, input_dim=32)
     x0 = 0.667 * rng.normal(size=(1, 128 + 192, 80))
-    mels, wavs = [], []
-    for device in ("cpu", dev):
-        conv = Converter(cfg, None, _scaler(np, input_dim=32),
-                         vocoder_config=voc,
-                         vocoder_stats={"mean": np.zeros(80),
-                                        "scale": np.ones(80)},
-                         n_timesteps=4, seed=5, device=device)
-        mel, wav, _ = conv.convert_features(src, ref, x0=x0)
-        mels.append(mel)
-        wavs.append(wav)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for device in ("cpu", dev):
+            conv = Converter(dict(cfg, dtype=dtype), None,
+                             _scaler(np, input_dim=32), vocoder_config=voc,
+                             vocoder_stats={"mean": np.zeros(80),
+                                            "scale": np.ones(80)},
+                             n_timesteps=4, seed=5, device=device)
+            counters.reset()
+            mel, wav, _ = conv.convert_features(src, ref, x0=x0)
+            out[dtype, str(device)] = (mel, wav, counters.routed())
+    (mel32, wav32, _), (mel32d, wav32d, _) = (out["float32", "cpu"],
+                                              out["float32", str(dev)])
     tol = 1e-3
-    mel_err = float(np.abs(mels[0] - mels[1]).max())
-    wav_err = float(np.abs(wavs[0] - wavs[1]).max())
-    scale = max(1.0, float(np.abs(mels[0]).max()))
+    mel_err = float(np.abs(mel32 - mel32d).max())
+    wav_err = float(np.abs(wav32 - wav32d).max())
+    scale = max(1.0, float(np.abs(mel32).max()))
     ok = mel_err / scale <= tol and wav_err <= tol
+    # bf16: the card against the CPU relative to the CPU's own bf16 - f32
+    # gap, as the CPU tests hold the port against JAX (two bf16 results
+    # rounding independently differ by about sqrt(2) times that gap on
+    # average, at most twice it): mean within 1.5x, max within 2x
+    mel16, _, routed_cpu = out["bfloat16", "cpu"]
+    mel16d, _, routed_card = out["bfloat16", str(dev)]
+    gap = np.abs(mel16 - mel32)
+    err = np.abs(mel16d - mel16)
+    bf16 = {"mel_max_abs_err": float(err.max()),
+            "mel_mean_abs_err": float(err.mean()),
+            "cpu_gap_max": float(gap.max()), "cpu_gap_mean": float(gap.mean()),
+            "tol": {"mean": 1.5, "max": 2.0},
+            "routed": {"cpu": routed_cpu, "card": routed_card},
+            "finite": bool(np.isfinite(mel16d).all())}
+    bf16_ok = (bf16["finite"] and err.mean() <= 1.5 * gap.mean()
+               and err.max() <= 2.0 * gap.max() and routed_card == routed_cpu)
     emit({"phase": "parity", "mel_max_abs_err": mel_err,
           "wav_max_abs_err": wav_err, "mel_scale": scale, "tol": tol,
-          "ok": ok})
-    return ok
+          "bf16": bf16, "ok": ok and bf16_ok})
+    return ok and bf16_ok
 
 
 # ---------------------------------------------------------------------------
@@ -815,13 +847,14 @@ def train_path(torch, np, dev, counters):
         torch.cuda.synchronize()
         walls.append(time.time() - start)
         records.append({k: float(v) for k, v in metrics.items()})
-    launches = counters.read()
+    launches, routed = counters.read(), counters.routed()
     peak = torch.cuda.max_memory_allocated()
     unchanged = [n for n, p in model.named_parameters()
                  if torch.equal(p.detach(), before[n])]
     want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
     finite = all(math.isfinite(v) for r in records for v in r.values())
-    ok = (finite and not no_grad and not unchanged and launches == want)
+    ok = (finite and not no_grad and not unchanged and launches == want
+          and not any(routed.values()))
     step_s = sum(walls) / len(walls)
     emit({"phase": "train", "batch": [b, t], "lengths": lengths,
           "params": sum(p.numel() for p in model.parameters()),
@@ -830,7 +863,7 @@ def train_path(torch, np, dev, counters):
           "frames_per_s": sum(lengths) / step_s,
           "peak_memory_gb": peak / 1e9, "params_without_grad": no_grad,
           "params_unchanged": unchanged, "launches": launches,
-          "launches_expected": want, "ok": ok})
+          "launches_expected": want, "routed": routed, "ok": ok})
     prof = device_time(torch, lambda: (step(state, batch, gen),
                                        torch.cuda.synchronize()))
     prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / step_s
@@ -926,19 +959,31 @@ OUTPUTS = {"flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv"),
            "block1d_bwd_weight": ("dw",)}
 
 
+# the calls each wrapper module routed to its plain version because a
+# kernel does not take their shape: counter module and attribute
+ROUTED = {"attention": ("flash_cuda", "routed"),
+          "block1d": ("block1d_cuda", "routed")}
+
+
 class Counters:
-    """Every kernel's launch counter, read and reset by name."""
+    """Every kernel's launch counter and every routed-call counter, read
+    and reset by name."""
 
     def __init__(self, modules):
         self.modules = modules
 
     def reset(self):
-        for name, (_, _, mod, attr) in KERNELS.items():
+        for mod, attr in [v[2:] for v in KERNELS.values()] + list(
+                ROUTED.values()):
             setattr(self.modules[mod], attr, 0)
 
     def read(self):
         return {name: getattr(self.modules[mod], attr)
                 for name, (_, _, mod, attr) in KERNELS.items()}
+
+    def routed(self):
+        return {name: getattr(self.modules[mod], attr)
+                for name, (mod, attr) in ROUTED.items()}
 
 
 def kernel_entries(torch, dev):
@@ -993,6 +1038,50 @@ def kernel_entries(torch, dev):
     return ok, entries
 
 
+def time_k4(root: str) -> int:
+    """K4 of the package under ``root`` at both train-step shapes: its
+    error against the plain backward and its device time (one line of
+    JSON).  ``--compare`` runs this in a process of its own per tree."""
+    sys.path.insert(0, root)
+    import torch
+
+    from serenade_tpu_torch.ops import _cuda, flash_cuda as K
+
+    _cuda.build_all(("flash_fwd", "flash_bwd"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    row = {"root": root, "package": K.__file__}
+    for t, valid in ((512, [512] + [475] * 15), (256, [256] + [219] * 15)):
+        q, k, v, g = (_heads(torch, gen, dev, 16, 4, t, 512, torch.bfloat16)
+                      for _ in range(4))
+        mask = (torch.arange(t, device=dev)[None, :]
+                < torch.tensor(valid, device=dev)[:, None]).float()
+        scale = 512 ** -0.5
+        out, lse = K._flash_cuda(q, k, v, mask, scale)
+        g, dsum = K.flash_bwd_prepare(out, g, torch.bfloat16)
+        dq = K.flash_bwd_dq(q, k, v, mask, g, lse, dsum, scale)
+        ref = K.flash_attention_backward_plain(q, k, v, mask, out, lse, g,
+                                               scale)[0]
+        row[f"T{t}_max_abs_err"] = rel_err(torch, dq, ref)[0]
+        row[f"T{t}_ms"] = cuda_ms(torch, lambda: K.flash_bwd_dq(
+            q, k, v, mask, g, lse, dsum, scale), 20)
+    emit(row)
+    return 0
+
+
+def compare(root: str) -> int:
+    """K4 of the tree at ``root`` and of this one, timed in turns (root,
+    this, this, root), each in its own process on the same card."""
+    for tree in (root, ".", ".", root):
+        r = subprocess.run([sys.executable, __file__, "--time-k4", tree])
+        if r.returncode:
+            return r.returncode
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1030,7 +1119,7 @@ def main() -> int:
     ok &= main_ok
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch"):
         entries[name]["launches"] = launches[name]
-    ok &= slice_parity(torch, np, dev)
+    ok &= slice_parity(torch, np, dev, counters)
     train_ok, launches = train_path(torch, np, dev, counters)
     ok &= train_ok
     for name in OUTPUTS:
@@ -1055,4 +1144,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--compare"]:
+        sys.exit(compare(sys.argv[2]))
+    if sys.argv[1:2] == ["--time-k4"]:
+        sys.exit(time_k4(sys.argv[2]))
     sys.exit(main())

@@ -20,16 +20,34 @@
 // in registers, and the dK + dV accumulators of 64 keys (256 KB) exceed
 // the 227 KB of shared memory.
 //
-// K4, bf16 (the training path): tensor cores through mma.sync m16n8k16
-// with f32 accumulation, one block of 16 warps (512 threads, one block an
-// SM).  A block owns 64 query rows of one (b, h) and keeps Q and dO for
-// them in shared memory (133 KB at D 512); it loops over 32-key tiles of
-// K and V (67 KB).  Phase 1: warp w computes the 16 x 8 patch (query rows
-// 16 (w / 4), keys 8 (w % 4)) of both S and dP over the whole head dim,
-// forms dS in registers and stores it as bf16 (JAX casts dS to K's type).
-// Phase 2: warp w adds dS K for query rows 16 (w / 4) and a quarter of
-// the head dim (D / 4 columns, 64 f32 accumulators a thread), reading K
-// with ldmatrix.trans.  No product is computed twice.
+// K4, bf16 (the training path), designed for Hopper; head_dim 512 only
+// (ops/flash_cuda.py k4_plan raises on another).  One CTA of 384 threads
+// per 64 query rows of one (b, h) keeps Q and dO resident (64 KB each,
+// loaded once) and walks 32-key tiles of K and V through a ring of five
+// 16 KB slots, each half a tile (256 columns); with the dS tile that is
+// 216 KB of the 227.  The 64 x 512 f32 dQ accumulator takes 128 KB of
+// registers, so the roles are split as in K5:
+//   warpgroup 0 computes S = Q K^T and dP = dO V^T (wgmma m64n32k16 over D
+//   512), P = exp(S scale + bias - L) and dS = P (dP - D) scale, and
+//   writes dS as bf16 [query][key] rows, 128-byte swizzled (K-major A);
+//   warpgroups 1 and 2 accumulate dQ[:, 0:256] and dQ[:, 256:512] += dS K
+//   (wgmma m64n256k16, B the K half [key][d] MN-major through the
+//   descriptor's transpose bit), 128 registers a thread each.
+// Tile t + 1's S and dP overlap tile t's dQ products.  Five slots hold one
+// tile and a half (Slots): as warpgroup 0 finishes dP, the consumers
+// refill its two V halves with the next tile's second K half and first V
+// half, and after their dQ products each refills its own K half (the next
+// tile's second V half, the tile after next's first K half), each where
+// its warpgroup has no product in flight; warpgroup 0 issues no load after
+// the first tile.  The warpgroups signal each other through named
+// barriers (an mbarrier's waiter woke up to 0.4 us after the arrival).
+// The rules K5 learned hold: warp-uniform roles, a wgmma fence after every
+// wait.  The epilogue stages dQ through the Q and dO tiles and stores 16
+// bytes a thread in the (B, Tq, H, D) layout.  At (16, 4, 512, 512) it
+// takes about 0.15 ms against a bound of 0.05 ms (PERF.md): m64n32
+// products read 3 KB of shared memory for 64 K operations, so S and dP,
+// the refills and dQ together keep shared memory near its rate (NVIDIA
+// H100 80GB HBM3, 700 W).
 //
 // K5, bf16 (the training path), designed for Hopper; head_dim 512 only
 // (ops/flash_cuda.py k5_plan raises on another).  One CTA of 384 threads
@@ -69,20 +87,16 @@
 // S per tile, one entry a thread; each thread then accumulates one row of
 // its block over the columns c + 16 j.
 //
-// Not yet used: K4 on wgmma; in K5 a second Q / dO stage (no room at D
-// 512) and a 2-CTA cluster splitting the head dim.  Tried in K5 and
-// slower (PERF.md): a TMA multicast of each Q and dO tile to a cluster of
-// two key blocks, a 13th warp issuing the loads (ptxas then allows 128
-// registers a thread).
+// Not yet used: in K4 and K5 a 2-CTA cluster splitting the head dim, which
+// would make room for more stages; in K5 a second Q / dO stage (no room
+// at D 512).  Tried in K5 and slower (PERF.md):
+// a TMA multicast of each Q and dO tile to a cluster of two key blocks, a
+// 13th warp issuing the loads (ptxas then allows 128 registers a thread).
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-using serenade::ld32;
-using serenade::ldsm_x4_trans;
-using serenade::mma_16816;
-using serenade::pack_bf16;
 
 constexpr int MAX_D = 512;
 constexpr float NEG_BIG = -1e30f;
@@ -263,155 +277,298 @@ dkv_f32_kernel(Heads a, Out dk, Out dv) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulation)
+// K4 bf16 on Hopper: wgmma, TMA, warp specialisation
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int TC_THREADS = 512;  // 16 warps
-constexpr int PAD = 8;           // bf16 row padding: fragment loads avoid
-                                 // bank conflicts, rows stay 16-byte aligned
-constexpr int DQ_BQ = 64, DQ_BK = 32;    // K4: queries a block, keys a tile
 
-// rows [t0, t0 + rows) of a (T, D) bf16 matrix with row stride st into
-// shared memory with row stride D + PAD, 16 bytes a thread; zeros past T
-__device__ __forceinline__ void load_bf16(bf16* dst, const bf16* src,
-                                          long long st, int t0, int rows,
-                                          int T, int D) {
-  const int chunks = D / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    const int t = t0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) val = *reinterpret_cast<const uint4*>(src + t * st + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) = val;
+namespace k4 {
+
+constexpr int HD = 512;               // the head dim this design takes
+constexpr int BQ = 64;                // queries a CTA
+constexpr int BKEY = 32;              // keys a tile
+constexpr int THREADS = 384;
+constexpr int SLOTS = 5;              // half tiles of K or V in the ring
+constexpr int QBOX = BQ * 128;        // 64 rows x 64 d, bytes
+constexpr int KBOX = BKEY * 128;      // 32 rows x 64 d
+constexpr int TILE = 8 * QBOX;        // Q or dO, 64 KB
+constexpr int HALF = 4 * KBOX;        // 256 columns of a K or V tile, 16 KB
+constexpr int OFF_Q = 0, OFF_G = TILE, OFF_SLOT = 2 * TILE;
+constexpr int OFF_DS = OFF_SLOT + SLOTS * HALF;
+// dS as [query][key] rows of 128 bytes (keys 0-31 in the first 64 bytes)
+constexpr int SMEM = OFF_DS + BQ * 128 + 1024;   // + alignment
+// the epilogue stages each consumer's 64 x 256 dQ block as rows padded by
+// 16 bytes, the first consumer's in the Q tile and the second's in dO's
+constexpr int OUT_LD = 256 * 2 + 16;
+static_assert(BQ * OUT_LD <= TILE, "a staged dQ block fits in its tile");
+
+// The slots of one key tile's four halves: K's columns 0-255 (ka) and
+// 256-511 (kb), V's (va, vb), and the slot that already holds the next
+// tile's ka (nxt).  The ring refills each slot once its half is consumed:
+// va with the next tile's kb and vb with its va (warpgroup 0, after dP),
+// ka with the next tile's vb (warpgroup 1, after its dQ products) and kb
+// with the ka of the tile after next (warpgroup 2).  So the next tile's
+// slots are these, permuted.
+struct Slots {
+  int ka, kb, va, vb, nxt;
+  __device__ __forceinline__ Slots next() const {
+    return {nxt, va, vb, ka, kb};
   }
+  __device__ __forceinline__ uint32_t mask() const {
+    return (1u << ka) | (1u << kb) | (1u << va) | (1u << vb);
+  }
+};
+
+// the half `half` (four 64-column blocks, one TMA instruction) of the K or
+// V tile at keys k0 into slot s; called by one thread
+__device__ __forceinline__ void load_half(uint8_t* ring, int s,
+                                          const CUtensorMap* map,
+                                          uint64_t* full, int k0, int half,
+                                          int h, int b) {
+  hopper::mbar_expect_tx(&full[s], HALF);
+  hopper::tma_load_blocks(ring + s * HALF, map, &full[s], k0, 4 * half, h, b);
 }
 
-// acc += A B^T for one 16 x 8 patch over the whole head dim: A rows
-// a_row, a_row + 8 and B row b_row of two (rows, D) tiles in shared memory
-__device__ __forceinline__ void patch_dot(float (&acc)[4], const bf16* A,
-                                          int a_row, const bf16* B, int b_row,
-                                          int ld, int D, int t4) {
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* ap = A + a_row * ld + 16 * kk + 2 * t4;
-    const uint32_t af[4] = {ld32(ap), ld32(ap + 8 * ld), ld32(ap + 8),
-                            ld32(ap + 8 * ld + 8)};
-    const bf16* bp = B + b_row * ld + 16 * kk + 2 * t4;
-    mma_16816(acc, af, ld32(bp), ld32(bp + 8));
-  }
+// the key mask at key t of a sample's row `mb` (1 without a mask), from
+// key min(t, Tk - 1).  The load is volatile, so it is issued where it
+// stands: the compiler would otherwise move it to its use a tile later
+// and stall there for the memory's latency.
+__device__ __forceinline__ float mask_at(const float* mb, int t, int Tk) {
+  if (!mb) return 1.f;
+  float m;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n"
+               : "=f"(m)
+               : "l"(mb + min(t, Tk - 1)));
+  return m;
 }
 
-// the A fragment of rows r0 + g (+8), columns 16 ks + 2 t4 (+8) of a
-// row-major bf16 tile with row stride ld
-__device__ __forceinline__ void a_frag(uint32_t (&af)[4], const bf16* base,
-                                       int r0, int ks, int ld, int g,
-                                       int t4) {
-  const bf16* p = base + (r0 + g) * ld + 16 * ks + 2 * t4;
-  af[0] = ld32(p);
-  af[1] = ld32(p + 8 * ld);
-  af[2] = ld32(p + 8);
-  af[3] = ld32(p + 8 * ld + 8);
-}
-
-__global__ void __launch_bounds__(TC_THREADS, 1)
-dq_bf16_kernel(Heads a, Out dq) {
-  extern __shared__ float4 smem4[];
-  const int D = a.D, ld = D + PAD;
-  constexpr int LDS = DQ_BK + PAD;
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* Gs = Qs + DQ_BQ * ld;
-  bf16* Ks = Gs + DQ_BQ * ld;
-  bf16* Vs = Ks + DQ_BK * ld;
-  bf16* dSs = Vs + DQ_BK * ld;                                  // 64 x LDS
-  float* Ls = reinterpret_cast<float*>(dSs + DQ_BQ * LDS);      // 64
-  float* Dsum = Ls + DQ_BQ;                                     // 64
-  float* bias_s = Dsum + DQ_BQ;                                 // 32
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * DQ_BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rg = 16 * (warp >> 2);       // this warp's 16 query rows
-  const int kt = 8 * (warp & 3);         // phase 1: its 8 keys of a tile
-  const int dbase = (warp & 3) * (D / 4);  // phase 2: its quarter of D
-  const int nt = D / 32;                 // n8 tiles in a quarter
-
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ksb + h * a.ksh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vsb + h * a.vsh;
-  const bf16* gb = static_cast<const bf16*>(a.g) + b * a.gsb + h * a.gsh;
-  const float* mb = a.mask ? a.mask + (long long)b * a.Tk : nullptr;
-  const long long row0 = ((long long)b * a.H + h) * a.Tq;
-
-  load_bf16(Qs, qb, a.qst, q0, DQ_BQ, a.Tq, D);
-  load_bf16(Gs, gb, a.gst, q0, DQ_BQ, a.Tq, D);
-  if (threadIdx.x < DQ_BQ) {
-    const int t = q0 + threadIdx.x;
-    Ls[threadIdx.x] = t < a.Tq ? a.lse[row0 + t] : INFINITY;
-    Dsum[threadIdx.x] = t < a.Tq ? a.dsum[row0 + t] : 0.f;
-  }
-
-  float o[MAX_D / 32][4];
-#pragma unroll
-  for (int n = 0; n < MAX_D / 32; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < a.Tk; k0 += DQ_BK) {
-    __syncthreads();  // Q, dO loaded / previous tile consumed
-    load_bf16(Ks, kb, a.kst, k0, DQ_BK, a.Tk, D);
-    load_bf16(Vs, vb, a.vst, k0, DQ_BK, a.Tk, D);
-    if (threadIdx.x < DQ_BK)
-      bias_s[threadIdx.x] = key_bias(mb, k0 + threadIdx.x, a.Tk);
-    __syncthreads();
-
-    // phase 1: S and dP for query rows rg + g (+8), keys kt + 2 t4 (+1)
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    patch_dot(s, Qs, rg + g, Ks, kt + g, ld, D, t4);
-    patch_dot(dp, Gs, rg + g, Vs, kt + g, ld, D, t4);
-#pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const int r = rg + g + 4 * e;  // e = 0: row g, e = 2: row g + 8
-      const int key = kt + 2 * t4;
-      const float p0 = expf(s[e] * a.scale + bias_s[key] - Ls[r]);
-      const float p1 = expf(s[e + 1] * a.scale + bias_s[key + 1] - Ls[r]);
-      *reinterpret_cast<uint32_t*>(dSs + r * LDS + key) =
-          pack_bf16(p0 * (dp[e] - Dsum[r]) * a.scale,
-                    p1 * (dp[e + 1] - Dsum[r]) * a.scale);
-    }
-    __syncthreads();
-
-    // phase 2: dQ += dS K over this warp's quarter of the head dim
-#pragma unroll
-    for (int ks = 0; ks < DQ_BK / 16; ++ks) {
-      uint32_t af[4];
-      a_frag(af, dSs, rg, ks, LDS, g, t4);
-      const bf16* krow = Ks + (16 * ks + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                  ld + dbase + 8 * (lane >> 4);
-#pragma unroll
-      for (int n = 0; n < MAX_D / 32; n += 2) {
-        if (n < nt) {
-          uint32_t bv[4];
-          ldsm_x4_trans(bv, krow + 8 * n);
-          mma_16816(o[n], af, bv[0], bv[1]);
-          mma_16816(o[n + 1], af, bv[2], bv[3]);
-        }
-      }
-    }
-  }
-
+// acc (64 queries x 32 keys) = rows (Q or dO) x the tile (K or V) over the
+// head dim: columns 0-255 from slot s0, 256-511 from s1, each as it lands.
+// After each wait the products are fenced anew: the wait is a loop, and
+// without the fence ptxas puts its own on the loop's path and serialises
+// every product.
+__device__ __forceinline__ void scores(float (&acc)[16], uint32_t rows,
+                                       uint32_t ring, uint64_t* full,
+                                       int s0, int s1, uint32_t par) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int t = q0 + rg + g + 8 * half;
-    if (t >= a.Tq) continue;
-    bf16* orow = static_cast<bf16*>(dq.p) + b * dq.sb + h * dq.sh + t * dq.st +
-                 dbase;
+    const int s = half ? s1 : s0;
+    const uint32_t keys = ring + s * HALF;
+    hopper::mbar_wait(&full[s], (par >> s) & 1);
+    hopper::wgmma_fence();
+    hopper::fence_regs(acc);
 #pragma unroll
-    for (int n = 0; n < MAX_D / 32; ++n)
-      if (n < nt)
-        *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t4) =
-            pack_bf16(o[n][2 * half], o[n][2 * half + 1]);
+    for (int db = 0; db < 4; ++db)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n32k16_ss<0, 0>(
+            acc,
+            hopper::desc_sw128(rows + (4 * half + db) * QBOX + 32 * kk, 16,
+                               1024),
+            hopper::desc_sw128(keys + db * KBOX + 32 * kk, 16, 1024),
+            (half | db | kk) != 0);
+    hopper::wgmma_commit();
+    hopper::fence_regs(acc);
   }
 }
+
+// Named barriers between the warpgroups (hardware barriers: an mbarrier's
+// waiter wakes up to 0.4 us after the arrival, which sat on the critical
+// path; PERF.md): warpgroup 0 has freed the V halves (one each for the
+// refilling warps 0 of warpgroups 1 and 2), dS is in shared memory, the
+// consumers are done with it; and each consumer's epilogue.
+constexpr int BAR_VA = 4, BAR_VB = 5, BAR_DS_READY = 6, BAR_DS_FREE = 7;
+constexpr int BAR_EPILOGUE = 2;   // + the consumer's index
+
+__global__ void __launch_bounds__(THREADS, 1)
+dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap g_map,
+               const float* __restrict__ mask, const float* __restrict__ lse,
+               const float* __restrict__ dsum, Out dq, int H, int Tq, int Tk,
+               float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // qfull / gfull: the Q and dO tiles have landed; full: a slot has
+  __shared__ __align__(8) uint64_t qfull, gfull, full[SLOTS];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = sm + OFF_SLOT;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  // the warpgroup and the warp in it, from lane 0: values ptxas knows are
+  // the same in every thread of a warp, so that a branch on them is not
+  // divergent (a wgmma on a divergent path is serialised)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x % 128 / 32, 0);
+  const int tid = threadIdx.x % 128;
+  const int g8 = (tid % 32) / 4, t4 = tid % 4;
+  const int nk = (Tk + BKEY - 1) / BKEY;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&qfull, 1);
+    hopper::mbar_init(&gfull, 1);
+    for (int s = 0; s < SLOTS; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const uint32_t base = hopper::smem_addr(sm);
+  const uint32_t rbase = base + OFF_SLOT;
+  Slots s{0, 1, 2, 3, 4};
+  uint32_t par = 0;   // bit i: the parity of slot i's current fill
+
+  if (wg == 0) {
+    // ---- warpgroup 0: S = Q K^T and dP = dO V^T (wgmma m64n32k16 over the
+    // head dim; element e is query 16 w + g8 + 8 ((e >> 1) & 1), key
+    // 8 (e >> 2) + 2 t4 + (e & 1)), P and dS.  Its thread 0 issues the
+    // loads of Q, dO, the first tile and the next tile's first K half.
+    if (tid == 0) {
+      hopper::prefetch_map(&q_map);
+      hopper::prefetch_map(&k_map);
+      hopper::prefetch_map(&v_map);
+      hopper::prefetch_map(&g_map);
+      hopper::mbar_expect_tx(&qfull, TILE);
+      hopper::mbar_expect_tx(&gfull, TILE);
+      for (int half = 0; half < 2; ++half) {
+        hopper::tma_load_blocks(sm + OFF_Q + 4 * half * QBOX, &q_map, &qfull,
+                                q0, 4 * half, h, b);
+        hopper::tma_load_blocks(sm + OFF_G + 4 * half * QBOX, &g_map, &gfull,
+                                q0, 4 * half, h, b);
+      }
+      load_half(ring, s.ka, &k_map, full, 0, 0, h, b);
+      load_half(ring, s.kb, &k_map, full, 0, 1, h, b);
+      load_half(ring, s.va, &v_map, full, 0, 0, h, b);
+      load_half(ring, s.vb, &v_map, full, 0, 1, h, b);
+      if (nk > 1) load_half(ring, s.nxt, &k_map, full, BKEY, 0, h, b);
+    }
+    const long long row0 = ((long long)b * H + h) * Tq;
+    const float* mb = mask ? mask + (long long)b * Tk : nullptr;
+    float L[2], D[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = q0 + 16 * w + g8 + 8 * r;
+      L[r] = q < Tq ? lse[row0 + q] : INFINITY;   // P = 0 past Tq
+      D[r] = q < Tq ? dsum[row0 + q] : 0.f;
+    }
+    // the key mask at this thread's keys 8 (i / 2) + 2 t4 + i % 2 of a
+    // tile, read a tile ahead (past Tk: the last key's, unused)
+    float km[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      km[i] = mask_at(mb, 8 * (i / 2) + 2 * t4 + i % 2, Tk);
+    hopper::mbar_wait(&qfull, 0);
+    hopper::mbar_wait(&gfull, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int k0 = j * BKEY;
+      float kbias[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int t = k0 + 8 * (i / 2) + 2 * t4 + i % 2;
+        kbias[i] = t < Tk ? (1.f - km[i]) * NEG_BIG : -INFINITY;
+        km[i] = mask_at(mb, t + BKEY, Tk);
+      }
+      float sc[16], dp[16];
+      scores(sc, base + OFF_Q, rbase, full, s.ka, s.kb, par);
+      scores(dp, base + OFF_G, rbase, full, s.va, s.vb, par);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      // V is free (this warpgroup was its only reader): the consumers
+      // refill it
+      if (j + 1 < nk) {
+        hopper::named_arrive(BAR_VA, 160);
+        hopper::named_arrive(BAR_VB, 160);
+      }
+      // dS = P (dP - D) scale with P = exp(S scale + key bias - L), cast to
+      // bf16 as JAX casts it to K's type, into [query][key] rows, 128-byte
+      // swizzled: the K-major A operand of dQ += dS K.  The consumers must
+      // be done with the last tile's.
+      if (j > 0) hopper::named_barrier(BAR_DS_FREE, 384);
+#pragma unroll
+      for (int e = 0; e < 16; e += 2) {
+        const int r = (e >> 1) & 1;
+        const int q = 16 * w + g8 + 8 * r;
+        const int key = 8 * (e >> 2) + 2 * t4;
+        const float p0 = expf(sc[e] * scale + kbias[2 * (e >> 2)] - L[r]);
+        const float p1 =
+            expf(sc[e + 1] * scale + kbias[2 * (e >> 2) + 1] - L[r]);
+        *reinterpret_cast<uint32_t*>(sm + OFF_DS + hopper::sw128(q, 2 * key)) =
+            serenade::pack_bf16(p0 * (dp[e] - D[r]) * scale,
+                                p1 * (dp[e + 1] - D[r]) * scale);
+      }
+      hopper::fence_async_shared();
+      hopper::named_arrive(BAR_DS_READY, 384);
+      par ^= s.mask();
+      s = s.next();
+    }
+    return;
+  }
+
+  // ---- warpgroups 1 and 2: dQ[:, 256 cw .. + 255] += dS K[:, same] (wgmma
+  // m64n256k16; A dS K-major, B the K half [key][d] MN-major through the
+  // descriptor's transpose bit), 64 x 256 in 128 registers a thread.  The
+  // thread 0 of each refills a V half warpgroup 0 freed and, after its
+  // products, its own K half, where its warpgroup has no product in flight.
+  const int cw = wg - 1;
+  float acc[128];
+#pragma unroll
+  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    const int mine = cw ? s.kb : s.ka;
+    // va takes the next tile's K columns 256-511, vb its V columns 0-255
+    if (j + 1 < nk && w == 0) {
+      hopper::named_barrier(BAR_VA + cw, 160);
+      if (tid == 0)
+        load_half(ring, cw ? s.vb : s.va, cw ? &v_map : &k_map, full,
+                  (j + 1) * BKEY, cw ? 0 : 1, h, b);
+    }
+    hopper::named_barrier(BAR_DS_READY, 384);
+    hopper::mbar_wait(&full[mine], (par >> mine) & 1);   // warpgroup 0 saw it
+    hopper::wgmma_fence();
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      hopper::wgmma_m64n256k16_ss<0, 1>(
+          acc, hopper::desc_sw128(base + OFF_DS + 32 * ks, 16, 1024),
+          hopper::desc_sw128(rbase + mine * HALF + 2048 * ks, KBOX, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (j + 1 < nk) hopper::named_arrive(BAR_DS_FREE, 384);
+    // ka takes the next tile's V columns 256-511, kb the K columns 0-255
+    // of the tile after next
+    const int ahead = cw ? 2 : 1;
+    if (tid == 0 && j + ahead < nk)
+      load_half(ring, mine, cw ? &k_map : &v_map, full, (j + ahead) * BKEY,
+                cw ? 0 : 1, h, b);
+    par ^= s.mask();
+    s = s.next();
+  }
+
+  // epilogue: dQ through shared memory (the Q or dO tile: warpgroup 0 is
+  // done with both) to (B, Tq, H, D) rows, 16 bytes a store.  Element e of
+  // acc is query 16 w + g8 + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 t4 +
+  // (e & 1) of this consumer's 256.
+  uint8_t* own = sm + (cw ? OFF_G : OFF_Q);
+#pragma unroll
+  for (int e = 0; e < 128; e += 2) {
+    const int q = 16 * w + g8 + 8 * ((e >> 1) & 1);
+    const int c = 8 * (e >> 2) + 2 * t4;
+    *reinterpret_cast<uint32_t*>(own + q * OUT_LD + 2 * c) =
+        serenade::pack_bf16(acc[e], acc[e + 1]);
+  }
+  hopper::named_barrier(BAR_EPILOGUE + cw, 128);
+  for (int c = tid; c < BQ * 32; c += 128) {
+    const int q = c / 32, ch = c % 32;
+    if (q0 + q < Tq)
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(dq.p) + b * dq.sb +
+                                h * dq.sh + (long long)(q0 + q) * dq.st +
+                                256 * cw + 8 * ch) =
+          *reinterpret_cast<const uint4*>(own + q * OUT_LD + 16 * ch);
+  }
+}
+
+}  // namespace k4
 
 // ---------------------------------------------------------------------------
 // K5 bf16 on Hopper: wgmma, TMA, warp specialisation
@@ -726,18 +883,38 @@ int check_args(const Heads& a, int B, int dtype) {
       a.Tk <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    // 16-byte row loads need 8-element-aligned rows; phase 2 splits the
-    // head dim in eighths of pairs of n8 tiles
+    // TMA: 16-byte aligned bases and strides
     const long long st[] = {a.qsb, a.qsh, a.qst, a.ksb, a.ksh, a.kst,
                             a.vsb, a.vsh, a.vst, a.gsb, a.gsh, a.gst};
     for (long long s : st)
       if (s % 8) return (int)cudaErrorInvalidValue;
-    if (a.D % 128 ||
-        (reinterpret_cast<size_t>(a.q) | reinterpret_cast<size_t>(a.k) |
+    if ((reinterpret_cast<size_t>(a.q) | reinterpret_cast<size_t>(a.k) |
          reinterpret_cast<size_t>(a.v) | reinterpret_cast<size_t>(a.g)) % 16)
       return (int)cudaErrorInvalidValue;
   } else if (dtype != 0) {
     return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+// 5-D maps (hopper::encode_heads_blocks) over the strided (B, H, T, D)
+// views of q, k, v and dO, in that order: boxes of 64 columns x `qrows`
+// rows x 4 column blocks (half a Q or dO tile) and of 64 columns x
+// `krows` rows x `kblocks` blocks for K and V
+int encode_maps(CUtensorMap (&maps)[4], const Heads& a, int B, int qrows,
+                int krows, int kblocks) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.g};
+  const long long sb[4] = {a.qsb, a.ksb, a.vsb, a.gsb},
+                  sh[4] = {a.qsh, a.ksh, a.vsh, a.gsh},
+                  st[4] = {a.qst, a.kst, a.vst, a.gst};
+  const int rows[4] = {qrows, krows, krows, qrows};
+  const int blocks[4] = {4, kblocks, kblocks, 4};
+  const int lens[4] = {a.Tq, a.Tk, a.Tk, a.Tq};
+  for (int i = 0; i < 4; ++i) {
+    const int e = hopper::encode_heads_blocks(&maps[i], ptrs[i], sb[i], sh[i],
+                                              st[i], B, a.H, lens[i], a.D,
+                                              rows[i], blocks[i]);
+    if (e) return e;
   }
   return 0;
 }
@@ -761,10 +938,16 @@ int launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
       const void *g, long long gsb, long long gsh, long long gst,             \
       const float *lse, const float *dsum
 
+// The caller plans the launch (ops/flash_cuda.py k4_plan): grid
+// (grid_x, H, B), `threads` a CTA and `smem` bytes of dynamic shared
+// memory.  bf16 takes head_dim 512 only, on the Hopper kernel; a plan that
+// does not match either kernel's own query rows a CTA, threads and shared
+// memory returns cudaErrorInvalidValue.
 extern "C" int serenade_flash_bwd_dq(SERENADE_HEAD_ARGS, void* dq,
                                      long long dsb, long long dsh,
                                      long long dst, int B, int H, int Tq,
                                      int Tk, int D, float scale, int dtype,
+                                     int grid_x, int threads, int smem,
                                      cudaStream_t stream) {
   const Heads a = make_heads(q, qsb, qsh, qst, k, ksb, ksh, kst, v, vsb, vsh,
                              vst, mask, g, gsb, gsh, gst, lse, dsum, H, Tq,
@@ -773,18 +956,24 @@ extern "C" int serenade_flash_bwd_dq(SERENADE_HEAD_ARGS, void* dq,
   if (bad) return bad;
   const Out o{dq, dsb, dsh, dst};
   if (dtype == 1) {
-    if (dst % 2) return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(bf16) * ((size_t)(2 * DQ_BQ + 2 * DQ_BK) *
-                                            (D + PAD) +
-                                        (size_t)DQ_BQ * (DQ_BK + PAD)) +
-                        sizeof(float) * (2 * DQ_BQ + DQ_BK);
-    return launch(dq_bf16_kernel, dim3((Tq + DQ_BQ - 1) / DQ_BQ, H, B),
-                  TC_THREADS, smem, stream, a, o);
+    // 16-byte stores of dQ rows
+    if (dsb % 8 || dsh % 8 || dst % 8 || reinterpret_cast<size_t>(dq) % 16 ||
+        D != k4::HD || grid_x != (Tq + k4::BQ - 1) / k4::BQ ||
+        threads != k4::THREADS || smem != k4::SMEM)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap maps[4];
+    const int e = encode_maps(maps, a, B, k4::BQ, k4::BKEY, 4);
+    if (e) return e;
+    return launch(k4::dq_bf16_kernel, dim3(grid_x, H, B), threads, smem,
+                  stream, maps[0], maps[1], maps[2], maps[3], mask, lse, dsum,
+                  o, H, Tq, Tk, scale);
   }
-  const size_t smem =
-      sizeof(float) * ((size_t)4 * F_T * (D + 1) + F_T * (F_T + 1));
-  return launch(dq_f32_kernel, dim3((Tq + F_T - 1) / F_T, H, B), F_THREADS,
-                smem, stream, a, o);
+  if (grid_x != (Tq + F_T - 1) / F_T || threads != F_THREADS ||
+      (size_t)smem !=
+          sizeof(float) * ((size_t)4 * F_T * (D + 1) + F_T * (F_T + 1)))
+    return (int)cudaErrorInvalidValue;
+  return launch(dq_f32_kernel, dim3(grid_x, H, B), threads, smem, stream, a,
+                o);
 }
 
 // The caller plans the launch (ops/flash_cuda.py k5_plan): grid
@@ -815,22 +1004,10 @@ extern "C" int serenade_flash_bwd_dkv(SERENADE_HEAD_ARGS, void* dk,
         threads != k5::THREADS || smem != k5::SMEM ||
         (reinterpret_cast<size_t>(dk) | reinterpret_cast<size_t>(dv)) % 16)
       return (int)cudaErrorInvalidValue;
-    // 5-D maps over the strided (B, H, T, D) views: boxes of 64 columns x
-    // 64 rows x 4 column blocks (half a Q or dO tile) or x 32 rows x 8
-    // blocks (all of K or V)
+    // Q and dO by halves (four 64-column blocks), K and V whole
     CUtensorMap maps[4];
-    const void* ptrs[4] = {q, k, v, g};
-    const long long sb[4] = {qsb, ksb, vsb, gsb}, sh[4] = {qsh, ksh, vsh, gsh},
-                    stt[4] = {qst, kst, vst, gst};
-    const int rows[4] = {k5::BQ, k5::BKEY, k5::BKEY, k5::BQ};
-    const int blocks[4] = {4, 8, 8, 4};
-    const int lens[4] = {Tq, Tk, Tk, Tq};
-    for (int i = 0; i < 4; ++i) {
-      const int e = hopper::encode_heads_blocks(&maps[i], ptrs[i], sb[i],
-                                                sh[i], stt[i], B, H, lens[i],
-                                                D, rows[i], blocks[i]);
-      if (e) return e;
-    }
+    const int e = encode_maps(maps, a, B, k5::BQ, k5::BKEY, 8);
+    if (e) return e;
     return launch(k5::dkv_bf16_kernel, dim3(grid_x, H, B), threads, smem,
                   stream, maps[0], maps[1], maps[2], maps[3], mask, lse, dsum,
                   ok, ov, H, Tq, Tk, scale);

@@ -6,7 +6,7 @@
 // try-wait; TMA tensor loads (cp.async.bulk.tensor, 2-D to 5-D) and
 // tensor-map prefetch, bulk f32 reductions to global memory and 4- and
 // 16-byte cp.async with zero fill; TF32 rounding; register reallocation
-// (setmaxnreg) and named barriers.
+// (setmaxnreg) and named barriers (wait and arrive).
 //
 // Layout convention: every operand tile is stored as TMA's 128-byte
 // swizzle writes it, 64 bf16 (128 bytes) a row, rows consecutive, the
@@ -265,6 +265,11 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // barrier `id` (1..15) among `count` threads (a multiple of 32)
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// arrives at barrier `id` without waiting: the memory accesses before it
+// are performed for the threads that wait there (bar.sync)
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- wgmma -------------------------------------------------------------------

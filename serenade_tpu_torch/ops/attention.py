@@ -1,10 +1,14 @@
 """Multi-head attention (counterpart of serenade_tpu/ops/attention.py).
 
 Square self-attention (``tq == tk``) goes through the flash wrapper at
-every length: the flash kernel on CUDA, its plain version on the CPU.
-Non-square attention (the GST token attention, tq=1) takes the plain
-einsum path, as ``_xla_attention`` does in JAX.  Padded keys get a -1e30
-bias and the softmax runs in f32.
+every length: the flash kernels on CUDA, their plain versions on the CPU.
+The route is chosen by shape before anything is launched: a square
+attention whose head dim or dtype a flash kernel does not take
+(``flash_cuda.flash_supported``; bf16 at a head dim other than 512) takes
+the plain version, differentiated by autograd, and counts in
+``flash_cuda.routed``; so does non-square attention (the GST token
+attention, tq=1), uncounted, as ``_xla_attention`` does in JAX.  Padded
+keys get a -1e30 bias and the softmax runs in f32.
 """
 
 from __future__ import annotations
@@ -13,9 +17,11 @@ from typing import Optional
 
 import torch
 
+from serenade_tpu_torch.ops import flash_cuda
 from serenade_tpu_torch.ops.flash_cuda import (
     flash_attention,
     flash_attention_plain,
+    flash_supported,
 )
 
 
@@ -32,8 +38,9 @@ def multi_head_attention(q, k, v, *, num_heads: int,
         return x.reshape(b, t, num_heads, d).transpose(1, 2)
 
     qh, kh, vh = split(q, tq), split(k, tk), split(v, tk)
-    if tq == tk:
+    if tq == tk and flash_supported(tq, tk, d, q.dtype):
         out = flash_attention(qh, kh, vh, key_mask, scale)
     else:
+        flash_cuda.routed += tq == tk
         out, _ = flash_attention_plain(qh, kh, vh, key_mask, scale)
     return out.transpose(1, 2).reshape(b, tq, hd)

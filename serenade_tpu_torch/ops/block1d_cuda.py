@@ -16,8 +16,11 @@
 - K7 replaces ``block1d_pallas.py:343`` (``_bwd_w_kernel``): dW, reduced
   over batch and time.
 
-``block1d`` goes through ``Block1DFunction``.  On CUDA the forward keeps
-K2's f32 conv output y and f64 group sums for K6, where the Pallas
+``block1d`` goes through ``Block1DFunction`` where
+``block1d_cuda_supported`` takes the shape, and otherwise through
+``block1d_plain`` differentiated by autograd, counted in ``routed``: the
+route is chosen by shape before anything is launched.  On CUDA the
+forward keeps K2's f32 conv output y and f64 group sums for K6, where the Pallas
 backward recomputes them.  CPU tensors run ``block1d_plain`` (conv1d +
 two-pass ``masked_group_norm`` + mish, the unfused JAX ``Block1D``) and
 ``block1d_backward_plain`` (the Pallas backward's formulas step by step;
@@ -40,10 +43,27 @@ from serenade_tpu_torch.models.layers import (
 )
 from serenade_tpu_torch.ops import _cuda
 
-# wrapper calls that launched each kernel since the last reset: K2, K6, K7
+# wrapper calls that launched each kernel since the last reset: K2, K6, K7;
+# and the Block1Ds ``block1d`` routed to the plain version because a kernel
+# of the three does not take their shape
 launches = 0
 data_launches = 0
 weight_launches = 0
+routed = 0
+
+
+def block1d_cuda_supported(b: int, t: int, cin: int, cout: int, groups: int,
+                           dtype) -> bool:
+    """Whether K2 and its backward K6, K7 all take this shape: Cout in
+    ``groups`` groups and a multiple of 4 (the normalize pass writes four
+    channels at once), and in bf16 an even Cin (x rows load by 4-byte
+    ``cp.async`` or TMA) and Cout a multiple of 8 (dy and the taps load by
+    TMA).  The planners refuse what this rejects, and JAX likewise takes
+    its unfused Block1D where ``block1d_supported`` says no
+    (``serenade_tpu/models/unet.py``)."""
+    if cout % groups or cout % 4:
+        return False
+    return dtype != torch.bfloat16 or (cin % 2 == 0 and cout % 8 == 0)
 
 
 def block1d_plain(x, mask, weight, bias, gamma, beta, *, groups: int = 8,
@@ -492,5 +512,11 @@ def block1d(x, mask, weight, bias, gamma, beta, *, groups: int = 8,
             conv parameters.
         gamma, beta: ``(Cout,)`` GroupNorm affine, applied in f32.
     """
-    return Block1DFunction.apply(x, mask, weight, bias, gamma, beta, groups,
-                                 eps)
+    global routed
+    b, t, cin = x.shape
+    if block1d_cuda_supported(b, t, cin, weight.shape[0], groups, x.dtype):
+        return Block1DFunction.apply(x, mask, weight, bias, gamma, beta,
+                                     groups, eps)
+    routed += 1
+    return block1d_plain(x, mask, weight, bias, gamma, beta, groups=groups,
+                         eps=eps)

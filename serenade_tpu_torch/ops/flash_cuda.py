@@ -8,14 +8,18 @@
 - K4 replaces ``flash_pallas.py:267`` (``_bwd_dq_kernel``) and K5
   ``flash_pallas.py:291`` (``_bwd_dkv_kernel``): the FlashAttention-2
   backward, recomputing ``P = exp(S - L)`` blockwise; ``D = rowsum(dO∘O)``
-  is one PyTorch op outside the kernels, as in JAX.  K5's bf16 kernel runs
-  on Hopper's wgmma as ``k5_plan`` lays it out (head_dim 512 only).
+  is one PyTorch op outside the kernels, as in JAX.  K4's and K5's bf16
+  kernels run on Hopper's wgmma as ``k4_plan`` and ``k5_plan`` lay them
+  out (head_dim 512 only).
 
 ``flash_attention`` goes through ``FlashAttention`` (a
 ``torch.autograd.Function``): CUDA tensors launch K1 forward and K4, K5
 backward; CPU tensors run ``flash_attention_plain`` and
 ``flash_attention_backward_plain`` (the JAX formulas step by step, with
-JAX's roundings).  bf16 runs on tensor cores, f32 on FMA units.
+JAX's roundings).  bf16 runs on tensor cores, f32 on FMA units.  The
+planners refuse the shapes their kernels do not take; ``flash_supported``
+says which shapes all three take, and ``attention.multi_head_attention``
+routes the others to the plain version before anything is launched.
 """
 
 from __future__ import annotations
@@ -31,10 +35,24 @@ from serenade_tpu_torch.ops import _cuda
 NEG_INF = -1e30
 MAX_HEAD_DIM = 512
 
-# kernel launches since the last reset: K1, K4, K5
+# kernel launches since the last reset: K1, K4, K5; and the square
+# attentions ``attention.multi_head_attention`` routed to the plain version
+# because a kernel of the pair does not take their shape
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+routed = 0
+
+
+def flash_supported(tq: int, tk: int, d: int, dtype) -> bool:
+    """Whether K1 and its backward K4, K5 all take this shape: in bf16
+    square attention at head_dim 512 (the Hopper kernels' one head dim), in
+    f32 a head_dim that is a multiple of 32 up to 512.  The planners
+    refuse what this rejects, and JAX likewise sends any other shape to
+    its XLA attention (``serenade_tpu/ops/attention.py``)."""
+    if dtype == torch.bfloat16:
+        return tq == tk and d == K1_BF16_HEAD_DIM
+    return dtype == torch.float32 and d % 32 == 0 and d <= MAX_HEAD_DIM
 
 
 def _logits(q, k, key_mask, scale):
@@ -97,8 +115,6 @@ def _check_inputs(q, k, v, key_mask):
     _cuda.require(k.is_cuda and v.is_cuda, "q, k, v must all be on CUDA")
     _cuda.require(k.shape == (b, h, tk, d) and v.shape == k.shape,
                   f"shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    _cuda.require(d % 32 == 0 and d <= MAX_HEAD_DIM,
-                  f"head_dim {d}: a multiple of 32 up to {MAX_HEAD_DIM}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _cuda.require(_rows_ok(t), f"{name}: head_dim must be contiguous "
                       "and bf16 rows 16-byte aligned")
@@ -107,6 +123,12 @@ def _check_inputs(q, k, v, key_mask):
                       f"key_mask {tuple(key_mask.shape)}")
         key_mask = key_mask.float().contiguous()
     return key_mask
+
+
+def _f32_head_dim(d: int) -> None:
+    _cuda.require(d % 32 == 0 and d <= MAX_HEAD_DIM, f"f32 flash: head_dim "
+                  f"{d}; the kernels take a multiple of 32 up to "
+                  f"{MAX_HEAD_DIM}")
 
 
 def _mask_ptr(key_mask):
@@ -128,12 +150,13 @@ def k1_plan(b: int, h: int, tq: int, d: int, dtype, sm_count: int) -> dict:
     as ``_flash_cuda`` passes it to the kernel: the grid, threads and
     dynamic shared memory; with the CTAs and the SMs they occupy (one CTA
     per SM: either kernel's shared memory holds one).  Raises
-    ``ValueError`` on a bf16 head dim the Hopper kernel does not take."""
+    ``ValueError`` on a head dim the kernel of that dtype does not take."""
     if dtype == torch.bfloat16:
         _cuda.require(d == K1_BF16_HEAD_DIM, f"bf16 flash forward: head_dim "
                       f"{d}; the Hopper kernel takes {K1_BF16_HEAD_DIM} only")
         rows, threads, smem = K1_BF16_ROWS, 384, K1_BF16_SMEM
     else:
+        _f32_head_dim(d)
         rows, threads = K1_F32_ROWS, 256
         smem = 4 * ((K1_F32_ROWS + K1_F32_KEYS) * (d + 4) + K1_F32_KEYS * d
                     + K1_F32_ROWS * (K1_F32_KEYS + 1))
@@ -182,8 +205,6 @@ def _bwd_args(q, k, v, key_mask, g, lse, dsum):
     (the caller keeps it alive until the launch)."""
     b, h, tq, d = q.shape
     key_mask = _check_inputs(q, k, v, key_mask)
-    _cuda.require(q.dtype != torch.bfloat16 or d % 128 == 0,
-                  f"bf16 backward: head_dim {d} must be a multiple of 128")
     _cuda.require(g.shape == q.shape and g.dtype == q.dtype and g.is_cuda
                   and _rows_ok(g), f"grad {tuple(g.shape)} {g.dtype}")
     for name, t in (("lse", lse), ("dsum", dsum)):
@@ -203,18 +224,61 @@ def _dims(q, k, scale):
             ctypes.c_int(_cuda.DTYPE_CODE[q.dtype]), _cuda.stream())
 
 
+# K4's bf16 kernel: head_dim 512, a CTA of 384 threads per 64 query rows
+# of one (b, h), Q and dO resident (64 KB each), a ring of five 16 KB
+# slots of half K or V tiles (32 keys x 256 columns), the dS tile (8 KB)
+# and 1 KB for alignment.  The C entry checks a plan against the kernels'
+# own constants and refuses one that does not match.
+K4_BF16_HEAD_DIM = 512
+K4_BF16_QUERIES, K4_BF16_KEYS, K4_BF16_SLOTS = 64, 32, 5
+K4_BF16_SMEM = (2 * 64 * 1024 + K4_BF16_SLOTS * 16 * 1024 + 64 * 128
+                + 1024)
+K4_F32_ROWS = 16
+
+
+def k4_plan(b: int, h: int, tq: int, tk: int, d: int, dtype,
+            sm_count: int) -> dict:
+    """K4's launch for a shape and a card of ``sm_count`` multiprocessors,
+    as ``flash_bwd_dq`` passes it to the kernel: the grid (query blocks,
+    H, B), threads and dynamic shared memory; with the query rows a CTA
+    owns, the key tile it walks and how many, the ring's slots, the CTAs
+    and the SMs they occupy (one CTA per SM).  Raises ``ValueError`` on a
+    head dim the kernel of that dtype does not take; never falls back."""
+    if dtype == torch.bfloat16:
+        _cuda.require(d == K4_BF16_HEAD_DIM, f"bf16 flash dQ: head_dim "
+                      f"{d}; the Hopper kernel takes {K4_BF16_HEAD_DIM} only")
+        rows, keys, slots = K4_BF16_QUERIES, K4_BF16_KEYS, K4_BF16_SLOTS
+        threads, smem = 384, K4_BF16_SMEM
+    else:
+        _f32_head_dim(d)
+        rows = keys = K4_F32_ROWS
+        slots, threads = 0, 256
+        smem = 4 * (4 * K4_F32_ROWS * (d + 1) + K4_F32_ROWS
+                    * (K4_F32_ROWS + 1))
+    grid = (-(-tq // rows), h, b)
+    ctas = grid[0] * h * b
+    return {"grid": grid, "threads": threads, "smem_bytes": smem,
+            "query_rows": rows, "key_tile": keys, "key_tiles": -(-tk // keys),
+            "slots": slots, "ctas": ctas, "sms_used": min(ctas, sm_count)}
+
+
 def flash_bwd_dq(q, k, v, key_mask, g, lse, dsum, scale):
     """K4: dQ, written (B, Tq, H, D) and returned as a (B, H, Tq, D) view.
     ``g``/``dsum`` as ``flash_bwd_prepare`` gives them."""
     global dq_launches
     b, h, tq, d = q.shape
     args, key_mask = _bwd_args(q, k, v, key_mask, g, lse, dsum)
+    plan = k4_plan(b, h, tq, k.shape[2], d, q.dtype, _cuda.sm_count(q.device))
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     dq_v = dq.transpose(1, 2)
     fn = _cuda.library("flash_bwd").serenade_flash_bwd_dq
     fn.restype = ctypes.c_int
-    _cuda.check(fn(*args, _cuda.ptr(dq), *_strides(dq_v),
-                   *_dims(q, k, scale)), "flash_bwd_dq")
+    *dims, stream = _dims(q, k, scale)
+    _cuda.check(fn(*args, _cuda.ptr(dq), *_strides(dq_v), *dims,
+                   ctypes.c_int(plan["grid"][0]),
+                   ctypes.c_int(plan["threads"]),
+                   ctypes.c_int(plan["smem_bytes"]), stream),
+                "flash_bwd_dq")
     dq_launches += 1
     return dq_v
 
@@ -236,14 +300,15 @@ def k5_plan(b: int, h: int, tq: int, tk: int, d: int, dtype,
     as ``flash_bwd_dkv`` passes it to the kernel: the grid (key blocks, H,
     B), threads and dynamic shared memory; with the keys a CTA owns, the
     query tile it loops over, its Q / dO stages, the CTAs and the SMs
-    they occupy (one CTA per SM).  Raises ``ValueError`` on a bf16 head
-    dim the Hopper kernel does not take; never falls back."""
+    they occupy (one CTA per SM).  Raises ``ValueError`` on a head dim
+    the kernel of that dtype does not take; never falls back."""
     if dtype == torch.bfloat16:
         _cuda.require(d == K5_BF16_HEAD_DIM, f"bf16 flash dK/dV: head_dim "
                       f"{d}; the Hopper kernel takes {K5_BF16_HEAD_DIM} only")
         keys, queries, stages = K5_BF16_KEYS, K5_BF16_QUERIES, 1
         threads, smem = 384, K5_BF16_SMEM
     else:
+        _f32_head_dim(d)
         keys, queries, stages, threads = K5_F32_KEYS, K5_F32_KEYS, 0, 256
         smem = 4 * (4 * K5_F32_KEYS * (d + 1) + 2 * K5_F32_KEYS
                     * (K5_F32_KEYS + 1) + 2 * K5_F32_KEYS)

@@ -270,3 +270,81 @@ def test_hopper_block1d_data_gradient_at_ragged_bf16_shapes(cin):
     assert not dx[3, 1:].any() and not dx[2, 64:].any()
     # K6 read the taps K2 made for this weight: none were made again
     assert block1d_cuda.k2_taps(w_) is taps
+
+
+@pytest.mark.cuda
+def test_hopper_flash_dq_at_ragged_bf16_shapes():
+    """K4's wgmma/TMA kernel at Tq = Tk = 200 (a ragged last query block
+    and key tile) on the (B, H, T, D) views of (B, T, H, D) buffers, with
+    key lengths 200, 96 and 1, against the plain backward: within 2e-2 of
+    max(1, |ref|); the planner refuses head dim 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, cot = (torch.randn((3, 200, 4, 512), generator=g, device=dev)
+                    .bfloat16().transpose(1, 2) for _ in range(4))
+    mask = (torch.arange(200, device=dev)[None, :]
+            < torch.tensor([200, 96, 1], device=dev)[:, None]).float()
+    scale = 512 ** -0.5
+    out, lse = flash_cuda.flash_attention(q, k, v, mask, scale,
+                                          return_lse=True)
+    cot, dsum = flash_cuda.flash_bwd_prepare(out, cot, torch.bfloat16)
+    before = flash_cuda.dq_launches
+    dq = flash_cuda.flash_bwd_dq(q, k, v, mask, cot, lse, dsum, scale)
+    assert flash_cuda.dq_launches == before + 1
+    want = flash_cuda.flash_attention_backward_plain(q, k, v, mask, out, lse,
+                                                     cot, scale)[0]
+    err = (dq.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_cuda.flash_bwd_dq(*(t[..., :256] for t in (q, k, v)), mask,
+                                cot[..., :256], lse, dsum, scale)
+
+
+@pytest.mark.cuda
+def test_shapes_the_kernels_refuse_take_the_plain_route_on_card():
+    """bf16 attention at head dim 32 and a bf16 Block1D at odd Cin run on
+    the card through the plain versions (routed by shape, counted, no
+    kernel launched), forward and backward, and agree with the same
+    computation on the CPU: within 2e-2 of max(1, |ref|), the bf16
+    kernels' tolerance (the two devices sum in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.ops.attention import multi_head_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(17)
+    q, k, v = (torch.randn((2, 48, 4 * 32), generator=g).bfloat16()
+               for _ in range(3))
+    mask = torch.ones((2, 48))
+    mask[1, 30:] = 0
+    x = torch.randn((2, 48, 9), generator=g).bfloat16()
+    w = torch.randn((16, 9, 3), generator=g) / 27 ** 0.5
+    bias, gamma, beta = (0.1 * torch.randn((16,), generator=g)
+                         for _ in range(3))
+    bmask = mask[..., None]
+
+    def run(dev):
+        qq, ww = (t.detach().to(dev).requires_grad_(True) for t in (q, w))
+        att = multi_head_attention(qq, k.to(dev), v.to(dev), num_heads=4,
+                                   key_mask=mask.to(dev))
+        blk = block1d_cuda.block1d(x.to(dev), bmask.to(dev), ww,
+                                   *(p.to(dev) for p in (bias, gamma + 1.0,
+                                                         beta)))
+        (att.float().square().sum() + blk.float().square().sum()).backward()
+        return [t.detach().float().cpu() for t in (att, blk, qq.grad,
+                                                   ww.grad)]
+
+    want = run("cpu")
+    counts = (flash_cuda.launches, flash_cuda.routed, block1d_cuda.launches,
+              block1d_cuda.routed)
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert (flash_cuda.launches, flash_cuda.routed, block1d_cuda.launches,
+            block1d_cuda.routed) == (counts[0], counts[1] + 1, counts[2],
+                                     counts[3] + 1)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 2e-2 * max(
+            1.0, b.abs().max().item())

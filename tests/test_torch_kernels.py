@@ -775,3 +775,159 @@ def test_k5_plan_covers_every_key_block_once(b, h, tq, tk):
 def test_k5_refuses_a_bf16_head_dim_it_does_not_take(d):
     with pytest.raises(ValueError, match=f"head_dim {d}"):
         flash_cuda.k5_plan(16, 4, 512, 512, d, torch.bfloat16, SM_COUNT)
+
+
+# ---------------------------------------------------------------------------
+# K4 on Hopper: the launch planner; the route by shape around the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,tq,tk", [(16, 4, 512, 512), (16, 4, 256, 256),
+                                       (2, 4, 200, 200), (3, 4, 200, 200),
+                                       (1, 4, 75, 200)])
+def test_k4_plan_covers_every_query_row_once(b, h, tq, tk):
+    """One CTA per 64 query rows of each (b, h), walking every 32-key tile,
+    with Q and dO resident, five half-tile slots of K or V and the dS tile
+    within the card's shared memory."""
+    plan = flash_cuda.k4_plan(b, h, tq, tk, 512, torch.bfloat16, SM_COUNT)
+    gx, gh, gb = plan["grid"]
+    rows, keys = plan["query_rows"], plan["key_tile"]
+    assert (rows, keys, plan["slots"]) == (64, 32, 5)
+    assert (gh, gb) == (h, b) and plan["threads"] == 384
+    seen = [q for i in range(gx) for q in range(rows * i, rows * i + rows)
+            if q < tq]
+    assert seen == list(range(tq)) and (gx - 1) * rows < tq
+    assert [t for i in range(plan["key_tiles"])
+            for t in range(keys * i, keys * i + keys)
+            if t < tk] == list(range(tk))
+    assert plan["ctas"] == gx * h * b
+    assert plan["sms_used"] == min(plan["ctas"], SM_COUNT)
+    # Q and dO, five 32-key x 256-column halves, the 64-row dS tile
+    tiles = 2 * 64 * 512 * 2 + 5 * 32 * 256 * 2 + 64 * 128
+    assert plan["smem_bytes"] == tiles + 1024 <= SMEM_LIMIT - 1024
+    f32 = flash_cuda.k4_plan(b, h, tq, tk, 128, torch.float32, SM_COUNT)
+    assert f32["grid"] == (-(-tq // 16), h, b)
+    assert f32["smem_bytes"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 576])
+def test_k4_refuses_a_bf16_head_dim_it_does_not_take(d):
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
+        flash_cuda.k4_plan(16, 4, 512, 512, d, torch.bfloat16, SM_COUNT)
+    if d <= 512:
+        assert flash_cuda.k4_plan(16, 4, 512, 512, d, torch.float32,
+                                  SM_COUNT)
+
+
+def _takes(plan, *args):
+    try:
+        plan(*args)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_supported_agrees_with_the_planners(dtype):
+    """A square shape the predicate accepts is one that K1, K4 and K5 all
+    plan, and one it rejects is refused by at least one of them."""
+    for t in (1, 75, 200, 512):
+        for d in (16, 32, 48, 64, 128, 256, 512, 576, 1024):
+            takes = (_takes(flash_cuda.k1_plan, 2, 4, t, d, dtype, SM_COUNT)
+                     and _takes(flash_cuda.k4_plan, 2, 4, t, t, d, dtype,
+                                SM_COUNT)
+                     and _takes(flash_cuda.k5_plan, 2, 4, t, t, d, dtype,
+                                SM_COUNT))
+            assert flash_cuda.flash_supported(t, t, d, dtype) == takes, (t, d)
+    # the Hopper kernels' bf16 route is for square self-attention only
+    assert not flash_cuda.flash_supported(1, 50, 512, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block1d_cuda_supported_agrees_with_the_planners(dtype):
+    """A shape the predicate accepts is one that K2, K6 and K7 all plan and
+    whose parameters the wrappers' checks take; one it rejects is refused
+    by at least one of them."""
+    def takes(b, t, cin, cout, groups):
+        x = torch.empty((b, t, cin), dtype=dtype, device="meta")
+        w = torch.empty((cout, cin, 3), dtype=dtype, device="meta")
+        p = torch.empty((cout,), device="meta")
+        return (_takes(block1d_cuda._check_params, x, w,
+                       {"bias": p, "gamma": p, "beta": p}, groups)
+                and all(_takes(plan, b, t, cin, cout, dtype, SM_COUNT)
+                        for plan in (block1d_cuda.k2_plan,
+                                     block1d_cuda.k6_plan,
+                                     block1d_cuda.k7_plan)))
+
+    for cin in (1, 2, 5, 20, 242, 1024):
+        for cout, groups in ((8, 8), (12, 4), (20, 4), (24, 8), (36, 6),
+                             (64, 8), (512, 8), (510, 6)):
+            assert block1d_cuda.block1d_cuda_supported(
+                2, 64, cin, cout, groups, dtype) == takes(
+                    2, 64, cin, cout, groups), (cin, cout, groups)
+
+
+def test_multi_head_attention_routes_a_refused_shape_by_shape():
+    """bf16 attention at head dim 32 and f32 at head dim 16 take the plain
+    version, differentiable by autograd, and count as routed; shapes the
+    kernels take go through the flash wrapper and do not; non-square
+    attention is not counted."""
+    rng = np.random.default_rng(7)
+
+    def run(tq, tk, heads, d, dtype):
+        q = _t(rng.normal(size=(2, tq, heads * d))).to(dtype)
+        k, v = (_t(rng.normal(size=(2, tk, heads * d))).to(dtype)
+                for _ in range(2))
+        q.requires_grad_(True)
+        mask = _t(_prefix_mask([tk, tk - 3], tk))
+        before = flash_cuda.routed
+        out = multi_head_attention(q, k, v, num_heads=heads, key_mask=mask)
+        routed = flash_cuda.routed - before
+        qh = q.reshape(2, tq, heads, d).transpose(1, 2)
+        kh, vh = (x.reshape(2, tk, heads, d).transpose(1, 2) for x in (k, v))
+        want, _ = flash_cuda.flash_attention_plain(qh, kh, vh, mask,
+                                                   d ** -0.5)
+        torch.testing.assert_close(
+            out, want.transpose(1, 2).reshape(2, tq, heads * d), rtol=0,
+            atol=0)
+        out.float().sum().backward()
+        assert q.grad is not None and bool(q.grad.abs().amax() > 0)
+        return routed
+
+    assert run(24, 24, 2, 32, torch.bfloat16) == 1
+    assert run(24, 24, 2, 16, torch.float32) == 1
+    assert run(24, 24, 2, 32, torch.float32) == 0
+    assert run(24, 24, 1, 512, torch.bfloat16) == 0
+    assert run(1, 24, 2, 32, torch.bfloat16) == 0
+    assert flash_cuda.launches == 0
+
+
+def test_block1d_routes_a_refused_shape_by_shape():
+    """Odd Cin or Cout not a multiple of 8 in bf16, Cout not a multiple of
+    4 in f32: the plain Block1D, differentiable by autograd, counted as
+    routed; shapes the kernels take go through Block1DFunction."""
+    gen = torch.Generator().manual_seed(8)
+
+    def run(cin, cout, groups, dtype):
+        x = torch.randn((2, 16, cin), generator=gen).to(dtype)
+        w = torch.randn((cout, cin, 3), generator=gen, requires_grad=True)
+        bias, gamma, beta = (torch.randn((cout,), generator=gen)
+                             for _ in range(3))
+        mask = torch.from_numpy(_prefix_mask([16, 11], 16)[..., None])
+        before = block1d_cuda.routed
+        out = block1d_cuda.block1d(x, mask, w, bias, gamma, beta,
+                                   groups=groups)
+        routed = block1d_cuda.routed - before
+        want = block1d_cuda.block1d_plain(x, mask, w, bias, gamma, beta,
+                                          groups=groups)
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+        out.float().sum().backward()
+        assert bool(w.grad.abs().amax() > 0)
+        return routed
+
+    assert run(5, 16, 8, torch.bfloat16) == 1
+    assert run(6, 12, 4, torch.bfloat16) == 1
+    assert run(6, 6, 2, torch.float32) == 1
+    assert run(6, 16, 8, torch.bfloat16) == 0
+    assert run(5, 12, 4, torch.float32) == 0
+    assert block1d_cuda.launches == 0

@@ -159,6 +159,49 @@ def test_decoder_matches_jax(decoder_params):
                                atol=1e-4)
 
 
+def assert_bf16_parity(port, jax_bf16, jax_f32):
+    """The port in bf16 compute against JAX in bf16, on the same inputs and
+    parameters, relative to JAX's own bf16 - f32 gap.  The frameworks round
+    bf16 at different points (a Dense or Conv1d adds its bias inside the
+    product's rounding here, after it in JAX; Mish rounds once here), so
+    each is its own bf16 approximation of the f32 result: two that round
+    independently, each as far from it as JAX's, differ by about sqrt(2)
+    times that gap on average and by at most twice it (the triangle
+    inequality).  Held: port - JAX within 1.5x JAX's mean gap and 2x its
+    max, and the port's own bf16 - f32 gap within 1.25x JAX's, so the
+    port's bf16 is no less accurate than the reference's, and at least half
+    of it on average, so the port does compute in bf16."""
+    gap = np.abs(jax_bf16 - jax_f32)
+    err = np.abs(port - jax_bf16)
+    own = np.abs(port - jax_f32)
+    assert gap.max() > 0
+    assert err.mean() <= 1.5 * gap.mean(), (err.mean(), gap.mean())
+    assert err.max() <= 2.0 * gap.max(), (err.max(), gap.max())
+    assert own.mean() <= 1.25 * gap.mean(), (own.mean(), gap.mean())
+    assert own.max() <= 1.25 * gap.max(), (own.max(), gap.max())
+    assert own.mean() >= 0.5 * gap.mean(), (own.mean(), gap.mean())
+
+
+def test_decoder_bf16_matches_jax(decoder_params):
+    """bf16 compute, f32 parameters, on both sides: the valid frames held
+    against JAX as ``assert_bf16_parity`` states."""
+    x, mask, mu, spk = _decoder_inputs(np.random.default_rng(3))
+    t = np.array([0.25, 0.7], np.float32)
+
+    def jax_out(dtype):
+        return np.asarray(jax.jit(JaxDecoder(**DEC, dtype=dtype).apply)(
+            decoder_params, x, mask, mu, t, spk), np.float32)
+
+    port = load_params(Decoder(**DEC, spk_dim=16, dtype=torch.bfloat16),
+                       decoder_params)
+    with torch.no_grad():
+        got = port(_t(x), _t(mask), _t(mu), _t(t), _t(spk))
+    valid = mask[..., 0] > 0
+    assert_bf16_parity(got.float().numpy()[valid],
+                       jax_out(jnp.bfloat16)[valid],
+                       jax_out(jnp.float32)[valid])
+
+
 @pytest.mark.parametrize("solver,steps", [("euler", 3), ("midpoint", 2),
                                           ("ab2", 3)])
 def test_cfm_inference_matches_jax(decoder_params, solver, steps):

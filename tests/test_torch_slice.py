@@ -26,6 +26,7 @@ from serenade_tpu.vocoder.hifigan import HiFiGANGenerator as JaxHiFiGAN
 from serenade_tpu_torch import configs
 from serenade_tpu_torch.api import Converter
 from serenade_tpu_torch.vocoder.vocoder import Vocoder
+from test_torch_models import assert_bf16_parity
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -75,28 +76,42 @@ def _jax_side(sc, src, ref):
     return (x, lengths, midi, loud, rx, rlengths, rmel, rmidi, rloud)
 
 
-def test_convert_features_matches_jax():
-    """Mel within 2e-4 (two Euler steps of the UNet after the encoder and
-    GST stacks, f32) and waveform within 1e-4."""
+@pytest.fixture(scope="module")
+def jax_conversion():
+    """One seeded init of the JAX model, its normalized inputs, its f32
+    mel and its noise draw scaled as the port's ``x0``, shared by the f32
+    and bf16 conversion tests."""
     rng = np.random.default_rng(0)
     sc = _scaler(rng)
     src, ref = _features(rng, 150, False), _features(rng, 100, True)
+    vstats = {"mean": rng.normal(size=80) - 3,
+              "scale": rng.uniform(0.5, 2, size=80)}
     args = _jax_side(sc, src, ref)
     jmodel = JaxSerenade(**CFG, dtype=jnp.float32)
     k_init, k_noise = jax.random.split(jax.random.key(0))
     params = jax.tree_util.tree_map(np.asarray, jax.jit(
         lambda *a: jmodel.init(k_init, *a, rng=k_noise, n_timesteps=1,
                                method="inference"))(*args))
-    mel_j = jax.jit(lambda p, *a: jmodel.apply(
-        p, *a, rng=k_noise, n_timesteps=STEPS, temperature=TEMP,
-        method="inference"))(params, *args)
-    mel_j = np.asarray(mel_j)[0, :150]
     t_packed = args[0].shape[1] + args[4].shape[1]
     x0 = np.asarray(jax.random.normal(k_noise, (1, t_packed, 80),
                                       jnp.float32) * TEMP)
 
-    vstats = {"mean": rng.normal(size=80) - 3,
-              "scale": rng.uniform(0.5, 2, size=80)}
+    def mel(dtype):
+        out = jax.jit(lambda p, *a: JaxSerenade(**CFG, dtype=dtype).apply(
+            p, *a, rng=k_noise, n_timesteps=STEPS, temperature=TEMP,
+            method="inference"))(params, *args)
+        return np.asarray(out, np.float32)[0, :150]
+
+    return dict(sc=sc, src=src, ref=ref, vstats=vstats, params=params,
+                x0=x0, mel=mel)
+
+
+def test_convert_features_matches_jax(jax_conversion):
+    """Mel within 2e-4 (two Euler steps of the UNet after the encoder and
+    GST stacks, f32) and waveform within 1e-4."""
+    jc = jax_conversion
+    sc, vstats = jc["sc"], jc["vstats"]
+    mel_j = jc["mel"](jnp.float32)
     jgen = JaxHiFiGAN(**VOC)
     vparams = jax.tree_util.tree_map(np.asarray, jax.jit(jgen.init)(
         jax.random.key(1), jnp.zeros((1, 8, 80))))
@@ -106,14 +121,26 @@ def test_convert_features_matches_jax():
         vparams, jnp.asarray(c, jnp.float32)[None]))[0, :, 0]
 
     conv = Converter(
-        dict(CFG, dtype="float32"), params, sc,
+        dict(CFG, dtype="float32"), jc["params"], sc,
         vocoder_config={"sampling_rate": 24000, "generator_params": VOC},
         vocoder_params=vparams, vocoder_stats=vstats, n_timesteps=STEPS,
         temperature=TEMP, device="cpu")
-    mel, wav, sr = conv.convert_features(src, ref, x0=x0)
+    mel, wav, sr = conv.convert_features(jc["src"], jc["ref"], x0=jc["x0"])
     assert sr == 24000 and wav.shape == (150 * 6,)
     np.testing.assert_allclose(mel, mel_j, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(wav, wav_j, rtol=1e-4, atol=1e-4)
+
+
+def test_serenade_inference_bf16_matches_jax(jax_conversion):
+    """``Serenade.inference`` in bf16 compute (f32 parameters), two Euler
+    steps with JAX's noise as ``x0``: the mel held against JAX's bf16 mel
+    relative to JAX's own bf16 - f32 gap, as
+    ``test_torch_models.assert_bf16_parity`` states."""
+    jc = jax_conversion
+    conv = Converter(dict(CFG, dtype="bfloat16"), jc["params"], jc["sc"],
+                     n_timesteps=STEPS, temperature=TEMP, device="cpu")
+    mel, _, _ = conv.convert_features(jc["src"], jc["ref"], x0=jc["x0"])
+    assert_bf16_parity(mel, jc["mel"](jnp.bfloat16), jc["mel"](jnp.float32))
 
 
 def test_converter_draws_its_own_noise_reproducibly():
