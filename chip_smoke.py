@@ -1038,50 +1038,6 @@ def kernel_entries(torch, dev):
     return ok, entries
 
 
-def time_k4(root: str) -> int:
-    """K4 of the package under ``root`` at both train-step shapes: its
-    error against the plain backward and its device time (one line of
-    JSON).  ``--compare`` runs this in a process of its own per tree."""
-    sys.path.insert(0, root)
-    import torch
-
-    from serenade_tpu_torch.ops import _cuda, flash_cuda as K
-
-    _cuda.build_all(("flash_fwd", "flash_bwd"))
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(11)
-    row = {"root": root, "package": K.__file__}
-    for t, valid in ((512, [512] + [475] * 15), (256, [256] + [219] * 15)):
-        q, k, v, g = (_heads(torch, gen, dev, 16, 4, t, 512, torch.bfloat16)
-                      for _ in range(4))
-        mask = (torch.arange(t, device=dev)[None, :]
-                < torch.tensor(valid, device=dev)[:, None]).float()
-        scale = 512 ** -0.5
-        out, lse = K._flash_cuda(q, k, v, mask, scale)
-        g, dsum = K.flash_bwd_prepare(out, g, torch.bfloat16)
-        dq = K.flash_bwd_dq(q, k, v, mask, g, lse, dsum, scale)
-        ref = K.flash_attention_backward_plain(q, k, v, mask, out, lse, g,
-                                               scale)[0]
-        row[f"T{t}_max_abs_err"] = rel_err(torch, dq, ref)[0]
-        row[f"T{t}_ms"] = cuda_ms(torch, lambda: K.flash_bwd_dq(
-            q, k, v, mask, g, lse, dsum, scale), 20)
-    emit(row)
-    return 0
-
-
-def compare(root: str) -> int:
-    """K4 of the tree at ``root`` and of this one, timed in turns (root,
-    this, this, root), each in its own process on the same card."""
-    for tree in (root, ".", ".", root):
-        r = subprocess.run([sys.executable, __file__, "--time-k4", tree])
-        if r.returncode:
-            return r.returncode
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    return 0
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -1144,8 +1100,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--compare"]:
-        sys.exit(compare(sys.argv[2]))
-    if sys.argv[1:2] == ["--time-k4"]:
-        sys.exit(time_k4(sys.argv[2]))
     sys.exit(main())
