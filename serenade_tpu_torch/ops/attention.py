@@ -41,6 +41,7 @@ def multi_head_attention(q, k, v, *, num_heads: int,
     if tq == tk and flash_supported(tq, tk, d, q.dtype):
         out = flash_attention(qh, kh, vh, key_mask, scale)
     else:
-        flash_cuda.routed += tq == tk
+        if tq == tk:    # square, but a flash kernel does not take the shape
+            flash_cuda.routed += 1
         out, _ = flash_attention_plain(qh, kh, vh, key_mask, scale)
     return out.transpose(1, 2).reshape(b, tq, hd)

@@ -203,7 +203,7 @@ def flash_bwd_prepare(out, g, dtype):
 def _bwd_args(q, k, v, key_mask, g, lse, dsum):
     """The kernels' leading arguments, and the f32 key mask they point to
     (the caller keeps it alive until the launch)."""
-    b, h, tq, d = q.shape
+    b, h, tq, _ = q.shape
     key_mask = _check_inputs(q, k, v, key_mask)
     _cuda.require(g.shape == q.shape and g.dtype == q.dtype and g.is_cuda
                   and _rows_ok(g), f"grad {tuple(g.shape)} {g.dtype}")
