@@ -82,16 +82,19 @@ def test_k1_flash_matches_jax_pallas_and_xla():
 
 @pytest.mark.parametrize("tq,tk", [(75, 75), (1, 50)])
 def test_k1_multi_head_attention_matches_jax(tq, tk):
-    """Square self-attention goes through the flash wrapper, the GST token
-    attention (tq=1) through the plain einsum path."""
+    """Square self-attention at head dim 16 (no flash kernel takes it in
+    f32) and the GST token attention (tq=1) both take the plain path; the
+    first counts as routed."""
     rng = np.random.default_rng(1)
     b, heads, d = 2, 4, 16
     q = rng.normal(size=(b, tq, heads * d)).astype(np.float32)
     k, v = (rng.normal(size=(b, tk, heads * d)).astype(np.float32)
             for _ in range(2))
     mask = _prefix_mask([tk, tk - 20], tk)
+    before = flash_cuda.routed
     got = multi_head_attention(_t(q), _t(k), _t(v), num_heads=heads,
                                key_mask=_t(mask))
+    assert flash_cuda.routed == before + (tq == tk)
     want = jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                    num_heads=heads, key_mask=jnp.asarray(mask), backend="xla")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
