@@ -27,7 +27,23 @@ Phases, each printing JSON lines:
                launch counters at 6 (K1, K4, K5) and 13 (K2, K6, K7) a
                step, no call routed; then one step under torch.profiler;
 6. train_parity -- one small f32 train step on the CPU and on the card
-               from the same weights, batch and draws.
+               from the same weights, batch and draws;
+7. serve    -- phase 3's Converter behind ``serving.make_server`` on
+               127.0.0.1:0: a registered style, then 8 client threads post
+               16 /convert_features requests (phase 3's shapes, half with
+               the style, half with their own reference), then 16 uniform
+               (1024, 512) requests with the style, each traffic at
+               max_batch 1, 8, 8, 1 in turns; each turn prints requests,
+               batches, mean batch, p50/p95 latency, audio-seconds per
+               second, the launch and routed counters, and fails on any
+               error, a non-finite or misshapen answer or a routed call;
+               then one profiled turn of each traffic at max_batch 8 and
+               1 gives the device's idle share and the host's waits on
+               it (failing if the host waited on the stream);
+8. batch_parity -- row i of a batched bf16 conversion on the card against
+               the same request converted alone at the same buckets and
+               noise row, held by phase 4's rule against the CPU's own
+               bf16 - f32 gap; f32 too.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -189,6 +205,8 @@ def check_flash(torch, dev):
     # the train step's forward
     case(1, 4, 736, 512, torch.bfloat16, [700], 2e-2, True)
     case(16, 4, 512, 512, torch.bfloat16, [512] + [475] * 15, 2e-2, True)
+    # the serving path's batch of 8 (1024, 512) requests
+    case(8, 4, 1536, 512, torch.bfloat16, [1536] * 8, 2e-2, True)
     return main, rows
 
 
@@ -256,6 +274,8 @@ def check_block1d(torch, dev):
     # a tile past the length, the cp.async loader at batch > 1
     case(3, 200, 1024, 512, torch.bfloat16, [200, 131, 1], 2e-2, False)
     case(2, 150, 242, 512, torch.bfloat16, [150, 77], 2e-2, False)
+    # the serving path's batch of 8 (1024, 512) requests
+    case(8, 1536, 1024, 512, torch.bfloat16, [1536] * 8, 2e-2, True)
     return main, rows
 
 
@@ -613,6 +633,8 @@ def check_resblock(torch, dev):
             if (t, c, k) != (8192, 256, 11):
                 case(1, t, c, k, torch.float32, 1e-4, True)
     case(1, 8192, 256, 11, torch.bfloat16, 3e-2, True)
+    # the serving path's vocoder tail at batch 8
+    case(8, 8192, 256, 11, torch.float32, 1e-4, True)
     return main, rows
 
 
@@ -684,7 +706,7 @@ def main_path(torch, np, dev, counters):
     prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / results[0][
         "wall_s"]
     emit(dict(phase="profile", request=list(requests[0]), **prof))
-    return counts_ok and all(r["ok"] for r in results), launches
+    return counts_ok and all(r["ok"] for r in results), launches, conv
 
 
 # device symbols of the port's CUDA kernels, as the profiler names them
@@ -716,7 +738,12 @@ def device_time(torch, fn) -> dict:
             if name in key:
                 ms, n = ours.get(name, (0.0, 0))
                 ours[name] = (ms + us / 1e3, n + count)
+    # the host's waits on the device (a pageable copy waits too, inside
+    # cudaMemcpyAsync + cudaStreamSynchronize)
+    syncs = {ev.key: ev.count for ev in prof.key_averages()
+             if "Synchronize" in ev.key or ev.key == "cudaMemcpyAsync"}
     return {"device_busy_s": sum(us for us, _, _ in rows) / 1e6,
+            "host_waits": syncs,
             "device_launches": sum(count for _, _, count in rows),
             "top": [{"kernel": key[:60], "ms": us / 1e3, "count": count}
                     for us, key, count in rows[:10]],
@@ -925,6 +952,235 @@ def train_parity(torch, np, dev):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the serving path
+# ---------------------------------------------------------------------------
+
+# phase 3's request shapes; 8 clients post 16 requests, the first half
+# with the registered style, the second with their own reference
+SERVE_SHAPES = ((1024, 512), (700, 300), (450, 512), (1200, 200))
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 16
+SERVE_TURNS = (1, 8, 8, 1)
+STYLE_FRAMES = 512
+
+
+def _http(url, body=None) -> bytes:
+    """GET ``url``, or POST ``body`` to it."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body)
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return resp.read()
+
+
+def _f32(feats):
+    return {k: v.astype("float32") for k, v in feats.items()}
+
+
+def serve_turn(torch, np, conv, counters, max_batch, traffic, style):
+    """A server at ``max_batch`` on 127.0.0.1:0 registers ``style`` and
+    answers ``traffic`` (bodies and their source frames) from
+    SERVE_CLIENTS client threads; then /healthz.  Returns the turn's
+    numbers, checked."""
+    import threading
+
+    from serenade_tpu_torch.serving import (
+        BatchingConverter, decode_response, encode_reference, make_server,
+    )
+
+    batching = BatchingConverter(conv, max_batch=max_batch)
+    server = make_server(batching, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    results, faults = [None] * len(traffic), []
+
+    def client(j):
+        for k in range(j, len(traffic), SERVE_CLIENTS):
+            body, frames = traffic[k]
+            t0 = time.perf_counter()
+            try:
+                out = decode_response(_http(f"{base}/convert_features", body))
+            except Exception as exc:  # noqa: BLE001 — reported, fails the phase
+                faults.append(f"request {k}: {exc!r}")
+                continue
+            results[k] = (time.perf_counter() - t0, frames) + out
+
+    try:
+        _http(f"{base}/register_reference?name=breathy",
+              encode_reference(style))
+        counters.reset()
+        start = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(j,))
+                   for j in range(SERVE_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - start
+        launches, routed = counters.read(), counters.routed()
+        health = json.loads(_http(f"{base}/healthz"))
+    finally:
+        server.shutdown()
+        server.server_close()
+        batching.close()
+        thread.join(timeout=10)
+    done = [r for r in results if r is not None]
+    right = all(mel.shape == (n, 80) and wav.shape == (n * HOP,) and sr == SR
+                and bool(np.isfinite(mel).all())
+                and bool(np.isfinite(wav).all())
+                for _, n, mel, wav, sr in done)
+    lat = [r[0] for r in done]
+    batches = health["batches"]
+    audio = sum(n for _, n, *_ in done) * HOP / SR
+    # every call of the path runs a kernel: 60 K1 and 130 K2 launches a
+    # batch (Euler-10), at least 9 K3 branch calls
+    counts_ok = (launches["flash_fwd"] == 60 * batches
+                 and launches["block1d_fwd"] == 130 * batches
+                 and launches["resblock_branch"] >= 9 * batches
+                 and not any(routed.values()))
+    ok = (not faults and len(done) == len(traffic) and right and counts_ok
+          and health["ok"] and health["errors"] == 0
+          and health["requests"] == len(traffic)
+          and (max_batch == 1 or batches < len(traffic)))
+    return {"max_batch": max_batch, "requests": len(done),
+            "batches": batches, "mean_batch": len(done) / max(1, batches),
+            "errors": health["errors"], "faults": faults[:4],
+            "latency_s": {"p50": float(np.percentile(lat, 50)) if lat else None,
+                          "p95": float(np.percentile(lat, 95)) if lat else None,
+                          "max": max(lat, default=None)},
+            "wall_s": wall, "audio_s": audio, "audio_s_per_s": audio / wall,
+            "server_compute_s": health["compute_sec"],
+            "server_launch_s": health["launch_sec"], "launches": launches,
+            "routed": routed, "ok": ok}
+
+
+def serve_path(torch, np, dev, counters, conv, card):
+    """Phase 7: phase 3's Converter behind ``make_server``.  The mixed
+    traffic (phase 3's shapes, half with the registered style) and then
+    uniform traffic ((1024, 512) requests, all with the style: one
+    bucket key) at max_batch 1, 8, 8, 1 in turns; then one profiled turn
+    of each at max_batch 8 and 1 for the device's busy time and the
+    host's waits on it."""
+    from serenade_tpu_torch.serving import (
+        BatchingConverter, encode_request, warmup_server,
+    )
+
+    d = conv.scaler["hubert"]["mean"].shape[0]
+    rng = np.random.default_rng(7)
+    style = _f32(_features(np, rng, STYLE_FRAMES, True, input_dim=d))
+
+    def body(s, ref):
+        return encode_request(_f32(_features(np, rng, s, False,
+                                             input_dim=d)), ref), s
+
+    mixed = []
+    for k in range(SERVE_REQUESTS):
+        s, r = SERVE_SHAPES[k % len(SERVE_SHAPES)]
+        mixed.append(body(s, "breathy" if k < SERVE_REQUESTS // 2 else
+                          _f32(_features(np, rng, r, True, input_dim=d))))
+    uniform = [body(SERVE_SHAPES[0][0], "breathy")
+               for _ in range(SERVE_REQUESTS)]
+    t0 = time.time()
+    warm = BatchingConverter(conv, max_batch=8)
+    try:
+        warmup_server(warm, [(s, r, 2) for s, r in SERVE_SHAPES]
+                      + [(s, STYLE_FRAMES, 2) for s, _ in SERVE_SHAPES]
+                      + [(SERVE_SHAPES[0][0], STYLE_FRAMES, 8)])
+    finally:
+        warm.close()
+    emit({"phase": "serve_warmup", "seconds": time.time() - t0})
+    ok, walls = True, {}
+    for name, traffic in (("mixed", mixed), ("uniform", uniform)):
+        for turn, max_batch in enumerate(SERVE_TURNS):
+            row = serve_turn(torch, np, conv, counters, max_batch, traffic,
+                             style)
+            walls.setdefault((name, max_batch), []).append(row["wall_s"])
+            emit({"phase": "serve", "traffic": name, "turn": turn,
+                  "card": card, **row})
+            ok &= row["ok"]
+    for name, traffic in (("mixed", mixed), ("uniform", uniform)):
+        for max_batch in (8, 1):
+            rows = []
+            prof = device_time(torch, lambda: rows.append(serve_turn(
+                torch, np, conv, counters, max_batch, traffic, style)))
+            wall = (sum(walls[name, max_batch])
+                    / len(walls[name, max_batch]))
+            # the profiler must have seen the dispatcher thread's kernels
+            k1 = prof["port_kernels"].get("k1::flash_fwd_bf16_kernel", {})
+            seen = k1.get("count", 0) == rows[0]["launches"]["flash_fwd"]
+            # the dispatcher only launches: the host waits on the device
+            # once a batch, on the finisher's event, never on the stream
+            waits_ok = (prof["host_waits"].get("cudaEventSynchronize")
+                        == rows[0]["batches"]
+                        and not prof["host_waits"].get(
+                            "cudaStreamSynchronize"))
+            emit({"phase": "serve_profile", "traffic": name,
+                  "max_batch": max_batch, "card": card,
+                  "unprofiled_wall_s": wall,
+                  "device_idle_share": (1.0 - prof["device_busy_s"] / wall
+                                        if seen else None),
+                  "profile_saw_dispatcher": seen, "host_waits_ok": waits_ok,
+                  "turn": rows[0], **prof})
+            ok &= rows[0]["ok"] and waits_ok
+    return ok
+
+
+def batch_parity(torch, np, dev, counters):
+    """Phase 8: row i of one batched conversion on the card against
+    request i converted alone at the same buckets from the same noise
+    row.  bf16 is held by phase 4's rule against the CPU's own bf16 - f32
+    gap on the same requests, f32 within phase 4's 1e-3.  A narrow model
+    whose attention keeps head dim 512, so K1 and K2 run (at batch 4)."""
+    from serenade_tpu_torch.api import Converter
+
+    cfg = dict(input_dim=32, output_dim=80, encoder_channels=16,
+               encoder_hidden_dim=32, decoder_channels=64, gst_embed_dim=32,
+               decoder_attention_head_dim=512, gst_tokens=10,
+               gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16)
+    rng = np.random.default_rng(8)
+    frames = ((150, 100), (100, 64), (70, 90))   # source buckets 192, 128
+    srcs = [_features(np, rng, s, False, input_dim=32) for s, _ in frames]
+    refs = [_features(np, rng, r, True, input_dim=32) for _, r in frames]
+    ts, tr = 192, 128
+    x0 = 0.667 * rng.normal(size=(4, tr + ts, 80))
+
+    def run(dtype, device, batched):
+        conv = Converter(dict(cfg, dtype=dtype), None,
+                         _scaler(np, input_dim=32), n_timesteps=4, seed=5,
+                         device=device)
+        if batched:
+            return np.concatenate(conv.convert_features_batch(
+                srcs, refs, ts=ts, tr=tr, pad_batch_pow2=True, x0=x0))
+        return np.concatenate([conv.convert_features_batch(
+            [s], [r], ts=ts, tr=tr, x0=x0[i:i + 1])[0]
+            for i, (s, r) in enumerate(zip(srcs, refs))])
+
+    counters.reset()
+    batched, alone = run("bfloat16", dev, True), run("bfloat16", dev, False)
+    launches, routed = counters.read(), counters.routed()
+    gap = np.abs(run("bfloat16", "cpu", False) - run("float32", "cpu", False))
+    err = np.abs(batched - alone)
+    b32, a32 = run("float32", dev, True), run("float32", dev, False)
+    err32 = float(np.abs(b32 - a32).max())
+    scale = max(1.0, float(np.abs(a32).max()))
+    bf16_ok = (bool(np.isfinite(batched).all())
+               and err.mean() <= 1.5 * gap.mean()
+               and err.max() <= 2.0 * gap.max())
+    ran = launches["flash_fwd"] > 0 and launches["block1d_fwd"] > 0
+    ok = bf16_ok and err32 <= 1e-3 * scale and ran and not any(
+        routed.values())
+    emit({"phase": "batch_parity", "batch": [4, ts, tr],
+          "bf16": {"max_abs_err": float(err.max()),
+                   "mean_abs_err": float(err.mean()),
+                   "cpu_gap_max": float(gap.max()),
+                   "cpu_gap_mean": float(gap.mean()),
+                   "tol": {"mean": 1.5, "max": 2.0}},
+          "f32": {"max_abs_err": err32, "scale": scale, "tol": 1e-3},
+          "launches": launches, "routed": routed, "ok": ok})
+    return ok
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -1061,6 +1317,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else "nvidia-smi: no output")
+
     t0 = time.time()
     logs = _cuda.build_all()
     ptxas = [line.strip() for log in logs.values()
@@ -1071,7 +1333,7 @@ def main() -> int:
     ok, entries = kernel_entries(torch, dev)
     # each kernel's launches come from the path that runs it: the forward
     # kernels' from the conversions, the backward kernels' from training
-    main_ok, launches = main_path(torch, np, dev, counters)
+    main_ok, launches, conv = main_path(torch, np, dev, counters)
     ok &= main_ok
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch"):
         entries[name]["launches"] = launches[name]
@@ -1081,14 +1343,12 @@ def main() -> int:
     for name in OUTPUTS:
         entries[name]["launches"] = launches[name]
     ok &= train_parity(torch, np, dev)
+    ok &= serve_path(torch, np, dev, counters, conv, card)
+    ok &= batch_parity(torch, np, dev, counters)
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else "nvidia-smi: no output", flush=True)
+    print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1

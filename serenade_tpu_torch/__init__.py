@@ -10,6 +10,7 @@ use (``ops/_cuda.py``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,14 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def upload(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array on ``device``.  On CUDA it goes through pinned memory
+    without blocking: a pageable copy would wait for everything queued on
+    the stream, so the next batch's inputs could not overlap the running
+    batch's compute."""
+    t = torch.from_numpy(np.array(a, dtype))  # a copy: ``a`` may be read-only
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,5 +1,5 @@
-"""Conversion API (counterpart of serenade_tpu/api.py ``Converter``,
-``convert_features`` only).
+"""Conversion API (counterpart of serenade_tpu/api.py ``Converter``:
+``convert_features``, ``pack_reference`` and ``convert_features_batch``).
 
 Everything comes in as data: model and vocoder configs as dicts
 (``configs.py`` holds the full-width ones), parameters as a flax tree of
@@ -16,13 +16,15 @@ statistics as arrays::
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from serenade_tpu_torch import resolve_device
-from serenade_tpu_torch.collaters.ssc import bucket_length, pad_to
+from serenade_tpu_torch import resolve_device, upload
+from serenade_tpu_torch.collaters.ssc import bucket_length, next_pow2, pad_to
+from serenade_tpu_torch.configs import FEATURE_CONFIG
 from serenade_tpu_torch.convert import load_params
 from serenade_tpu_torch.models.layers import (
     init_params_,
@@ -30,6 +32,9 @@ from serenade_tpu_torch.models.layers import (
 )
 from serenade_tpu_torch.models.serenade import Serenade
 from serenade_tpu_torch.vocoder.vocoder import Vocoder
+
+SRC_KEYS = ("hubert", "score", "loud")
+REF_KEYS = SRC_KEYS + ("logmel",)
 
 
 class Converter:
@@ -41,6 +46,8 @@ class Converter:
         """``vocoder_config`` None converts to mel only.  Runs on CUDA
         unless ``device`` says otherwise."""
         self.device = resolve_device(device)
+        # the feature frame rate a server counts audio seconds by
+        self.config = dict(FEATURE_CONFIG)
         model = Serenade(**model_config)
         if params is None:
             init_params_(model, seed)
@@ -52,6 +59,9 @@ class Converter:
         self.n_timesteps, self.solver = n_timesteps, solver
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # a server converts from several threads: each noise draw advances
+        # the generator atomically (serenade_tpu/api.py ``_next_key``)
+        self._noise_lock = threading.Lock()
         self.vocoder = None
         if vocoder_config is not None:
             self.vocoder = Vocoder(
@@ -63,37 +73,57 @@ class Converter:
     def output_sample_rate(self) -> Optional[int]:
         return self.vocoder.sampling_rate if self.vocoder else None
 
-    def _normalize(self, feats: Mapping[str, np.ndarray], with_mel: bool):
+    def _normalize_src(self, feats: Mapping[str, np.ndarray]):
         s = self.scaler
 
         def minmax(x, st):
             return (x - st["min"]) / (st["max"] - st["min"])
 
-        out = {
-            "hubert": (feats["hubert"] - s["hubert"]["mean"])
-            / s["hubert"]["scale"],
-            "score": minmax(feats["score"], s["score"]),
-            "loud": minmax(feats["loud"], s["loud"]),
-        }
-        if with_mel:
-            out["logmel"] = ((feats["logmel"] - s["logmel"]["mean"])
-                             / s["logmel"]["scale"])
+        return {"hubert": (feats["hubert"] - s["hubert"]["mean"])
+                / s["hubert"]["scale"],
+                "score": minmax(feats["score"], s["score"]),
+                "loud": minmax(feats["loud"], s["loud"])}
+
+    def _normalize_ref(self, feats: Mapping[str, np.ndarray]):
+        out = self._normalize_src(feats)
+        s = self.scaler["logmel"]
+        out["logmel"] = (feats["logmel"] - s["mean"]) / s["scale"]
         return out
 
-    def _pack(self, feats: Dict[str, np.ndarray]):
-        t = feats["hubert"].shape[0]
-        T = bucket_length(t)
-
+    def _stack(self, feats_list, keys, T: int) -> Dict[str, torch.Tensor]:
+        """Normalized feature dicts -> ``(B, T, C)`` tensors on the device,
+        zero-padded to ``T``, and their ``lengths``."""
         def pad(a):
             a = np.asarray(a, np.float32)
             if a.ndim == 1:
                 a = a[:, None]
-            return torch.from_numpy(pad_to(a, T)[None]).to(self.device)
+            return pad_to(a, T)
 
-        out = {k: pad(v) for k, v in feats.items()}
-        out["lengths"] = torch.tensor([t], dtype=torch.int32,
-                                      device=self.device)
-        return out, t
+        out = {k: upload(np.stack([pad(f[k]) for f in feats_list]),
+                         self.device) for k in keys}
+        out["lengths"] = upload(np.asarray(
+            [f["hubert"].shape[0] for f in feats_list], np.int32),
+            self.device)
+        return out
+
+    def _infer(self, src, ref, x0) -> torch.Tensor:
+        """``Serenade.inference`` from the noise ``x0`` (already scaled by
+        the temperature), drawn here when None."""
+        b, ts, _ = src["hubert"].shape
+        t = ref["hubert"].shape[1] + ts
+        if x0 is None:
+            with self._noise_lock:
+                x0 = torch.randn((b, t, self.model.output_dim),
+                                 generator=self.generator,
+                                 dtype=torch.float32, device=self.device)
+            x0 = x0 * self.temperature
+        else:
+            x0 = upload(x0, self.device, np.float32)
+        return self.model.inference(
+            src["hubert"], src["lengths"], src["score"], src["loud"],
+            ref["hubert"], ref["lengths"], ref["logmel"], ref["score"],
+            ref["loud"], n_timesteps=self.n_timesteps,
+            temperature=self.temperature, solver=self.solver, x0=x0)
 
     def convert_features(self, src_feats: Mapping[str, np.ndarray],
                          ref_feats: Mapping[str, np.ndarray],
@@ -108,19 +138,65 @@ class Converter:
 
         Returns (mel ``(t_src, mels)``, waveform or None, rate or None).
         """
-        src, t_src = self._pack(self._normalize(src_feats, False))
-        ref, _ = self._pack(self._normalize(ref_feats, True))
-        if x0 is not None:
-            x0 = torch.as_tensor(np.asarray(x0, np.float32),
-                                 device=self.device)
-        mel = self.model.inference(
-            src["hubert"], src["lengths"], src["score"], src["loud"],
-            ref["hubert"], ref["lengths"], ref["logmel"], ref["score"],
-            ref["loud"], generator=self.generator,
-            n_timesteps=self.n_timesteps, temperature=self.temperature,
-            solver=self.solver, x0=x0)[:, :t_src]
+        mel, (t_src,) = self.convert_features_batch(
+            [src_feats], [ref_feats], x0=x0, return_device=True)
+        mel = mel[:, :t_src]
         if self.vocoder is None:
             return mel[0].cpu().numpy(), None, None
         wav = self.vocoder.synthesize(mel)[0]
         return (mel[0].cpu().numpy(), wav.cpu().numpy(),
                 self.vocoder.sampling_rate)
+
+    def pack_reference(self, ref_feats: Mapping[str, np.ndarray]
+                       ) -> Dict[str, torch.Tensor]:
+        """One reference normalized, padded to its bucket and placed on the
+        device (batch dim 1).  ``convert_features_batch(packed_ref=...)``
+        takes it again and again with no upload: a registered style."""
+        ref = self._normalize_ref(ref_feats)
+        return self._stack([ref], REF_KEYS,
+                           bucket_length(ref["hubert"].shape[0]))
+
+    def convert_features_batch(self, src_list, ref_list=None,
+                               ts: Optional[int] = None,
+                               tr: Optional[int] = None, packed_ref=None,
+                               pad_batch_pow2: bool = False,
+                               return_device: bool = False,
+                               x0: Optional[np.ndarray] = None):
+        """Batched conversion: N (src, ref) pairs padded to shared
+        ``(ts, tr)`` buckets (the largest of the requests' where not
+        given) in one ``Serenade.inference``.  Pass either one reference a
+        request in ``ref_list`` or one ``packed_ref`` from
+        :meth:`pack_reference` for the whole batch.
+
+        ``pad_batch_pow2`` pads the batch to the next power of two by
+        repeating the last request (serving: a few batch shapes per bucket
+        pair).  ``x0`` ``(B_padded, tr + ts, mels)`` replaces the noise
+        draw, as in :meth:`convert_features`.
+
+        Returns the N mels trimmed to their lengths, or with
+        ``return_device`` the ``(B_padded, ts, mels)`` tensor on the device
+        and the N lengths.
+        """
+        b = len(src_list)
+        pad = (next_pow2(b) if pad_batch_pow2 else b) - b
+        src_list = list(src_list) + [src_list[-1]] * pad
+        ts = ts or max(bucket_length(f["hubert"].shape[0]) for f in src_list)
+        src = self._stack([self._normalize_src(f) for f in src_list],
+                          SRC_KEYS, ts)
+        if packed_ref is not None:
+            # a real tile: the kernels' wrappers take contiguous operands,
+            # and expand() alone would hand them a batch stride of 0
+            ref = {k: v.expand(b + pad, *v.shape[1:]).contiguous()
+                   for k, v in packed_ref.items()}
+        else:
+            ref_list = list(ref_list) + [ref_list[-1]] * pad
+            tr = tr or max(bucket_length(f["hubert"].shape[0])
+                           for f in ref_list)
+            ref = self._stack([self._normalize_ref(f) for f in ref_list],
+                              REF_KEYS, tr)
+        mels = self._infer(src, ref, x0)
+        lens = [f["hubert"].shape[0] for f in src_list[:b]]
+        if return_device:
+            return mels, lens
+        host = mels.cpu().numpy()
+        return [host[i, :n] for i, n in enumerate(lens)]

@@ -1,0 +1,202 @@
+"""The port's conversion server (counterpart of serenade_tpu/bin/serve.py).
+
+Serves request-batched conversions over HTTP on one GPU; see
+``serenade_tpu_torch/serving.py`` for the dispatcher and the wire format
+(npz bodies, the JAX server's keys; client helpers
+``serving.encode_request`` and ``serving.decode_response``)::
+
+    python -m serenade_tpu_torch.bin.serve --stats stats.npz \\
+        --vocoder-stats vocoder_stats.npz --ref-dict styles.json \\
+        --host 0.0.0.0 --port 8571 --max-batch 8 --max-wait-ms 10
+
+Every input is in a form the port reads without JAX, YAML or joblib:
+
+* ``--model-config``: JSON of ``Serenade`` arguments (default: the recipe
+  at full width, ``configs.serenade_config()``);
+* ``--params``: a ``.pt`` state dict of the port's ``Serenade`` (default:
+  random weights from seed 0, which the server logs);
+* ``--stats``: an ``.npz`` of the scaler arrays ``hubert_mean``,
+  ``hubert_scale``, ``score_min``, ``score_max``, ``loud_min``,
+  ``loud_max``, ``logmel_mean``, ``logmel_scale``;
+* ``--vocoder-stats`` (``mean``, ``scale``) turns the vocoder on, with
+  ``--vocoder-config`` (JSON, default the recipe's HiFiGAN) and
+  ``--vocoder-params`` (``.pt``, default random weights);
+* ``--ref-dict``: JSON mapping a style name to an ``.npz`` of reference
+  features (``hubert``, ``score``, ``loud``, ``logmel``), each registered
+  on the device at start.
+
+Endpoints: POST ``/convert_features``, ``/register_reference``; GET
+``/healthz``, ``/metrics``.  ``/convert_wav`` and the streams answer 501
+until feature extraction is ported.  Runs on CUDA unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+import numpy as np
+
+SCALER_KEYS = {"hubert": ("mean", "scale"), "score": ("min", "max"),
+               "loud": ("min", "max"), "logmel": ("mean", "scale")}
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(description="SSC conversion server (PyTorch)")
+    p.add_argument("--model-config", default=None,
+                   help="JSON of Serenade arguments (default: the recipe's "
+                        "full width)")
+    p.add_argument("--params", default=None,
+                   help=".pt state dict of the model (default: random "
+                        "weights from seed 0)")
+    p.add_argument("--stats", required=True,
+                   help=".npz of the scaler arrays (<feature>_<stat>)")
+    p.add_argument("--vocoder-config", default=None,
+                   help="JSON vocoder config (default: the recipe's HiFiGAN)")
+    p.add_argument("--vocoder-params", default=None,
+                   help=".pt state dict of the generator (default: random "
+                        "weights from seed 1)")
+    p.add_argument("--vocoder-stats", default=None,
+                   help=".npz with mean and scale; turns the vocoder on")
+    p.add_argument("--ref-dict", default=None,
+                   help="JSON: style name -> .npz of reference features, "
+                        "each registered on the device at start")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8571)
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-wait-ms", type=float, default=10.0)
+    p.add_argument("--busy-hold-ms", type=float, default=2000.0,
+                   help="extra time a non-full window may stay open while "
+                        "a batch is in flight, or 0 for latency-first "
+                        "serving")
+    p.add_argument("--max-request-seconds", type=float, default=600.0,
+                   help="refuse single requests longer than this")
+    p.add_argument("--n-timesteps", type=int, default=10)
+    p.add_argument("--solver", default="euler",
+                   choices=["euler", "midpoint", "ab2"])
+    p.add_argument("--temperature", type=float, default=0.667)
+    p.add_argument("--warmup", action="append", default=[],
+                   metavar="SRC:REF[:B]",
+                   help="run this (src_frames, ref_frames) shape at "
+                        "concurrency B (default max-batch) before taking "
+                        "traffic; repeatable")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda)")
+    p.add_argument("--verbose", type=int, default=1)
+    return p
+
+
+def _json(path, default):
+    if path is None:
+        return default
+    with open(path) as f:
+        return json.load(f)
+
+
+def _state_dict(path, what: str, seed: int):
+    """The state dict at ``path``; None (random weights from ``seed``,
+    as ``Converter`` draws them) where no path is given."""
+    if path is None:
+        logging.warning("no %s given: using random weights from seed %d",
+                        what, seed)
+        return None
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_scaler(path) -> dict:
+    with np.load(path) as z:
+        return {feat: {stat: z[f"{feat}_{stat}"] for stat in stats}
+                for feat, stats in SCALER_KEYS.items()}
+
+
+def _warmup_shapes(specs, max_batch: int):
+    out = []
+    for spec in specs:
+        parts = spec.split(":")
+        if len(parts) not in (2, 3):
+            raise SystemExit(f"--warmup wants SRC:REF[:B], got {spec!r}")
+        out.append((int(parts[0]), int(parts[1]),
+                    int(parts[2]) if len(parts) == 3 else max_batch))
+    return out
+
+
+def build_app(args):
+    """(server, batching) from parsed args: the whole CLI but
+    ``serve_forever``, so tests run the real entry path on port 0."""
+    from serenade_tpu_torch import configs
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.serving import (
+        BatchingConverter, make_server, warmup_server,
+    )
+
+    voc_given = args.vocoder_config or args.vocoder_params
+    if voc_given and not args.vocoder_stats:
+        raise SystemExit("--vocoder-config/--vocoder-params need "
+                         "--vocoder-stats (the vocoder's mean and scale)")
+    vocoder = {}
+    if args.vocoder_stats:
+        with np.load(args.vocoder_stats) as z:
+            stats = {"mean": z["mean"], "scale": z["scale"]}
+        vocoder = dict(
+            vocoder_config=_json(args.vocoder_config, configs.VOCODER_CONFIG),
+            vocoder_params=_state_dict(args.vocoder_params, "vocoder params",
+                                       1),
+            vocoder_stats=stats)
+    conv = Converter(
+        _json(args.model_config, configs.serenade_config()),
+        _state_dict(args.params, "model params", 0),
+        load_scaler(args.stats), n_timesteps=args.n_timesteps,
+        solver=args.solver, temperature=args.temperature, device=args.device,
+        **vocoder)
+    batching = BatchingConverter(
+        conv, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        busy_hold_ms=args.busy_hold_ms,
+        max_request_seconds=args.max_request_seconds)
+    try:
+        for style, path in _json(args.ref_dict, {}).items():
+            with np.load(path) as z:
+                feats = {k: z[k] for k in ("hubert", "score", "loud",
+                                           "logmel")}
+            batching.register_reference(style, feats)
+            logging.info("registered reference style %r (%s)", style, path)
+        if args.warmup:
+            warmup_server(batching, _warmup_shapes(args.warmup,
+                                                   args.max_batch))
+        server = make_server(batching, host=args.host, port=args.port)
+    except BaseException:
+        batching.close()
+        raise
+    return server, batching
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO if args.verbose else logging.WARNING,
+        format="%(asctime)s (%(module)s) %(levelname)s: %(message)s")
+    server, batching = build_app(args)
+    logging.info("serving on %s:%d (device %s, max_batch=%d, wait=%.0fms)",
+                 args.host, server.server_address[1],
+                 batching.converter.device, args.max_batch, args.max_wait_ms)
+
+    # SIGTERM drains like Ctrl-C: stop accepting, fault queued requests
+    import signal
+
+    def _term(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _term)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        logging.info("shutting down: draining the dispatch queue")
+    finally:
+        server.server_close()
+        batching.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -4,6 +4,10 @@ cite."""
 
 from __future__ import annotations
 
+# egs/gtsinger/ssc1/conf/serenade.yaml feature extraction: the frame rate
+# the server converts frames to audio seconds with
+FEATURE_CONFIG = {"sampling_rate": 24000, "hop_size": 240, "shiftms": 10}
+
 # egs/gtsinger/ssc1/conf/serenade.yaml ``model_params``, computed in bf16
 # (the Serenade default dtype, serenade_tpu/models/serenade.py:59)
 SERENADE_MODEL_PARAMS = {

@@ -1,0 +1,684 @@
+"""Online serving: the request-batching conversion server (counterpart of
+serenade_tpu/serving.py: ``BatchingConverter``, the npz wire format,
+``warmup_server`` and ``make_server``).
+
+* ``BatchingConverter`` wraps :class:`serenade_tpu_torch.api.Converter`
+  with a submission queue and a dispatcher thread that groups concurrent
+  requests by (source bucket, reference bucket or registered style) and
+  runs each group as one batched conversion and one batched vocoder tail.
+  Registered styles stay on the device.
+* ``make_server``: a stdlib ``ThreadingHTTPServer``.  POST
+  ``/convert_features`` and ``/register_reference`` with ``.npz`` bodies
+  (the JAX server's keys, so a client of either works with the other),
+  GET ``/healthz`` and ``/metrics``.
+
+Raw audio (``/convert_wav``) and the streams (``/convert_stream``,
+``/convert_stream_live``) need feature extraction and long-form
+conversion, which are not ported yet: the server answers them with 501
+and says so.
+
+On CUDA the dispatcher thread runs every conversion on the server's own
+stream with gradients off (both are per thread in PyTorch) and only
+launches work: inputs go up from pinned memory without blocking, results
+come down into pinned memory, and the finisher thread waits on a CUDA
+event recorded after them.  So the next window's uploads and launches
+overlap this window's compute, as JAX's asynchronous dispatch lets them.
+Only the dispatcher runs the model: the kernels' weight caches
+(``ops/_cuda.py`` ``VersionCache``) decide on the host and are not shared
+between threads.
+
+A request that fails (bad payload, feature mismatch) fails alone: the
+dispatcher catches a batch's error and faults only that batch's requests.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import logging
+import queue
+import threading
+import time
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from serenade_tpu_torch.collaters.ssc import bucket_length
+
+logger = logging.getLogger(__name__)
+
+
+def validate_feature_dict(feats, what: str, with_mel: bool,
+                          content_dim: int, num_mels: int,
+                          max_frames: int | None = None) -> None:
+    """The submit-time feature contract: reject a malformed dict before it
+    reaches a batched dispatch, so a bad payload fails alone.
+    ``max_frames`` caps a request's duration (an over-long request pads
+    every co-batched neighbour to its bucket).  The F0-fluctuation
+    variant is not ported, so ``f0_fluc`` is neither needed nor read."""
+    need = ["hubert", "score", "loud"] + (["logmel"] if with_mel else [])
+    for k in need:
+        if k not in feats:
+            raise ValueError(f"{what} missing feature {k!r}")
+    hub = np.asarray(feats["hubert"])
+    if hub.ndim != 2 or hub.shape[1] != content_dim:
+        raise ValueError(
+            f"{what} hubert must be (T, {content_dim}); got {hub.shape}")
+    if max_frames is not None and hub.shape[0] > max_frames:
+        raise ValueError(
+            f"{what} is {hub.shape[0]} frames, over the server's "
+            f"per-request cap of {max_frames} (max_request_seconds)")
+    if with_mel:
+        mel = np.asarray(feats["logmel"])
+        if mel.ndim != 2 or mel.shape[1] != num_mels:
+            raise ValueError(
+                f"{what} logmel must be (T, {num_mels}); got {mel.shape}")
+
+
+def check_registry_capacity(refs, name: str, max_references: int) -> None:
+    """Reference-registry cap (call under the registry lock): each
+    registration pins features on the device, so an unbounded registry
+    is a memory-exhaustion vector on a reachable port.  Re-registering an
+    existing name is always allowed."""
+    if name not in refs and len(refs) >= max_references:
+        raise ValueError(
+            f"reference registry full ({max_references}); "
+            "re-register an existing name or raise max_references")
+
+
+@dataclass
+class _Request:
+    src: Dict[str, np.ndarray]
+    # a feature dict (ad-hoc reference) or a registered style name
+    ref: object
+    done: threading.Event = field(default_factory=threading.Event)
+    mel: Optional[np.ndarray] = None
+    wav: Optional[np.ndarray] = None
+    sr: Optional[int] = None
+    error: Optional[Exception] = None
+
+
+class BatchingConverter:
+    """Groups concurrent conversion requests into batched dispatches.
+
+    Args:
+        converter: a :class:`serenade_tpu_torch.api.Converter`.
+        max_batch: largest group per dispatch.
+        max_wait_ms: how long the dispatcher holds a non-full window open
+            for stragglers; the latency floor of a lone request.
+        max_references: cap on registered styles.
+        busy_hold_ms: how much longer a non-full window may stay open
+            while a launched batch is still in flight (waiting is free
+            then: the card is busy).
+        max_request_seconds: requests longer than this are refused at
+            submit.
+    """
+
+    def __init__(self, converter, max_batch: int = 8,
+                 max_wait_ms: float = 10.0, max_references: int = 64,
+                 busy_hold_ms: float = 2000.0,
+                 max_request_seconds: float = 600.0):
+        self._conv = converter
+        self._max_batch = max_batch
+        self._max_wait = max_wait_ms / 1000.0
+        self._busy_hold = busy_hold_ms / 1000.0
+        self._max_references = max_references
+        self.max_request_seconds = float(max_request_seconds)
+        cfg = converter.config
+        self._frames_per_sec = (float(cfg["sampling_rate"])
+                                / float(cfg["hop_size"]))
+        dev = converter.device
+        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._inflight = 0  # launched-but-unfinished batches (see _lock)
+        self._dispatcher_done = False  # set when _dispatch_loop exits
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        # compute_sec: launch to results on the host, a batch's latency;
+        # launch_sec: the dispatcher's own time launching, the host cost
+        # that bounds the batches a second
+        self.stats = {"requests": 0, "batches": 0, "errors": 0,
+                      "audio_sec": 0.0, "compute_sec": 0.0,
+                      "launch_sec": 0.0}
+        self._refs: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._raw_refs: Dict[str, Dict[str, np.ndarray]] = {}
+        # launched batches waiting for their results, bounded to keep a
+        # few batches of device memory in flight (back-pressure on launch)
+        self._completions: "queue.Queue" = queue.Queue(maxsize=4)
+        self._finisher = threading.Thread(target=self._finish_loop,
+                                          daemon=True, name="ssc-finisher")
+        self._finisher.start()
+        self._thread = threading.Thread(target=self._dispatch_loop,
+                                        daemon=True, name="ssc-dispatcher")
+        self._thread.start()
+
+    def _on_device(self):
+        """Gradients off and the server's stream current, for the calling
+        thread (both are per thread in PyTorch)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad())
+        if self._stream is not None:
+            stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
+    # -- client side ----------------------------------------------------
+
+    def register_reference(self, name: str, ref_feats) -> None:
+        """Register a named style reference.  Its normalized features are
+        packed once and kept on the device; requests that pass the name
+        skip the reference upload.  Capped at ``max_references`` distinct
+        styles.  The copy is queued on the server's stream, ahead of any
+        batch that can name the style."""
+        self._validate_feats(ref_feats, "ref", with_mel=True)
+        with self._on_device():
+            packed = self._conv.pack_reference(ref_feats)
+        raw = {k: np.asarray(v) for k, v in ref_feats.items()}
+        with self._lock:  # check+insert atomic: handler threads race here
+            check_registry_capacity(self._refs, name, self._max_references)
+            # raw first: _refs gates availability
+            self._raw_refs[name] = raw
+            self._refs[name] = packed
+
+    def reference_names(self):
+        return sorted(self._refs)
+
+    @property
+    def converter(self):
+        return self._conv
+
+    def _require_style(self, name: str) -> None:
+        if name not in self._refs:
+            raise KeyError(f"unknown reference style {name!r}; "
+                           f"registered: {self.reference_names()}")
+
+    def raw_reference(self, name: str):
+        """A registered style's feature dict as it was registered."""
+        self._require_style(name)
+        return self._raw_refs[name]
+
+    def packed_reference(self, name: str):
+        """A registered style's packed tensors on the device."""
+        self._require_style(name)
+        return self._refs[name]
+
+    def _validate_feats(self, feats, what: str, with_mel: bool) -> None:
+        """Reject a malformed feature dict at submit time: a payload that
+        failed only inside the batched dispatch would fault every request
+        batched with it."""
+        sc = self._conv.scaler
+        validate_feature_dict(
+            feats, what, with_mel,
+            content_dim=sc["hubert"]["mean"].shape[0],
+            num_mels=sc["logmel"]["mean"].shape[0],
+            max_frames=int(self.max_request_seconds * self._frames_per_sec))
+
+    def _check_open(self) -> None:
+        if self._stop.is_set():
+            raise RuntimeError("server shutting down")
+
+    def convert(self, src_feats, ref, timeout: float = 300.0):
+        """Blocking submit; returns (mel, wav or None, rate or None).
+
+        ``ref`` is a feature dict (ad-hoc) or a registered style name.
+        Thread-safe: concurrent callers batch together.
+        """
+        self._check_open()
+        try:
+            self._validate_feats(src_feats, "src", with_mel=False)
+            if isinstance(ref, str):
+                self._require_style(ref)
+            else:
+                self._validate_feats(ref, "ref", with_mel=True)
+        except (ValueError, KeyError):
+            with self._lock:
+                self.stats["errors"] += 1
+            raise
+        req = _Request(src=src_feats, ref=ref)
+        self._queue.put(req)
+        if not req.done.wait(timeout):
+            raise TimeoutError("conversion timed out")
+        if req.error is not None:
+            raise req.error
+        return req.mel, req.wav, req.sr
+
+    def close(self, join_timeout: float = 5.0):
+        self._stop.set()
+        self._thread.join(timeout=join_timeout)
+        self._finisher.join(timeout=join_timeout)
+        if self._thread.is_alive() or self._finisher.is_alive():
+            # a dispatch or a fetch outlived the join: fault everything
+            # still queued so blocked callers fail now
+            logger.warning(
+                "dispatcher still busy after %.1fs; faulting queued requests",
+                join_timeout)
+            for q in (self._queue, self._completions):
+                while True:
+                    try:
+                        item = q.get_nowait()
+                    except queue.Empty:
+                        break
+                    if isinstance(item, tuple):
+                        reqs = item[0]
+                        with self._lock:
+                            self._inflight -= 1
+                    else:
+                        reqs = [item]
+                    for req in reqs:
+                        req.error = RuntimeError("server shutting down")
+                        req.done.set()
+
+    # -- dispatcher side ------------------------------------------------
+
+    def _bucket(self, req: _Request):
+        ts = bucket_length(req.src["hubert"].shape[0])
+        if isinstance(req.ref, str):
+            return (ts, req.ref)
+        return (ts, bucket_length(req.ref["hubert"].shape[0]))
+
+    def _dispatch_loop(self):
+        with self._on_device():
+            self._dispatch()
+
+    def _dispatch(self):
+        while not self._stop.is_set():
+            try:
+                first = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            pending = [first]
+            deadline = time.monotonic() + self._max_wait
+            # while a launched batch is in flight waiting costs nothing:
+            # hold the window past max_wait for a fuller batch, capped by
+            # busy_hold
+            hard_deadline = deadline + self._busy_hold
+            while len(pending) < self._max_batch:
+                if self._stop.is_set():
+                    break
+                now = time.monotonic()
+                if now >= deadline:
+                    with self._lock:
+                        busy = self._inflight > 0
+                    if not busy or now >= hard_deadline:
+                        break
+                    timeout = min(0.005, hard_deadline - now)
+                else:
+                    timeout = deadline - now
+                try:
+                    pending.append(self._queue.get(timeout=timeout))
+                except queue.Empty:
+                    pass
+            groups = defaultdict(list)
+            for req in pending:
+                try:
+                    key = self._bucket(req)
+                except Exception as e:  # noqa: BLE001 — malformed request
+                    req.error = e
+                    req.done.set()
+                    with self._lock:
+                        self.stats["errors"] += 1
+                    continue
+                groups[key].append(req)
+            for (ts, tr), reqs in groups.items():
+                self._run_group(reqs, ts, tr)
+        # shutdown: fault anything still queued
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            req.error = RuntimeError("server shutting down")
+            req.done.set()
+        # everything this thread will launch is now in _completions
+        self._dispatcher_done = True
+
+    def _fetch(self, tensors: Dict[str, torch.Tensor]):
+        """Results on the device -> host tensors and the event to wait on
+        before reading them (None on the CPU, where they are ready)."""
+        if self._stream is None:
+            return tensors, None
+        host = {}
+        for k, t in tensors.items():
+            host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host[k].copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        return host, done
+
+    def _run_group(self, reqs, ts: int, tr):
+        """Launch a group's conversion and vocoder tail and hand the wait
+        for its results to the finisher thread."""
+        try:
+            t0 = time.monotonic()
+            # pow2 batch padding: a few batch shapes per bucket pair
+            common = dict(ts=ts, pad_batch_pow2=True, return_device=True)
+            if isinstance(tr, str):  # registered style: on the device
+                mels, lens = self._conv.convert_features_batch(
+                    [r.src for r in reqs], packed_ref=self._refs[tr],
+                    **common)
+            else:
+                mels, lens = self._conv.convert_features_batch(
+                    [r.src for r in reqs], [r.ref for r in reqs], tr=tr,
+                    **common)
+            b, bp = len(reqs), mels.shape[0]
+            voc = self._conv.vocoder
+            out = {"mel": mels[:b]}
+            if voc is not None:
+                # the tail on the device: the mel is never re-uploaded and
+                # the waveform comes down as PCM16, half the bytes
+                out["wav"] = voc.decode_batch_device(
+                    mels, lens + [lens[-1]] * (bp - b))[:b]
+            host, done = self._fetch(out)
+            with self._lock:
+                self.stats["launch_sec"] += time.monotonic() - t0
+        except Exception as e:  # noqa: BLE001 — fault the batch, not the server
+            logger.exception("batch of %d failed at launch", len(reqs))
+            with self._lock:
+                self.stats["errors"] += len(reqs)
+            for r in reqs:
+                r.error = e
+                r.done.set()
+            return
+
+        def finish():
+            if done is not None:
+                done.synchronize()
+            mel = host["mel"].numpy()
+            wav = host["wav"].numpy() if "wav" in host else None
+            for i, r in enumerate(reqs):
+                r.mel = np.array(mel[i, : lens[i]])
+                if wav is not None:
+                    hop = wav.shape[1] // mels.shape[1]
+                    r.wav = (wav[i, : lens[i] * hop].astype(np.float32)
+                             / 32767.0)
+                    r.sr = voc.sampling_rate
+            # overlapped batches count their shared time twice
+            compute = time.monotonic() - t0
+            frame_sec = float(self._conv.config["shiftms"]) / 1000.0
+            with self._lock:
+                self.stats["requests"] += b
+                self.stats["batches"] += 1
+                self.stats["compute_sec"] += compute
+                self.stats["audio_sec"] += sum(lens) * frame_sec
+
+        with self._lock:
+            self._inflight += 1
+        self._completions.put((reqs, finish))
+
+    def _finish_loop(self):
+        """Wait for launched batches and hand their results to the
+        callers.  A failure faults its batch only.  On shutdown whatever
+        was launched still completes; the thread exits once the
+        dispatcher has exited and nothing is in flight."""
+        while True:
+            with self._lock:
+                drained = self._inflight == 0
+            if (self._stop.is_set() and self._dispatcher_done and drained
+                    and self._completions.empty()):
+                break
+            try:
+                reqs, finish = self._completions.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            try:
+                finish()
+            except Exception as e:  # noqa: BLE001 — fault the batch only
+                logger.exception("batch of %d failed at fetch", len(reqs))
+                with self._lock:
+                    self.stats["errors"] += len(reqs)
+                for r in reqs:
+                    r.error = e
+            finally:
+                # decrement before waking callers: a woken client
+                # resubmits at once, and a stale busy flag would hold its
+                # window against an idle pipeline
+                with self._lock:
+                    self._inflight -= 1
+                for r in reqs:
+                    r.done.set()
+
+
+# ---------------------------------------------------------------------------
+# the wire format (keys as serenade_tpu/serving.py writes and reads them)
+# ---------------------------------------------------------------------------
+
+_SRC_KEYS = ("hubert", "score", "loud")
+_REF_KEYS = _SRC_KEYS + ("logmel",)
+
+
+class _PayloadTooLarge(ValueError):
+    """POST body exceeds the server's max_body_bytes cap (HTTP 413)."""
+
+
+class _UnreadBody(ValueError):
+    """Request body cannot be consumed on this endpoint (HTTP 411)."""
+
+
+def _ref_from_npz(z) -> dict:
+    ref = {k: z[f"ref_{k}"] for k in _REF_KEYS}
+    if "ref_f0_fluc" in z.files:
+        ref["f0_fluc"] = z["ref_f0_fluc"]
+    return ref
+
+
+def _feats_from_npz(z):
+    src = {k: z[f"src_{k}"] for k in _SRC_KEYS}
+    if "src_f0_fluc" in z.files:
+        src["f0_fluc"] = z["src_f0_fluc"]
+    ref = str(z["ref_name"]) if "ref_name" in z.files else _ref_from_npz(z)
+    return src, ref
+
+
+def _parse_npz(body: bytes):
+    with np.load(io.BytesIO(body)) as z:
+        return _feats_from_npz(z)
+
+
+def _parse_ref_npz(body: bytes):
+    with np.load(io.BytesIO(body)) as z:
+        return _ref_from_npz(z)
+
+
+def _encode_feats(prefix: str, feats, keys) -> dict:
+    arrays = {f"{prefix}_{k}": np.asarray(feats[k]) for k in keys}
+    if "f0_fluc" in feats:
+        arrays[f"{prefix}_f0_fluc"] = np.asarray(feats["f0_fluc"])
+    return arrays
+
+
+def encode_request(src_feats, ref) -> bytes:
+    """Client-side helper: the POST body of /convert_features.  ``ref`` is
+    a feature dict or a registered style name."""
+    buf = io.BytesIO()
+    arrays = _encode_feats("src", src_feats, _SRC_KEYS)
+    if isinstance(ref, str):
+        arrays["ref_name"] = np.asarray(ref)
+    else:
+        arrays.update(_encode_feats("ref", ref, _REF_KEYS))
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def encode_reference(ref_feats) -> bytes:
+    """Client-side helper: body for POST /register_reference?name=<style>."""
+    buf = io.BytesIO()
+    np.savez(buf, **_encode_feats("ref", ref_feats, _REF_KEYS))
+    return buf.getvalue()
+
+
+def decode_response(body: bytes):
+    """Client-side helper: unpack a /convert_features response."""
+    with np.load(io.BytesIO(body)) as z:
+        mel = z["mel"]
+        wav = z["wav"] if "wav" in z.files else None
+        sr = int(z["sr"]) if "sr" in z.files else None
+    return mel, wav, sr
+
+
+def warmup_server(batching, shapes, seed: int = 0) -> None:
+    """Drive synthetic requests through the dispatcher before real traffic
+    (the first batch of a new shape pays for cuDNN's plans, the kernels'
+    weight layouts and the allocator's first blocks).
+
+    ``shapes``: ``(src_frames, ref_frames, concurrency)`` triples;
+    concurrency B submits B requests at once so the dispatcher packs a
+    B-batch window.  Failures raise.  The stats counters are restored
+    afterwards; call before taking traffic."""
+    conv = batching.converter
+    stats_before = dict(batching.stats)
+    rng = np.random.default_rng(seed)
+    content_dim = conv.scaler["hubert"]["mean"].shape[0]
+    n_mels = conv.scaler["logmel"]["mean"].shape[0]
+
+    def feats(t: int, with_mel: bool):
+        f = {"hubert": rng.normal(size=(t, content_dim)).astype(np.float32),
+             "score": np.full((t, 1), 5.0, np.float32),
+             "loud": (rng.normal(size=(t, 1)).astype(np.float32) - 30.0)}
+        if with_mel:
+            f["logmel"] = rng.normal(size=(t, n_mels)).astype(np.float32)
+        return f
+
+    for ts, tr, b in shapes:
+        t0 = time.monotonic()
+        errs = []
+
+        def one():
+            try:
+                batching.convert(feats(ts, False), feats(tr, True))
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=one) for _ in range(b)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errs:
+            raise RuntimeError(
+                f"warmup failed at shape ({ts}, {tr}, b={b})") from errs[0]
+        logger.info("warmup (%d, %d) x%d: %.1fs", ts, tr, b,
+                    time.monotonic() - t0)
+    with batching._lock:
+        batching.stats.update(stats_before)
+
+
+# endpoints of the JAX server that wait for feature extraction and
+# long-form conversion
+NOT_PORTED = ("/convert_wav", "/convert_stream", "/convert_stream_live")
+
+
+def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
+                port: int = 8571, max_body_bytes: int = 256 << 20):
+    """Build (not start) a ThreadingHTTPServer around a BatchingConverter.
+
+    ``max_body_bytes`` caps every POST body (413 beyond it)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from urllib.parse import parse_qs, urlparse
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # route through logging
+            logger.debug("http: " + fmt, *args)
+
+        def _send(self, code: int, body: bytes, ctype: str):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _send_json(self, code: int, obj):
+            self._send(code, json.dumps(obj).encode(), "application/json")
+
+        def _read_body(self) -> bytes:
+            if self.headers.get("Content-Length") is None and (
+                    "chunked" in (self.headers.get(
+                        "Transfer-Encoding") or "").lower()):
+                # the body would stay on the socket and desync keep-alive
+                raise _UnreadBody("endpoint requires Content-Length")
+            n = int(self.headers.get("Content-Length", "0"))
+            if n > max_body_bytes:
+                raise _PayloadTooLarge(
+                    f"body of {n} bytes exceeds the server cap of "
+                    f"{max_body_bytes}")
+            return self.rfile.read(n)
+
+        def _fault(self, e: Exception):
+            code = (413 if isinstance(e, _PayloadTooLarge)
+                    else 411 if isinstance(e, _UnreadBody) else 400)
+            if code != 400:
+                # the body was never read off the socket: the next request
+                # on this connection would start mid-body
+                self.close_connection = True
+            return self._send_json(code, {"error": str(e)})
+
+        def do_GET(self):
+            s = dict(batching.stats)
+            rtf = (s["compute_sec"] / s["audio_sec"]
+                   if s["audio_sec"] else None)
+            if self.path == "/metrics":
+                # Prometheus text exposition of the /healthz counters
+                lines = []
+                for name, kind, val, help_ in (
+                    ("requests_total", "counter", s["requests"],
+                     "Completed conversion requests."),
+                    ("batches_total", "counter", s["batches"],
+                     "Device dispatch windows executed."),
+                    ("errors_total", "counter", s["errors"],
+                     "Requests that faulted."),
+                    ("audio_seconds_total", "counter", s["audio_sec"],
+                     "Audio-seconds converted."),
+                    ("compute_seconds_total", "counter", s["compute_sec"],
+                     "Launch-to-result seconds spent."),
+                    ("launch_seconds_total", "counter", s["launch_sec"],
+                     "Seconds the dispatcher spent launching batches."),
+                    ("rtf", "gauge", rtf or 0.0,
+                     "Server-side real-time factor (compute/audio)."),
+                    ("registered_references", "gauge",
+                     len(batching.reference_names()),
+                     "Device-resident registered styles."),
+                ):
+                    lines.append(f"# HELP serenade_{name} {help_}")
+                    lines.append(f"# TYPE serenade_{name} {kind}")
+                    lines.append(f"serenade_{name} {val}")
+                return self._send(200, ("\n".join(lines) + "\n").encode(),
+                                  "text/plain; version=0.0.4")
+            if self.path != "/healthz":
+                return self._send_json(404, {})
+            self._send_json(200, {"ok": True, **s, "rtf": rtf,
+                                  "references": batching.reference_names()})
+
+        def do_POST(self):
+            parsed = urlparse(self.path)
+            try:
+                if parsed.path == "/register_reference":
+                    name = parse_qs(parsed.query).get("name", [""])[0]
+                    if not name:
+                        raise ValueError("missing ?name=<style>")
+                    batching.register_reference(
+                        name, _parse_ref_npz(self._read_body()))
+                    return self._send_json(200, {"ok": True, "name": name})
+                if parsed.path in NOT_PORTED:
+                    self._read_body()
+                    return self._send_json(501, {"error": (
+                        f"{parsed.path} is not ported yet: it needs "
+                        "feature extraction and long-form conversion; "
+                        "POST extracted features to /convert_features")})
+                if parsed.path != "/convert_features":
+                    return self._send_json(404, {})
+                src, ref = _parse_npz(self._read_body())
+                mel, wav, sr = batching.convert(src, ref)
+                out = {"mel": mel}
+                if wav is not None:
+                    out["wav"], out["sr"] = wav, np.int64(sr)
+                buf = io.BytesIO()
+                np.savez(buf, **out)
+                self._send(200, buf.getvalue(), "application/octet-stream")
+            except Exception as e:  # noqa: BLE001 — per-request fault
+                self._fault(e)
+
+    return ThreadingHTTPServer((host, port), Handler)

@@ -14,7 +14,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from serenade_tpu_torch import resolve_device
+from serenade_tpu_torch import resolve_device, upload
 from serenade_tpu_torch.convert import load_params
 from serenade_tpu_torch.models.layers import init_params_
 from serenade_tpu_torch.vocoder.hifigan import HiFiGANGenerator
@@ -92,3 +92,31 @@ class Vocoder:
         """``(B, T, mels)`` normalized mels on the device -> ``(B, T*hop)``
         f32 waveforms on the device."""
         return self.model(self._normalize(c.to(self.device)))[..., 0].float()
+
+    def decode(self, c: np.ndarray):
+        """One ``(T, mels)`` mel -> ``(T * hop,)`` f32 waveform, rate."""
+        y = self.synthesize(upload(c, self.device, np.float32)[None])[0]
+        return y.cpu().numpy(), self.sampling_rate
+
+    def decode_batch(self, c: np.ndarray) -> np.ndarray:
+        """``(B, T, mels)`` -> ``(B, T * hop)`` f32 waveforms."""
+        return self.synthesize(upload(c, self.device, np.float32)).cpu().numpy()
+
+    @torch.no_grad()
+    def decode_batch_device(self, c: torch.Tensor, lengths) -> torch.Tensor:
+        """The serving tail: ``(B, T, mels)`` mels still on the device and
+        each row's true frame count -> an int16 ``(B, T * hop)`` tensor on
+        the device.  Each row is edge-padded past its length (its last real
+        frame repeated: zeros in normalized mel space are average energy,
+        audible through the convolutions' reach, and would make a row's
+        waveform depend on its neighbours' lengths), denormalized, run
+        through the generator and rounded as PCM16 (``torch.round`` rounds
+        half to even, as ``jnp.round`` does)."""
+        b, t, mels = c.shape
+        lens = upload(np.asarray(lengths, np.int64), self.device)
+        idx = torch.minimum(torch.arange(t, device=self.device)[None, :],
+                            (lens - 1)[:, None])
+        c = torch.gather(c, 1, idx[:, :, None].expand(b, t, mels))
+        y = self.synthesize(c)
+        return torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(
+            torch.int16)

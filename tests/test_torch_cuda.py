@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
-forward (K1-K3) and, through the autograd Functions, backward (K4-K7).
+forward (K1-K3) and, through the autograd Functions, backward (K4-K7);
+and the serving path's batched shapes (a registered style tiled over a
+batch, the vocoder tail at batch 8) against the CPU's plain route.
 
 Needs an NVIDIA GPU and the CUDA toolkit (the kernels are built with nvcc
 at first use); skips without a card.  Imports only torch and the port, so
@@ -10,6 +12,7 @@ it runs where JAX is not installed:
 (``--noconftest``: the tests' conftest imports JAX.)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -348,3 +351,89 @@ def test_shapes_the_kernels_refuse_take_the_plain_route_on_card():
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 2e-2 * max(
             1.0, b.abs().max().item())
+
+
+# a narrow Serenade whose attention keeps head dim 512, so that in bf16 K1
+# and K2 both run (the recipe's head dim; no shape is routed)
+NARROW = dict(input_dim=32, output_dim=80, encoder_channels=16,
+              encoder_hidden_dim=32, decoder_channels=64, gst_embed_dim=32,
+              decoder_attention_head_dim=512, gst_tokens=10,
+              gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16)
+
+
+def _features(rng, frames, with_mel):
+    feats = {"hubert": rng.normal(size=(frames, 32)),
+             "score": rng.random(frames), "loud": rng.random(frames)}
+    if with_mel:
+        feats["logmel"] = rng.normal(size=(frames, 80))
+    return feats
+
+
+def _identity_scaler():
+    return {"hubert": {"mean": np.zeros(32), "scale": np.ones(32)},
+            "score": {"min": 0.0, "max": 1.0},
+            "loud": {"min": 0.0, "max": 1.0},
+            "logmel": {"mean": np.zeros(80), "scale": np.ones(80)}}
+
+
+@pytest.mark.cuda
+def test_packed_reference_at_batch_4_on_card():
+    """A registered style tiled over a batch of 4 (3 requests, two source
+    buckets) on the card in f32: equal to the same reference passed per
+    request, and within phase 4's 1e-3 of max(1, |mel|) of the CPU's plain
+    route on the same weights and noise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.api import Converter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(18)
+    srcs = [_features(rng, n, False) for n in (150, 100, 70)]
+    ref = _features(rng, 100, True)
+    x0 = 0.667 * rng.normal(size=(4, 128 + 192, 80))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        conv = Converter(dict(NARROW, dtype="float32"), None,
+                         _identity_scaler(), n_timesteps=2, seed=3,
+                         device=dev)
+        packed = conv.convert_features_batch(
+            srcs, packed_ref=conv.pack_reference(ref), pad_batch_pow2=True,
+            x0=x0)
+        listed = conv.convert_features_batch(srcs, [ref] * 3,
+                                             pad_batch_pow2=True, x0=x0)
+        out[dev] = (packed, listed)
+    for card, listed, cpu in zip(*out["cuda"], out["cpu"][0]):
+        assert card.shape == cpu.shape and np.isfinite(card).all()
+        assert np.abs(card - listed).max() <= 1e-5
+        assert np.abs(card - cpu).max() <= 1e-3 * max(1.0, np.abs(cpu).max())
+
+
+@pytest.mark.cuda
+def test_vocoder_tail_at_batch_8_on_card():
+    """``decode_batch_device`` at batch 8 (ragged lengths) through K3
+    against the CPU's plain route on the same weights: within one int16
+    step (the f32 waveforms differ by about 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.vocoder.vocoder import Vocoder
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(19)
+    config = {"sampling_rate": 24000, "generator_params": {
+        "channels": 128, "upsample_scales": [4, 3],
+        "upsample_kernel_sizes": [8, 6]}}
+    stats = {"mean": rng.normal(size=80), "scale": rng.uniform(0.5, 2, 80)}
+    c = torch.from_numpy(rng.normal(size=(8, 96, 80)).astype(np.float32))
+    lengths = [96, 90, 64, 33, 1, 50, 96, 70]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        voc = Vocoder(config, None, stats, take_norm_feat=False, device=dev,
+                      seed=4)
+        before = resblock_cuda.launches
+        got[dev] = voc.decode_batch_device(c.to(dev), lengths).cpu()
+        launched = resblock_cuda.launches - before
+    assert launched == 6    # 2 upsample stages x 3 residual blocks
+    assert got["cuda"].dtype == torch.int16
+    diff = (got["cuda"].int() - got["cpu"].int()).abs().max().item()
+    assert diff <= 1, diff
