@@ -6,17 +6,26 @@
 Phases, each printing JSON lines:
 
 1. build    -- compile the CUDA kernels from ``serenade_tpu_torch/csrc``;
-2. kernels  -- each kernel (forward K1-K3, backward K4-K7) against its
-               plain PyTorch version on the card, at small f32 shapes and
-               at the conversion and training paths' shapes, with times,
-               the roofline bound and a PyTorch yardstick;
-3. main     -- a full-width Converter (seeded random weights) answers four
-               requests through Euler-10 and the HiFiGAN vocoder; the
-               launch counters must show every forward kernel ran, and the
-               routed-call counters that no call took the plain route
-               around a kernel; then one more (1024, 512) request under
-               torch.profiler gives the device's busy time and the kernels
-               that took it;
+2. kernels  -- each kernel (forward K1-K3, backward K4-K7, the Viterbi
+               trellis) against its plain PyTorch version on the card, at
+               small f32 shapes and at the conversion, extraction and
+               training paths' shapes, with times, the roofline bound and
+               a PyTorch yardstick;
+3. main     -- a full-width Converter (seeded random weights, ContentVec
+               too) answers four requests through Euler-10 and the HiFiGAN
+               vocoder; the launch counters must show every forward kernel
+               ran, and the routed-call counters that no call took the
+               plain route around a kernel; then one more (1024, 512)
+               request under torch.profiler gives the device's busy time
+               and the kernels that took it;
+3b. features -- raw audio in: four sung-like waveforms (4.5, 7.0, 10.24,
+               12.0 s, synthesized from a seed) through
+               ``extract_from_wav_batch`` on the card and on the CPU, held
+               key by key; then ``convert_wav`` of a 10.24 s source and a
+               5.12 s reference (the (1024, 512) bucket) timed as
+               extraction and conversion, with its launches (K1-K3 and the
+               Viterbi kernel, routed calls 0) and profiles of the
+               extraction and of the whole request;
 4. parity   -- one small conversion on the CPU (plain versions) and on the
                card (kernels) with the same weights and noise, in f32 and
                in bf16 (head dim 32: its attention takes the plain route
@@ -39,7 +48,10 @@ Phases, each printing JSON lines:
                error, a non-finite or misshapen answer or a routed call;
                then one profiled turn of each traffic at max_batch 8 and
                1 gives the device's idle share and the host's waits on
-               it (failing if the host waited on the stream);
+               it (failing if the host waited on the stream); then raw
+               audio: 16 /convert_wav requests (npz bodies of phase 3b's
+               four waveforms, the registered style) at max_batch 1, 8,
+               8, 1, with the dispatcher's extraction time;
 8. batch_parity -- row i of a batched bf16 conversion on the card against
                the same request converted alone at the same buckets and
                noise row, held by phase 4's rule against the CPU's own
@@ -638,6 +650,74 @@ def check_resblock(torch, dev):
     return main, rows
 
 
+def wall_ms(torch, fn, reps: int) -> float:
+    """Mean host wall time of ``fn`` in ms, each run synchronised (for a
+    plain version that itself waits on the device)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - start) / reps * 1e3
+
+
+VITERBI = dict(voiced_bias=0.35, transition_octave_cost=6.0,
+               switch_cost=0.4)
+# the 10.24 s source's padded frames (phase 3b's main request)
+VITERBI_MAIN = (1, 1153, 5)
+
+
+def check_viterbi(torch, np, dev):
+    """The Viterbi kernel against its plain version (the frame loop) on
+    the same seeded candidates: the states identical, and so f0 and vuv.
+    Its yardstick: no PyTorch call decodes a trellis (library_ms null)."""
+    from serenade_tpu_torch.ops import f0 as F0, viterbi_cuda as V
+
+    rng = np.random.default_rng(21)
+    rows = []
+
+    def case(b, n, k, timed):
+        cand = rng.uniform(60.0, 1100.0, (b, n, k)).astype(np.float32)
+        em = rng.uniform(0.0, 1.0, (b, n, k)).astype(np.float32)
+        em[rng.random((b, n, k)) < 0.3] = 1e6     # absent candidates
+        cand, em = (torch.from_numpy(a).to(dev) for a in (cand, em))
+        lf = torch.log2(torch.clamp_min(cand, 1.0))
+        states = V.viterbi_states(em, lf, **VITERBI)
+        plain = V.viterbi_states_plain(em, lf, **VITERBI)
+        f0, vuv = F0.f0_of_states(cand, states, 60.0, 1100.0)
+        f0_p, vuv_p = F0.f0_of_states(cand, plain, 60.0, 1100.0)
+        torch.cuda.synchronize()
+        same = (bool(torch.equal(states, plain)) and bool(torch.equal(f0, f0_p))
+                and bool(torch.equal(vuv, vuv_p)))
+        row = {"shape": [b, n, k], "dtype": "float32",
+               "states_differing": int((states != plain).sum().item()),
+               "max_abs_err": (f0 - f0_p).abs().max().item(), "tol": 0.0,
+               "ok": same}
+        if timed:
+            nbytes = 2 * b * n * k * 4 + b * n * 8
+            flops = 5.0 * b * max(n - 1, 0) * (k + 1) ** 2
+            row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, False)
+            row["ms"] = cuda_ms(torch, lambda: V.viterbi_states(
+                em, lf, **VITERBI), 20)
+            row["host_us"] = host_us(torch, lambda: V.viterbi_states(
+                em, lf, **VITERBI), 50)
+            row["plain_ms"] = wall_ms(torch, lambda: V.viterbi_states_plain(
+                em, lf, **VITERBI), 2)
+            row["library_ms"] = None
+            row["plain_scope"] = ["states, host wall: its backtrace runs on "
+                                  "the host"]
+            row["library_scope"] = None
+        rows.append(row)
+        return row
+
+    case(1, 1, 5, False)
+    main = case(*VITERBI_MAIN, True)
+    case(8, 1027, 5, True)
+    case(4, 6003, 5, True)
+    return main, rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the conversion path
 # ---------------------------------------------------------------------------
@@ -661,12 +741,15 @@ def _scaler(np, input_dim=768, mels=80):
 
 def main_path(torch, np, dev, counters):
     from serenade_tpu_torch.api import Converter
-    from serenade_tpu_torch.configs import VOCODER_CONFIG, serenade_config
+    from serenade_tpu_torch.configs import (
+        CONTENTVEC_CONFIG, VOCODER_CONFIG, serenade_config,
+    )
 
     t0 = time.time()
     conv = Converter(serenade_config(), None, _scaler(np),
                      vocoder_config=VOCODER_CONFIG,
                      vocoder_stats={"mean": np.zeros(80), "scale": np.ones(80)},
+                     contentvec_config=CONTENTVEC_CONFIG,
                      n_timesteps=10, solver="euler", seed=0, device=dev)
     setup_s = time.time() - t0
     rng = np.random.default_rng(0)
@@ -691,7 +774,7 @@ def main_path(torch, np, dev, counters):
     n = len(requests)
     want = {"flash_fwd": 60 * n, "block1d_fwd": 130 * n, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "block1d_bwd_data": 0,
-            "block1d_bwd_weight": 0}
+            "block1d_bwd_weight": 0, "viterbi_f0": 0}
     # every call of the full-width path runs a kernel: none is routed
     counts_ok = (all(launches[k] == v for k, v in want.items())
                  and launches["resblock_branch"] >= 9 * n
@@ -714,7 +797,8 @@ KERNEL_SYMBOLS = ("k1::flash_fwd_bf16_kernel", "k4::dq_bf16_kernel",
                   "k5::dkv_bf16_kernel", "k2::conv_stats_kernel",
                   "norm_mish", "gn_reduce_kernel", "gn_dy_kernel",
                   "k6::dx_bf16_kernel", "k7::dw_bf16_kernel",
-                  "k3::conv_tf32_kernel", "stage_kernel")
+                  "k3::conv_tf32_kernel", "stage_kernel",
+                  "vit::viterbi_kernel")
 
 
 def device_time(torch, fn) -> dict:
@@ -749,6 +833,159 @@ def device_time(torch, fn) -> dict:
                     for us, key, count in rows[:10]],
             "port_kernels": {name: {"ms": ms, "count": n}
                              for name, (ms, n) in ours.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: raw audio in
+# ---------------------------------------------------------------------------
+
+# phase 3b's waveforms: seconds and first note (Hz)
+FEATURE_WAVS = ((4.5, 220.0), (7.0, 262.0), (10.24, 196.0), (12.0, 330.0))
+SOURCE_S, REFERENCE_S = 10.24, 5.12      # the (1024, 512) bucket
+
+
+def sung(np, seconds, seed, f0=220.0):
+    """A sung-like waveform at SR: a harmonic tone with 5.5 Hz vibrato, a
+    note change (a minor third up) halfway, 50 ms fades and breath noise
+    (the CPU tests' ``sung``)."""
+    rng = np.random.default_rng(seed)
+    n = int(round(seconds * SR))
+    t = np.arange(n) / SR
+    note = np.where(t < seconds / 2, f0, f0 * 2 ** (3 / 12))
+    phase = 2 * np.pi * np.cumsum(note * (1 + 0.015 * np.sin(
+        2 * np.pi * 5.5 * t))) / SR
+    x = sum(a * np.sin(k * phase)
+            for k, a in enumerate((0.3, 0.12, 0.06, 0.03), 1))
+    env = np.clip(np.minimum(t, seconds - t) / 0.05, 0, 1)
+    return (x * env + 0.01 * rng.normal(size=n)).astype(np.float32)
+
+
+def feature_wavs(np):
+    return [sung(np, s, 40 + i, f0) for i, (s, f0) in enumerate(FEATURE_WAVS)]
+
+
+def _frames_kept(seconds):
+    """Frames of a ``seconds`` waveform once extracted (ContentVec's are
+    the fewest: 100 a second for these lengths)."""
+    return int(round(seconds * 100))
+
+
+def compare_features(np, card, cpu) -> dict:
+    """One waveform's features, the card's against the CPU's, key by key:
+    log-mel within 1e-4 where it is within 70 dB of its frame's peak
+    (deeper, rounding decides; the eps floor caps it at 1e-2), loudness
+    within 1e-4, vuv equal on 99.5 % of frames and
+    f0 within 1e-3 relative where both are voiced, the score equal on 99 %
+    of frames, ContentVec within 1e-3 of max(1, |CPU|) (12 layers of f32
+    products up to 3072 deep, summed in another order)."""
+    got = {k: (v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v))
+           for k, v in card.items()}
+    want = {k: (v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v))
+            for k, v in cpu.items()}
+    shapes = all(got[k].shape == want[k].shape for k in want)
+    lm = np.abs(got["logmel"] - want["logmel"])
+    loud_rows = want["logmel"] >= want["logmel"].max(-1, keepdims=True) - 3.5
+    both = (got["vuv"] > 0) & (want["vuv"] > 0)
+    f0_rel = float((np.abs(got["f0"] - want["f0"])[both]
+                    / want["f0"][both]).max()) if both.any() else 0.0
+    hub = float(np.abs(got["hubert"] - want["hubert"]).max())
+    hub_scale = max(1.0, float(np.abs(want["hubert"]).max()))
+    row = {"frames": int(want["hubert"].shape[0]),
+           "logmel_err_within_70db": float(lm[loud_rows].max()),
+           "logmel_err": float(lm.max()),
+           "loud_err": float(np.abs(got["loud"] - want["loud"]).max()),
+           "vuv_agree": float((got["vuv"] == want["vuv"]).mean()),
+           "f0_rel_err": f0_rel,
+           "score_agree": float((got["est_lf0_score"]
+                                 == want["est_lf0_score"]).mean()),
+           "hubert_err": hub, "hubert_scale": hub_scale,
+           "finite": all(bool(np.isfinite(v).all()) for v in got.values())}
+    row["ok"] = (shapes and row["finite"]
+                 and row["logmel_err_within_70db"] <= 1e-4
+                 and row["logmel_err"] <= 1e-2 and row["loud_err"] <= 1e-4
+                 and row["vuv_agree"] >= 0.995 and f0_rel <= 1e-3
+                 and row["score_agree"] >= 0.99
+                 and hub <= 1e-3 * hub_scale)
+    return row
+
+
+def features_path(torch, np, dev, counters, conv, card):
+    """Phase 3b: extraction on the card against the CPU, then convert_wav
+    at the (1024, 512) bucket, timed as extraction and conversion."""
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.configs import CONTENTVEC_CONFIG, serenade_config
+
+    wavs = feature_wavs(np)
+    t0 = time.time()
+    got = conv.extract_from_wav_batch(wavs, [SR] * len(wavs))
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    t0 = time.time()
+    # the same function on the CPU: ContentVec from the same seed
+    cpu = Converter(serenade_config(), None, _scaler(np),
+                    contentvec_config=CONTENTVEC_CONFIG, seed=0,
+                    device="cpu")
+    want = cpu.extract_from_wav_batch(wavs, [SR] * len(wavs))
+    cpu_s = time.time() - t0
+    rows = [compare_features(np, g, w) for g, w in zip(got, want)]
+    for (seconds, _), row in zip(FEATURE_WAVS, rows):
+        row["seconds"] = seconds
+        row["ok"] &= row["frames"] == _frames_kept(seconds)
+    parity_ok = all(r["ok"] for r in rows)
+    emit({"phase": "features_parity", "card": card, "first_call_s": first_s,
+          "cpu_s": cpu_s, "waveforms": rows, "ok": parity_ok})
+    del cpu
+
+    src = sung(np, SOURCE_S, 50, 196.0)
+    ref = sung(np, REFERENCE_S, 51, 262.0)
+    conv.convert_wav(src, ref, SR)                 # warm-up
+    torch.cuda.synchronize()
+    counters.reset()
+    runs, right = [], True
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fs = conv.extract_from_wav(src, SR, "src")
+        fr = conv.extract_from_wav(ref, SR, "ref")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mel, wav, _ = conv.convert_features(fs, fr)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        right &= (fs["hubert"].shape[0] == 1024
+                  and fr["hubert"].shape[0] == 512
+                  and mel.shape == (1024, 80) and wav.shape == (1024 * HOP,)
+                  and bool(np.isfinite(mel).all())
+                  and bool(np.isfinite(wav).all()))
+        runs.append({"extract_s": t1 - t0, "convert_s": t2 - t1,
+                     "wall_s": t2 - t0, "rtf": (t2 - t0) / SOURCE_S,
+                     "extract_share": (t1 - t0) / (t2 - t0)})
+    launches, routed = counters.read(), counters.routed()
+    n = len(runs)
+    # per request: Euler-10's 60 K1 and 130 K2 launches, 9 K3 branch
+    # calls at least, one Viterbi launch for each of the two waveforms
+    counts_ok = (launches["flash_fwd"] == 60 * n
+                 and launches["block1d_fwd"] == 130 * n
+                 and launches["resblock_branch"] >= 9 * n
+                 and launches["viterbi_f0"] == 2 * n
+                 and not any(routed.values()))
+    ok = parity_ok and right and counts_ok
+    wall = sum(r["wall_s"] for r in runs) / n
+    emit({"phase": "features", "card": card, "source_s": SOURCE_S,
+          "reference_s": REFERENCE_S, "runs": runs,
+          "mean_wall_s": wall, "mean_rtf": wall / SOURCE_S,
+          "launches_per_request": {k: v / n for k, v in launches.items()},
+          "routed": routed, "right": right, "ok": ok})
+    extract = sum(r["extract_s"] for r in runs) / n
+    prof = device_time(torch, lambda: (conv.extract_from_wav(src, SR, "src"),
+                                       conv.extract_from_wav(ref, SR, "ref"),
+                                       torch.cuda.synchronize()))
+    prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / extract
+    emit(dict(phase="features_profile", scope="extraction", **prof))
+    prof = device_time(torch, lambda: (conv.convert_wav(src, ref, SR),
+                                       torch.cuda.synchronize()))
+    prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / wall
+    emit(dict(phase="features_profile", scope="convert_wav", **prof))
+    return ok, launches
 
 
 def slice_parity(torch, np, dev, counters):
@@ -823,7 +1060,8 @@ TRAIN_LENGTHS = [512] + [475] * 15
 # per train step: 6 transformer blocks and 13 Block1Ds, forward and backward
 TRAIN_LAUNCHES = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
                   "block1d_fwd": 13, "block1d_bwd_data": 13,
-                  "block1d_bwd_weight": 13, "resblock_branch": 0}
+                  "block1d_bwd_weight": 13, "resblock_branch": 0,
+                  "viterbi_f0": 0}
 
 
 def _train_batch(torch, dev, b, t, lengths, input_dim, seed):
@@ -977,16 +1215,29 @@ def _f32(feats):
     return {k: v.astype("float32") for k, v in feats.items()}
 
 
-def serve_turn(torch, np, conv, counters, max_batch, traffic, style):
+def _decode_wav(body):
+    """A /convert_wav answer (RIFF wav bytes) as (mel, wav, sr); no mel."""
+    import io
+
+    from serenade_tpu_torch.utils.audio import read_wav
+
+    wav, sr = read_wav(io.BytesIO(body))
+    return None, wav, sr
+
+
+def serve_turn(torch, np, conv, counters, max_batch, traffic, style,
+               endpoint="/convert_features"):
     """A server at ``max_batch`` on 127.0.0.1:0 registers ``style`` and
-    answers ``traffic`` (bodies and their source frames) from
-    SERVE_CLIENTS client threads; then /healthz.  Returns the turn's
-    numbers, checked."""
+    answers ``traffic`` (bodies and their source frames) posted to
+    ``endpoint`` from SERVE_CLIENTS client threads; then /healthz.
+    Returns the turn's numbers, checked."""
     import threading
 
     from serenade_tpu_torch.serving import (
         BatchingConverter, decode_response, encode_reference, make_server,
     )
+
+    decode = _decode_wav if endpoint == "/convert_wav" else decode_response
 
     batching = BatchingConverter(conv, max_batch=max_batch)
     server = make_server(batching, port=0)
@@ -1000,7 +1251,7 @@ def serve_turn(torch, np, conv, counters, max_batch, traffic, style):
             body, frames = traffic[k]
             t0 = time.perf_counter()
             try:
-                out = decode_response(_http(f"{base}/convert_features", body))
+                out = decode(_http(base + endpoint, body))
             except Exception as exc:  # noqa: BLE001 — reported, fails the phase
                 faults.append(f"request {k}: {exc!r}")
                 continue
@@ -1026,8 +1277,9 @@ def serve_turn(torch, np, conv, counters, max_batch, traffic, style):
         batching.close()
         thread.join(timeout=10)
     done = [r for r in results if r is not None]
-    right = all(mel.shape == (n, 80) and wav.shape == (n * HOP,) and sr == SR
-                and bool(np.isfinite(mel).all())
+    right = all((mel is None or (mel.shape == (n, 80)
+                                 and bool(np.isfinite(mel).all())))
+                and wav.shape == (n * HOP,) and sr == SR
                 and bool(np.isfinite(wav).all())
                 for _, n, mel, wav, sr in done)
     lat = [r[0] for r in done]
@@ -1038,6 +1290,7 @@ def serve_turn(torch, np, conv, counters, max_batch, traffic, style):
     counts_ok = (launches["flash_fwd"] == 60 * batches
                  and launches["block1d_fwd"] == 130 * batches
                  and launches["resblock_branch"] >= 9 * batches
+                 and (launches["viterbi_f0"] > 0) == (endpoint == "/convert_wav")
                  and not any(routed.values()))
     ok = (not faults and len(done) == len(traffic) and right and counts_ok
           and health["ok"] and health["errors"] == 0
@@ -1051,7 +1304,12 @@ def serve_turn(torch, np, conv, counters, max_batch, traffic, style):
                           "max": max(lat, default=None)},
             "wall_s": wall, "audio_s": audio, "audio_s_per_s": audio / wall,
             "server_compute_s": health["compute_sec"],
-            "server_launch_s": health["launch_sec"], "launches": launches,
+            "server_launch_s": health["launch_sec"],
+            "server_extract_s": health["extract_sec"],
+            # the dispatcher's busy time that went to extraction
+            "extract_share": (health["extract_sec"] / max(
+                1e-9, health["extract_sec"] + health["launch_sec"])),
+            "launches": launches,
             "routed": routed, "ok": ok}
 
 
@@ -1123,6 +1381,35 @@ def serve_path(torch, np, dev, counters, conv, card):
                   "profile_saw_dispatcher": seen, "host_waits_ok": waits_ok,
                   "turn": rows[0], **prof})
             ok &= rows[0]["ok"] and waits_ok
+    return ok & serve_raw(torch, np, conv, counters, card)
+
+
+def serve_raw(torch, np, conv, counters, card):
+    """Raw audio: 8 clients post 16 /convert_wav requests, npz bodies of
+    phase 3b's four waveforms against a style registered from a 5.12 s
+    reference's features, at max_batch 1, 8, 8, 1 in turns (one
+    unreported warm-up turn first)."""
+    from serenade_tpu_torch.serving import encode_wav_request
+
+    style = _f32({k: v for k, v in conv.extract_from_wav(
+        sung(np, REFERENCE_S, 52, 262.0), SR, "style").items()
+        if k in ("hubert", "score", "loud", "logmel")})
+    wavs = feature_wavs(np)
+    traffic = [(encode_wav_request(wavs[k % len(wavs)], SR, "breathy"),
+                _frames_kept(FEATURE_WAVS[k % len(wavs)][0]))
+               for k in range(SERVE_REQUESTS)]
+    t0 = time.time()
+    warm = serve_turn(torch, np, conv, counters, 8, traffic, style,
+                      "/convert_wav")
+    emit({"phase": "serve_raw_warmup", "seconds": time.time() - t0,
+          "ok": warm["ok"]})
+    ok = warm["ok"]
+    for turn, max_batch in enumerate(SERVE_TURNS):
+        row = serve_turn(torch, np, conv, counters, max_batch, traffic,
+                         style, "/convert_wav")
+        emit({"phase": "serve", "traffic": "raw", "turn": turn,
+              "card": card, **row})
+        ok &= row["ok"]
     return ok
 
 
@@ -1205,11 +1492,15 @@ KERNELS = {
     "resblock_branch": ("serenade_tpu_torch/csrc/resblock_branch.cu",
                         "serenade_tpu/ops/resblock_pallas.py:154",
                         "resblock_cuda", "launches"),
+    # a kernel of the port with no Pallas counterpart: the trellis is a
+    # lax.scan in JAX
+    "viterbi_f0": ("serenade_tpu_torch/csrc/viterbi_f0.cu",
+                   "serenade_tpu/ops/f0.py:301", "viterbi_cuda", "launches"),
 }
 # what each forward kernel writes, and the gradients each backward kernel
 # writes
 FORWARD_OUTPUTS = {"flash_fwd": ("out", "lse"), "block1d_fwd": ("out",),
-                   "resblock_branch": ("out",)}
+                   "resblock_branch": ("out",), "viterbi_f0": ("states",)}
 OUTPUTS = {"flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv"),
            "block1d_bwd_data": ("dx", "dbias", "dgamma", "dbeta"),
            "block1d_bwd_weight": ("dw",)}
@@ -1242,7 +1533,7 @@ class Counters:
                 for name, (mod, attr) in ROUTED.items()}
 
 
-def kernel_entries(torch, dev):
+def kernel_entries(torch, np, dev):
     """Phase 2: every kernel against its plain version; one entry each for
     the kernels line (launches filled in by the path that runs them)."""
     entries, ok = {}, True
@@ -1276,6 +1567,11 @@ def kernel_entries(torch, dev):
         emit({"phase": "kernels", "kernel": name, "cases": rows})
         ok &= all(r["ok"] for r in rows)
         entry(name, main_row, main_row)
+    main_row, rows = check_viterbi(torch, np, dev)
+    emit({"phase": "kernels", "kernel": "viterbi_f0", "cases": rows})
+    ok &= all(r["ok"] for r in rows)
+    entry("viterbi_f0", main_row, main_row)
+    entries["viterbi_f0"]["pallas_counterpart"] = None
     for names, check in ((("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")),
                          check_flash_bwd), \
             ((("block1d_bwd_data", "data"), ("block1d_bwd_weight", "weight")),
@@ -1303,7 +1599,7 @@ def main() -> int:
         return 2
     try:
         from serenade_tpu_torch.ops import (
-            _cuda, block1d_cuda, flash_cuda, resblock_cuda,
+            _cuda, block1d_cuda, flash_cuda, resblock_cuda, viterbi_cuda,
         )
     except ImportError as exc:
         print(f"chip_smoke: the serenade_tpu_torch package is missing: {exc}",
@@ -1311,7 +1607,8 @@ def main() -> int:
         return 2
     counters = Counters({"flash_cuda": flash_cuda,
                          "block1d_cuda": block1d_cuda,
-                         "resblock_cuda": resblock_cuda})
+                         "resblock_cuda": resblock_cuda,
+                         "viterbi_cuda": viterbi_cuda})
     dev = torch.device("cuda")
     # f32 stays f32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1330,13 +1627,17 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": time.time() - t0, "ptxas": ptxas})
 
-    ok, entries = kernel_entries(torch, dev)
+    ok, entries = kernel_entries(torch, np, dev)
     # each kernel's launches come from the path that runs it: the forward
     # kernels' from the conversions, the backward kernels' from training
     main_ok, launches, conv = main_path(torch, np, dev, counters)
     ok &= main_ok
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch"):
         entries[name]["launches"] = launches[name]
+    features_ok, launches = features_path(torch, np, dev, counters, conv,
+                                          card)
+    ok &= features_ok
+    entries["viterbi_f0"]["launches"] = launches["viterbi_f0"]
     ok &= slice_parity(torch, np, dev, counters)
     train_ok, launches = train_path(torch, np, dev, counters)
     ok &= train_ok

@@ -2,10 +2,11 @@
 
 The JAX package ``serenade_tpu`` stays the reference; this package mirrors
 its file names and its channels-last ``(B, T, C)`` layout at every public
-function.  It imports ``torch`` and ``numpy`` only.  The three TPU kernels
-on the conversion path (flash attention, fused Block1D, HiFiGAN residual
-branch) are CUDA C++ kernels under ``csrc/``, built with ``nvcc`` at first
-use (``ops/_cuda.py``).
+function.  It imports ``torch``, ``numpy`` and ``scipy`` only.  The three
+TPU kernels on the conversion path (flash attention, fused Block1D,
+HiFiGAN residual branch) and the Viterbi trellis of F0 extraction are
+CUDA C++ kernels under ``csrc/``, built with ``nvcc`` at first use
+(``ops/_cuda.py``).
 """
 
 from __future__ import annotations

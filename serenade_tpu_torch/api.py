@@ -1,9 +1,12 @@
 """Conversion API (counterpart of serenade_tpu/api.py ``Converter``:
-``convert_features``, ``pack_reference`` and ``convert_features_batch``).
+``convert_features``, ``pack_reference`` and ``convert_features_batch``;
+from raw audio, ``extract_from_wav``, ``extract_from_wav_batch``,
+``convert_wav`` and ``style_embedding``).
 
-Everything comes in as data: model and vocoder configs as dicts
-(``configs.py`` holds the full-width ones), parameters as a flax tree of
-numpy arrays or a state dict (None draws seeded random weights), scaler
+Everything comes in as data: model, vocoder and ContentVec configs as
+dicts (``configs.py`` holds the full-width ones), parameters as a flax
+tree of numpy arrays or a state dict (None draws seeded random weights;
+ContentVec also takes a Hugging Face ``HubertModel`` state dict), scaler
 statistics as arrays::
 
     scaler = {"hubert": {"mean": m, "scale": s},
@@ -26,6 +29,9 @@ from serenade_tpu_torch import resolve_device, upload
 from serenade_tpu_torch.collaters.ssc import bucket_length, next_pow2, pad_to
 from serenade_tpu_torch.configs import FEATURE_CONFIG
 from serenade_tpu_torch.convert import load_params
+from serenade_tpu_torch.features import (
+    FeatureConfig, extract_features, extract_features_batch,
+)
 from serenade_tpu_torch.models.layers import (
     init_params_,
     store_compute_weights_,
@@ -41,12 +47,19 @@ class Converter:
     def __init__(self, model_config: Mapping, params, scaler: Mapping, *,
                  vocoder_config: Optional[Mapping] = None,
                  vocoder_params=None, vocoder_stats: Optional[Mapping] = None,
-                 n_timesteps: int = 10, solver: str = "euler",
-                 temperature: float = 0.667, seed: int = 0, device=None):
-        """``vocoder_config`` None converts to mel only.  Runs on CUDA
-        unless ``device`` says otherwise."""
+                 contentvec_config: Optional[Mapping] = None,
+                 contentvec_params=None, n_timesteps: int = 10,
+                 solver: str = "euler", temperature: float = 0.667,
+                 seed: int = 0, device=None):
+        """``vocoder_config`` None converts to mel only.
+        ``contentvec_config`` (``configs.CONTENTVEC_CONFIG`` at full width)
+        turns on the raw-audio entry points, with ``contentvec_params`` a
+        Hugging Face ``HubertModel`` state dict (or a path to one), a flax
+        tree, or None for weights from ``seed + 2``.  Runs on CUDA unless
+        ``device`` says otherwise."""
         self.device = resolve_device(device)
-        # the feature frame rate a server counts audio seconds by
+        # feature extraction's settings (the recipe's), and the frame rate
+        # a server counts audio seconds by
         self.config = dict(FEATURE_CONFIG)
         model = Serenade(**model_config)
         if params is None:
@@ -68,6 +81,18 @@ class Converter:
                 vocoder_config, vocoder_params, vocoder_stats,
                 trg_stats=self.scaler["logmel"], device=self.device,
                 seed=seed + 1)
+        self._content_fn = None
+        if contentvec_config is not None:
+            from serenade_tpu_torch.bin.preprocess import make_content_fn
+
+            self._content_fn = make_content_fn(
+                contentvec_params, config=contentvec_config,
+                device=self.device, seed=seed + 2)
+        # the content features' statistics on the device, for features
+        # that stay there (raw-audio extraction's ContentVec output)
+        self._hubert_stats = tuple(
+            upload(self.scaler["hubert"][k], self.device)
+            for k in ("mean", "scale"))
 
     @property
     def output_sample_rate(self) -> Optional[int]:
@@ -79,8 +104,10 @@ class Converter:
         def minmax(x, st):
             return (x - st["min"]) / (st["max"] - st["min"])
 
-        return {"hubert": (feats["hubert"] - s["hubert"]["mean"])
-                / s["hubert"]["scale"],
+        hub = feats["hubert"]
+        mean, scale = (self._hubert_stats if torch.is_tensor(hub) else
+                       (s["hubert"]["mean"], s["hubert"]["scale"]))
+        return {"hubert": (hub - mean) / scale,
                 "score": minmax(feats["score"], s["score"]),
                 "loud": minmax(feats["loud"], s["loud"])}
 
@@ -92,15 +119,29 @@ class Converter:
 
     def _stack(self, feats_list, keys, T: int) -> Dict[str, torch.Tensor]:
         """Normalized feature dicts -> ``(B, T, C)`` tensors on the device,
-        zero-padded to ``T``, and their ``lengths``."""
+        zero-padded to ``T``, and their ``lengths``.  A feature that is
+        already a tensor on the device (extracted content features) is
+        padded and stacked there."""
         def pad(a):
             a = np.asarray(a, np.float32)
             if a.ndim == 1:
                 a = a[:, None]
             return pad_to(a, T)
 
-        out = {k: upload(np.stack([pad(f[k]) for f in feats_list]),
-                         self.device) for k in keys}
+        def pad_dev(a):
+            if not torch.is_tensor(a):
+                a = upload(pad(a), self.device)
+            a = a[:T]
+            return torch.nn.functional.pad(a, (0, 0, 0, T - a.shape[0]))
+
+        out = {}
+        for k in keys:
+            vals = [f[k] for f in feats_list]
+            if any(torch.is_tensor(v) for v in vals):
+                out[k] = torch.stack([pad_dev(v) for v in vals])
+            else:
+                out[k] = upload(np.stack([pad(v) for v in vals]),
+                                self.device)
         out["lengths"] = upload(np.asarray(
             [f["hubert"].shape[0] for f in feats_list], np.int32),
             self.device)
@@ -200,3 +241,91 @@ class Converter:
             return mels, lens
         host = mels.cpu().numpy()
         return [host[i, :n] for i, n in enumerate(lens)]
+
+    # -- raw audio --------------------------------------------------------
+
+    def _require_content_fn(self):
+        if self._content_fn is None:
+            raise RuntimeError(
+                "raw-audio conversion needs ContentVec: construct the "
+                "Converter with contentvec_config (and contentvec_params); "
+                "use convert_features with extracted features otherwise")
+
+    def extract_from_wav(self, wav: np.ndarray, sr: int, name: str = "utt",
+                         f0_range: Optional[Tuple[float, float]] = None
+                         ) -> Dict[str, np.ndarray]:
+        """Features of one waveform (log-mel, loudness, F0, ContentVec and
+        the estimated score as ``score``), in the dict form every
+        ``convert_*`` method takes.  ``f0_range=(minf0, maxf0)`` narrows
+        the F0 search to the singer's range (default 70-1100 Hz)."""
+        self._require_content_fn()
+        f = extract_features(name, np.asarray(wav), sr,
+                             FeatureConfig.from_dict(self.config),
+                             content_fn=self._content_fn, f0_range=f0_range,
+                             device=self.device)
+        if f is None:
+            raise ValueError(f"feature extraction failed for {name}")
+        f["score"] = f["est_lf0_score"]
+        return f
+
+    def extract_from_wav_batch(self, wavs, srs, f0_ranges=None) -> list:
+        """Features of N waveforms, batched: one signal pass per length
+        bucket and F0 range, one ContentVec forward per 2 s bucket, PCM16
+        uploads with the 24 -> 16 kHz resample on the device.  A list of
+        feature dicts (None where extraction failed); ``hubert`` stays on
+        the device, a tensor, for the conversion to take there."""
+        self._require_content_fn()
+        names = [f"req{i}" for i in range(len(wavs))]
+        feats = extract_features_batch(
+            [(n, np.asarray(w), sr, None)
+             for n, w, sr in zip(names, wavs, srs)],
+            FeatureConfig.from_dict(self.config),
+            content_fn=self._content_fn, pad_group_pow2=True,
+            wire_dtype="int16", f0_ranges=f0_ranges, device=self.device)
+        out = []
+        for n in names:
+            f = feats.get(n)
+            if f is not None:
+                f["score"] = f["est_lf0_score"]
+            out.append(f)
+        return out
+
+    def convert_wav(self, src_wav: np.ndarray, ref_wav: np.ndarray, sr: int,
+                    x0: Optional[np.ndarray] = None
+                    ) -> Tuple[np.ndarray, Optional[np.ndarray],
+                               Optional[int]]:
+        """Raw-audio conversion: features extracted from both waveforms,
+        then :meth:`convert_features` (``x0`` as there)."""
+        return self.convert_features(
+            self.extract_from_wav(src_wav, sr, "src"),
+            self.extract_from_wav(ref_wav, sr, "ref"), x0=x0)
+
+    def style_embedding(self, wav: Optional[np.ndarray] = None,
+                        sr: Optional[int] = None,
+                        logmel: Optional[np.ndarray] = None) -> np.ndarray:
+        """GST style embedding ``(embed_dim,)`` of a waveform or of an
+        un-normalized ``(T, num_mels)`` log-mel: the model's own measure of
+        singing style."""
+        from serenade_tpu_torch.ops.mel import logmelfilterbank
+        from serenade_tpu_torch.utils.audio import resample, to_mono
+
+        if logmel is None:
+            fc = FeatureConfig.from_dict(self.config)
+            wav = to_mono(np.asarray(wav, np.float32))
+            if sr is not None and sr != fc.sampling_rate:
+                wav = resample(wav, sr, fc.sampling_rate)
+            with torch.no_grad():
+                logmel = logmelfilterbank(
+                    upload(wav, self.device), fc.sampling_rate,
+                    fft_size=fc.fft_size, hop_size=fc.hop_size,
+                    win_length=fc.win_length, num_mels=fc.num_mels,
+                    fmin=fc.fmin, fmax=fc.fmax, eps=fc.eps,
+                    log_base=fc.log_base).cpu().numpy()
+        s = self.scaler["logmel"]
+        mel_n = (np.asarray(logmel) - s["mean"]) / s["scale"]
+        t = mel_n.shape[0]
+        mel = upload(pad_to(mel_n.astype(np.float32), bucket_length(t))[None],
+                     self.device)
+        with torch.no_grad():
+            emb = self.model.gst(mel, upload(np.asarray([t]), self.device))
+        return emb[0].float().cpu().numpy()

@@ -23,11 +23,18 @@ Every input is in a form the port reads without JAX, YAML or joblib:
   ``--vocoder-params`` (``.pt``, default random weights);
 * ``--ref-dict``: JSON mapping a style name to an ``.npz`` of reference
   features (``hubert``, ``score``, ``loud``, ``logmel``), each registered
-  on the device at start.
+  on the device at start;
+* ``--contentvec-ckpt`` turns on raw audio (``/convert_wav``): a ``.pt``
+  Hugging Face ``HubertModel`` state dict (ContentVec), read with
+  ``weights_only=True``;
+* ``--f0-table``: JSON of per-voice-type F0 ranges for ``?voice_type=``
+  (``{"Tenor": {"minf0": 130, "maxf0": 440}, ...}``; the JAX server reads
+  the same table as YAML, ``conf/f0.yaml``).
 
-Endpoints: POST ``/convert_features``, ``/register_reference``; GET
-``/healthz``, ``/metrics``.  ``/convert_wav`` and the streams answer 501
-until feature extraction is ported.  Runs on CUDA unless ``--device cpu``.
+Endpoints: POST ``/convert_features``, ``/register_reference``,
+``/convert_wav`` (with ``--contentvec-ckpt``); GET ``/healthz``,
+``/metrics``.  The streams answer 501 until long-form conversion is
+ported.  Runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -62,6 +69,15 @@ def build_argparser():
     p.add_argument("--ref-dict", default=None,
                    help="JSON: style name -> .npz of reference features, "
                         "each registered on the device at start")
+    p.add_argument("--contentvec-ckpt", default=None,
+                   help=".pt Hugging Face HubertModel state dict "
+                        "(ContentVec, loaded with weights_only=True); turns "
+                        "on /convert_wav")
+    p.add_argument("--f0-table", default=None,
+                   help="JSON of per-voice-type F0 ranges for "
+                        "/convert_wav?voice_type=, e.g. {\"Tenor\": "
+                        "{\"minf0\": 130, \"maxf0\": 440}} (JSON, not the "
+                        "JAX server's YAML: the port reads no YAML)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8571)
     p.add_argument("--max-batch", type=int, default=8)
@@ -81,6 +97,11 @@ def build_argparser():
                    help="run this (src_frames, ref_frames) shape at "
                         "concurrency B (default max-batch) before taking "
                         "traffic; repeatable")
+    p.add_argument("--warmup-raw", action="append", default=[],
+                   metavar="SRC:REF[:B]",
+                   help="as --warmup, through /convert_wav's extraction "
+                        "(tones of those frame counts); needs "
+                        "--contentvec-ckpt")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     p.add_argument("--verbose", type=int, default=1)
@@ -112,12 +133,12 @@ def load_scaler(path) -> dict:
                 for feat, stats in SCALER_KEYS.items()}
 
 
-def _warmup_shapes(specs, max_batch: int):
+def _warmup_shapes(specs, max_batch: int, flag: str = "--warmup"):
     out = []
     for spec in specs:
         parts = spec.split(":")
         if len(parts) not in (2, 3):
-            raise SystemExit(f"--warmup wants SRC:REF[:B], got {spec!r}")
+            raise SystemExit(f"{flag} wants SRC:REF[:B], got {spec!r}")
         out.append((int(parts[0]), int(parts[1]),
                     int(parts[2]) if len(parts) == 3 else max_batch))
     return out
@@ -132,25 +153,30 @@ def build_app(args):
         BatchingConverter, make_server, warmup_server,
     )
 
+    if args.warmup_raw and not args.contentvec_ckpt:
+        raise SystemExit("--warmup-raw needs --contentvec-ckpt")
     voc_given = args.vocoder_config or args.vocoder_params
     if voc_given and not args.vocoder_stats:
         raise SystemExit("--vocoder-config/--vocoder-params need "
                          "--vocoder-stats (the vocoder's mean and scale)")
-    vocoder = {}
+    extra = {}
     if args.vocoder_stats:
         with np.load(args.vocoder_stats) as z:
             stats = {"mean": z["mean"], "scale": z["scale"]}
-        vocoder = dict(
+        extra = dict(
             vocoder_config=_json(args.vocoder_config, configs.VOCODER_CONFIG),
             vocoder_params=_state_dict(args.vocoder_params, "vocoder params",
                                        1),
             vocoder_stats=stats)
+    if args.contentvec_ckpt:
+        extra.update(contentvec_config=configs.CONTENTVEC_CONFIG,
+                       contentvec_params=args.contentvec_ckpt)
     conv = Converter(
         _json(args.model_config, configs.serenade_config()),
         _state_dict(args.params, "model params", 0),
         load_scaler(args.stats), n_timesteps=args.n_timesteps,
         solver=args.solver, temperature=args.temperature, device=args.device,
-        **vocoder)
+        **extra)
     batching = BatchingConverter(
         conv, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         busy_hold_ms=args.busy_hold_ms,
@@ -165,7 +191,12 @@ def build_app(args):
         if args.warmup:
             warmup_server(batching, _warmup_shapes(args.warmup,
                                                    args.max_batch))
-        server = make_server(batching, host=args.host, port=args.port)
+        if args.warmup_raw:
+            warmup_server(batching, _warmup_shapes(
+                args.warmup_raw, args.max_batch, "--warmup-raw"),
+                raw_audio=True)
+        server = make_server(batching, host=args.host, port=args.port,
+                             f0_table=_json(args.f0_table, None))
     except BaseException:
         batching.close()
         raise

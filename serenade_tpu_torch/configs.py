@@ -4,9 +4,20 @@ cite."""
 
 from __future__ import annotations
 
-# egs/gtsinger/ssc1/conf/serenade.yaml feature extraction: the frame rate
-# the server converts frames to audio seconds with
-FEATURE_CONFIG = {"sampling_rate": 24000, "hop_size": 240, "shiftms": 10}
+# egs/gtsinger/ssc1/conf/serenade.yaml feature extraction (the keys
+# ``features.FeatureConfig`` reads; a server also converts frames to audio
+# seconds by them)
+FEATURE_CONFIG = {"sampling_rate": 24000, "fft_size": 512, "hop_size": 240,
+                  "win_length": 480, "shiftms": 10, "eps": 1.0e-6,
+                  "window": "hann", "num_mels": 80, "fmin": 63,
+                  "fmax": 12000}
+
+# ContentVec at the width the JAX package builds it for feature
+# extraction (``ContentVecEncoder()`` in serenade_tpu/bin/preprocess.py:
+# HuBERT base, 12 layers of 768, the last conv at stride 1)
+CONTENTVEC_CONFIG = {"dim": 768, "num_layers": 12, "heads": 12,
+                     "ffn_dim": 3072, "last_conv_stride": 1,
+                     "pos_conv_kernel": 128, "pos_conv_groups": 16}
 
 # egs/gtsinger/ssc1/conf/serenade.yaml ``model_params``, computed in bf16
 # (the Serenade default dtype, serenade_tpu/models/serenade.py:59)

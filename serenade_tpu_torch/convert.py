@@ -110,3 +110,50 @@ def load_params(module: nn.Module, params) -> nn.Module:
         sd = state_dict_from_flax(module, params)
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def contentvec_state_dict_from_flax(params: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """State dict of ``modules.contentvec.ContentVecEncoder`` from the flax
+    tree of serenade_tpu's ContentVecEncoder (``{"params": ...}`` or the
+    inner dict): the attention's DenseGeneral kernels ``(dim, heads,
+    head_dim)`` and ``(heads, head_dim, dim)`` flattened to Linear
+    weights, the rest as above."""
+    if set(params) == {"params"}:
+        params = params["params"]
+
+    def linear(p):
+        k = np.asarray(p["kernel"])
+        b = np.asarray(p["bias"])
+        if k.ndim == 3 and b.ndim == 2:          # query, key, value
+            k = k.reshape(k.shape[0], -1)
+        elif k.ndim == 3:                        # out
+            k = k.reshape(-1, k.shape[-1])
+        return {"weight": k.T, "bias": b.reshape(-1)}
+
+    def norm(p):
+        return {"scale": p["scale"], "bias": p["bias"]}
+
+    fe = params["feature_extractor"]
+    tree = {f"feature_extractor.conv{i}": {"weight": np.transpose(
+        fe[f"conv{i}"]["kernel"], (2, 1, 0))}
+        for i in range(sum(1 for k in fe if k.startswith("conv")))}
+    tree["feature_extractor.gn"] = norm(fe["gn"])
+    tree["fp_ln"], tree["enc_ln"] = norm(params["fp_ln"]), norm(
+        params["enc_ln"])
+    tree["fp_proj"] = linear(params["fp_proj"])
+    tree["pos_conv"] = {
+        "weight": np.transpose(params["pos_conv"]["kernel"], (2, 1, 0)),
+        "bias": params["pos_conv"]["bias"]}
+    i = 0
+    while f"layer{i}" in params:
+        p = params[f"layer{i}"]
+        for name in ("query", "key", "value", "out"):
+            tree[f"layers.{i}.attn.{name}"] = linear(p["attn"][name])
+        for name in ("ln1", "ln2"):
+            tree[f"layers.{i}.{name}"] = norm(p[name])
+        for name in ("fc1", "fc2"):
+            tree[f"layers.{i}.{name}"] = linear(p[name])
+        i += 1
+    return {f"{mod}.{key}": torch.from_numpy(np.array(arr, dtype=np.float32))
+            for mod, leaves in tree.items() for key, arr in leaves.items()}

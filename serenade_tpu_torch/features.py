@@ -1,0 +1,328 @@
+"""Per-utterance feature extraction (counterpart of serenade_tpu/features.py).
+
+The signal features (log-mel, loudness, F0) of a group of same-length
+waveforms run as one batched pass on the device: the STFTs as DFT-basis
+matmuls, YIN's CMND by FFT, the Viterbi trellis as one kernel launch
+(``ops/viterbi_cuda.py``).  The host resamples sources at other rates,
+segments the F0 track into the estimated score (``ops/midi.py``) and
+aligns the streams.  Content features come from a ContentVec content
+function (``bin/preprocess.py``), whose batched forms leave them on the
+device.  Everything is f32 but the DFT products' sums (``ops/stft.py``
+states the precision).
+
+Padding decides the numbers, so it is JAX's: signals pad to multiples of
+128 hops (``_bucketed``), groups to powers of two by repeating their last
+waveform, ContentVec to 2 s buckets; the loudness clip and ContentVec's
+attention and first GroupNorm see each row's padding, as in JAX.
+
+F0 backends: "viterbi" (YIN + Viterbi, the default) and "yin".  The
+Harvest and native backends, the phoneme-MIDI transcriber and the F0
+fluctuation feature are not ported (ROADMAP Queue A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from serenade_tpu_torch import resolve_device, upload
+from serenade_tpu_torch.collaters.ssc import next_pow2
+from serenade_tpu_torch.ops.f0 import smooth_f0_median, yin_f0, yin_f0_viterbi
+from serenade_tpu_torch.ops.mel import logmelfilterbank, loudness_extract
+from serenade_tpu_torch.ops.midi import (
+    f0_to_note_events, midi_note_array_to_hz, note_seq_to_frames,
+    notes_to_frames,
+)
+from serenade_tpu_torch.utils.audio import resample, to_mono
+
+logger = logging.getLogger(__name__)
+
+F0_BACKENDS = {"viterbi": yin_f0_viterbi, "yin": yin_f0}
+NOT_PORTED_BACKENDS = ("harvest", "native", "harvest_native")
+
+
+@dataclasses.dataclass
+class FeatureConfig:
+    sampling_rate: int = 24000
+    fft_size: int = 512
+    hop_size: int = 240
+    win_length: int = 480
+    window: str = "hann"
+    num_mels: int = 80
+    fmin: float = 63.0
+    fmax: float = 12000.0
+    eps: float = 1e-6
+    log_base: float = 10.0
+    shiftms: float = 10.0
+
+    @classmethod
+    def from_dict(cls, d: Dict):
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+def spk_id_from_utt(utt_id: str) -> str:
+    """GTSinger utt_id -> the speaker key of the F0-range table."""
+    try:
+        return utt_id.split("_")[3].split("-")[1]
+    except IndexError:
+        return utt_id
+
+
+def f0_range_for(utt_id: str, f0_table: Optional[Dict]) -> tuple:
+    spk = spk_id_from_utt(utt_id)
+    if f0_table and spk in f0_table:
+        return float(f0_table[spk]["minf0"]), float(f0_table[spk]["maxf0"])
+    logger.info("no f0 range for %s; using defaults", spk)
+    return 70.0, 1100.0
+
+
+def _check_options(f0_backend: str, with_f0_fluc: bool) -> None:
+    if f0_backend in NOT_PORTED_BACKENDS:
+        raise NotImplementedError(
+            f"f0_backend {f0_backend!r} is not ported (ROADMAP Queue A, "
+            "item 1: what feature extraction left); use 'viterbi' or "
+            "'yin'")
+    if f0_backend not in F0_BACKENDS:
+        raise ValueError(f"unknown f0_backend {f0_backend!r}")
+    if with_f0_fluc:
+        raise NotImplementedError(
+            "f0_fluc is not ported (ROADMAP Queue A, item 4: the "
+            "F0-fluctuation variant); the port's Serenade refuses "
+            "fluc_channels > 0")
+
+
+def _bucketed(audio: np.ndarray, hop_size: int) -> Tuple[np.ndarray, int]:
+    """Pad to a multiple of 128 hops (JAX's length bucket).  Returns
+    (padded audio, true frame count)."""
+    n_frames = 1 + len(audio) // hop_size
+    bucket = 128 * hop_size
+    padded_len = ((len(audio) + bucket - 1) // bucket) * bucket
+    return np.pad(audio, (0, padded_len - len(audio))), n_frames
+
+
+def extract_signal_features_group(
+    audios_b: Sequence[np.ndarray],
+    config: FeatureConfig,
+    minf0: float,
+    maxf0: float,
+    f0_backend: str = "viterbi",
+    wire_dtype: str = "float32",
+    device=None,
+) -> List[Dict[str, np.ndarray]]:
+    """Log-mel, loudness and median-smoothed F0 of same-length bucketed
+    waveforms sharing an F0 search range, in one batched pass on the
+    device.  Full padded-length outputs (callers slice to each
+    utterance's frames), on the host.
+
+    ``wire_dtype="int16"`` uploads PCM16 (``/ 32768`` on the device, as
+    read_wav decodes): half the bytes, lossless for PCM16 sources."""
+    _check_options(f0_backend, False)
+    dev = resolve_device(device)
+    if wire_dtype == "int16":
+        batch = np.stack([np.clip(np.round(np.asarray(a) * 32768.0),
+                                  -32768, 32767).astype(np.int16)
+                          for a in audios_b])
+        wav = upload(batch, dev).float() / 32768.0
+    else:
+        wav = upload(np.stack(audios_b), dev, np.float32)
+    fs = config.sampling_rate
+    logmel = logmelfilterbank(
+        wav, fs, fft_size=config.fft_size, hop_size=config.hop_size,
+        win_length=config.win_length, num_mels=config.num_mels,
+        fmin=config.fmin, fmax=config.fmax, eps=config.eps,
+        log_base=config.log_base)
+    loud = loudness_extract(wav, fs, config.hop_size)
+    f0_raw, _ = F0_BACKENDS[f0_backend](
+        wav, fs=fs, f0_floor=minf0, f0_ceil=maxf0,
+        frame_period_ms=config.shiftms)
+    f0 = smooth_f0_median(f0_raw)
+    # one download: the host needs F0 for the score
+    host = torch.cat([logmel, loud[..., None], f0[..., None]],
+                     dim=-1).cpu().numpy()
+    return [{"logmel": host[i, :, :-2], "loud": host[i, :, -2],
+             "f0": host[i, :, -1]} for i in range(len(audios_b))]
+
+
+def extract_features(
+    utt_id: str,
+    audio: np.ndarray,
+    fs: int,
+    config: FeatureConfig,
+    *,
+    f0_table: Optional[Dict] = None,
+    gt_note_seq: Optional[list] = None,
+    content_fn=None,
+    with_f0_fluc: bool = False,
+    f0_backend: str = "viterbi",
+    f0_range: Optional[tuple] = None,
+    device=None,
+) -> Optional[Dict[str, np.ndarray]]:
+    """The per-utterance feature dict (wave, hubert, logmel, loud,
+    gt_lf0_score, est_lf0_score, f0, vuv, midi), None where the F0 track
+    gives no note.  ``f0_range=(minf0, maxf0)`` overrides the voice-type
+    table."""
+    _check_options(f0_backend, with_f0_fluc)
+    audio = _prepare_audio(utt_id, audio, fs, config)
+    audio_b, n_frames = _bucketed(audio, config.hop_size)
+    minf0, maxf0 = f0_range or f0_range_for(utt_id, f0_table)
+    sig = extract_signal_features_group(
+        [audio_b], config, minf0, maxf0, f0_backend, device=device)[0]
+    return _finalize_utt(utt_id, audio, config, sig, n_frames,
+                         gt_note_seq=gt_note_seq, content_fn=content_fn)
+
+
+def validate_waveform(audio, name: str = "audio") -> np.ndarray:
+    """Reject a malformed waveform on the host (a server checks each at
+    submit, so a bad one faults alone).  Returns the mono float array."""
+    audio = to_mono(np.asarray(audio))
+    if audio.size == 0:
+        raise ValueError(f"{name}: empty waveform")
+    if not np.isfinite(audio).all():
+        raise ValueError(f"{name}: non-finite samples")
+    if np.abs(audio).max() > 1.0:
+        raise ValueError(f"{name}: audio not normalized to [-1, 1]")
+    return audio
+
+
+def _prepare_audio(utt_id, audio, fs, config: FeatureConfig) -> np.ndarray:
+    audio = validate_waveform(audio, utt_id)
+    if fs != config.sampling_rate:
+        audio = resample(audio, fs, config.sampling_rate)
+    # length alignment pad (reference preprocess.py:430-432)
+    return np.pad(audio, (0, config.fft_size), mode="reflect")
+
+
+def _finalize_utt(utt_id, audio, config: FeatureConfig, sig, n_frames: int,
+                  *, gt_note_seq=None, content_fn=None, hubert=None
+                  ) -> Optional[Dict[str, np.ndarray]]:
+    """The host's tail of an utterance: content features (``hubert``
+    when the batch path computed them), the estimated score, and every
+    frame stream cut to the shortest."""
+    logmel = sig["logmel"][:n_frames]
+    loud = sig["loud"][:n_frames, None]
+    f0 = sig["f0"][:n_frames, None]
+    vuv = (f0 != 0).astype(np.float32)
+
+    if hubert is None and content_fn is not None:
+        hubert = np.asarray(content_fn(
+            resample(audio, config.sampling_rate, 16000)))
+
+    total_seconds = audio.shape[-1] / config.sampling_rate
+    notes, intervals = f0_to_note_events(
+        f0[:, 0], frame_shift_s=config.shiftms / 1000.0)
+    if not notes:
+        logger.info("skipping %s: no MIDI information", utt_id)
+        return None
+    midi = notes_to_frames(notes, intervals, total_seconds,
+                           shift_ms=config.shiftms)
+    est_lf0_score = midi_note_array_to_hz(midi, log_f0=True)[:, None]
+    if gt_note_seq is not None:
+        gt_midi = note_seq_to_frames(gt_note_seq, config.shiftms / 1000.0)
+        gt_lf0_score = midi_note_array_to_hz(gt_midi, log_f0=True)[:, None]
+    else:
+        gt_lf0_score = est_lf0_score.copy()
+
+    feats = {
+        "wave": audio.astype(np.float32),
+        "logmel": logmel.astype(np.float32),
+        "loud": loud.astype(np.float32),
+        "f0": f0.astype(np.float32),
+        "vuv": vuv,
+        "midi": midi[:, None].astype(np.float32),
+        "est_lf0_score": est_lf0_score.astype(np.float32),
+        "gt_lf0_score": gt_lf0_score.astype(np.float32),
+    }
+    if hubert is not None:
+        # a tensor on the device from the batch path, else numpy
+        feats["hubert"] = (hubert.float() if torch.is_tensor(hubert)
+                           else hubert.astype(np.float32))
+    frame_keys = [k for k in feats if k != "wave"]
+    min_len = min(feats[k].shape[0] for k in frame_keys)
+    for k in frame_keys:
+        feats[k] = feats[k][:min_len]
+    return feats
+
+
+def extract_features_batch(
+    items: Sequence[Tuple[str, np.ndarray, int, Optional[list]]],
+    config: FeatureConfig,
+    *,
+    f0_table: Optional[Dict] = None,
+    content_fn=None,
+    with_f0_fluc: bool = False,
+    f0_backend: str = "viterbi",
+    max_group: int = 8,
+    pad_group_pow2: bool = False,
+    wire_dtype: str = "float32",
+    f0_ranges: Optional[Sequence[Optional[tuple]]] = None,
+    device=None,
+) -> Dict[str, Optional[Dict[str, np.ndarray]]]:
+    """Batched extraction over ``(utt_id, audio, fs, gt_note_seq)`` items:
+    utterances of one length bucket and F0 range share one signal pass,
+    each ContentVec bucket one forward.  Per utterance the same numbers as
+    :func:`extract_features` (same padded shapes).  Returns ``{utt_id:
+    feats or None}``; an item that fails (a bad waveform, no note) is
+    None alone.
+
+    ``pad_group_pow2`` pads each group to a power of two by repeating its
+    last waveform (serving: a few batch shapes per bucket).
+    ``wire_dtype="int16"`` uploads PCM16 and, with a 24 kHz config and a
+    content function that has ``batch24``, resamples for ContentVec on the
+    device from that one upload.  ``f0_ranges``: per-item ``(minf0,
+    maxf0)`` overrides (None falls back to the table)."""
+    _check_options(f0_backend, with_f0_fluc)
+    out: Dict[str, Optional[Dict[str, np.ndarray]]] = {}
+    prepared = []
+    for j, (utt_id, audio, fs, gt_note_seq) in enumerate(items):
+        try:
+            audio_p = _prepare_audio(utt_id, audio, fs, config)
+        except Exception as e:  # noqa: BLE001 — a bad item skips alone
+            logger.warning("skipping %s: %s", utt_id, e)
+            out[utt_id] = None
+            continue
+        audio_b, n_frames = _bucketed(audio_p, config.hop_size)
+        override = f0_ranges[j] if f0_ranges is not None else None
+        minf0, maxf0 = override or f0_range_for(utt_id, f0_table)
+        prepared.append((utt_id, audio_p, audio_b, n_frames, minf0, maxf0,
+                         gt_note_seq))
+
+    groups: Dict[tuple, list] = {}
+    for i, rec in enumerate(prepared):
+        groups.setdefault((rec[2].shape[0], rec[4], rec[5]), []).append(i)
+
+    huberts: Dict[int, torch.Tensor] = {}
+    if content_fn is not None and prepared:
+        if wire_dtype == "int16" and config.sampling_rate == 24000:
+            huberts = dict(enumerate(content_fn.batch24(
+                [rec[1] for rec in prepared], wire_dtype=wire_dtype)))
+        else:
+            huberts = dict(enumerate(content_fn.batch(
+                [resample(rec[1], config.sampling_rate, 16000)
+                 for rec in prepared])))
+
+    for (_, minf0, maxf0), idxs in groups.items():
+        for lo in range(0, len(idxs), max_group):
+            chunk = idxs[lo:lo + max_group]
+            run = chunk
+            if pad_group_pow2:
+                run = chunk + [chunk[-1]] * (next_pow2(len(chunk))
+                                             - len(chunk))
+            sigs = extract_signal_features_group(
+                [prepared[i][2] for i in run], config, minf0, maxf0,
+                f0_backend, wire_dtype=wire_dtype, device=device)
+            for i, sig in zip(chunk, sigs):
+                utt_id, audio_p, _, n_frames, _, _, gt_note_seq = prepared[i]
+                try:
+                    out[utt_id] = _finalize_utt(
+                        utt_id, audio_p, config, sig, n_frames,
+                        gt_note_seq=gt_note_seq, content_fn=content_fn,
+                        hubert=huberts.get(i))
+                except Exception as e:  # noqa: BLE001 — skips alone
+                    logger.warning("skipping %s: %s", utt_id, e)
+                    out[utt_id] = None
+    return out

@@ -34,7 +34,7 @@ import torch
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 SOURCES = ("flash_fwd", "flash_bwd", "block1d_fwd", "block1d_bwd",
-           "resblock_branch")
+           "resblock_branch", "viterbi_f0")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

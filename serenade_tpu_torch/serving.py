@@ -6,16 +6,19 @@ serenade_tpu/serving.py: ``BatchingConverter``, the npz wire format,
   with a submission queue and a dispatcher thread that groups concurrent
   requests by (source bucket, reference bucket or registered style) and
   runs each group as one batched conversion and one batched vocoder tail.
-  Registered styles stay on the device.
+  Registered styles stay on the device.  Raw-audio requests
+  (``convert_wav``) are extracted first, the whole window's waveforms in
+  one batched extraction (``Converter.extract_from_wav_batch``); their
+  content features stay on the device for the conversion.
 * ``make_server``: a stdlib ``ThreadingHTTPServer``.  POST
   ``/convert_features`` and ``/register_reference`` with ``.npz`` bodies
   (the JAX server's keys, so a client of either works with the other),
-  GET ``/healthz`` and ``/metrics``.
+  POST ``/convert_wav`` with a RIFF body and ``?style=<name>`` or an npz
+  body (``encode_wav_request``), GET ``/healthz`` and ``/metrics``.
 
-Raw audio (``/convert_wav``) and the streams (``/convert_stream``,
-``/convert_stream_live``) need feature extraction and long-form
-conversion, which are not ported yet: the server answers them with 501
-and says so.
+The streams (``/convert_stream``, ``/convert_stream_live``) need
+long-form conversion, which is not ported yet: the server answers them
+with 501 and says so.
 
 On CUDA the dispatcher thread runs every conversion on the server's own
 stream with gradients off (both are per thread in PyTorch) and only
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from serenade_tpu_torch.collaters.ssc import bucket_length
+from serenade_tpu_torch.features import validate_waveform
 
 logger = logging.getLogger(__name__)
 
@@ -64,7 +68,9 @@ def validate_feature_dict(feats, what: str, with_mel: bool,
     for k in need:
         if k not in feats:
             raise ValueError(f"{what} missing feature {k!r}")
-    hub = np.asarray(feats["hubert"])
+    hub = feats["hubert"]
+    if not torch.is_tensor(hub):   # extracted features stay on the device
+        hub = np.asarray(hub)
     if hub.ndim != 2 or hub.shape[1] != content_dim:
         raise ValueError(
             f"{what} hubert must be (T, {content_dim}); got {hub.shape}")
@@ -90,11 +96,28 @@ def check_registry_capacity(refs, name: str, max_references: int) -> None:
             "re-register an existing name or raise max_references")
 
 
+def check_f0_range(f0_range):
+    """Validate an optional (minf0, maxf0) Hz pair at submit time (a bad
+    range would fault inside a batched extraction)."""
+    if f0_range is None:
+        return None
+    lo, hi = float(f0_range[0]), float(f0_range[1])
+    if not (0.0 < lo < hi <= 4000.0):
+        raise ValueError(
+            f"f0_range must satisfy 0 < minf0 < maxf0 <= 4000 Hz; "
+            f"got ({lo}, {hi})")
+    return (lo, hi)
+
+
 @dataclass
 class _Request:
-    src: Dict[str, np.ndarray]
+    src: Optional[Dict[str, np.ndarray]]
     # a feature dict (ad-hoc reference) or a registered style name
     ref: object
+    # raw audio: (wav, sr), extracted by the dispatcher with its window
+    raw_src: Optional[tuple] = None
+    raw_ref: Optional[tuple] = None
+    f0_range: Optional[tuple] = None   # (minf0, maxf0) for the extraction
     done: threading.Event = field(default_factory=threading.Event)
     mel: Optional[np.ndarray] = None
     wav: Optional[np.ndarray] = None
@@ -140,10 +163,12 @@ class BatchingConverter:
         self._lock = threading.Lock()
         # compute_sec: launch to results on the host, a batch's latency;
         # launch_sec: the dispatcher's own time launching, the host cost
-        # that bounds the batches a second
+        # that bounds the batches a second; extract_sec: its time
+        # extracting raw-audio windows (the extraction waits for the
+        # device: the score needs F0 on the host)
         self.stats = {"requests": 0, "batches": 0, "errors": 0,
                       "audio_sec": 0.0, "compute_sec": 0.0,
-                      "launch_sec": 0.0}
+                      "launch_sec": 0.0, "extract_sec": 0.0}
         self._refs: Dict[str, Dict[str, torch.Tensor]] = {}
         self._raw_refs: Dict[str, Dict[str, np.ndarray]] = {}
         # launched batches waiting for their results, bounded to keep a
@@ -245,6 +270,48 @@ class BatchingConverter:
             raise req.error
         return req.mel, req.wav, req.sr
 
+    def convert_wav(self, src_wav, sr: int, ref, timeout: float = 300.0,
+                    f0_range=None):
+        """Raw-audio submit; returns (mel, wav or None, rate or None).  The
+        dispatcher extracts the features of every raw request in its window
+        in one batched extraction, then converts as usual.  ``ref`` is a
+        registered style name or a ``(ref_wav, ref_sr)`` tuple;
+        ``f0_range=(minf0, maxf0)`` narrows the F0 search of both."""
+        self._check_open()
+        try:
+            f0_range = check_f0_range(f0_range)
+            # checked here so a malformed waveform faults alone, before it
+            # joins a batched extraction
+            src_wav = self._checked_wav(src_wav, sr, "src_wav")
+            if isinstance(ref, str):
+                self._require_style(ref)
+                raw_ref = None
+            else:
+                raw_ref = (self._checked_wav(ref[0], ref[1], "ref_wav"),
+                           ref[1])
+        except (ValueError, KeyError):
+            with self._lock:
+                self.stats["errors"] += 1
+            raise
+        req = _Request(src=None, ref=ref if raw_ref is None else None,
+                       raw_src=(src_wav, sr), raw_ref=raw_ref,
+                       f0_range=f0_range)
+        self._queue.put(req)
+        if not req.done.wait(timeout):
+            raise TimeoutError("conversion timed out")
+        if req.error is not None:
+            raise req.error
+        return req.mel, req.wav, req.sr
+
+    def _checked_wav(self, wav, sr: int, what: str) -> np.ndarray:
+        wav = validate_waveform(wav, what)
+        if len(wav) > self.max_request_seconds * sr:
+            raise ValueError(
+                f"{what} is {len(wav) / sr:.0f}s, over the server's "
+                f"per-request cap of {self.max_request_seconds:.0f}s "
+                "(max_request_seconds)")
+        return wav
+
     def close(self, join_timeout: float = 5.0):
         self._stop.set()
         self._thread.join(timeout=join_timeout)
@@ -311,6 +378,7 @@ class BatchingConverter:
                     pending.append(self._queue.get(timeout=timeout))
                 except queue.Empty:
                     pass
+            pending = self._materialize_raw(pending)
             groups = defaultdict(list)
             for req in pending:
                 try:
@@ -334,6 +402,53 @@ class BatchingConverter:
             req.done.set()
         # everything this thread will launch is now in _completions
         self._dispatcher_done = True
+
+    def _materialize_raw(self, pending):
+        """Extract the features of the window's raw-audio requests in one
+        batched extraction; a request whose extraction fails faults alone,
+        and if the extraction itself fails, the raw requests fault and the
+        others go on."""
+        raws = [r for r in pending if r.raw_src is not None]
+        if not raws:
+            return pending
+        t0 = time.monotonic()
+        wavs, srs, owners, ranges = [], [], [], []
+        for r in raws:
+            for slot, raw in (("src", r.raw_src), ("ref", r.raw_ref)):
+                if raw is not None:
+                    wavs.append(raw[0])
+                    srs.append(raw[1])
+                    owners.append((r, slot))
+                    ranges.append(r.f0_range)
+        try:
+            feats = self._conv.extract_from_wav_batch(wavs, srs,
+                                                      f0_ranges=ranges)
+        except Exception as e:  # noqa: BLE001 — fault the raw subset
+            logger.exception("raw-audio extraction failed for %d requests",
+                             len(raws))
+            feats = [None] * len(wavs)
+            for r in raws:
+                r.error = e
+        for (r, slot), f in zip(owners, feats):
+            if r.error is not None:
+                continue
+            if f is None:
+                r.error = ValueError(f"feature extraction failed ({slot})")
+            elif slot == "src":
+                r.src = f
+            else:
+                r.ref = f
+        out = []
+        for r in pending:
+            if r.error is None:
+                out.append(r)
+                continue
+            with self._lock:
+                self.stats["errors"] += 1
+            r.done.set()
+        with self._lock:
+            self.stats["extract_sec"] += time.monotonic() - t0
+        return out
 
     def _fetch(self, tensors: Dict[str, torch.Tensor]):
         """Results on the device -> host tensors and the event to wait on
@@ -518,20 +633,72 @@ def decode_response(body: bytes):
     return mel, wav, sr
 
 
-def warmup_server(batching, shapes, seed: int = 0) -> None:
+def encode_wav_request(src_wav, sr: int, ref, f0_range=None) -> bytes:
+    """Client-side helper: the npz body of POST /convert_wav.  ``ref`` is
+    a registered style name or a ``(ref_wav, ref_sr)`` tuple (RIFF bytes
+    with ``?style=<name>`` work too).  ``f0_range=(minf0, maxf0)`` narrows
+    the F0 search, as ``?f0_min=&f0_max=`` does."""
+    arrays = {"src_wav": np.asarray(src_wav, np.float32),
+              "sr": np.int64(sr)}
+    if isinstance(ref, str):
+        arrays["ref_name"] = np.asarray(ref)
+    else:
+        arrays["ref_wav"] = np.asarray(ref[0], np.float32)
+        arrays["ref_sr"] = np.int64(ref[1])
+    if f0_range is not None:
+        arrays["f0_min"] = np.float64(f0_range[0])
+        arrays["f0_max"] = np.float64(f0_range[1])
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _f0_range_from(query, files=None, f0_table=None) -> Optional[tuple]:
+    """(minf0, maxf0) from the npz keys ``f0_min``/``f0_max`` (which win),
+    the ``?f0_min=&f0_max=`` query, or ``?voice_type=<key>`` looked up in
+    the server's F0 table; None when none is given."""
+    if files is not None and ("f0_min" in files.files
+                              or "f0_max" in files.files):
+        if not ("f0_min" in files.files and "f0_max" in files.files):
+            raise ValueError("f0_min and f0_max must be given together")
+        return check_f0_range((float(files["f0_min"]),
+                               float(files["f0_max"])))
+    lo = query.get("f0_min", [None])[0]
+    hi = query.get("f0_max", [None])[0]
+    if lo is None and hi is None:
+        vt = query.get("voice_type", [None])[0]
+        if vt is None:
+            return None
+        if not f0_table or vt not in f0_table:
+            raise ValueError(
+                f"unknown voice_type {vt!r}; the server's --f0-table "
+                f"knows: {sorted(f0_table or {})}")
+        row = f0_table[vt]
+        return check_f0_range((float(row["minf0"]), float(row["maxf0"])))
+    if lo is None or hi is None:
+        raise ValueError("f0_min and f0_max must be given together")
+    return check_f0_range((float(lo), float(hi)))
+
+
+def warmup_server(batching, shapes, raw_audio: bool = False,
+                  seed: int = 0) -> None:
     """Drive synthetic requests through the dispatcher before real traffic
     (the first batch of a new shape pays for cuDNN's plans, the kernels'
     weight layouts and the allocator's first blocks).
 
     ``shapes``: ``(src_frames, ref_frames, concurrency)`` triples;
     concurrency B submits B requests at once so the dispatcher packs a
-    B-batch window.  Failures raise.  The stats counters are restored
-    afterwards; call before taking traffic."""
+    B-batch window.  ``raw_audio=True`` sends tones of those lengths
+    through ``convert_wav`` instead (the Converter needs ContentVec).
+    Failures raise.  The stats counters are restored afterwards; call
+    before taking traffic."""
     conv = batching.converter
     stats_before = dict(batching.stats)
     rng = np.random.default_rng(seed)
     content_dim = conv.scaler["hubert"]["mean"].shape[0]
     n_mels = conv.scaler["logmel"]["mean"].shape[0]
+
+    sr, hop = int(conv.config["sampling_rate"]), int(conv.config["hop_size"])
 
     def feats(t: int, with_mel: bool):
         f = {"hubert": rng.normal(size=(t, content_dim)).astype(np.float32),
@@ -541,17 +708,26 @@ def warmup_server(batching, shapes, seed: int = 0) -> None:
             f["logmel"] = rng.normal(size=(t, n_mels)).astype(np.float32)
         return f
 
+    def wav(t: int, f0: float):
+        x = np.arange(t * hop, dtype=np.float32) / sr
+        return (0.2 * np.sin(2 * np.pi * f0 * x)).astype(np.float32)
+
     for ts, tr, b in shapes:
         t0 = time.monotonic()
         errs = []
 
-        def one():
+        def one(i):
             try:
-                batching.convert(feats(ts, False), feats(tr, True))
+                if raw_audio:
+                    batching.convert_wav(wav(ts, 200.0 + 7 * i), sr,
+                                         (wav(tr, 300.0 + 5 * i), sr))
+                else:
+                    batching.convert(feats(ts, False), feats(tr, True))
             except Exception as e:  # noqa: BLE001 — re-raised below
                 errs.append(e)
 
-        threads = [threading.Thread(target=one) for _ in range(b)]
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(b)]
         for th in threads:
             th.start()
         for th in threads:
@@ -559,22 +735,25 @@ def warmup_server(batching, shapes, seed: int = 0) -> None:
         if errs:
             raise RuntimeError(
                 f"warmup failed at shape ({ts}, {tr}, b={b})") from errs[0]
-        logger.info("warmup (%d, %d) x%d: %.1fs", ts, tr, b,
+        logger.info("warmup %s (%d, %d) x%d: %.1fs",
+                    "raw" if raw_audio else "features", ts, tr, b,
                     time.monotonic() - t0)
     with batching._lock:
         batching.stats.update(stats_before)
 
 
-# endpoints of the JAX server that wait for feature extraction and
-# long-form conversion
-NOT_PORTED = ("/convert_wav", "/convert_stream", "/convert_stream_live")
+# endpoints of the JAX server that wait for long-form conversion
+NOT_PORTED = ("/convert_stream", "/convert_stream_live")
 
 
 def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
-                port: int = 8571, max_body_bytes: int = 256 << 20):
+                port: int = 8571, max_body_bytes: int = 256 << 20,
+                f0_table: Optional[dict] = None):
     """Build (not start) a ThreadingHTTPServer around a BatchingConverter.
 
-    ``max_body_bytes`` caps every POST body (413 beyond it)."""
+    ``max_body_bytes`` caps every POST body (413 beyond it).
+    ``f0_table`` maps a ``?voice_type=`` of /convert_wav to its F0 search
+    range (``{"Tenor": {"minf0": 130, "maxf0": 440}, ...}``)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
     from urllib.parse import parse_qs, urlparse
 
@@ -636,6 +815,8 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
                      "Launch-to-result seconds spent."),
                     ("launch_seconds_total", "counter", s["launch_sec"],
                      "Seconds the dispatcher spent launching batches."),
+                    ("extract_seconds_total", "counter", s["extract_sec"],
+                     "Seconds the dispatcher spent extracting raw audio."),
                     ("rtf", "gauge", rtf or 0.0,
                      "Server-side real-time factor (compute/audio)."),
                     ("registered_references", "gauge",
@@ -652,6 +833,36 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
             self._send_json(200, {"ok": True, **s, "rtf": rtf,
                                   "references": batching.reference_names()})
 
+        def _convert_wav(self, query):
+            """Raw audio in, audio out: RIFF wav bytes with
+            ``?style=<registered>``, or an npz from
+            ``encode_wav_request``.  Answers with RIFF wav bytes when a
+            vocoder is loaded, else an npz with the mel."""
+            from serenade_tpu_torch.utils.audio import read_wav, write_wav
+
+            body = self._read_body()
+            if body[:4] == b"RIFF":
+                src_wav, sr = read_wav(io.BytesIO(body))
+                ref = query.get("style", [""])[0]
+                if not ref:
+                    raise ValueError("RIFF body needs ?style=<registered name>")
+                f0_range = _f0_range_from(query, f0_table=f0_table)
+            else:
+                with np.load(io.BytesIO(body)) as z:
+                    src_wav, sr = z["src_wav"], int(z["sr"])
+                    ref = (str(z["ref_name"]) if "ref_name" in z.files
+                           else (z["ref_wav"], int(z["ref_sr"])))
+                    f0_range = _f0_range_from(query, files=z,
+                                              f0_table=f0_table)
+            mel, wav, out_sr = batching.convert_wav(src_wav, sr, ref,
+                                                    f0_range=f0_range)
+            buf = io.BytesIO()
+            if wav is not None:
+                write_wav(buf, wav, out_sr)
+                return self._send(200, buf.getvalue(), "audio/wav")
+            np.savez(buf, mel=mel)
+            self._send(200, buf.getvalue(), "application/octet-stream")
+
         def do_POST(self):
             parsed = urlparse(self.path)
             try:
@@ -662,12 +873,14 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
                     batching.register_reference(
                         name, _parse_ref_npz(self._read_body()))
                     return self._send_json(200, {"ok": True, "name": name})
+                if parsed.path == "/convert_wav":
+                    return self._convert_wav(parse_qs(parsed.query))
                 if parsed.path in NOT_PORTED:
                     self._read_body()
                     return self._send_json(501, {"error": (
                         f"{parsed.path} is not ported yet: it needs "
-                        "feature extraction and long-form conversion; "
-                        "POST extracted features to /convert_features")})
+                        "long-form conversion; POST whole requests to "
+                        "/convert_wav or /convert_features")})
                 if parsed.path != "/convert_features":
                     return self._send_json(404, {})
                 src, ref = _parse_npz(self._read_body())

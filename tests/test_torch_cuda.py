@@ -437,3 +437,87 @@ def test_vocoder_tail_at_batch_8_on_card():
     assert got["cuda"].dtype == torch.int16
     diff = (got["cuda"].int() - got["cpu"].int()).abs().max().item()
     assert diff <= 1, diff
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_matches_plain_on_card():
+    """The Viterbi kernel against its plain version (the frame loop) on
+    seeded candidates with absent ones (emission 1e6), a batch of 3 rows
+    over more than one of the kernel's 256-frame chunks, and one row of
+    length 1: identical states, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.ops import viterbi_cuda
+
+    rng = np.random.default_rng(23)
+    kw = dict(voiced_bias=0.35, transition_octave_cost=6.0, switch_cost=0.4)
+    for b, n in ((3, 700), (1, 1)):
+        cand = rng.uniform(60.0, 1100.0, (b, n, 5)).astype(np.float32)
+        em = rng.uniform(0.0, 1.0, (b, n, 5)).astype(np.float32)
+        em[rng.random((b, n, 5)) < 0.3] = 1e6
+        em, lf = (torch.from_numpy(a).cuda()
+                  for a in (em, np.log2(np.maximum(cand, 1.0))))
+        before = viterbi_cuda.launches
+        got = viterbi_cuda.viterbi_states(em, lf, **kw)
+        assert viterbi_cuda.launches - before == 1
+        want = viterbi_cuda.viterbi_states_plain(em, lf, **kw)
+        assert torch.equal(got, want)
+        assert torch.equal(want.cpu(), viterbi_cuda.viterbi_states_plain(
+            em.cpu(), lf.cpu(), **kw))
+
+
+def _sung(seconds, seed, f0):
+    """A harmonic tone with vibrato, a note change and breath noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 24000)) / 24000
+    note = np.where(t < seconds / 2, f0, f0 * 2 ** (3 / 12))
+    phase = 2 * np.pi * np.cumsum(note * (1 + 0.015 * np.sin(
+        2 * np.pi * 5.5 * t))) / 24000
+    x = 0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase)
+    return (x + 0.01 * rng.normal(size=len(t))).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_card_extraction_matches_cpu():
+    """``extract_from_wav_batch`` on the card (the Viterbi kernel, ContentVec
+    at 2 layers of 64, seeded) against the CPU's plain route on the same
+    weights: log-mel within 1e-4 where within 70 dB of its frame's peak,
+    loudness within 1e-4, vuv on 99.5 % of frames and f0 within 1e-3
+    relative, the score on 99 % of frames, ContentVec within 1e-4 of
+    max(1, |CPU|) (the rules of tests/test_torch_features.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.ops import viterbi_cuda
+
+    cfg = dict(NARROW, input_dim=64, dtype="float32")
+    sc = dict(_identity_scaler(), hubert={"mean": np.zeros(64),
+                                          "scale": np.ones(64)})
+    wavs = [_sung(1.3, 24, 220.0), _sung(1.1, 25, 330.0),
+            _sung(2.4, 26, 180.0)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        conv = Converter(cfg, None, sc, contentvec_config=dict(
+            dim=64, num_layers=2, heads=4, ffn_dim=128), n_timesteps=1,
+            seed=3, device=dev)
+        before = viterbi_cuda.launches
+        out[dev] = conv.extract_from_wav_batch(wavs, [24000] * 3)
+        launched = viterbi_cuda.launches - before
+    assert launched == 2   # two signal groups: 1.1 s, and 1.3 s with 2.4 s
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        got = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+               for k, v in card.items()}
+        want = {k: v.numpy() if torch.is_tensor(v) else v
+                for k, v in cpu.items()}
+        assert all(got[k].shape == want[k].shape for k in want)
+        deep = want["logmel"] < want["logmel"].max(-1, keepdims=True) - 3.5
+        diff = np.abs(got["logmel"] - want["logmel"])
+        assert diff[~deep].max() <= 1e-4 and diff.max() <= 1e-2
+        assert np.abs(got["loud"] - want["loud"]).max() <= 1e-4
+        assert (got["vuv"] == want["vuv"]).mean() >= 0.995
+        both = (got["vuv"] > 0) & (want["vuv"] > 0)
+        assert (np.abs(got["f0"] - want["f0"])[both]
+                / want["f0"][both]).max() <= 1e-3
+        assert (got["est_lf0_score"] == want["est_lf0_score"]).mean() >= 0.99
+        scale = max(1.0, np.abs(want["hubert"]).max())
+        assert np.abs(got["hubert"] - want["hubert"]).max() <= 1e-4 * scale
