@@ -417,11 +417,13 @@ def test_extract_features_matches_jax(content_fns):
         assert_features_agree(got, want)
 
 
-def test_extract_features_batch_matches_jax(content_fns):
-    """The serving form: the int16 wire, ContentVec's 24 -> 16 kHz resample
-    on the device (``batch24``), pow2 groups (two utterances in one
-    bucket and range, others alone), per-item F0 ranges, a bad waveform
-    and a silent one skipped alone (None)."""
+@pytest.mark.parametrize("wire", ["int16", "float32"])
+def test_extract_features_batch_matches_jax(content_fns, wire):
+    """Pow2 groups (two utterances in one bucket and range, others
+    alone), per-item F0 ranges, a bad waveform and a silent one skipped
+    alone (None); on the serving form's int16 wire ContentVec resamples
+    24 -> 16 kHz on the device (``batch24``), on the f32 wire the host
+    resamples (``batch``)."""
     jax_fn, port_fn = content_fns
     items = [("a", sung(1.0, 14), SR, None),
              ("b", sung(1.1, 15, 330.0), SR, None),
@@ -429,7 +431,7 @@ def test_extract_features_batch_matches_jax(content_fns):
              ("c", sung(2.2, 16, 180.0), SR, None),
              ("quiet", np.zeros(SR // 2, np.float32), SR, None)]
     ranges = [(100.0, 800.0), (100.0, 800.0), None, None, None]
-    kw = dict(pad_group_pow2=True, wire_dtype="int16", f0_ranges=ranges)
+    kw = dict(pad_group_pow2=True, wire_dtype=wire, f0_ranges=ranges)
     got = features.extract_features_batch(
         items, features.FeatureConfig.from_dict(FC), content_fn=port_fn,
         device="cpu", **kw)
