@@ -102,10 +102,11 @@ def assert_f0_agrees(f0, vuv, f0_j, vuv_j):
 def assert_logmel_agrees(got, want):
     """Within 1e-4 absolute wherever the mel is within 70 dB of its
     frame's peak (log10 at least rowmax - 3.5).  Deeper, JAX's own f32
-    rounding of the DFT-basis products decides (against an f64 STFT of
-    these signals its error is 3.3e-5 at 70-80 dB under the peak and
-    1.5e-4 at 90-100 dB; the port sums those products in f64); the eps
-    floor of 1e-6 keeps the difference under 1e-2."""
+    sums of the DFT-basis products decide (against f64 sums of the same
+    operands its error is 4.2e-5 at 70-80 dB under the peak and 9.2e-5 at
+    80-100 dB, ``test_log_mel_against_f64_sums_of_jaxs_operands``; the
+    port sums in f64); the eps floor of 1e-6 keeps the difference under
+    1e-2."""
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape
     diff = np.abs(got - want)
@@ -135,6 +136,49 @@ def test_stft_power_and_logmel_match_jax():
         assert_logmel_agrees(lm[i], jmel.logmelfilterbank(
             jnp.asarray(row), SR, fft_size=512, hop_size=240,
             win_length=480, num_mels=80, fmin=63, fmax=12000, eps=1e-6))
+
+
+def test_log_mel_against_f64_sums_of_jaxs_operands():
+    """The reference: JAX's f32 operands (windowed frames, DFT basis, mel
+    basis) with every product summed in f64.  The port, which sums the
+    DFT products so, is within 1e-6 of it in log10 mel wherever the mel
+    is within 70 dB of its frame's peak; JAX (XLA's f32 sums) within 1e-4
+    there, which the log-mel tolerance of these tests rests on.  Prints
+    the largest error by depth under the peak (``pytest -s``) for JAX,
+    the port, and the same products summed in f32 by PyTorch."""
+    x = np.concatenate([signals(1.5), sung(1.5, 1)[None],
+                        sung(1.5, 2, 440.0)[None]])
+    kw = dict(fft_size=512, hop_size=240, win_length=480, num_mels=80,
+              fmin=63.0, fmax=12000.0, eps=1e-6)
+    window, basis = pstft._operands(512, 480, torch.device("cpu"))
+    fw = pstft.frame_signal(torch.from_numpy(x), 512, 240) * window
+    mel_b = torch.from_numpy(pmel.mel_filterbank(SR, 512, 80, 63.0,
+                                                 12000.0))
+
+    def log_mel(re, im, dtype):
+        mag = torch.sqrt(re * re + im * im + 1e-30)
+        return torch.log10(torch.clamp_min(mag @ mel_b.to(dtype), 1e-6))
+
+    ref = log_mel(*(fw.double() @ basis).chunk(2, -1), torch.float64)
+    f32_sums = log_mel(*(fw @ basis.float()).chunk(2, -1), torch.float32)
+    got = {"port": pmel.logmelfilterbank(torch.from_numpy(x), SR, **kw),
+           "jax": np.stack([np.asarray(jmel.logmelfilterbank(
+               jnp.asarray(row), SR, **kw)) for row in x]),
+           "f32 sums": f32_sums}
+    ref = ref.numpy()
+    depth = ref.max(axis=-1, keepdims=True) - ref
+    # decades of mel under the frame's peak: 20 dB each
+    bands = ((0, 3.5), (3.5, 4), (4, 5), (5, np.inf))
+    err = {}
+    for name, a in got.items():
+        diff = np.abs(np.asarray(a, np.float64) - ref)
+        err[name] = [float(diff[(depth >= lo) & (depth < hi)].max())
+                     for lo, hi in bands]
+        print(f"{name:9s}", "  ".join(
+            f"{20 * lo:.0f}-{20 * hi:.0f} dB: {e:.2e}"
+            for (lo, hi), e in zip(bands, err[name])))
+    assert err["port"][0] <= 1e-6
+    assert err["jax"][0] <= 1e-4
 
 
 def test_loudness_is_per_row_and_matches_jax():
