@@ -55,7 +55,22 @@ Phases, each printing JSON lines:
 8. batch_parity -- row i of a batched bf16 conversion on the card against
                the same request converted alone at the same buckets and
                noise row, held by phase 4's rule against the CPU's own
-               bf16 - f32 gap; f32 too.
+               bf16 - f32 gap; f32 too;
+9. stream   -- long-form and streaming, phase 3's Converter and phase 7's
+               style packed on the card: a 60 s feature source through
+               ``convert_features_stream`` (4 chunks at 2048/256) and
+               ``convert_features_long``, a 60 s waveform through
+               ``convert_wav_stream`` (windowed extraction ramping 512 ->
+               2048), each with its time to first audio, wall time, RTF,
+               launches (K1, K2, K3, the Viterbi kernel) and routed calls
+               (0); 20 s fed to ``convert_wav_stream_live`` in 20 ms
+               pieces at real time (lag p50/p95/max), then unpaced; both
+               endpoints over HTTP (a feature npz and RIFF with ?style= to
+               /convert_stream, a chunked PCM16 upload to
+               /convert_stream_live), each read to its done marker; then a
+               small f32 stream on the card against the CPU by phase 4's
+               rule.  Profiles of the long feature stream and of 2 s of
+               the live one give the device's idle share.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -219,6 +234,10 @@ def check_flash(torch, dev):
     case(16, 4, 512, 512, torch.bfloat16, [512] + [475] * 15, 2e-2, True)
     # the serving path's batch of 8 (1024, 512) requests
     case(8, 4, 1536, 512, torch.bfloat16, [1536] * 8, 2e-2, True)
+    # the streams: a 2048-frame chunk behind the 512-frame style, and a
+    # live 64-frame chunk
+    case(1, 4, 2560, 512, torch.bfloat16, [2560], 2e-2, True)
+    case(1, 4, 576, 512, torch.bfloat16, [576], 2e-2, True)
     return main, rows
 
 
@@ -288,6 +307,9 @@ def check_block1d(torch, dev):
     case(2, 150, 242, 512, torch.bfloat16, [150, 77], 2e-2, False)
     # the serving path's batch of 8 (1024, 512) requests
     case(8, 1536, 1024, 512, torch.bfloat16, [1536] * 8, 2e-2, True)
+    # the streams' packed lengths (as above)
+    case(1, 2560, 1024, 512, torch.bfloat16, [2560], 2e-2, True)
+    case(1, 576, 1024, 512, torch.bfloat16, [576], 2e-2, True)
     return main, rows
 
 
@@ -1468,6 +1490,370 @@ def batch_parity(torch, np, dev, counters):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 9: long-form and streaming conversion
+# ---------------------------------------------------------------------------
+
+LONG_FRAMES, LONG_S = 6000, 60.0    # a 60 s source: 4 chunks at 2048/256
+LIVE_S, LIVE_PIECE = 20.0, 480      # 20 s of live input in 20 ms pieces
+LIVE_PROFILE_S = 2.0                # profiled unpaced: reading a trace
+                                    # costs far more than the run
+HTTP_FRAMES, HTTP_RIFF_S, HTTP_LIVE_S = 2400, 20.0, 5.0
+
+
+def serve_style(np, d):
+    """Phase 7's registered style: 512 frames from seed 7's first draw."""
+    return _f32(_features(np, np.random.default_rng(7), STYLE_FRAMES, True,
+                          input_dim=d))
+
+
+def _timed_stream(torch, segments):
+    """Drain a stream: (its segments, seconds to the first segment with a
+    waveform, seconds in all), on the host's clock."""
+    t0 = time.perf_counter()
+    out, first = [], None
+    for seg in segments:
+        if first is None and seg[2] is not None:
+            first = time.perf_counter() - t0
+        out.append(seg)
+    torch.cuda.synchronize()
+    return out, first, time.perf_counter() - t0
+
+
+def _contiguous(np, segs, n) -> bool:
+    """Segments in order, end to end, covering n frames, finite, each
+    waveform hop times its mel."""
+    pos = 0
+    for start, mel, wav in segs:
+        if (start != pos or not np.isfinite(mel).all() or wav is None
+                or wav.shape != (mel.shape[0] * HOP,)
+                or not np.isfinite(wav).all()):
+            return False
+        pos += mel.shape[0]
+    return pos == n
+
+
+def _stream_counts(launches, routed, k3_calls_min, viterbi):
+    """K1 60 and K2 130 launches a chunk (Euler-10), K3 at least 9 branch
+    calls a vocoder call, the Viterbi kernel once a window; none routed."""
+    return (launches["flash_fwd"] > 0 and launches["block1d_fwd"] > 0
+            and launches["flash_fwd"] * 13 == launches["block1d_fwd"] * 6
+            and launches["resblock_branch"] >= k3_calls_min
+            and (launches["viterbi_f0"] > 0) == viterbi
+            and not any(routed.values()))
+
+
+def stream_long(torch, np, conv, counters, packed, card):
+    """Long-form: a 60 s source through convert_features_stream (features
+    in, 2048/256) and a 60 s waveform through convert_wav_stream (ramping
+    512 -> 2048, windowed extraction), each once to warm up and once
+    timed with the counters; convert_features_long on the same features;
+    one profiled run of the features stream."""
+    from serenade_tpu_torch.features import FeatureConfig, stream_total_frames
+
+    rng = np.random.default_rng(9)
+    src = _f32(_features(np, rng, LONG_FRAMES, False,
+                         input_dim=conv.scaler["hubert"]["mean"].shape[0]))
+    wav = sung(np, LONG_S, 90, 196.0)
+    ok, rows = True, {}
+    for name, run, n in (
+            ("features", lambda: conv.convert_features_stream(src, packed),
+             LONG_FRAMES),
+            ("wav", lambda: conv.convert_wav_stream(wav, SR, packed),
+             stream_total_frames(int(LONG_S * SR) + 512,
+                                 FeatureConfig.from_dict(conv.config)))):
+        _timed_stream(torch, run())                       # warm-up
+        counters.reset()
+        segs, first, wall = _timed_stream(torch, run())
+        launches, routed = counters.read(), counters.routed()
+        chunks = launches["flash_fwd"] // 60
+        right = _contiguous(np, segs, n)
+        counts_ok = _stream_counts(launches, routed,
+                                   9 * len(segs), name == "wav")
+        row = {"frames": n, "chunks": chunks, "segments": len(segs),
+               "first_audio_s": first, "wall_s": wall,
+               "rtf": wall / (n * HOP / SR), "launches": launches,
+               "routed": routed, "right": right}
+        if name == "wav":
+            row["windows"] = launches["viterbi_f0"]
+            row["ok"] = right and counts_ok and chunks == 5
+        else:
+            mel, wav, _ = conv.convert_features_long(src, packed)
+            row["long_mel_frames"] = int(mel.shape[0])
+            row["ok"] = (right and counts_ok and chunks == 4
+                         and mel.shape[0] == sum(m.shape[0]
+                                                 for _, m, _ in segs)
+                         and bool(np.isfinite(mel).all())
+                         and bool(np.isfinite(wav).all()))
+        emit({"phase": "stream", "part": f"long_{name}", "card": card,
+              "source_s": n * HOP / SR, **row})
+        rows[name] = row
+        ok &= row["ok"]
+    prof = device_time(torch, lambda: _timed_stream(
+        torch, conv.convert_features_stream(src, packed)))
+    prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / rows[
+        "features"]["wall_s"]
+    emit(dict(phase="stream_profile", part="long_features", **prof))
+    return ok, rows
+
+
+def stream_live(torch, np, conv, counters, packed, card):
+    """Live: LIVE_S of a sung waveform fed to convert_wav_stream_live in
+    20 ms pieces by a feeder thread at real time (defaults 64/16/32).
+    Each segment's lag is the time it is yielded minus the time the last
+    piece holding audio it covers arrived.  Then the same stream fed as
+    fast as it is read (wall time, RTF), and a profiled LIVE_PROFILE_S of
+    it."""
+    import queue
+    import threading
+
+    wav = sung(np, LIVE_S, 91, 220.0)
+    pieces = [wav[i:i + LIVE_PIECE] for i in range(0, len(wav), LIVE_PIECE)]
+    _timed_stream(torch, conv.convert_wav_stream_live(iter(pieces[:100]),
+                                                      SR, packed))
+    q = queue.Queue()
+    t0 = time.perf_counter()
+
+    def feed():
+        for i, p in enumerate(pieces):
+            time.sleep(max(0.0, t0 + (i + 1) * LIVE_PIECE / SR
+                           - time.perf_counter()))
+            q.put(p)
+        q.put(None)
+
+    def arrivals():
+        while (p := q.get()) is not None:
+            yield p
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    counters.reset()
+    feeder.start()
+    lags, segs = [], []
+    for seg in conv.convert_wav_stream_live(arrivals(), SR, packed):
+        now = time.perf_counter()
+        start, mel, _ = seg
+        end = min((start + mel.shape[0]) * HOP, len(wav))
+        arrived = t0 + math.ceil(end / LIVE_PIECE) * LIVE_PIECE / SR
+        lags.append(now - arrived)
+        segs.append(seg)
+    feeder.join()
+    launches, routed = counters.read(), counters.routed()
+    n = sum(m.shape[0] for _, m, _ in segs)
+    counters.reset()
+    fast, first, wall = _timed_stream(torch, conv.convert_wav_stream_live(
+        iter(pieces), SR, packed))
+    same = (len(fast) == len(segs) and all(
+        a[0] == b[0] and a[1].shape == b[1].shape for a, b in zip(fast, segs)))
+    ok = (_contiguous(np, segs, n) and same and n >= LIVE_S * 100
+          and _stream_counts(launches, routed, 9 * len(segs),
+                             True))
+    emit({"phase": "stream", "part": "live", "card": card, "source_s": LIVE_S,
+          "piece_ms": 1000 * LIVE_PIECE / SR, "spans": launches["viterbi_f0"],
+          "segments": len(segs), "frames": n,
+          "lag_s": {"p50": float(np.percentile(lags, 50)),
+                    "p95": float(np.percentile(lags, 95)),
+                    "max": max(lags), "min": min(lags)},
+          "unpaced": {"wall_s": wall, "rtf": wall / LIVE_S,
+                      "first_audio_s": first},
+          "launches": launches, "routed": routed, "ok": ok})
+    short = pieces[:int(LIVE_PROFILE_S * SR / LIVE_PIECE)]
+    prof = device_time(torch, lambda: _timed_stream(
+        torch, conv.convert_wav_stream_live(iter(short), SR, packed)))
+    _, _, short_wall = _timed_stream(
+        torch, conv.convert_wav_stream_live(iter(short), SR, packed))
+    prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / short_wall
+    emit(dict(phase="stream_profile", part="live_unpaced",
+              source_s=LIVE_PROFILE_S, unprofiled_wall_s=short_wall, **prof))
+    return ok
+
+
+def stream_http(torch, np, conv, counters, style, card):
+    """Both stream endpoints on 127.0.0.1:0: /convert_stream with a
+    feature npz (the registered style) and with RIFF and ?style=,
+    /convert_stream_live with a chunked PCM16 upload through http.client.
+    Each answer is read by iter_stream_blocks to its done marker; the
+    first block's time is on the client's clock."""
+    import http.client
+    import io
+    import threading
+    import urllib.request
+
+    from serenade_tpu_torch.features import FeatureConfig, stream_total_frames
+    from serenade_tpu_torch.serving import (
+        BatchingConverter, encode_reference, encode_request,
+        iter_stream_blocks, make_server,
+    )
+    from serenade_tpu_torch.utils.audio import write_wav
+
+    fc = FeatureConfig.from_dict(conv.config)
+    rng = np.random.default_rng(10)
+    src = _f32(_features(np, rng, HTTP_FRAMES, False,
+                         input_dim=conv.scaler["hubert"]["mean"].shape[0]))
+    riff = io.BytesIO()
+    write_wav(riff, sung(np, HTTP_RIFF_S, 92, 262.0), SR)
+    pcm = (np.clip(sung(np, HTTP_LIVE_S, 93, 196.0), -1, 1)
+           * 32767).astype("<i2").tobytes()
+    batching = BatchingConverter(conv)
+    server = make_server(batching, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+
+    def blocks_of(resp, t0):
+        first, out = None, []
+        for blk in iter_stream_blocks(resp):
+            first = first if first is not None else time.perf_counter() - t0
+            out.append(blk)
+        return out, first, time.perf_counter() - t0
+
+    def post(path, body):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"http://{host}:{port}{path}", data=body)
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return blocks_of(resp, t0)
+
+    def live(path):
+        """The upload goes out from its own thread while this one reads
+        the answer, which starts before the upload ends."""
+        c = http.client.HTTPConnection(host, port, timeout=300)
+
+        def upload():
+            for i in range(0, len(pcm), 2 * LIVE_PIECE):
+                p = pcm[i:i + 2 * LIVE_PIECE]
+                c.send(f"{len(p):X}\r\n".encode() + p + b"\r\n")
+            c.send(b"0\r\n\r\n")
+
+        sender = threading.Thread(target=upload, daemon=True)
+        try:
+            t0 = time.perf_counter()
+            c.putrequest("POST", path)
+            c.putheader("Transfer-Encoding", "chunked")
+            c.endheaders()
+            sender.start()
+            return blocks_of(c.getresponse(), t0)
+        finally:
+            sender.join(timeout=60)
+            c.close()
+
+    ok = True
+    try:
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://{host}:{port}/register_reference?name=breathy",
+            data=encode_reference(style)), timeout=60).read()
+        for name, call, n in (
+                ("features_npz", lambda: post(
+                    "/convert_stream", encode_request(src, "breathy")),
+                 HTTP_FRAMES),
+                ("riff_style", lambda: post(
+                    "/convert_stream?style=breathy", riff.getvalue()),
+                 stream_total_frames(int(HTTP_RIFF_S * SR) + 512, fc)),
+                ("live_chunked_pcm16", lambda: live(
+                    "/convert_stream_live?style=breathy"),
+                 stream_total_frames(int(HTTP_LIVE_S * SR) + 512, fc))):
+            call()                                         # warm-up
+            counters.reset()
+            blocks, first, wall = call()
+            launches, routed = counters.read(), counters.routed()
+            segs = [(int(b["start"]), b["mel"], b["wav"]) for b in blocks]
+            right = (_contiguous(np, segs, n)
+                     and all(int(b["sr"]) == SR for b in blocks))
+            row = {"endpoint": name, "blocks": len(blocks), "frames": n,
+                   "first_block_s": first, "wall_s": wall,
+                   "rtf": wall / (n * HOP / SR), "done_marker": True,
+                   "launches": launches, "routed": routed, "right": right,
+                   "ok": right and _stream_counts(
+                       launches, routed, 9 * len(blocks),
+                       name != "features_npz")}
+            emit({"phase": "stream", "part": "http", "card": card, **row})
+            ok &= row["ok"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        batching.close()
+        thread.join(timeout=10)
+    return ok
+
+
+def stream_parity(torch, np, dev, counters):
+    """A small f32 model (head dim 512, so K1 and K2 run) converts a
+    300-frame source at chunk 128 / overlap 32 and temperature 0 through
+    convert_features_stream, on the card (kernels) and on the CPU (plain
+    versions) from the same weights; the stitched mel and waveform are
+    held by phase 4's f32 rule."""
+    from serenade_tpu_torch.api import Converter
+
+    cfg = dict(input_dim=32, output_dim=80, encoder_channels=16,
+               encoder_hidden_dim=32, decoder_channels=64, gst_embed_dim=32,
+               decoder_attention_head_dim=512, gst_tokens=10,
+               gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16,
+               dtype="float32")
+    voc = {"sampling_rate": SR, "generator_params": {
+        "channels": 64, "upsample_scales": [4, 3],
+        "upsample_kernel_sizes": [8, 6]}}
+    rng = np.random.default_rng(11)
+    src = _features(np, rng, 300, False, input_dim=32)
+    ref = _features(np, rng, 100, True, input_dim=32)
+    out = {}
+    for device in ("cpu", dev):
+        conv = Converter(cfg, None, _scaler(np, input_dim=32),
+                         vocoder_config=voc,
+                         vocoder_stats={"mean": np.zeros(80),
+                                        "scale": np.ones(80)},
+                         n_timesteps=4, temperature=0.0, seed=5,
+                         device=device)
+        counters.reset()
+        segs = list(conv.convert_features_stream(
+            src, ref, chunk_frames=128, overlap_frames=32))
+        out[str(device)] = (segs, counters.read(), counters.routed())
+    cpu, (card, launches, routed) = out["cpu"][0], out[str(dev)]
+    same = [s for s, _, _ in cpu] == [s for s, _, _ in card]
+    mel_c = np.concatenate([m for _, m, _ in cpu])
+    mel_d = np.concatenate([m for _, m, _ in card])
+    wav_c = np.concatenate([w for _, _, w in cpu])
+    wav_d = np.concatenate([w for _, _, w in card])
+    mel_err = float(np.abs(mel_c - mel_d).max())
+    wav_err = float(np.abs(wav_c - wav_d).max())
+    scale = max(1.0, float(np.abs(mel_c).max()))
+    ran = all(launches[k] > 0 for k in ("flash_fwd", "block1d_fwd",
+                                        "resblock_branch"))
+    ok = (same and mel_err / scale <= 1e-3 and wav_err <= 1e-3 and ran
+          and not any(routed.values()))
+    emit({"phase": "stream_parity", "segments": len(card),
+          "starts": [s for s, _, _ in card], "mel_max_abs_err": mel_err,
+          "wav_max_abs_err": wav_err, "mel_scale": scale, "tol": 1e-3,
+          "launches": launches, "routed": routed, "ok": ok})
+    return ok
+
+
+def stream_path(torch, np, dev, counters, conv, card):
+    """Phase 9: phase 3's Converter with phase 7's style, packed as a
+    registered style is: long-form features and raw audio, live input,
+    both endpoints over HTTP, then card-vs-CPU parity of a small stream.
+    Returns (ok, the launches of the long-form raw-audio stream)."""
+    t0 = time.time()
+    style = serve_style(np, conv.scaler["hubert"]["mean"].shape[0])
+    with torch.no_grad():
+        packed = conv.pack_reference(style)
+    seconds = {}
+
+    def part(name, fn):
+        t = time.time()
+        out = fn()
+        seconds[name] = time.time() - t
+        return out
+
+    ok, rows = part("long", lambda: stream_long(torch, np, conv, counters,
+                                                packed, card))
+    ok &= part("live", lambda: stream_live(torch, np, conv, counters, packed,
+                                           card))
+    ok &= part("http", lambda: stream_http(torch, np, conv, counters, style,
+                                           card))
+    ok &= part("parity", lambda: stream_parity(torch, np, dev, counters))
+    emit({"phase": "stream_done", "seconds": time.time() - t0,
+          "part_seconds": seconds, "ok": ok})
+    return ok, rows["wav"]["launches"]
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -1646,6 +2032,11 @@ def main() -> int:
     ok &= train_parity(torch, np, dev)
     ok &= serve_path(torch, np, dev, counters, conv, card)
     ok &= batch_parity(torch, np, dev, counters)
+    stream_ok, launches = stream_path(torch, np, dev, counters, conv, card)
+    ok &= stream_ok
+    for name in ("flash_fwd", "block1d_fwd", "resblock_branch",
+                 "viterbi_f0"):
+        entries[name]["stream_launches"] = launches[name]
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

@@ -1,7 +1,9 @@
 """Conversion API (counterpart of serenade_tpu/api.py ``Converter``:
 ``convert_features``, ``pack_reference`` and ``convert_features_batch``;
 from raw audio, ``extract_from_wav``, ``extract_from_wav_batch``,
-``convert_wav`` and ``style_embedding``).
+``convert_wav`` and ``style_embedding``; long-form and streaming,
+``convert_features_long``, ``convert_features_stream``,
+``convert_wav_stream`` and ``convert_wav_stream_live``).
 
 Everything comes in as data: model, vocoder and ContentVec configs as
 dicts (``configs.py`` holds the full-width ones), parameters as a flax
@@ -19,7 +21,9 @@ statistics as arrays::
 
 from __future__ import annotations
 
+import contextlib
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -30,13 +34,18 @@ from serenade_tpu_torch.collaters.ssc import bucket_length, next_pow2, pad_to
 from serenade_tpu_torch.configs import FEATURE_CONFIG
 from serenade_tpu_torch.convert import load_params
 from serenade_tpu_torch.features import (
-    FeatureConfig, extract_features, extract_features_batch,
+    FeatureConfig, _prepare_audio, extract_features, extract_features_batch,
+    extract_stream_window, stream_total_frames, validate_waveform,
 )
 from serenade_tpu_torch.models.layers import (
     init_params_,
     store_compute_weights_,
 )
 from serenade_tpu_torch.models.serenade import Serenade
+from serenade_tpu_torch.ops.longform import (
+    StreamStitcher, convert_in_chunks, convert_in_chunks_stream,
+    split_chunks_ramp, stitch_mel_stream,
+)
 from serenade_tpu_torch.vocoder.vocoder import Vocoder
 
 SRC_KEYS = ("hubert", "score", "loud")
@@ -329,3 +338,226 @@ class Converter:
         with torch.no_grad():
             emb = self.model.gst(mel, upload(np.asarray([t]), self.device))
         return emb[0].float().cpu().numpy()
+
+    # -- long-form and streaming -----------------------------------------
+
+    def convert_features_long(self, src_feats: Mapping[str, np.ndarray],
+                              ref_feats, chunk_frames: int = 2048,
+                              overlap_frames: int = 256):
+        """Long-form conversion: overlapped chunks crossfaded into one mel
+        (sources may exceed the 3000-frame training cap).  ``ref_feats``
+        is a feature dict or a :meth:`pack_reference` handle.  Returns
+        (mel, waveform or None, rate or None)."""
+        mel = convert_in_chunks(self._source_frame_feats(src_feats),
+                                self._chunk_converter(ref_feats),
+                                chunk_frames=chunk_frames,
+                                overlap_frames=overlap_frames)
+        if self.vocoder is None:
+            return mel, None, None
+        return (mel,) + self.vocoder.decode(mel)
+
+    def convert_features_stream(self, src_feats: Mapping[str, np.ndarray],
+                                ref_feats, chunk_frames: int = 2048,
+                                overlap_frames: int = 256,
+                                vocoder_context_frames: int = 32):
+        """Streaming long-form conversion: yields ``(start_frame,
+        mel_segment, wav_segment or None)`` as each region finalizes, the
+        first after one chunk.  The waveform's rate is
+        :attr:`output_sample_rate`, known before iteration.  Each region
+        is vocoded with ``vocoder_context_frames`` of final left context
+        (synthesized again and cut off), so the generator's receptive
+        field sees real history at the joins."""
+        yield from self._vocode_segments(
+            convert_in_chunks_stream(
+                self._source_frame_feats(src_feats),
+                self._chunk_converter(ref_feats),
+                chunk_frames=chunk_frames, overlap_frames=overlap_frames),
+            vocoder_context_frames)
+
+    def convert_wav_stream(self, src_wav: np.ndarray, sr: int, ref_feats,
+                           chunk_frames: int = 2048, overlap_frames: int = 256,
+                           first_chunk_frames: int = 512,
+                           extract_ctx_frames: int = 256,
+                           vocoder_context_frames: int = 32,
+                           f0_range: Optional[Tuple[float, float]] = None):
+        """Streaming long-form conversion from raw audio, extracted window
+        by window: yields as :meth:`convert_features_stream` does, but the
+        features (signal features and ContentVec) are extracted for each
+        chunk from a context-padded window, so the first audio waits for
+        one window's extraction, not the whole source's.  The next window
+        is extracted on a worker thread while the current chunk converts,
+        and the chunks ramp from ``first_chunk_frames`` up to
+        ``chunk_frames``.
+
+        The worker runs on the caller's CUDA stream with gradients off, so
+        the ContentVec output it leaves on the device is ordered before
+        the conversion that reads it."""
+        self._require_content_fn()
+        fc = FeatureConfig.from_dict(self.config)
+        audio = _prepare_audio("stream_src", src_wav, sr, fc)
+        spans = split_chunks_ramp(stream_total_frames(len(audio), fc),
+                                  chunk_frames, overlap_frames,
+                                  first_chunk_frames)
+        convert_chunk = self._chunk_converter(ref_feats)
+        minf0, maxf0 = f0_range or (70.0, 1100.0)
+
+        def mels():
+            # the worker enters this thread's CUDA stream, with gradients
+            # off: both are per thread in PyTorch
+            stream = (torch.cuda.current_stream(self.device)
+                      if self.device.type == "cuda" else None)
+
+            def extract(span):
+                with torch.no_grad(), (
+                        contextlib.nullcontext() if stream is None
+                        else torch.cuda.stream(stream)):
+                    return extract_stream_window(
+                        audio, span, fc, minf0, maxf0,
+                        content_fn=self._content_fn,
+                        ctx_frames=extract_ctx_frames, device=self.device)
+
+            # one window ahead: window i+1 is extracted while chunk i
+            # converts and its mel comes down
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                fut = ex.submit(extract, spans[0])
+                for i in range(len(spans)):
+                    feats = fut.result()
+                    if i + 1 < len(spans):
+                        fut = ex.submit(extract, spans[i + 1])
+                    yield convert_chunk(feats)
+
+        yield from self._vocode_segments(stitch_mel_stream(spans, mels()),
+                                         vocoder_context_frames)
+
+    def convert_wav_stream_live(self, audio_chunks, sr: int, ref_feats,
+                                chunk_frames: int = 64,
+                                overlap_frames: int = 16,
+                                extract_ctx_frames: int = 32,
+                                vocoder_context_frames: int = 32,
+                                f0_range: Optional[Tuple[float,
+                                                         float]] = None):
+        """Live streaming: consume an iterator of waveform pieces as they
+        arrive (a microphone, a chunked upload) and yield ``(start_frame,
+        mel_segment, wav_segment or None)`` while the source is still
+        being produced.
+
+        A span converts once ``chunk_frames + extract_ctx_frames`` frames
+        of audio past its start have arrived, so the output trails the
+        input by about ``(chunk + ctx + overlap) x 10 ms`` plus the
+        compute.  Fed the whole waveform as one piece, it yields what
+        :meth:`convert_wav_stream` yields with a uniform (unramped)
+        schedule.  The pieces must be at the model's rate already; each
+        is validated as it arrives, so a bad piece faults the stream at
+        once.  Memory stays bounded: audio no span reads again is
+        dropped as the stream advances."""
+        self._require_content_fn()
+        fc = FeatureConfig.from_dict(self.config)
+        if sr != fc.sampling_rate:
+            raise ValueError(
+                f"live streaming needs {fc.sampling_rate} Hz audio, got "
+                f"{sr}; resample the pieces before sending them")
+        convert_chunk = self._chunk_converter(ref_feats)
+        minf0, maxf0 = f0_range or (70.0, 1100.0)
+        hop = fc.hop_size
+
+        def extract(audio, span):
+            return extract_stream_window(
+                audio, span, fc, minf0, maxf0, content_fn=self._content_fn,
+                ctx_frames=extract_ctx_frames, device=self.device)
+
+        def segments():
+            stitcher = StreamStitcher()
+            it = iter(audio_chunks)
+            buf = np.zeros(0, np.float32)
+            # base: the absolute frame of buf[0].  Samples left of
+            # s - ctx are read by no later span and are dropped, so an
+            # endless source runs in bounded memory (and each piece's
+            # concatenate copies a window, not the whole session)
+            s, base, done = 0, 0, False
+            while True:
+                new_base = max(base, s - extract_ctx_frames)
+                if new_base > base:
+                    buf = buf[(new_base - base) * hop:]
+                    base = new_base
+                e = s + chunk_frames
+                # audio for the span, its right context and the content
+                # and STFT tails
+                need = (e - base + extract_ctx_frames) * hop + fc.fft_size
+                while not done and len(buf) < need:
+                    try:
+                        piece = validate_waveform(next(it), "live chunk")
+                    except StopIteration:
+                        done = True
+                        break
+                    buf = np.concatenate([buf, np.asarray(piece,
+                                                          np.float32)])
+                if done:
+                    break
+                mel = convert_chunk(extract(buf, (s - base, e - base)))
+                yield from stitcher.add((s, e), mel,
+                                        next_start=e - overlap_frames)
+                s = e - overlap_frames
+            # the source ended: the reflect pad _prepare_audio gives a
+            # file, then the remaining spans
+            if base == 0 and len(buf) < fc.fft_size:
+                raise ValueError(
+                    f"live stream ended after {len(buf)} samples: too "
+                    "short to analyze")
+            audio = np.pad(buf, (0, fc.fft_size), mode="reflect")
+            n = stream_total_frames(base * hop + len(audio), fc)
+            if n <= s:
+                return
+            while s < n:
+                e = min(s + chunk_frames, n)
+                mel = convert_chunk(extract(audio, (s - base, e - base)))
+                last = e >= n
+                yield from stitcher.add(
+                    (s, e), mel,
+                    next_start=None if last else e - overlap_frames)
+                if last:
+                    return
+                s = e - overlap_frames
+
+        yield from self._vocode_segments(segments(), vocoder_context_frames)
+
+    def _vocode_segments(self, segments, vocoder_context_frames: int):
+        """(start, mel_seg) stream -> (start, mel_seg, wav_seg or None):
+        each finalized region is vocoded with ``vocoder_context_frames``
+        of already-final left context (synthesized again and cut off) so
+        the generator's receptive field sees real history at the joins."""
+        mel_tail = None  # the last ctx frames of the mel already yielded
+        for start, seg in segments:
+            wav_seg = None
+            if self.vocoder is not None:
+                ctx = 0 if mel_tail is None else mel_tail.shape[0]
+                mel_in = seg if ctx == 0 else np.concatenate(
+                    [mel_tail, seg], axis=0)
+                wav, _ = self.vocoder.decode(mel_in)
+                hop = len(wav) // mel_in.shape[0]
+                wav_seg = wav[ctx * hop:]
+            # seg[-0:] is the whole segment, not "no context"
+            mel_tail = (seg[-vocoder_context_frames:]
+                        if vocoder_context_frames > 0 else None)
+            yield start, seg, wav_seg
+
+    def _source_frame_feats(self, src_feats):
+        """The frame-aligned source streams the long-form paths chunk.
+        Tensors (content features extracted on the device) stay there:
+        the chunker only slices them."""
+        return {k: src_feats[k] if torch.is_tensor(src_feats[k])
+                else np.asarray(src_feats[k]) for k in SRC_KEYS}
+
+    def _chunk_converter(self, ref_feats):
+        """A per-chunk mel converter with the reference normalized, packed
+        and uploaded once (it conditions every chunk alike).  ``ref_feats``
+        may be a :meth:`pack_reference` handle already on the device (a
+        server's registered style): it has ``lengths``, which no feature
+        dict has.  One noise draw a chunk."""
+        ref_packed = (ref_feats if "lengths" in ref_feats
+                      else self.pack_reference(ref_feats))
+
+        def convert_chunk(chunk):
+            return self.convert_features_batch([chunk],
+                                               packed_ref=ref_packed)[0]
+
+        return convert_chunk

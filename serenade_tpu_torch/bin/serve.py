@@ -24,7 +24,8 @@ Every input is in a form the port reads without JAX, YAML or joblib:
 * ``--ref-dict``: JSON mapping a style name to an ``.npz`` of reference
   features (``hubert``, ``score``, ``loud``, ``logmel``), each registered
   on the device at start;
-* ``--contentvec-ckpt`` turns on raw audio (``/convert_wav``): a ``.pt``
+* ``--contentvec-ckpt`` turns on raw audio (``/convert_wav``, raw bodies
+  of ``/convert_stream``, ``/convert_stream_live``): a ``.pt``
   Hugging Face ``HubertModel`` state dict (ContentVec), read with
   ``weights_only=True``;
 * ``--f0-table``: JSON of per-voice-type F0 ranges for ``?voice_type=``
@@ -32,9 +33,10 @@ Every input is in a form the port reads without JAX, YAML or joblib:
   the same table as YAML, ``conf/f0.yaml``).
 
 Endpoints: POST ``/convert_features``, ``/register_reference``,
-``/convert_wav`` (with ``--contentvec-ckpt``); GET ``/healthz``,
-``/metrics``.  The streams answer 501 until long-form conversion is
-ported.  Runs on CUDA unless ``--device cpu``.
+``/convert_stream`` (feature or raw-audio bodies, a chunked stream of
+npz blocks back), ``/convert_wav`` and ``/convert_stream_live`` (chunked
+PCM16 in; both with ``--contentvec-ckpt``); GET ``/healthz``,
+``/metrics``.  Runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations

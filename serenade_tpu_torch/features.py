@@ -15,6 +15,10 @@ Padding decides the numbers, so it is JAX's: signals pad to multiples of
 waveform, ContentVec to 2 s buckets; the loudness clip and ContentVec's
 attention and first GroupNorm see each row's padding, as in JAX.
 
+Long-form streams extract window by window (``stream_total_frames``,
+``extract_stream_window``): each conversion chunk's source features come
+from a context-padded window of the waveform.
+
 F0 backends: "viterbi" (YIN + Viterbi, the default) and "yin".  The
 Harvest and native backends, the phoneme-MIDI transcriber and the F0
 fluctuation feature are not ported (ROADMAP Queue A).
@@ -245,6 +249,114 @@ def _finalize_utt(utt_id, audio, config: FeatureConfig, sig, n_frames: int,
     min_len = min(feats[k].shape[0] for k in frame_keys)
     for k in frame_keys:
         feats[k] = feats[k][:min_len]
+    return feats
+
+
+def stream_total_frames(audio_len: int, config: FeatureConfig,
+                        with_hubert: bool = True) -> int:
+    """Frames a streamed conversion of a ``_prepare_audio``'d waveform of
+    ``audio_len`` samples produces: the fewest of the streams' counts, as
+    :func:`_finalize_utt` cuts them (mel ``1 + L // hop``; the score
+    ``ceil(seconds / shift)``; ContentVec ``(L16 - 400) // 160 + 1`` after
+    the 16 kHz resample)."""
+    n = 1 + audio_len // config.hop_size
+    n = min(n, int(np.ceil(
+        audio_len / config.sampling_rate / (config.shiftms / 1000.0))))
+    if with_hubert:
+        n16 = (audio_len * 16000 + config.sampling_rate - 1) \
+            // config.sampling_rate
+        n = min(n, (n16 - 400) // 160 + 1)
+    return n
+
+
+def extract_stream_window(
+    audio: np.ndarray,
+    span: Tuple[int, int],
+    config: FeatureConfig,
+    minf0: float,
+    maxf0: float,
+    *,
+    content_fn=None,
+    f0_backend: str = "viterbi",
+    ctx_frames: int = 256,
+    with_f0_fluc: bool = False,
+    wire_dtype: str = "int16",
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Source features (``hubert``, ``score``, ``loud``, ``f0``) of frames
+    ``[s, e)`` of an already ``_prepare_audio``'d waveform, extracted from
+    a window padded with ``ctx_frames`` of context on each side: the
+    streaming form of :func:`extract_features`, whose first chunk is ready
+    after one window's work instead of the whole utterance's.
+
+    The window starts on a frame boundary (``(s - lc) * hop`` samples, an
+    exact 16 kHz sample too at 24 kHz), so window frame ``lc + i`` is
+    global frame ``s + i``.  Inside the span the windowed mel, loudness
+    and F0 equal full-utterance extraction but for two deviations: the
+    loudness clip is relative to the window's peak, and ContentVec attends
+    within the window only.  Notes for the score are segmented over the
+    whole window, context included, so a note across the span's edge
+    keeps its extent.  ``hubert`` stays on the device when the content
+    function has ``batch24`` (a 24 kHz config)."""
+    _check_options(f0_backend, with_f0_fluc)
+    s, e = span
+    hop = config.hop_size
+    n = e - s
+    if content_fn is not None:
+        # ContentVec's 400-sample receptive field costs about 2 frames at
+        # the window's tail ((K*160-400)//160+1 = K-2): with less context
+        # every interior window would come up short
+        ctx_frames = max(ctx_frames, 2)
+    lc = min(s, ctx_frames)
+    start = (s - lc) * hop
+    if start >= len(audio):
+        raise ValueError(
+            f"span {span} starts past the waveform "
+            f"({len(audio)} samples); respect stream_total_frames")
+    win = audio[start: min(len(audio), (e + ctx_frames) * hop)]
+    win_b, n_frames_w = _bucketed(win, hop)
+    sig = extract_signal_features_group(
+        [win_b], config, minf0, maxf0, f0_backend, wire_dtype=wire_dtype,
+        device=device)[0]
+    if lc + n > n_frames_w:
+        raise ValueError(
+            f"span {span} exceeds the window's {n_frames_w} frames "
+            f"(total frames bound the caller should respect: "
+            f"stream_total_frames)")
+    f0_w = np.asarray(sig["f0"][:n_frames_w])
+
+    shift_s = config.shiftms / 1000.0
+    notes, intervals = f0_to_note_events(f0_w, frame_shift_s=shift_s)
+    if notes:
+        midi_w = notes_to_frames(notes, intervals,
+                                 len(win) / config.sampling_rate,
+                                 shift_ms=config.shiftms)
+    else:
+        midi_w = np.zeros(n_frames_w, np.int32)
+    if midi_w.shape[0] < lc + n:  # ceil rounding at the stream's tail
+        midi_w = np.pad(midi_w, (0, lc + n - midi_w.shape[0]))
+    score = midi_note_array_to_hz(midi_w[lc:lc + n], log_f0=True)[:, None]
+
+    feats = {
+        "loud": np.asarray(sig["loud"][lc:lc + n])[:, None]
+        .astype(np.float32),
+        "f0": f0_w[lc:lc + n, None].astype(np.float32),
+        "score": score.astype(np.float32),
+    }
+    if content_fn is not None:
+        if (hasattr(content_fn, "batch24")
+                and config.sampling_rate == 24000):
+            hub = content_fn.batch24([win], wire_dtype=wire_dtype)[0]
+        else:
+            hub = content_fn(resample(win, config.sampling_rate, 16000))
+        if hub.shape[0] < lc + n:
+            raise ValueError(
+                f"content window produced {hub.shape[0]} frames, span "
+                f"{span} needs {lc + n}: the caller exceeded "
+                f"stream_total_frames")
+        # a slice on the device on the batch24 path: the chunk's pack
+        # takes it there
+        feats["hubert"] = hub[lc:lc + n]
     return feats
 
 

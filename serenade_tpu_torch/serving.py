@@ -15,10 +15,12 @@ serenade_tpu/serving.py: ``BatchingConverter``, the npz wire format,
   (the JAX server's keys, so a client of either works with the other),
   POST ``/convert_wav`` with a RIFF body and ``?style=<name>`` or an npz
   body (``encode_wav_request``), GET ``/healthz`` and ``/metrics``.
-
-The streams (``/convert_stream``, ``/convert_stream_live``) need
-long-form conversion, which is not ported yet: the server answers them
-with 501 and says so.
+  POST ``/convert_stream`` (a feature npz, RIFF with ``?style=``, or an
+  npz with ``src_wav``) answers a chunked stream of length-prefixed npz
+  blocks as long-form regions finalize; POST ``/convert_stream_live``
+  takes a chunked PCM16 upload and streams back while it arrives.  Every
+  stream ends with a ``{done: 1}`` or ``{error: msg}`` block;
+  ``iter_stream_blocks`` reads them.
 
 On CUDA the dispatcher thread runs every conversion on the server's own
 stream with gradients off (both are per thread in PyTorch) and only
@@ -26,9 +28,11 @@ launches work: inputs go up from pinned memory without blocking, results
 come down into pinned memory, and the finisher thread waits on a CUDA
 event recorded after them.  So the next window's uploads and launches
 overlap this window's compute, as JAX's asynchronous dispatch lets them.
-Only the dispatcher runs the model: the kernels' weight caches
-(``ops/_cuda.py`` ``VersionCache``) decide on the host and are not shared
-between threads.
+The streams bypass the queue: each runs the Converter on its handler
+thread, on the same server stream with gradients off.  One stream orders
+everything the threads launch, so an operand a kernel's weight cache
+(``ops/_cuda.py`` ``VersionCache``) made on one thread is ready before
+another thread's kernel reads it.
 
 A request that fails (bad payload, feature mismatch) fails alone: the
 dispatcher catches a batch's error and faults only that batch's requests.
@@ -230,16 +234,20 @@ class BatchingConverter:
         self._require_style(name)
         return self._refs[name]
 
-    def _validate_feats(self, feats, what: str, with_mel: bool) -> None:
+    def _validate_feats(self, feats, what: str, with_mel: bool,
+                        cap_duration: bool = True) -> None:
         """Reject a malformed feature dict at submit time: a payload that
         failed only inside the batched dispatch would fault every request
-        batched with it."""
+        batched with it.  ``cap_duration=False`` skips the
+        max_request_seconds cap (a stream converts in bounded chunks, off
+        the queue)."""
         sc = self._conv.scaler
         validate_feature_dict(
             feats, what, with_mel,
             content_dim=sc["hubert"]["mean"].shape[0],
             num_mels=sc["logmel"]["mean"].shape[0],
-            max_frames=int(self.max_request_seconds * self._frames_per_sec))
+            max_frames=(int(self.max_request_seconds * self._frames_per_sec)
+                        if cap_duration else None))
 
     def _check_open(self) -> None:
         if self._stop.is_set():
@@ -680,6 +688,82 @@ def _f0_range_from(query, files=None, f0_table=None) -> Optional[tuple]:
     return check_f0_range((float(lo), float(hi)))
 
 
+def _extract_or_raise(conv, wavs, srs, f0_ranges=None):
+    """Batched extraction on the device (the PCM16 wire /convert_wav
+    uses); an utterance whose extraction fails raises instead of
+    streaming nothing."""
+    feats = conv.extract_from_wav_batch(wavs, srs, f0_ranges=f0_ranges)
+    for f in feats:
+        if f is None:
+            raise ValueError("feature extraction failed for stream audio")
+    return feats
+
+
+class _RawSource:
+    """A /convert_stream source that arrived as raw audio.  The handler
+    streams it through windowed extraction (``Converter.
+    convert_wav_stream``), so the first audio waits for one window's
+    extraction, not the whole utterance's; ``?windowed=0`` extracts the
+    whole source first and runs ``convert_features_stream``."""
+
+    def __init__(self, wav, sr: int):
+        self.wav = wav
+        self.sr = int(sr)
+
+
+def _parse_stream_body(body: bytes, query, batching, f0_table=None):
+    """/convert_stream input: extracted features (npz ``src_*`` with
+    ``ref_*`` or ``ref_name``), raw audio (RIFF bytes with ``?style=``,
+    or an npz with ``src_wav``/``sr`` and ``ref_name`` or
+    ``ref_wav``/``ref_sr``), or a raw source with a feature reference
+    (``src_wav`` with ``ref_*`` arrays).  A raw source comes back as a
+    :class:`_RawSource` (its extraction waits for the windowed stream); a
+    raw reference is extracted here (it is short).  Raw audio needs the
+    Converter's ContentVec.
+
+    Returns ``(src, ref, f0_range)``, the F0 range from the body's npz
+    keys where present, else from the query, so that a range sent with
+    the audio applies to the source's extraction too.
+
+    The source is not capped by ``max_request_seconds``: a stream converts
+    in bounded chunks outside the batching queue, so no co-batched
+    request pads to its bucket, and long sources are what the endpoint
+    is for.  An ad-hoc raw reference, extracted in one dispatch, keeps
+    the cap."""
+    conv = batching.converter
+    if body[:4] == b"RIFF":
+        from serenade_tpu_torch.utils.audio import read_wav
+
+        src_wav, sr = read_wav(io.BytesIO(body))
+        style = query.get("style", [""])[0]
+        if not style:
+            raise ValueError("RIFF body needs ?style=<registered name>")
+        return (_RawSource(validate_waveform(src_wav, "src_wav"), sr),
+                batching.packed_reference(style),
+                _f0_range_from(query, f0_table=f0_table))
+    with np.load(io.BytesIO(body)) as z:
+        f0_range = _f0_range_from(query, files=z, f0_table=f0_table)
+        if "src_wav" not in z.files:
+            src, ref = _feats_from_npz(z)
+            batching._validate_feats(src, "src", with_mel=False,
+                                     cap_duration=False)
+            if isinstance(ref, str):
+                ref = batching.packed_reference(ref)
+            return src, ref, f0_range
+        src_wav, sr = z["src_wav"], int(z["sr"])
+        if "ref_name" in z.files:
+            ref = batching.packed_reference(str(z["ref_name"]))
+        elif "ref_wav" in z.files:
+            ref_sr = int(z["ref_sr"])
+            ref = _extract_or_raise(
+                conv, [batching._checked_wav(z["ref_wav"], ref_sr,
+                                             "ref_wav")],
+                [ref_sr], f0_ranges=[f0_range])[0]
+        else:   # a raw source with an extracted reference
+            ref = _ref_from_npz(z)
+    return _RawSource(validate_waveform(src_wav, "src_wav"), sr), ref, f0_range
+
+
 def warmup_server(batching, shapes, raw_audio: bool = False,
                   seed: int = 0) -> None:
     """Drive synthetic requests through the dispatcher before real traffic
@@ -742,8 +826,59 @@ def warmup_server(batching, shapes, raw_audio: bool = False,
         batching.stats.update(stats_before)
 
 
-# endpoints of the JAX server that wait for long-form conversion
-NOT_PORTED = ("/convert_stream", "/convert_stream_live")
+def _frame_block(arrays: dict) -> bytes:
+    """One length-prefixed npz block of the /convert_stream wire."""
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    payload = buf.getvalue()
+    return len(payload).to_bytes(4, "big") + payload
+
+
+def iter_stream_blocks(read, strict: bool = True):
+    """Client-side helper: parse a /convert_stream or /convert_stream_live
+    body (a file-like, or a callable ``read(n)``) into dicts of arrays, in
+    order.
+
+    The server ends every stream with a marker block, ``{done: 1}`` on
+    success or ``{error: msg}`` after a failure mid-stream, so a cut
+    stream is told apart from a complete one.  The marker is consumed,
+    not yielded: on ``error`` this raises RuntimeError; with ``strict``
+    (the default) a stream that ends without a marker raises too."""
+    read = read.read if hasattr(read, "read") else read
+
+    def read_exact(n):
+        out = b""
+        while len(out) < n:
+            chunk = read(n - len(out))
+            if not chunk:
+                return out
+            out += chunk
+        return out
+
+    while True:
+        head = read_exact(4)
+        if len(head) < 4:
+            if strict:
+                raise RuntimeError(
+                    "stream ended without a terminal marker (truncated)")
+            return
+        size = int.from_bytes(head, "big")
+        body = read_exact(size)
+        if len(body) < size:
+            if strict:
+                raise RuntimeError("stream ended mid-block (truncated)")
+            return
+        with np.load(io.BytesIO(body)) as z:
+            blk = {k: z[k] for k in z.files}
+        if "error" in blk:
+            read(1)  # read to EOF so the connection can be reused
+            raise RuntimeError(f"server stream failed: {blk['error']}")
+        if "done" in blk:
+            # read the end of the stream, so that a file-like (a chunked
+            # http.client response) sees EOF and the connection is reusable
+            read(1)
+            return
+        yield blk
 
 
 def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
@@ -863,8 +998,188 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
             np.savez(buf, mel=mel)
             self._send(200, buf.getvalue(), "application/octet-stream")
 
+        def _convert_stream(self, query):
+            """A chunked stream of length-prefixed npz blocks (``start``,
+            ``mel``, and ``wav``, ``sr`` with a vocoder) as long-form
+            regions finalize; read it with ``iter_stream_blocks``.  It
+            bypasses the batching queue: the path is for the time to first
+            audio, not throughput.  Query: chunk_frames, overlap_frames,
+            windowed, first_chunk_frames, extract_ctx_frames.  Bodies:
+            ``_parse_stream_body``."""
+            with batching._on_device():
+                try:
+                    src, ref, f0_range = _parse_stream_body(
+                        self._read_body(), query, batching,
+                        f0_table=f0_table)
+                    conv = batching.converter
+                    chunk_frames = int(query.get("chunk_frames",
+                                                 ["2048"])[0])
+                    overlap_frames = int(query.get("overlap_frames",
+                                                   ["256"])[0])
+                    windowed = query.get("windowed", ["1"])[0] not in (
+                        "0", "false")
+                    if isinstance(src, _RawSource) and windowed:
+                        gen = conv.convert_wav_stream(
+                            src.wav, src.sr, ref, chunk_frames=chunk_frames,
+                            overlap_frames=overlap_frames,
+                            first_chunk_frames=int(query.get(
+                                "first_chunk_frames", ["512"])[0]),
+                            extract_ctx_frames=int(query.get(
+                                "extract_ctx_frames", ["256"])[0]),
+                            f0_range=f0_range)
+                    else:
+                        if isinstance(src, _RawSource):
+                            src = _extract_or_raise(
+                                conv, [src.wav], [src.sr],
+                                f0_ranges=[f0_range])[0]
+                        gen = conv.convert_features_stream(
+                            src, ref, chunk_frames=chunk_frames,
+                            overlap_frames=overlap_frames)
+                    # the first segment before the 200: the generator is
+                    # lazy, and an error here is a real 400, not an empty
+                    # stream that ends "successfully"
+                    first = next(gen, None)
+                except Exception as e:  # noqa: BLE001 — per-request fault
+                    return self._fault(e)
+                self._emit_stream(gen, first, conv.output_sample_rate)
+
+        def _emit_stream(self, gen, first, sr, close_on_fault=False):
+            """A 200 with a chunked body of length-prefixed npz blocks,
+            ending with the ``{done}`` or ``{error}`` marker
+            (``iter_stream_blocks``)."""
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+            def chunk(b: bytes):
+                self.wfile.write(f"{len(b):X}\r\n".encode() + b + b"\r\n")
+
+            def emit(seg):
+                start, mel_seg, wav_seg = seg
+                arrays = {"start": np.int64(start), "mel": mel_seg}
+                if wav_seg is not None:
+                    arrays["wav"] = wav_seg
+                    arrays["sr"] = np.int64(sr)
+                chunk(_frame_block(arrays))
+
+            # every stream ends with a marker block before the chunked
+            # terminator, or a cut conversion would read as a whole one
+            try:
+                if first is not None:
+                    emit(first)
+                for seg in gen:
+                    emit(seg)
+                chunk(_frame_block({"done": np.int64(1)}))
+            except Exception as e:  # noqa: BLE001 — fault mid-stream
+                logger.exception("stream conversion failed mid-flight")
+                if close_on_fault:
+                    # the request body may be half read: a reused
+                    # connection would start the next request mid-body
+                    self.close_connection = True
+                try:
+                    chunk(_frame_block({"error": np.asarray(str(e))}))
+                except Exception:  # noqa: BLE001 — the socket is gone
+                    pass
+            finally:
+                self.wfile.write(b"0\r\n\r\n")
+
+        def _iter_chunked_body(self):
+            """Decode a ``Transfer-Encoding: chunked`` request body piece
+            by piece (``BaseHTTPRequestHandler`` does not), so the live
+            endpoint converts while the client uploads.  The total is
+            capped at ``max_body_bytes``."""
+            total = 0
+            while True:
+                line = self.rfile.readline(1024)
+                if line == b"":
+                    # EOF between chunks is a disconnect, not the end of
+                    # the body: a cut upload must not end with {done: 1}
+                    raise ValueError("chunked upload disconnected "
+                                     "mid-stream")
+                if not line.endswith(b"\n"):
+                    # the rest of a longer size line would be read as data
+                    raise ValueError("oversized chunk-size line")
+                size = int(line.split(b";")[0].strip() or b"0", 16)
+                if size == 0:
+                    while True:  # skip trailers up to the blank line
+                        t = self.rfile.readline(1024)
+                        if t in (b"\r\n", b"\n", b""):
+                            return
+                total += size
+                if total > max_body_bytes:
+                    raise _PayloadTooLarge(
+                        f"chunked body exceeds the server cap of "
+                        f"{max_body_bytes}")
+                data = b""
+                while len(data) < size:
+                    got = self.rfile.read(size - len(data))
+                    if not got:
+                        raise ValueError("truncated chunked body")
+                    data += got
+                self.rfile.read(2)  # the chunk's closing CRLF
+                yield data
+
+        def _convert_stream_live(self, query):
+            """Live conversion: PCM16 mono audio uploads as a chunked
+            request body, and converted segments stream back on the same
+            connection while the source still arrives.  Query: ``style``
+            (registered, required), ``sr`` (the model's rate),
+            chunk_frames, overlap_frames, extract_ctx_frames (defaults
+            64/16/32), and the F0 range as /convert_wav takes it.  A
+            Content-Length body is taken as one piece.  The answer is the
+            /convert_stream block wire."""
+            with batching._on_device():
+                try:
+                    conv = batching.converter
+                    style = query.get("style", [""])[0]
+                    if not style:
+                        raise ValueError(
+                            "live stream needs ?style=<registered name>")
+                    ref = batching.packed_reference(style)
+                    sr = int(query.get("sr", ["24000"])[0])
+                    te = (self.headers.get("Transfer-Encoding")
+                          or "").lower()
+                    byte_iter = (self._iter_chunked_body()
+                                 if "chunked" in te
+                                 else iter([self._read_body()]))
+
+                    def audio_iter():
+                        carry = b""
+                        for piece in byte_iter:
+                            data = carry + piece
+                            cut = len(data) - (len(data) % 2)
+                            carry = data[cut:]
+                            if cut:
+                                yield (np.frombuffer(data[:cut], "<i2")
+                                       .astype(np.float32) / 32768.0)
+                        if carry:
+                            raise ValueError(
+                                "odd trailing byte in PCM16 live body")
+
+                    gen = conv.convert_wav_stream_live(
+                        audio_iter(), sr, ref,
+                        chunk_frames=int(query.get("chunk_frames",
+                                                   ["64"])[0]),
+                        overlap_frames=int(query.get("overlap_frames",
+                                                     ["16"])[0]),
+                        extract_ctx_frames=int(query.get(
+                            "extract_ctx_frames", ["32"])[0]),
+                        f0_range=_f0_range_from(query, f0_table=f0_table))
+                    first = next(gen, None)
+                except Exception as e:  # noqa: BLE001 — per-request fault
+                    # the body may be partly read: never reuse the socket
+                    self.close_connection = True
+                    return self._fault(e)
+                self._emit_stream(gen, first, conv.output_sample_rate,
+                                  close_on_fault=True)
+
         def do_POST(self):
             parsed = urlparse(self.path)
+            if parsed.path == "/convert_stream":
+                return self._convert_stream(parse_qs(parsed.query))
+            if parsed.path == "/convert_stream_live":
+                return self._convert_stream_live(parse_qs(parsed.query))
             try:
                 if parsed.path == "/register_reference":
                     name = parse_qs(parsed.query).get("name", [""])[0]
@@ -875,12 +1190,6 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
                     return self._send_json(200, {"ok": True, "name": name})
                 if parsed.path == "/convert_wav":
                     return self._convert_wav(parse_qs(parsed.query))
-                if parsed.path in NOT_PORTED:
-                    self._read_body()
-                    return self._send_json(501, {"error": (
-                        f"{parsed.path} is not ported yet: it needs "
-                        "long-form conversion; POST whole requests to "
-                        "/convert_wav or /convert_features")})
                 if parsed.path != "/convert_features":
                     return self._send_json(404, {})
                 src, ref = _parse_npz(self._read_body())

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
 forward (K1-K3) and, through the autograd Functions, backward (K4-K7);
-and the serving path's batched shapes (a registered style tiled over a
-batch, the vocoder tail at batch 8) against the CPU's plain route.
+the serving path's batched shapes (a registered style tiled over a
+batch, the vocoder tail at batch 8), extraction and the long-form streams
+against the CPU's plain route.
 
 Needs an NVIDIA GPU and the CUDA toolkit (the kernels are built with nvcc
 at first use); skips without a card.  Imports only torch and the port, so
@@ -521,3 +522,56 @@ def test_card_extraction_matches_cpu():
         assert (got["est_lf0_score"] == want["est_lf0_score"]).mean() >= 0.99
         scale = max(1.0, np.abs(want["hubert"]).max())
         assert np.abs(got["hubert"] - want["hubert"]).max() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_streams_on_card_match_cpu():
+    """``convert_features_stream`` (300 frames at chunk 128 / overlap 32)
+    and ``convert_wav_stream`` (2 s ramping 64 -> 128, ContentVec at 2
+    layers of 64) on the card against the CPU's plain route on the same
+    weights at temperature 0: the same segments, mel within phase 4's
+    1e-3 of max(1, |mel|) and waveform within 1e-3; K1, K2, K3 and the
+    Viterbi kernel launched, no call routed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.ops import viterbi_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(27)
+    sc = dict(_identity_scaler(), hubert={"mean": np.zeros(64),
+                                          "scale": np.ones(64)})
+    src = {"hubert": rng.normal(size=(300, 64)), "score": rng.random(300),
+           "loud": rng.random(300)}
+    ref = dict(_features(rng, 100, True), hubert=rng.normal(size=(100, 64)))
+    wav = _sung(2.0, 28, 220.0)
+    kw = dict(chunk_frames=128, overlap_frames=32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        conv = Converter(
+            dict(NARROW, input_dim=64, dtype="float32"), None, sc,
+            vocoder_config={"sampling_rate": 24000, "generator_params": {
+                "channels": 32, "upsample_scales": [2, 3],
+                "upsample_kernel_sizes": [4, 6]}},
+            vocoder_stats={"mean": np.zeros(80), "scale": np.ones(80)},
+            contentvec_config=dict(dim=64, num_layers=2, heads=4,
+                                   ffn_dim=128),
+            n_timesteps=2, temperature=0.0, seed=3, device=dev)
+        counts = [m.launches for m in (flash_cuda, block1d_cuda,
+                                       resblock_cuda, viterbi_cuda)]
+        routed = flash_cuda.routed + block1d_cuda.routed
+        out[dev] = (list(conv.convert_features_stream(src, ref, **kw))
+                    + list(conv.convert_wav_stream(
+                        wav, 24000, ref, first_chunk_frames=64,
+                        extract_ctx_frames=32, **kw)))
+        launched = [m.launches - c for m, c in zip(
+            (flash_cuda, block1d_cuda, resblock_cuda, viterbi_cuda), counts)]
+        routed = flash_cuda.routed + block1d_cuda.routed - routed
+    assert all(n > 0 for n in launched) and routed == 0
+    assert [s for s, _, _ in out["cuda"]] == [s for s, _, _ in out["cpu"]]
+    for (_, mel, w), (_, mel_c, w_c) in zip(out["cuda"], out["cpu"]):
+        assert mel.shape == mel_c.shape and np.isfinite(mel).all()
+        assert np.abs(mel - mel_c).max() <= 1e-3 * max(1.0,
+                                                       np.abs(mel_c).max())
+        assert np.abs(w - w_c).max() <= 1e-3

@@ -636,8 +636,9 @@ def _post(base, path, body):
 def test_convert_wav_over_http(raw_server, tmp_path):
     """``/convert_wav`` on port 0: a RIFF body with ``?style=`` (and a
     voice type from the F0 table), an npz body with its own reference
-    wav, a bad waveform answered 400 alone, and ``/convert_stream``
-    still 501.  The answer is a RIFF wav."""
+    wav, a bad waveform answered 400 alone; the answer is a RIFF wav.
+    ``/convert_stream`` answers the same RIFF body with a block stream
+    ending in its done marker, and 400 without ``?style=``."""
     from serenade_tpu_torch.utils.audio import read_wav, write_wav
 
     conv, style = raw_server
@@ -668,10 +669,20 @@ def test_convert_wav_over_http(raw_server, tmp_path):
                 ("/convert_wav?style=nope", riff.getvalue(), 400),
                 ("/convert_wav?style=breathy&voice_type=Bass",
                  riff.getvalue(), 400),
-                ("/convert_stream", b"RIFF", 501)):
+                ("/convert_stream", riff.getvalue(), 400)):
             with pytest.raises(urllib.error.HTTPError) as exc:
                 _post(base, path, body)
             assert exc.value.code == code, path
+        # the stream of the same RIFF body: windowed extraction, the block
+        # wire, its done marker
+        req = urllib.request.Request(
+            base + "/convert_stream?style=breathy&voice_type=Tenor",
+            data=riff.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            blocks = list(serving.iter_stream_blocks(r))
+        assert len(blocks) == 1 and int(blocks[0]["start"]) == 0
+        assert blocks[0]["mel"].shape == (80, 80)
+        assert blocks[0]["wav"].shape == (80 * 6,)
         health = json.loads(urllib.request.urlopen(base + "/healthz",
                                                    timeout=10).read())
         assert health["requests"] == 2 and health["extract_sec"] > 0

@@ -445,8 +445,9 @@ def test_serve_cli_http_round_trip(tmp_path):
     """``bin/serve.py``'s app from a JSON config and ``.npz`` statistics on
     port 0: /healthz, /metrics, /convert_features (a body built by the JAX
     package's client, its response read by the JAX package's
-    ``decode_response``), /register_reference, and the endpoints that are
-    not ported answer 501."""
+    ``decode_response``), /register_reference, and the streams:
+    /convert_stream answers a block stream that JAX's client reads to its
+    done marker, /convert_stream_live a 400 without ContentVec."""
     rng = np.random.default_rng(14)
     args = serve.build_argparser().parse_args(
         _cli_files(tmp_path, rng) + ["--device", "cpu", "--warmup", "70:64:2"])
@@ -481,11 +482,19 @@ def test_serve_cli_http_round_trip(tmp_path):
             metrics = r.read().decode()
         assert "serenade_requests_total 2" in metrics
         assert "serenade_registered_references 2" in metrics
-        for path in serving.NOT_PORTED:
-            with pytest.raises(urllib.error.HTTPError) as exc:
-                post(path, b"RIFF")
-            assert exc.value.code == 501
-            assert "not ported yet" in json.loads(exc.value.read())["error"]
+        # the streams: features in answer a block stream ending with its
+        # done marker; live audio needs ContentVec, which this server lacks
+        req = urllib.request.Request(
+            base + "/convert_stream?chunk_frames=64&overlap_frames=16",
+            data=serving.encode_request(src, "breathy"), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            blocks = list(jax_serving.iter_stream_blocks(r))
+        assert [int(b["start"]) for b in blocks] == [0, 48]
+        assert sum(b["mel"].shape[0] for b in blocks) == 70
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            post("/convert_stream_live?style=breathy", b"\0\0" * 4800)
+        assert exc.value.code == 400
+        assert "ContentVec" in json.loads(exc.value.read())["error"]
         with pytest.raises(urllib.error.HTTPError) as exc:
             post("/convert_features", serving.encode_request(src, "nope"))
         assert exc.value.code == 400
