@@ -669,6 +669,15 @@ def check_resblock(torch, dev):
     case(1, 8192, 256, 11, torch.bfloat16, 3e-2, True)
     # the serving path's vocoder tail at batch 8
     case(8, 8192, 256, 11, torch.float32, 1e-4, True)
+    # the streams' vocoder at its unbucketed lengths: a long-form region
+    # of 1,792 frames and a live one of 48, each after 32 frames of
+    # context, through the three stages (x8 at C 256, x48 at 128, x240
+    # at 64)
+    for frames in (1824, 80):
+        for up, c in ((8, 256), (48, 128), (240, 64)):
+            for k in (3, 7, 11):
+                case(1, frames * up, c, k, torch.float32, 1e-4,
+                     frames == 1824)
     return main, rows
 
 
@@ -1779,7 +1788,8 @@ def stream_parity(torch, np, dev, counters):
     300-frame source at chunk 128 / overlap 32 and temperature 0 through
     convert_features_stream, on the card (kernels) and on the CPU (plain
     versions) from the same weights; the stitched mel and waveform are
-    held by phase 4's f32 rule."""
+    held by phase 4's f32 rule, the waveform relative to its own peak
+    (``wav_scale``), since the narrow random vocoder's output is small."""
     from serenade_tpu_torch.api import Converter
 
     cfg = dict(input_dim=32, output_dim=80, encoder_channels=16,
@@ -1814,13 +1824,16 @@ def stream_parity(torch, np, dev, counters):
     mel_err = float(np.abs(mel_c - mel_d).max())
     wav_err = float(np.abs(wav_c - wav_d).max())
     scale = max(1.0, float(np.abs(mel_c).max()))
+    wav_scale = float(np.abs(wav_c).max())
     ran = all(launches[k] > 0 for k in ("flash_fwd", "block1d_fwd",
                                         "resblock_branch"))
-    ok = (same and mel_err / scale <= 1e-3 and wav_err <= 1e-3 and ran
+    ok = (same and mel_err / scale <= 1e-3
+          and wav_err <= 1e-3 * wav_scale and ran
           and not any(routed.values()))
     emit({"phase": "stream_parity", "segments": len(card),
           "starts": [s for s, _, _ in card], "mel_max_abs_err": mel_err,
-          "wav_max_abs_err": wav_err, "mel_scale": scale, "tol": 1e-3,
+          "wav_max_abs_err": wav_err, "mel_scale": scale,
+          "wav_scale": wav_scale, "tol": 1e-3,
           "launches": launches, "routed": routed, "ok": ok})
     return ok
 

@@ -252,8 +252,7 @@ def _finalize_utt(utt_id, audio, config: FeatureConfig, sig, n_frames: int,
     return feats
 
 
-def stream_total_frames(audio_len: int, config: FeatureConfig,
-                        with_hubert: bool = True) -> int:
+def stream_total_frames(audio_len: int, config: FeatureConfig) -> int:
     """Frames a streamed conversion of a ``_prepare_audio``'d waveform of
     ``audio_len`` samples produces: the fewest of the streams' counts, as
     :func:`_finalize_utt` cuts them (mel ``1 + L // hop``; the score
@@ -262,11 +261,9 @@ def stream_total_frames(audio_len: int, config: FeatureConfig,
     n = 1 + audio_len // config.hop_size
     n = min(n, int(np.ceil(
         audio_len / config.sampling_rate / (config.shiftms / 1000.0))))
-    if with_hubert:
-        n16 = (audio_len * 16000 + config.sampling_rate - 1) \
-            // config.sampling_rate
-        n = min(n, (n16 - 400) // 160 + 1)
-    return n
+    n16 = (audio_len * 16000 + config.sampling_rate - 1) \
+        // config.sampling_rate
+    return min(n, (n16 - 400) // 160 + 1)
 
 
 def extract_stream_window(
@@ -276,11 +273,9 @@ def extract_stream_window(
     minf0: float,
     maxf0: float,
     *,
-    content_fn=None,
-    f0_backend: str = "viterbi",
+    content_fn,
     ctx_frames: int = 256,
     with_f0_fluc: bool = False,
-    wire_dtype: str = "int16",
     device=None,
 ) -> Dict[str, np.ndarray]:
     """Source features (``hubert``, ``score``, ``loud``, ``f0``) of frames
@@ -296,17 +291,18 @@ def extract_stream_window(
     loudness clip is relative to the window's peak, and ContentVec attends
     within the window only.  Notes for the score are segmented over the
     whole window, context included, so a note across the span's edge
-    keeps its extent.  ``hubert`` stays on the device when the content
-    function has ``batch24`` (a 24 kHz config)."""
-    _check_options(f0_backend, with_f0_fluc)
+    keeps its extent.  F0 is Viterbi's; the window goes up once on the
+    int16 wire, as JAX sends it, and ``content_fn.batch24`` (a 24 kHz
+    config) resamples it for ContentVec on the device, where ``hubert``
+    stays."""
+    _check_options("viterbi", with_f0_fluc)
     s, e = span
     hop = config.hop_size
     n = e - s
-    if content_fn is not None:
-        # ContentVec's 400-sample receptive field costs about 2 frames at
-        # the window's tail ((K*160-400)//160+1 = K-2): with less context
-        # every interior window would come up short
-        ctx_frames = max(ctx_frames, 2)
+    # ContentVec's 400-sample receptive field costs about 2 frames at the
+    # window's tail ((K*160-400)//160+1 = K-2): with less context every
+    # interior window would come up short
+    ctx_frames = max(ctx_frames, 2)
     lc = min(s, ctx_frames)
     start = (s - lc) * hop
     if start >= len(audio):
@@ -316,7 +312,7 @@ def extract_stream_window(
     win = audio[start: min(len(audio), (e + ctx_frames) * hop)]
     win_b, n_frames_w = _bucketed(win, hop)
     sig = extract_signal_features_group(
-        [win_b], config, minf0, maxf0, f0_backend, wire_dtype=wire_dtype,
+        [win_b], config, minf0, maxf0, "viterbi", wire_dtype="int16",
         device=device)[0]
     if lc + n > n_frames_w:
         raise ValueError(
@@ -337,27 +333,19 @@ def extract_stream_window(
         midi_w = np.pad(midi_w, (0, lc + n - midi_w.shape[0]))
     score = midi_note_array_to_hz(midi_w[lc:lc + n], log_f0=True)[:, None]
 
-    feats = {
+    hub = content_fn.batch24([win], wire_dtype="int16")[0]
+    if hub.shape[0] < lc + n:
+        raise ValueError(
+            f"content window produced {hub.shape[0]} frames, span {span} "
+            f"needs {lc + n}: the caller exceeded stream_total_frames")
+    return {
         "loud": np.asarray(sig["loud"][lc:lc + n])[:, None]
         .astype(np.float32),
         "f0": f0_w[lc:lc + n, None].astype(np.float32),
         "score": score.astype(np.float32),
+        # a slice on the device: the chunk's pack takes it there
+        "hubert": hub[lc:lc + n],
     }
-    if content_fn is not None:
-        if (hasattr(content_fn, "batch24")
-                and config.sampling_rate == 24000):
-            hub = content_fn.batch24([win], wire_dtype=wire_dtype)[0]
-        else:
-            hub = content_fn(resample(win, config.sampling_rate, 16000))
-        if hub.shape[0] < lc + n:
-            raise ValueError(
-                f"content window produced {hub.shape[0]} frames, span "
-                f"{span} needs {lc + n}: the caller exceeded "
-                f"stream_total_frames")
-        # a slice on the device on the batch24 path: the chunk's pack
-        # takes it there
-        feats["hubert"] = hub[lc:lc + n]
-    return feats
 
 
 def extract_features_batch(

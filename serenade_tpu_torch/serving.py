@@ -568,6 +568,9 @@ class BatchingConverter:
 # the wire format (keys as serenade_tpu/serving.py writes and reads them)
 # ---------------------------------------------------------------------------
 
+# seconds a refused live upload may sit idle while it is read off
+_DRAIN_IDLE_S = 5.0
+
 _SRC_KEYS = ("hubert", "score", "loud")
 _REF_KEYS = _SRC_KEYS + ("logmel",)
 
@@ -834,7 +837,7 @@ def _frame_block(arrays: dict) -> bytes:
     return len(payload).to_bytes(4, "big") + payload
 
 
-def iter_stream_blocks(read, strict: bool = True):
+def iter_stream_blocks(read):
     """Client-side helper: parse a /convert_stream or /convert_stream_live
     body (a file-like, or a callable ``read(n)``) into dicts of arrays, in
     order.
@@ -842,8 +845,8 @@ def iter_stream_blocks(read, strict: bool = True):
     The server ends every stream with a marker block, ``{done: 1}`` on
     success or ``{error: msg}`` after a failure mid-stream, so a cut
     stream is told apart from a complete one.  The marker is consumed,
-    not yielded: on ``error`` this raises RuntimeError; with ``strict``
-    (the default) a stream that ends without a marker raises too."""
+    not yielded: on ``error`` this raises RuntimeError, and a stream that
+    ends without a marker raises too."""
     read = read.read if hasattr(read, "read") else read
 
     def read_exact(n):
@@ -858,16 +861,12 @@ def iter_stream_blocks(read, strict: bool = True):
     while True:
         head = read_exact(4)
         if len(head) < 4:
-            if strict:
-                raise RuntimeError(
-                    "stream ended without a terminal marker (truncated)")
-            return
+            raise RuntimeError(
+                "stream ended without a terminal marker (truncated)")
         size = int.from_bytes(head, "big")
         body = read_exact(size)
         if len(body) < size:
-            if strict:
-                raise RuntimeError("stream ended mid-block (truncated)")
-            return
+            raise RuntimeError("stream ended mid-block (truncated)")
         with np.load(io.BytesIO(body)) as z:
             blk = {k: z[k] for k in z.files}
         if "error" in blk:
@@ -1043,10 +1042,12 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
                     return self._fault(e)
                 self._emit_stream(gen, first, conv.output_sample_rate)
 
-        def _emit_stream(self, gen, first, sr, close_on_fault=False):
+        def _emit_stream(self, gen, first, sr, upload=None):
             """A 200 with a chunked body of length-prefixed npz blocks,
             ending with the ``{done}`` or ``{error}`` marker
-            (``iter_stream_blocks``)."""
+            (``iter_stream_blocks``).  ``upload``: the live request's
+            body, still arriving; on a fault it is read off
+            (``_drain``) and the connection closed."""
             self.send_response(200)
             self.send_header("Content-Type", "application/octet-stream")
             self.send_header("Transfer-Encoding", "chunked")
@@ -1073,16 +1074,28 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
                 chunk(_frame_block({"done": np.int64(1)}))
             except Exception as e:  # noqa: BLE001 — fault mid-stream
                 logger.exception("stream conversion failed mid-flight")
-                if close_on_fault:
-                    # the request body may be half read: a reused
-                    # connection would start the next request mid-body
-                    self.close_connection = True
                 try:
                     chunk(_frame_block({"error": np.asarray(str(e))}))
+                    self.wfile.write(b"0\r\n\r\n")
                 except Exception:  # noqa: BLE001 — the socket is gone
                     pass
-            finally:
-                self.wfile.write(b"0\r\n\r\n")
+                if upload is not None:
+                    self._drain(upload)
+                return
+            self.wfile.write(b"0\r\n\r\n")
+
+        def _drain(self, upload):
+            """Read off what is left of a live upload the server gave up
+            on, up to ``max_body_bytes`` (``_iter_chunked_body``'s cap),
+            then close.  Closing with the client's data unread would reset
+            the connection, and a client still sending lost the answer."""
+            self.close_connection = True
+            self.connection.settimeout(_DRAIN_IDLE_S)
+            try:
+                for _ in upload:
+                    pass
+            except Exception:  # noqa: BLE001 — the upload is refused anyway
+                pass
 
         def _iter_chunked_body(self):
             """Decode a ``Transfer-Encoding: chunked`` request body piece
@@ -1129,8 +1142,14 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
             64/16/32), and the F0 range as /convert_wav takes it.  A
             Content-Length body is taken as one piece.  The answer is the
             /convert_stream block wire."""
+            te = (self.headers.get("Transfer-Encoding") or "").lower()
+            # lazy: a refused upload is read off by _drain, not reset
+            byte_iter = (self._iter_chunked_body() if "chunked" in te
+                         else iter(()))
             with batching._on_device():
                 try:
+                    if "chunked" not in te:
+                        byte_iter = iter([self._read_body()])
                     conv = batching.converter
                     style = query.get("style", [""])[0]
                     if not style:
@@ -1138,11 +1157,6 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
                             "live stream needs ?style=<registered name>")
                     ref = batching.packed_reference(style)
                     sr = int(query.get("sr", ["24000"])[0])
-                    te = (self.headers.get("Transfer-Encoding")
-                          or "").lower()
-                    byte_iter = (self._iter_chunked_body()
-                                 if "chunked" in te
-                                 else iter([self._read_body()]))
 
                     def audio_iter():
                         carry = b""
@@ -1168,11 +1182,10 @@ def make_server(batching: BatchingConverter, host: str = "127.0.0.1",
                         f0_range=_f0_range_from(query, f0_table=f0_table))
                     first = next(gen, None)
                 except Exception as e:  # noqa: BLE001 — per-request fault
-                    # the body may be partly read: never reuse the socket
-                    self.close_connection = True
-                    return self._fault(e)
+                    self._fault(e)
+                    return self._drain(byte_iter)
                 self._emit_stream(gen, first, conv.output_sample_rate,
-                                  close_on_fault=True)
+                                  upload=byte_iter)
 
         def do_POST(self):
             parsed = urlparse(self.path)

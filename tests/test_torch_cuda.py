@@ -530,7 +530,8 @@ def test_streams_on_card_match_cpu():
     and ``convert_wav_stream`` (2 s ramping 64 -> 128, ContentVec at 2
     layers of 64) on the card against the CPU's plain route on the same
     weights at temperature 0: the same segments, mel within phase 4's
-    1e-3 of max(1, |mel|) and waveform within 1e-3; K1, K2, K3 and the
+    1e-3 of max(1, |mel|) and waveform within 1e-3 of the stream's peak
+    |wav| (the narrow random vocoder's output is small); K1, K2, K3 and the
     Viterbi kernel launched, no call routed."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -570,8 +571,9 @@ def test_streams_on_card_match_cpu():
         routed = flash_cuda.routed + block1d_cuda.routed - routed
     assert all(n > 0 for n in launched) and routed == 0
     assert [s for s, _, _ in out["cuda"]] == [s for s, _, _ in out["cpu"]]
+    wav_scale = max(np.abs(w_c).max() for _, _, w_c in out["cpu"])
     for (_, mel, w), (_, mel_c, w_c) in zip(out["cuda"], out["cpu"]):
         assert mel.shape == mel_c.shape and np.isfinite(mel).all()
         assert np.abs(mel - mel_c).max() <= 1e-3 * max(1.0,
                                                        np.abs(mel_c).max())
-        assert np.abs(w - w_c).max() <= 1e-3
+        assert np.abs(w - w_c).max() <= 1e-3 * wav_scale

@@ -201,11 +201,9 @@ def test_stitching_matches_jax(chunk, overlap):
 
 @pytest.mark.parametrize("samples", [0, 1, 239, 240, 24000, 72512, 1440512])
 def test_stream_total_frames_matches_jax(samples):
-    for hub in (True, False):
-        assert features.stream_total_frames(
-            samples, features.FeatureConfig.from_dict(FC), hub) == \
-            jfeat.stream_total_frames(
-                samples, jfeat.FeatureConfig.from_dict(FC), hub)
+    assert features.stream_total_frames(
+        samples, features.FeatureConfig.from_dict(FC)) == \
+        jfeat.stream_total_frames(samples, jfeat.FeatureConfig.from_dict(FC))
 
 
 @pytest.mark.parametrize("where", ["first", "interior", "tail"])
@@ -238,6 +236,7 @@ def test_extract_stream_window_matches_jax(content_fns, where):
     assert np.abs(h - h_j).max() <= 1e-4 * max(1.0, np.abs(h_j).max())
     with pytest.raises(NotImplementedError, match="f0_fluc"):
         features.extract_stream_window(audio, span, cfg, 70.0, 1100.0,
+                                       content_fn=port_fn, ctx_frames=CTX,
                                        with_f0_fluc=True, device="cpu")
 
 
@@ -397,7 +396,7 @@ def test_stream_at_nonzero_temperature(stream_setup):
 def test_block_wire_is_the_jax_servers():
     """``_frame_block`` byte for byte JAX's; ``iter_stream_blocks`` reads
     a stream up to its ``done`` marker, raises on ``error``, and raises on
-    a cut stream unless ``strict=False``."""
+    a cut stream, as JAX's client does."""
     seg = {"start": np.int64(96), "mel": np.ones((3, 80), np.float32),
            "wav": np.zeros(18, np.float32), "sr": np.int64(SR)}
     for arrays in (seg, {"done": np.int64(1)},
@@ -414,8 +413,8 @@ def test_block_wire_is_the_jax_servers():
     for cut in (block, block + done[:3], block + done[:-1]):
         with pytest.raises(RuntimeError, match="truncated"):
             list(serving.iter_stream_blocks(io.BytesIO(cut)))
-        assert len(list(serving.iter_stream_blocks(
-            io.BytesIO(cut), strict=False))) == 1
+        with pytest.raises(RuntimeError, match="truncated"):
+            list(jserving.iter_stream_blocks(io.BytesIO(cut)))
     # JAX's client reads the port's wire
     assert len(list(jserving.iter_stream_blocks(
         io.BytesIO(block + done)))) == 1
@@ -454,24 +453,18 @@ def test_stream_sources_skip_the_duration_cap(stream_setup):
         b.close()
 
 
-def _live_post(host, port, path, pieces, one_send=False):
+def _live_post(host, port, path, pieces):
     """POST ``pieces`` as a chunked body through http.client, one chunk a
-    send, or with ``one_send`` the headers and the whole body in one send
-    (a request the server refuses before reading its body: the server
-    then closes, and data still on the wire would reset the connection
-    before the answer is read).  Returns the status, the response's
+    send, as a live client uploads.  Returns the status, the response's
     blocks (or body) and the seconds to the first block."""
     chunks = [f"{len(p):X}\r\n".encode() + p + b"\r\n" for p in pieces]
     c = http.client.HTTPConnection(host, port, timeout=120)
     try:
         c.putrequest("POST", path)
         c.putheader("Transfer-Encoding", "chunked")
-        if one_send:
-            c.endheaders(b"".join(chunks) + b"0\r\n\r\n")
-        else:
-            c.endheaders()
-            for chunk in chunks + [b"0\r\n\r\n"]:
-                c.send(chunk)
+        c.endheaders()
+        for chunk in chunks + [b"0\r\n\r\n"]:
+            c.send(chunk)
         t0 = time.perf_counter()
         r = c.getresponse()
         if r.status != 200:
@@ -549,8 +542,9 @@ def test_stream_endpoints_over_http(stream_setup):
             with pytest.raises(urllib.error.HTTPError) as exc:
                 post(path, body)
             assert exc.value.code == 400
-        status, body, _ = _live_post(host, port, "/convert_stream_live",
-                                     [pcm[:960]], one_send=True)
+        status, body, _ = _live_post(
+            host, port, "/convert_stream_live",
+            [pcm[i:i + 961] for i in range(0, len(pcm), 961)])
         assert status == 400 and b"needs ?style=" in body
     finally:
         server.shutdown()
@@ -558,3 +552,35 @@ def test_stream_endpoints_over_http(stream_setup):
         b.close()
     thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def test_refused_live_upload_is_answered(stream_setup):
+    """A live upload the server refuses before reading it (no
+    ``?style=``), sent piece by piece as a live client sends it, 100
+    times: every try gets its 400.  The server reads the upload off before
+    it closes; closed with the client's data unread, the connection is
+    reset, and a client still sending loses the answer."""
+    b = serving.BatchingConverter(stream_setup["conv"])
+    server = serving.make_server(b, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    pcm = (np.clip(sung(1.0, 81), -1, 1) * 32767).astype("<i2").tobytes()
+    pieces = [pcm[i:i + 961] for i in range(0, len(pcm), 961)]
+    lost = []
+    try:
+        for _ in range(100):
+            try:
+                status, body, _ = _live_post(
+                    host, port, "/convert_stream_live", pieces)
+                if status != 400 or b"needs ?style=" not in body:
+                    lost.append(status)
+            except (OSError, http.client.HTTPException) as e:
+                lost.append(type(e).__name__)
+    finally:
+        server.shutdown()
+        server.server_close()
+        b.close()
+    thread.join(timeout=10)
+    assert not lost, (f"{len(lost)} of 100 refused uploads lost their "
+                      f"400: {lost[:5]}")
