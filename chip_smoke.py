@@ -70,7 +70,21 @@ Phases, each printing JSON lines:
                /convert_stream_live), each read to its done marker; then a
                small f32 stream on the card against the CPU by phase 4's
                rule.  Profiles of the long feature stream and of 2 s of
-               the live one give the device's idle share.
+               the live one give the device's idle share;
+10. decode  -- decode end to end after the files are read: a temporary
+               experiment dir built from a seed at full width (two port
+               checkpoints, a reference-layout Serenade .pkl with seeded
+               GST BatchNorm statistics, a reference HiFiGAN .pkl in
+               weight-norm form), read back through the port's loaders and
+               converters (every tensor exact, the average the f32 mean,
+               the step rules' picks, each load timed); then the decode
+               core over 6 sources x 3 styles at --batch-size 4, Euler-10,
+               with the converted vocoder: per-group wall time, RTF,
+               launches (K1-K3), routed calls (0), a profile of the
+               largest group; each output against a lone conversion from
+               its noise row (phase 8's rule, the gap measured on the card
+               in f32), and one group on the card against the CPU in f32
+               (phase 4's rule).
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -82,8 +96,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16 = 989e12     # H100 SXM dense tensor-core FLOP/s
@@ -238,6 +255,9 @@ def check_flash(torch, dev):
     # live 64-frame chunk
     case(1, 4, 2560, 512, torch.bfloat16, [2560], 2e-2, True)
     case(1, 4, 576, 512, torch.bfloat16, [576], 2e-2, True)
+    # the decode's largest group (phase 10)
+    case(DECODE_GROUP[0], 4, DECODE_GROUP[1], 512, torch.bfloat16,
+         DECODE_GROUP_LENGTHS, 2e-2, True)
     return main, rows
 
 
@@ -310,6 +330,9 @@ def check_block1d(torch, dev):
     # the streams' packed lengths (as above)
     case(1, 2560, 1024, 512, torch.bfloat16, [2560], 2e-2, True)
     case(1, 576, 1024, 512, torch.bfloat16, [576], 2e-2, True)
+    # the decode's largest group (phase 10)
+    case(DECODE_GROUP[0], DECODE_GROUP[1], 1024, 512, torch.bfloat16,
+         DECODE_GROUP_LENGTHS, 2e-2, True)
     return main, rows
 
 
@@ -678,6 +701,13 @@ def check_resblock(torch, dev):
             for k in (3, 7, 11):
                 case(1, frames * up, c, k, torch.float32, 1e-4,
                      frames == 1824)
+    # the decode's vocoder, each output alone at its source's length:
+    # 1,200 frames (whole 64-row tiles) and 1,190 (a partial last tile)
+    for frames in (1200, 1190):
+        for up, c in ((8, 256), (48, 128), (240, 64)):
+            for k in (3, 7, 11):
+                case(1, frames * up, c, k, torch.float32, 1e-4,
+                     frames == 1200)
     return main, rows
 
 
@@ -1867,6 +1897,282 @@ def stream_path(torch, np, dev, counters, conv, card):
     return ok, rows["wav"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: decode end to end
+# ---------------------------------------------------------------------------
+
+# source frames and (style, reference frames): the sources' buckets 1216
+# (four), 640 and 320, the references' 640, 448 and 256
+DECODE_SOURCES = (1200, 1190, 1170, 1160, 620, 300)
+DECODE_STYLES = (("Breathy", 600), ("Falsetto", 400), ("Mixed_Voice", 210))
+DECODE_BATCH = 4
+# the largest group: 4 rows packed to 1216 + 640, each row's valid length
+DECODE_GROUP = (DECODE_BATCH, 1216 + 640)
+DECODE_GROUP_LENGTHS = [600 + n for n in DECODE_SOURCES[:DECODE_BATCH]]
+
+
+def _f0_track(np, rng, frames):
+    """A sung F0 track in Hz, its onset unvoiced (zeros)."""
+    f0 = 220.0 * 2 ** (np.cumsum(rng.normal(size=frames)) / 60.0)
+    f0[: frames // 10] = 0.0
+    return f0
+
+
+def _seeded_state_dict(torch, module, seed):
+    """The module's init from ``seed`` with every tensor moved off its
+    init's zeros and ones by seeded noise; running variances positive."""
+    from serenade_tpu_torch.models.layers import init_params_
+
+    init_params_(module, seed)
+    g = torch.Generator().manual_seed(seed + 100)
+    return {k: (0.5 + torch.rand(v.shape, generator=g)) if k.endswith(".var")
+            else v.detach() + 0.02 * torch.randn(v.shape, generator=g)
+            for k, v in module.state_dict().items()}
+
+
+def _max_diff(torch, got, want):
+    """max |got - want| over two state dicts, inf if their keys differ."""
+    if set(got) != set(want):
+        return float("inf")
+    return max((got[k].double() - want[k].double()).abs().max().item()
+               for k in want)
+
+
+def decode_files(torch, np, root):
+    """The decode's files at full width, built from a seed under ``root``
+    and read back through the port: two port checkpoints (the step rules'
+    picks, one restored, the two averaged), a reference-layout Serenade
+    .pkl (the port's names inverted; GST BatchNorm statistics seeded) and
+    a reference HiFiGAN .pkl in weight-norm form, each converted.
+    Returns (ok, model state dict, generator state dict, model args)."""
+    from serenade_tpu_torch.checkpoint import (
+        average_checkpoints, find_last_checkpoints, find_latest_checkpoint,
+        restore_params_only, save_checkpoint,
+    )
+    from serenade_tpu_torch.configs import VOCODER_CONFIG, serenade_config
+    from serenade_tpu_torch.models.convert_serenade import (
+        convert_serenade, load_torch_serenade_checkpoint,
+        to_reference_state_dict,
+    )
+    from serenade_tpu_torch.models.serenade import Serenade
+    from serenade_tpu_torch.vocoder.convert import (
+        to_reference_generator_state_dict,
+    )
+    from serenade_tpu_torch.vocoder.vocoder import (
+        generator_from_config, generator_layout, load_vocoder,
+    )
+
+    t0 = time.time()
+    params = dict(serenade_config(), gst_norm_type="frozen_batch")
+    sd = _seeded_state_dict(torch, Serenade(**params), 0)
+    g = torch.Generator().manual_seed(1)
+    older = {k: v + 0.01 * torch.randn(v.shape, generator=g)
+             for k, v in sd.items()}
+    gen_sd = _seeded_state_dict(
+        torch, generator_from_config(VOCODER_CONFIG), 3)
+    exp = os.path.join(root, "exp")
+    p100 = save_checkpoint(exp, 100, older)
+    p200 = save_checkpoint(exp, 200, sd)
+    os.makedirs(os.path.join(exp, "checkpoint-50steps"))      # rules only
+    os.makedirs(os.path.join(exp, "checkpoint-300steps.tmp"))
+    pkl = os.path.join(root, "checkpoint-200000steps.pkl")
+    torch.save({"model": to_reference_state_dict(sd, params)}, pkl)
+    voc_pkl = os.path.join(root, "vocoder.pkl")
+    torch.save({"model": {"generator": to_reference_generator_state_dict(
+        gen_sd, **generator_layout(VOCODER_CONFIG))}}, voc_pkl)
+    build_s = time.time() - t0
+
+    load_s, diffs = {}, {}
+
+    def timed(name, fn):
+        t = time.time()
+        out = fn()
+        load_s[name] = time.time() - t
+        return out
+
+    restored = timed("port_checkpoint", lambda: restore_params_only(p200))
+    diffs["port_checkpoint"] = _max_diff(torch, restored, sd)
+    avg = timed("average_of_2", lambda: average_checkpoints([p100, p200]))
+    diffs["average_vs_f32_mean"] = _max_diff(
+        torch, avg, {k: (older[k].float() + sd[k].float()) / 2 for k in sd})
+    model_sd = timed("serenade_pkl", lambda: convert_serenade(
+        load_torch_serenade_checkpoint(pkl), params))
+    diffs["serenade_pkl"] = _max_diff(torch, model_sd, sd)
+    voc_sd = timed("hifigan_pkl", lambda: load_vocoder(voc_pkl,
+                                                       VOCODER_CONFIG))
+    diffs["hifigan_pkl"] = _max_diff(torch, voc_sd, gen_sd)
+    # the JAX package's rules: the highest step; the n highest at or below
+    # max_step, ascending; names that are not checkpoint-<N>steps ignored
+    picks = {"latest": os.path.basename(find_latest_checkpoint(exp)),
+             "last_2_max_step_100": [os.path.basename(p) for p in
+                                     find_last_checkpoints(exp, 2, 100)]}
+    want = {"latest": "checkpoint-200steps",
+            "last_2_max_step_100": ["checkpoint-50steps",
+                                    "checkpoint-100steps"]}
+    bn = [k for k in sd if k.startswith("gst.ref_enc.norm")]
+    seeded_bn = all(bool((sd[k] != (1.0 if k.endswith(".var") else 0.0))
+                         .all()) for k in bn if k.endswith((".mean", ".var")))
+    ok = (all(d == 0.0 for d in diffs.values()) and picks == want
+          and bool(bn) and seeded_bn)
+    emit({"phase": "decode_files", "build_s": build_s, "load_s": load_s,
+          "max_abs_diff": diffs, "picks": picks, "picks_expected": want,
+          "gst_batchnorm_seeded": seeded_bn, "tensors": len(sd),
+          "generator_tensors": len(gen_sd), "ok": ok})
+    return ok, model_sd, voc_sd, params
+
+
+def decode_path(torch, np, dev, counters, card):
+    """Phase 10: the decode's files (:func:`decode_files`, in a temporary
+    directory removed after), then ``ssc_decode.decode_core`` over
+    DECODE_SOURCES x DECODE_STYLES at DECODE_BATCH on the card, with the
+    converted vocoder; each output against a lone conversion from its
+    noise row, and the smallest group on the card against the CPU.
+    Returns (ok, the decode's launches)."""
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.bin.ssc_decode import decode_core, plan_chunks
+    from serenade_tpu_torch.configs import VOCODER_CONFIG
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_decode_")
+    try:
+        ok, model_sd, voc_sd, params = decode_files(torch, np, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    rng = np.random.default_rng(10)
+    sc = _scaler(np)
+    vstats = {"mean": np.zeros(80), "scale": np.ones(80)}
+    sources = {f"EN_s{i % 2}_song{i}_Control_Group_0": dict(
+        _features(np, rng, n, False), lf0=_f0_track(np, rng, n))
+        for i, n in enumerate(DECODE_SOURCES)}
+    references = {style: dict(_features(np, rng, n, True),
+                              f0=_f0_track(np, rng, n))
+                  for style, n in DECODE_STYLES}
+    styles = {u: {s: s for s, _ in DECODE_STYLES} for u in sources}
+
+    def converter(dtype, device, vocoder=True):
+        voc = dict(vocoder_config=VOCODER_CONFIG, vocoder_params=voc_sd,
+                   vocoder_stats=vstats) if vocoder else {}
+        return Converter(dict(params, dtype=dtype), model_sd, sc,
+                         n_timesteps=10, solver="euler", seed=0,
+                         device=device, **voc)
+
+    conv = converter("bfloat16", dev)
+    plan = plan_chunks(sources, styles, references, DECODE_BATCH)
+    # the largest group alone: the warm-up, and the profiled run
+    style = DECODE_STYLES[0][0]
+    largest = (dict(list(sources.items())[:DECODE_BATCH]),
+               {u: {style: style} for u in sources},
+               {style: references[style]})
+    for _ in decode_core(conv, *largest, DECODE_BATCH):
+        pass
+    torch.cuda.synchronize()
+
+    counters.reset()
+    groups, results = [], []
+    start = last = time.time()
+    for (ts, tr), rows in decode_core(conv, sources, styles, references,
+                                      DECODE_BATCH):
+        now = time.time()          # the chunk's mels and wavs are on the host
+        groups.append({"ts": ts, "tr": tr, "batch": len(rows),
+                       "wall_s": now - last})
+        results.extend(rows)
+        last = now
+    wall = time.time() - start
+    launches, routed = counters.read(), counters.routed()
+    n_conv = len(results)
+    audio_s = sum(r["mel"].shape[0] for r in results) * HOP / SR
+    shapes_ok = all(
+        r["mel"].shape == (sources[r["utt_id"]]["hubert"].shape[0], 80)
+        and r["wav"].shape == (r["mel"].shape[0] * HOP,)
+        and r["lf0"].shape == (r["mel"].shape[0],)
+        and bool(np.isfinite(r["mel"]).all())
+        and bool(np.isfinite(r["wav"]).all()) for r in results)
+    want = {"flash_fwd": 60 * len(plan), "block1d_fwd": 130 * len(plan),
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "block1d_bwd_data": 0,
+            "block1d_bwd_weight": 0, "viterbi_f0": 0}
+    counts_ok = (all(launches[k] == v for k, v in want.items())
+                 and launches["resblock_branch"] >= 9 * n_conv
+                 and not any(routed.values()))
+    run_ok = (shapes_ok and counts_ok
+              and n_conv == len(DECODE_SOURCES) * len(DECODE_STYLES)
+              and len(groups) == len(plan))
+    emit({"phase": "decode", "card": card, "conversions": n_conv,
+          "groups": len({(g["ts"], g["tr"]) for g in groups}),
+          "chunks": len(groups), "batch_size": DECODE_BATCH,
+          "group_wall_s": groups, "wall_s": wall, "audio_s": audio_s,
+          "rtf": wall / audio_s, "launches": launches,
+          "launches_expected": dict(want, resblock_branch=f">= {9 * n_conv}"),
+          "routed": routed, "ok": run_ok})
+    ok &= run_ok
+
+    prof = device_time(torch, lambda: (
+        [None for _ in decode_core(conv, *largest, DECODE_BATCH)],
+        torch.cuda.synchronize()))
+    prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / groups[0][
+        "wall_s"]
+    emit(dict(phase="decode_profile", group=[groups[0]["ts"],
+                                             groups[0]["tr"], DECODE_BATCH],
+              **prof))
+
+    # each output against the same pair converted alone from its noise row,
+    # by phase 8's rule: the bf16 difference within the bf16 - f32 gap of
+    # the lone conversions, measured here on the card
+    conv32 = converter("float32", dev)
+    errs, gaps, wav_err, lone_s = [], [], 0.0, []
+    for r in results:
+        src, ref = sources[r["utt_id"]], references[r["ref_key"]]
+        t = time.time()
+        mel, wav, _ = conv.convert_features(src, ref, x0=r["x0"])
+        lone_s.append(time.time() - t)      # on the host: the work is done
+        mel32, _, _ = conv32.convert_features(src, ref, x0=r["x0"])
+        errs.append(np.abs(r["mel"] - mel).ravel())
+        gaps.append(np.abs(mel - mel32).ravel())
+        wav_err = max(wav_err, float(np.abs(r["wav"] - wav).max()))
+    err, gap = np.concatenate(errs), np.concatenate(gaps)
+    lone_ok = bool(err.mean() <= 1.5 * gap.mean()
+                   and err.max() <= 2.0 * gap.max())
+
+    # the smallest group on the card and on the CPU in f32, from one noise
+    # draw, by phase 4's rule
+    utt = list(sources)[-1]
+    style = DECODE_STYLES[-1][0]
+    one = ({utt: sources[utt]}, {utt: {style: style}},
+           {style: references[style]})
+    out = {}
+    for device, c in (("card", conv32), ("cpu", converter("float32",
+                                                          "cpu"))):
+        noise_rng = np.random.default_rng(12)
+        (group, (row,)), = list(decode_core(
+            c, *one, DECODE_BATCH, noise=lambda b, t: 0.667 * noise_rng
+            .normal(size=(b, t, 80))))
+        out[device] = row
+    mel_cc = float(np.abs(out["card"]["mel"] - out["cpu"]["mel"]).max())
+    wav_cc = float(np.abs(out["card"]["wav"] - out["cpu"]["wav"]).max())
+    scale = max(1.0, float(np.abs(out["cpu"]["mel"]).max()))
+    cpu_ok = bool(mel_cc / scale <= 1e-3 and wav_cc <= 1e-3)
+    emit({"phase": "decode_parity",
+          "batched_vs_lone": {"conversions": n_conv,
+                              "max_abs_err": float(err.max()),
+                              "mean_abs_err": float(err.mean()),
+                              "card_gap_max": float(gap.max()),
+                              "card_gap_mean": float(gap.mean()),
+                              "tol": {"mean": 1.5, "max": 2.0},
+                              "wav_max_abs_err": wav_err,
+                              "lone_wall_s": sum(lone_s),
+                              "largest_group_lone_wall_s":
+                                  sum(lone_s[:groups[0]["batch"]]),
+                              "largest_group_wall_s": groups[0]["wall_s"],
+                              "ok": lone_ok},
+          "card_vs_cpu": {"group": list(group) + [1],
+                          "mel_max_abs_err": mel_cc, "mel_scale": scale,
+                          "wav_max_abs_err": wav_cc, "tol": 1e-3,
+                          "ok": cpu_ok}})
+    ok &= lone_ok and cpu_ok
+    emit({"phase": "decode_done", "seconds": time.time() - t0, "ok": ok})
+    return ok, launches
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -2050,6 +2356,10 @@ def main() -> int:
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch",
                  "viterbi_f0"):
         entries[name]["stream_launches"] = launches[name]
+    decode_ok, launches = decode_path(torch, np, dev, counters, card)
+    ok &= decode_ok
+    for name in ("flash_fwd", "block1d_fwd", "resblock_branch"):
+        entries[name]["decode_launches"] = launches[name]
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

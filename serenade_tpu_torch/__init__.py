@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names

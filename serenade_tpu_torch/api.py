@@ -3,7 +3,8 @@
 from raw audio, ``extract_from_wav``, ``extract_from_wav_batch``,
 ``convert_wav`` and ``style_embedding``; long-form and streaming,
 ``convert_features_long``, ``convert_features_stream``,
-``convert_wav_stream`` and ``convert_wav_stream_live``).
+``convert_wav_stream`` and ``convert_wav_stream_live``; from a trained
+experiment directory, ``Converter.from_expdir``).
 
 Everything comes in as data: model, vocoder and ContentVec configs as
 dicts (``configs.py`` holds the full-width ones), parameters as a flax
@@ -16,12 +17,15 @@ statistics as arrays::
               "loud": {"min": lo, "max": hi},
               "logmel": {"mean": m, "scale": s}}
 
-(sklearn's ``mean_``/``scale_`` and ``data_min_``/``data_max_``).
+(sklearn's ``mean_``/``scale_`` and ``data_min_``/``data_max_``;
+``utils.scalers.load_stats`` reads them from a ``stats.joblib`` or an
+``.npz``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Mapping, Optional, Tuple
@@ -50,6 +54,27 @@ from serenade_tpu_torch.vocoder.vocoder import Vocoder
 
 SRC_KEYS = ("hubert", "score", "loud")
 REF_KEYS = SRC_KEYS + ("logmel",)
+
+
+def load_checkpoint_params(checkpoint: str, model_params: Mapping
+                           ) -> Tuple[dict, dict]:
+    """(state dict, model arguments) of a checkpoint: a port checkpoint
+    directory (``checkpoint.restore_params_only``), or a reference torch
+    ``.pkl`` converted for ``Serenade(**model_params)``, whose GST then
+    runs the checkpoint's BatchNorm statistics (``gst_norm_type=
+    "frozen_batch"``)."""
+    model_params = dict(model_params)
+    if str(checkpoint).endswith(".pkl"):
+        from serenade_tpu_torch.models.convert_serenade import (
+            convert_serenade, load_torch_serenade_checkpoint,
+        )
+
+        model_params["gst_norm_type"] = "frozen_batch"
+        return convert_serenade(load_torch_serenade_checkpoint(checkpoint),
+                                model_params), model_params
+    from serenade_tpu_torch.checkpoint import restore_params_only
+
+    return restore_params_only(checkpoint), model_params
 
 
 class Converter:
@@ -102,6 +127,70 @@ class Converter:
         self._hubert_stats = tuple(
             upload(self.scaler["hubert"][k], self.device)
             for k in ("mean", "scale"))
+
+    @classmethod
+    def from_expdir(cls, expdir: str, stats: str,
+                    checkpoint: Optional[str] = None,
+                    contentvec_ckpt: Optional[str] = None,
+                    n_timesteps: Optional[int] = None,
+                    solver: Optional[str] = None, temperature: float = 0.667,
+                    seed: int = 0, device=None,
+                    data_mesh: Optional[int] = None,
+                    quantize: Optional[str] = None,
+                    config: Optional[str] = None,
+                    params: Optional[Mapping] = None) -> "Converter":
+        """A Converter for a trained experiment directory, as the JAX
+        package's ``Converter(expdir, stats, ...)`` builds it: its
+        ``config.yml`` (or the file ``config`` names), ``checkpoint`` or
+        else the latest ``checkpoint-<N>steps`` under ``expdir`` (a
+        reference torch ``.pkl`` is converted, see
+        :func:`load_checkpoint_params`) unless ``params``, a state dict
+        already loaded (an average of checkpoints), stands in for it, the
+        statistics file ``stats`` (``stats.joblib`` or ``.npz``), the
+        vocoder of the config's ``vocoder:`` section, and ContentVec from
+        ``contentvec_ckpt`` (a Hugging Face ``HubertModel`` state dict).
+        ``n_timesteps`` and ``solver`` default to the config's
+        ``inference_n_timesteps`` / ``inference_solver``, else Euler-10.
+        Needs ``pyyaml``, ``h5py`` for the vocoder's statistics and
+        ``joblib`` for a ``stats.joblib``.  Runs on CUDA unless ``device``
+        says otherwise."""
+        from serenade_tpu_torch.checkpoint import find_latest_checkpoint
+        from serenade_tpu_torch.config import load_config, resolve
+        from serenade_tpu_torch.utils.scalers import load_stats
+        from serenade_tpu_torch.vocoder.vocoder import vocoder_from_section
+
+        if data_mesh is not None and data_mesh > 1:
+            raise NotImplementedError("data_mesh: conversion sharded over a "
+                                      "data mesh is not ported")
+        if quantize is not None:
+            raise NotImplementedError(f"quantize={quantize!r}: int8 weights "
+                                      "are not ported")
+        config = load_config(config or os.path.join(expdir, "config.yml"))
+        resolve("model", config["model_type"])     # refuses what is missing
+        model_params = dict(config.get("model_params", {}))
+        if params is None:
+            ckpt = checkpoint or find_latest_checkpoint(expdir)
+            if ckpt is None:
+                raise FileNotFoundError(f"no checkpoint under {expdir}")
+            params, model_params = load_checkpoint_params(ckpt, model_params)
+        if n_timesteps is None:
+            n_timesteps = int(config.get("inference_n_timesteps", 10))
+        if solver is None:
+            solver = str(config.get("inference_solver", "euler"))
+        extra = {}
+        if contentvec_ckpt:
+            from serenade_tpu_torch.configs import CONTENTVEC_CONFIG
+
+            extra = dict(contentvec_config=CONTENTVEC_CONFIG,
+                         contentvec_params=contentvec_ckpt)
+        conv = cls(model_params, params, load_stats(stats),
+                   n_timesteps=n_timesteps, solver=solver,
+                   temperature=temperature, seed=seed, device=device, **extra)
+        conv.config = dict(FEATURE_CONFIG, **config)
+        conv.vocoder = vocoder_from_section(config.get("vocoder"),
+                                            conv.scaler["logmel"],
+                                            device=conv.device)
+        return conv
 
     @property
     def output_sample_rate(self) -> Optional[int]:
@@ -156,17 +245,25 @@ class Converter:
             self.device)
         return out
 
+    def draw_noise(self, b: int, t: int) -> torch.Tensor:
+        """The next ``(b, t, mels)`` draw of the Converter's generator on
+        its device, scaled by the temperature: the ``x0`` a conversion
+        given none starts from."""
+        with self._noise_lock:
+            x0 = torch.randn((b, t, self.model.output_dim),
+                             generator=self.generator, dtype=torch.float32,
+                             device=self.device)
+        return x0 * self.temperature
+
     def _infer(self, src, ref, x0) -> torch.Tensor:
         """``Serenade.inference`` from the noise ``x0`` (already scaled by
-        the temperature), drawn here when None."""
+        the temperature; an array or a tensor), drawn here when None."""
         b, ts, _ = src["hubert"].shape
         t = ref["hubert"].shape[1] + ts
         if x0 is None:
-            with self._noise_lock:
-                x0 = torch.randn((b, t, self.model.output_dim),
-                                 generator=self.generator,
-                                 dtype=torch.float32, device=self.device)
-            x0 = x0 * self.temperature
+            x0 = self.draw_noise(b, t)
+        elif torch.is_tensor(x0):
+            x0 = x0.to(self.device, torch.float32)
         else:
             x0 = upload(x0, self.device, np.float32)
         return self.model.inference(

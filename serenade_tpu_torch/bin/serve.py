@@ -9,21 +9,37 @@ Serves request-batched conversions over HTTP on one GPU; see
         --vocoder-stats vocoder_stats.npz --ref-dict styles.json \\
         --host 0.0.0.0 --port 8571 --max-batch 8 --max-wait-ms 10
 
-Every input is in a form the port reads without JAX, YAML or joblib:
+The model comes from a trained experiment directory, as the JAX server
+takes it (``pyyaml``, ``h5py``, and ``joblib`` for a ``stats.joblib``)::
+
+    python -m serenade_tpu_torch.bin.serve --expdir exp/serenade \\
+        --stats dump/train/stats.joblib --ref-dict styles.json
+
+* ``--expdir``: ``config.yml`` and the latest ``checkpoint-<N>steps``
+  (or ``--checkpoint``: a checkpoint directory or a reference ``.pkl``),
+  and the vocoder of the config's ``vocoder:`` section
+  (``Converter.from_expdir``);
+
+or from files that need none of those packages:
 
 * ``--model-config``: JSON of ``Serenade`` arguments (default: the recipe
   at full width, ``configs.serenade_config()``);
 * ``--params``: a ``.pt`` state dict of the port's ``Serenade`` (default:
   random weights from seed 0, which the server logs);
-* ``--stats``: an ``.npz`` of the scaler arrays ``hubert_mean``,
-  ``hubert_scale``, ``score_min``, ``score_max``, ``loud_min``,
-  ``loud_max``, ``logmel_mean``, ``logmel_scale``;
 * ``--vocoder-stats`` (``mean``, ``scale``) turns the vocoder on, with
   ``--vocoder-config`` (JSON, default the recipe's HiFiGAN) and
-  ``--vocoder-params`` (``.pt``, default random weights);
-* ``--ref-dict``: JSON mapping a style name to an ``.npz`` of reference
-  features (``hubert``, ``score``, ``loud``, ``logmel``), each registered
-  on the device at start;
+  ``--vocoder-params`` (``.pt``, default random weights).
+
+In both forms:
+
+* ``--stats``: a ``stats.joblib`` of fitted scalers, or an ``.npz`` of
+  the scaler arrays ``hubert_mean``, ``hubert_scale``, ``score_min``,
+  ``score_max``, ``loud_min``, ``loud_max``, ``logmel_mean``,
+  ``logmel_scale`` (``utils.scalers.load_stats``);
+* ``--ref-dict``: JSON mapping a style name to its reference features,
+  an ``.npz`` (``hubert``, ``score``, ``loud``, ``logmel``) or an h5 dump
+  (its score from ``--score-type``), each registered on the device at
+  start;
 * ``--contentvec-ckpt`` turns on raw audio (``/convert_wav``, raw bodies
   of ``/convert_stream``, ``/convert_stream_live``): a ``.pt``
   Hugging Face ``HubertModel`` state dict (ContentVec), read with
@@ -47,12 +63,17 @@ import logging
 
 import numpy as np
 
-SCALER_KEYS = {"hubert": ("mean", "scale"), "score": ("min", "max"),
-               "loud": ("min", "max"), "logmel": ("mean", "scale")}
-
 
 def build_argparser():
     p = argparse.ArgumentParser(description="SSC conversion server (PyTorch)")
+    p.add_argument("--expdir", default=None,
+                   help="trained experiment directory (config.yml and "
+                        "checkpoint-<N>steps); replaces --model-config, "
+                        "--params and --vocoder-*")
+    p.add_argument("--checkpoint", default=None,
+                   help="with --expdir: a checkpoint directory or a "
+                        "reference torch .pkl (default: the latest under "
+                        "--expdir)")
     p.add_argument("--model-config", default=None,
                    help="JSON of Serenade arguments (default: the recipe's "
                         "full width)")
@@ -60,7 +81,8 @@ def build_argparser():
                    help=".pt state dict of the model (default: random "
                         "weights from seed 0)")
     p.add_argument("--stats", required=True,
-                   help=".npz of the scaler arrays (<feature>_<stat>)")
+                   help="stats.joblib of fitted scalers, or an .npz of the "
+                        "scaler arrays (<feature>_<stat>)")
     p.add_argument("--vocoder-config", default=None,
                    help="JSON vocoder config (default: the recipe's HiFiGAN)")
     p.add_argument("--vocoder-params", default=None,
@@ -69,8 +91,11 @@ def build_argparser():
     p.add_argument("--vocoder-stats", default=None,
                    help=".npz with mean and scale; turns the vocoder on")
     p.add_argument("--ref-dict", default=None,
-                   help="JSON: style name -> .npz of reference features, "
-                        "each registered on the device at start")
+                   help="JSON: style name -> .npz of reference features "
+                        "or an h5 dump, each registered on the device at "
+                        "start")
+    p.add_argument("--score-type", default="est_lf0_score",
+                   help="the h5 dataset of a --ref-dict dump's score")
     p.add_argument("--contentvec-ckpt", default=None,
                    help=".pt Hugging Face HubertModel state dict "
                         "(ContentVec, loaded with weights_only=True); turns "
@@ -78,8 +103,8 @@ def build_argparser():
     p.add_argument("--f0-table", default=None,
                    help="JSON of per-voice-type F0 ranges for "
                         "/convert_wav?voice_type=, e.g. {\"Tenor\": "
-                        "{\"minf0\": 130, \"maxf0\": 440}} (JSON, not the "
-                        "JAX server's YAML: the port reads no YAML)")
+                        "{\"minf0\": 130, \"maxf0\": 440}} (JSON; the JAX "
+                        "server reads it as YAML)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8571)
     p.add_argument("--max-batch", type=int, default=8)
@@ -90,9 +115,13 @@ def build_argparser():
                         "serving")
     p.add_argument("--max-request-seconds", type=float, default=600.0,
                    help="refuse single requests longer than this")
-    p.add_argument("--n-timesteps", type=int, default=10)
-    p.add_argument("--solver", default="euler",
-                   choices=["euler", "midpoint", "ab2"])
+    p.add_argument("--n-timesteps", type=int, default=None,
+                   help="CFM ODE steps (default: --expdir's "
+                        "inference_n_timesteps, else 10)")
+    p.add_argument("--solver", default=None,
+                   choices=["euler", "midpoint", "ab2"],
+                   help="CFM ODE solver (default: --expdir's "
+                        "inference_solver, else euler)")
     p.add_argument("--temperature", type=float, default=0.667)
     p.add_argument("--warmup", action="append", default=[],
                    metavar="SRC:REF[:B]",
@@ -129,10 +158,66 @@ def _state_dict(path, what: str, seed: int):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_scaler(path) -> dict:
-    with np.load(path) as z:
-        return {feat: {stat: z[f"{feat}_{stat}"] for stat in stats}
-                for feat, stats in SCALER_KEYS.items()}
+def reference_features(path: str, score_type: str) -> dict:
+    """A registered style's features from an ``.npz`` or an h5 dump."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: z[k] for k in ("hubert", "score", "loud", "logmel")}
+    from serenade_tpu_torch.utils.h5 import read_hdf5_many
+
+    raw = read_hdf5_many(path, ("hubert", "logmel", "loud", score_type))
+    missing = [k for k, v in raw.items() if v is None]
+    if missing:
+        raise SystemExit(f"--ref-dict: {path} lacks {missing}")
+    return {"hubert": raw["hubert"], "logmel": raw["logmel"],
+            "loud": np.asarray(raw["loud"]).reshape(-1, 1),
+            "score": np.asarray(raw[score_type]).reshape(-1, 1)}
+
+
+def _converter(args):
+    """The Converter the flags describe: from ``--expdir``, or from the
+    JSON, ``.pt`` and ``.npz`` files."""
+    from serenade_tpu_torch import configs
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.utils.scalers import load_stats
+
+    if args.expdir:
+        files = [flag for flag, v in (
+            ("--model-config", args.model_config), ("--params", args.params),
+            ("--vocoder-config", args.vocoder_config),
+            ("--vocoder-params", args.vocoder_params),
+            ("--vocoder-stats", args.vocoder_stats)) if v]
+        if files:
+            raise SystemExit(f"--expdir replaces {', '.join(files)}")
+        return Converter.from_expdir(
+            args.expdir, args.stats, checkpoint=args.checkpoint,
+            contentvec_ckpt=args.contentvec_ckpt,
+            n_timesteps=args.n_timesteps, solver=args.solver,
+            temperature=args.temperature, device=args.device)
+    if args.checkpoint:
+        raise SystemExit("--checkpoint needs --expdir")
+    voc_given = args.vocoder_config or args.vocoder_params
+    if voc_given and not args.vocoder_stats:
+        raise SystemExit("--vocoder-config/--vocoder-params need "
+                         "--vocoder-stats (the vocoder's mean and scale)")
+    extra = {}
+    if args.vocoder_stats:
+        with np.load(args.vocoder_stats) as z:
+            stats = {"mean": z["mean"], "scale": z["scale"]}
+        extra = dict(
+            vocoder_config=_json(args.vocoder_config, configs.VOCODER_CONFIG),
+            vocoder_params=_state_dict(args.vocoder_params, "vocoder params",
+                                       1),
+            vocoder_stats=stats)
+    if args.contentvec_ckpt:
+        extra.update(contentvec_config=configs.CONTENTVEC_CONFIG,
+                     contentvec_params=args.contentvec_ckpt)
+    return Converter(
+        _json(args.model_config, configs.serenade_config()),
+        _state_dict(args.params, "model params", 0),
+        load_stats(args.stats), n_timesteps=args.n_timesteps or 10,
+        solver=args.solver or "euler", temperature=args.temperature,
+        device=args.device, **extra)
 
 
 def _warmup_shapes(specs, max_batch: int, flag: str = "--warmup"):
@@ -149,46 +234,21 @@ def _warmup_shapes(specs, max_batch: int, flag: str = "--warmup"):
 def build_app(args):
     """(server, batching) from parsed args: the whole CLI but
     ``serve_forever``, so tests run the real entry path on port 0."""
-    from serenade_tpu_torch import configs
-    from serenade_tpu_torch.api import Converter
     from serenade_tpu_torch.serving import (
         BatchingConverter, make_server, warmup_server,
     )
 
     if args.warmup_raw and not args.contentvec_ckpt:
         raise SystemExit("--warmup-raw needs --contentvec-ckpt")
-    voc_given = args.vocoder_config or args.vocoder_params
-    if voc_given and not args.vocoder_stats:
-        raise SystemExit("--vocoder-config/--vocoder-params need "
-                         "--vocoder-stats (the vocoder's mean and scale)")
-    extra = {}
-    if args.vocoder_stats:
-        with np.load(args.vocoder_stats) as z:
-            stats = {"mean": z["mean"], "scale": z["scale"]}
-        extra = dict(
-            vocoder_config=_json(args.vocoder_config, configs.VOCODER_CONFIG),
-            vocoder_params=_state_dict(args.vocoder_params, "vocoder params",
-                                       1),
-            vocoder_stats=stats)
-    if args.contentvec_ckpt:
-        extra.update(contentvec_config=configs.CONTENTVEC_CONFIG,
-                       contentvec_params=args.contentvec_ckpt)
-    conv = Converter(
-        _json(args.model_config, configs.serenade_config()),
-        _state_dict(args.params, "model params", 0),
-        load_scaler(args.stats), n_timesteps=args.n_timesteps,
-        solver=args.solver, temperature=args.temperature, device=args.device,
-        **extra)
+    conv = _converter(args)
     batching = BatchingConverter(
         conv, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         busy_hold_ms=args.busy_hold_ms,
         max_request_seconds=args.max_request_seconds)
     try:
         for style, path in _json(args.ref_dict, {}).items():
-            with np.load(path) as z:
-                feats = {k: z[k] for k in ("hubert", "score", "loud",
-                                           "logmel")}
-            batching.register_reference(style, feats)
+            batching.register_reference(
+                style, reference_features(path, args.score_type))
             logging.info("registered reference style %r (%s)", style, path)
         if args.warmup:
             warmup_server(batching, _warmup_shapes(args.warmup,

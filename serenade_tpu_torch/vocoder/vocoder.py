@@ -3,12 +3,17 @@
 
 Mels from the conversion model are denormalized by the model's target
 statistics and renormalized by the vocoder's own training statistics
-before synthesis.  Statistics and parameters come in as arrays; reading
-``stats.h5`` or the upstream torch pickle is not ported.
+before synthesis.  Statistics and parameters come in as arrays
+(``Vocoder``), or as the files a recipe names (``Vocoder.from_files``:
+the upstream torch pickle, its YAML config and ``stats.h5``).  The
+checkpoint-free Griffin-Lim generator and a vocoder checkpoint written by
+the JAX package's vocoder trainer are not ported.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Mapping, Optional
 
 import numpy as np
@@ -37,6 +42,58 @@ def generator_from_config(config: Mapping) -> HiFiGANGenerator:
         resblock_dilations=tuple(
             tuple(d) for d in gp.get("resblock_dilations", ((1, 3, 5),) * 3)),
         use_additional_convs=gp.get("use_additional_convs", True))
+
+
+logger = logging.getLogger(__name__)
+
+_CHECKPOINT_FREE_GENERATORS = ("griffinlim", "griffin_lim")
+
+
+def generator_layout(config: Mapping) -> dict:
+    """The layout arguments of ``vocoder.convert`` for a vocoder config."""
+    gp = dict(config.get("generator_params", {}))
+    return {"num_upsamples": len(gp.get("upsample_scales", (8, 8, 2, 2))),
+            "num_blocks": len(gp.get("resblock_kernel_sizes", (3, 7, 11))),
+            "resblock_dilations": tuple(tuple(d) for d in gp.get(
+                "resblock_dilations", ((1, 3, 5),) * 3)),
+            "use_additional_convs": gp.get("use_additional_convs", True)}
+
+
+def vocoder_available(voc_cfg: Optional[Mapping]) -> bool:
+    """Whether a ``vocoder:`` config section can synthesize: its
+    checkpoint exists, or its config names a checkpoint-free generator
+    (which :func:`load_vocoder` then refuses)."""
+    from serenade_tpu_torch.config import load_config
+
+    voc_cfg = voc_cfg or {}
+    ckpt = voc_cfg.get("checkpoint")
+    if ckpt and os.path.exists(str(ckpt)):
+        return True
+    cfg_path = voc_cfg.get("config")
+    if cfg_path and os.path.exists(str(cfg_path)):
+        gtype = str((load_config(cfg_path) or {}).get("generator_type", ""))
+        return gtype.lower() in _CHECKPOINT_FREE_GENERATORS
+    return False
+
+
+def load_vocoder(checkpoint: str, config: Mapping) -> dict:
+    """The generator's state dict from the upstream torch pickle at
+    ``checkpoint``, converted for the layout ``config`` describes."""
+    from serenade_tpu_torch.vocoder.convert import (
+        convert_hifigan_generator, load_torch_vocoder_checkpoint,
+    )
+
+    if str(config.get("generator_type", "")).lower() in \
+            _CHECKPOINT_FREE_GENERATORS:
+        raise NotImplementedError(
+            "the checkpoint-free Griffin-Lim vocoder is not ported")
+    if os.path.isdir(checkpoint):
+        raise NotImplementedError(
+            f"{checkpoint} is a vocoder checkpoint directory of the JAX "
+            "package's vocoder trainer (Orbax), which is not ported; give "
+            "the upstream torch pickle")
+    return convert_hifigan_generator(
+        load_torch_vocoder_checkpoint(checkpoint), **generator_layout(config))
 
 
 def _stats(stats, what: str):
@@ -81,6 +138,22 @@ class Vocoder:
             load_params(model, params)
         self.model = model.to(self.device).eval()
 
+    @classmethod
+    def from_files(cls, checkpoint: str, config: str, stats: str,
+                   trg_stats: Optional[Mapping] = None,
+                   device=None) -> "Vocoder":
+        """The vocoder a recipe names: the upstream torch pickle, its YAML
+        config and the ``stats.h5`` (``mean``, ``scale``) it was trained
+        with (serenade_tpu/vocoder/vocoder.py ``Vocoder``)."""
+        from serenade_tpu_torch.config import load_config
+        from serenade_tpu_torch.utils.h5 import read_hdf5
+
+        cfg = load_config(config)
+        mean, scale = read_hdf5(stats, "mean"), read_hdf5(stats, "scale")
+        return cls(cfg, load_vocoder(checkpoint, cfg),
+                   {"mean": mean, "scale": scale}, trg_stats=trg_stats,
+                   device=device)
+
     def _normalize(self, c: torch.Tensor) -> torch.Tensor:
         c = c.float()
         if self.take_norm_feat:
@@ -120,3 +193,21 @@ class Vocoder:
         y = self.synthesize(c)
         return torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(
             torch.int16)
+
+
+def vocoder_from_section(voc_cfg: Optional[Mapping], trg_stats: Mapping,
+                         device=None) -> Optional[Vocoder]:
+    """The vocoder of an experiment config's ``vocoder:`` section
+    (``checkpoint``, ``config``, ``stats``), or None where it cannot
+    synthesize; a configured checkpoint that does not exist is logged, as
+    mel-only output would otherwise go unnoticed downstream."""
+    voc_cfg = voc_cfg or {}
+    if not vocoder_available(voc_cfg):
+        if voc_cfg.get("checkpoint"):
+            logger.warning("configured vocoder checkpoint %s does not exist; "
+                           "conversions will return mel only",
+                           voc_cfg["checkpoint"])
+        return None
+    return Vocoder.from_files(voc_cfg.get("checkpoint") or "",
+                              voc_cfg["config"], voc_cfg["stats"],
+                              trg_stats=trg_stats, device=device)

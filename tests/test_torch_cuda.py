@@ -577,3 +577,57 @@ def test_streams_on_card_match_cpu():
         assert np.abs(mel - mel_c).max() <= 1e-3 * max(1.0,
                                                        np.abs(mel_c).max())
         assert np.abs(w - w_c).max() <= 1e-3 * wav_scale
+
+
+@pytest.mark.cuda
+def test_decode_group_on_card_matches_cpu():
+    """One decode group (two sources in one bucket pair with one style,
+    --batch-size 2) through ``ssc_decode.decode_core`` on the card and on
+    the CPU's plain route, from the same weights and the same noise: mel
+    within phase 4's 1e-3 of max(1, |mel|), waveform within 1e-3 of the
+    group's peak |wav|, the shifted lf0 equal; K1, K2 and K3 launched, no
+    call routed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.bin.ssc_decode import decode_core
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(29)
+    sources = {f"EN_s1_song{i}_Control_Group_0": dict(
+        _features(rng, t, False), lf0=np.abs(rng.normal(size=t)) * 200)
+        for i, t in enumerate((150, 130))}
+    refs = {"Breathy": dict(_features(rng, 100, True),
+                            f0=np.abs(rng.normal(size=100)) * 300)}
+    styles = {u: {"Breathy": "Breathy"} for u in sources}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        conv = Converter(
+            dict(NARROW, dtype="float32"), None, _identity_scaler(),
+            vocoder_config={"sampling_rate": 24000, "generator_params": {
+                "channels": 32, "upsample_scales": [2, 3],
+                "upsample_kernel_sizes": [4, 6]}},
+            vocoder_stats={"mean": np.zeros(80), "scale": np.ones(80)},
+            n_timesteps=2, seed=3, device=dev)
+        counts = [m.launches for m in (flash_cuda, block1d_cuda,
+                                       resblock_cuda)]
+        routed = flash_cuda.routed + block1d_cuda.routed
+        noise = np.random.default_rng(30)
+        out[dev] = list(decode_core(
+            conv, sources, styles, refs, 2,
+            noise=lambda b, t: 0.667 * noise.normal(size=(b, t, 80))))
+        launched = [m.launches - c for m, c in zip(
+            (flash_cuda, block1d_cuda, resblock_cuda), counts)]
+        routed = flash_cuda.routed + block1d_cuda.routed - routed
+    assert all(n > 0 for n in launched) and routed == 0
+    (key, got), = out["cuda"]
+    (key_c, want), = out["cpu"]
+    assert key == key_c == (192, 128) and len(got) == 2
+    wav_scale = max(np.abs(r["wav"]).max() for r in want)
+    for r, r_c in zip(got, want):
+        assert r["mel"].shape == r_c["mel"].shape
+        assert np.abs(r["mel"] - r_c["mel"]).max() <= 1e-3 * max(
+            1.0, np.abs(r_c["mel"]).max())
+        assert np.abs(r["wav"] - r_c["wav"]).max() <= 1e-3 * wav_scale
+        np.testing.assert_array_equal(r["lf0"], r_c["lf0"])
