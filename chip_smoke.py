@@ -84,7 +84,20 @@ Phases, each printing JSON lines:
                largest group; each output against a lone conversion from
                its noise row (phase 8's rule, the gap measured on the card
                in f32), and one group on the card against the CPU in f32
-               (phase 4's rule).
+               (phase 4's rule);
+11. train_loop -- ``trainers.SSCTrainer`` at full width over a seeded
+               corpus (64 utterances of 300-2,900 frames, two of 3,000+
+               that the collater drops): (a) the recipe's keys, batch 4
+               through the host loader (2 thread workers, prefetch 2), 16
+               steps, evals at 8 and 16 with the seeded HiFiGAN, async
+               saves; (b) the full-budget keys, B 16 x 1,280 from the
+               corpus resident on the card, 12 steps, an async save
+               against a synchronous one, a fresh trainer resumed from
+               step 6 bit for bit and run to 12, one profiled step; (c) 3
+               steps with the encoder and the GST frozen.  Steps/s and
+               valid frames/s (each bucket's first visit apart), launches
+               a step (6 K1/K4/K5, 13 K2/K6/K7), routed calls (0), peak
+               memory, the saves' blocked time.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -190,6 +203,21 @@ def bound_ms(flops: float, nbytes: float, bf16: bool,
 # ---------------------------------------------------------------------------
 
 
+def _halved(lengths):
+    """Valid lengths at the UNet's half resolution (its mask's ::2)."""
+    return [(n + 1) // 2 for n in lengths]
+
+
+def _loop_blocks(t, lengths):
+    """(T, Cin, lengths, timed) of the UNet's Block1D shapes in a train
+    step at bucket ``t``: inputs of 242, 512 and 1024 channels at T, 512
+    and 1024 at T/2 (Cout 512 in all); the largest timed."""
+    half = _halved(lengths)
+    return ((t, 1024, lengths, True), (t, 242, lengths, False),
+            (t, 512, lengths, False), (t // 2, 512, half, False),
+            (t // 2, 1024, half, False))
+
+
 def _heads(torch, gen, dev, b, h, t, d, dtype):
     """A (B, H, T, D) view of a (B, T, H, D) buffer, as the attention's
     head split makes them."""
@@ -258,6 +286,14 @@ def check_flash(torch, dev):
     # the decode's largest group (phase 10)
     case(DECODE_GROUP[0], 4, DECODE_GROUP[1], 512, torch.bfloat16,
          DECODE_GROUP_LENGTHS, 2e-2, True)
+    # the training loop (phase 11) at both of the UNet's resolutions, and
+    # its eval's packed self-reference
+    for b, t, lengths in LOOP_CHECKS:
+        case(b, 4, t, 512, torch.bfloat16, lengths, 2e-2, True)
+        case(b, 4, t // 2, 512, torch.bfloat16, _halved(lengths), 2e-2,
+             False)
+    case(len(LOOP_DEV), 4, LOOP_EVAL_T, 512, torch.bfloat16,
+         [2 * n for n in LOOP_DEV], 2e-2, True)
     return main, rows
 
 
@@ -333,6 +369,13 @@ def check_block1d(torch, dev):
     # the decode's largest group (phase 10)
     case(DECODE_GROUP[0], DECODE_GROUP[1], 1024, 512, torch.bfloat16,
          DECODE_GROUP_LENGTHS, 2e-2, True)
+    # the training loop (phase 11): the UNet's block shapes, and its
+    # eval's packed self-reference
+    for b, t, lengths in LOOP_CHECKS:
+        for tt, cin, lens, timed in _loop_blocks(t, lengths):
+            case(b, tt, cin, 512, torch.bfloat16, lens, 2e-2, timed)
+    case(len(LOOP_DEV), LOOP_EVAL_T, 1024, 512, torch.bfloat16,
+         [2 * n for n in LOOP_DEV], 2e-2, False)
     return main, rows
 
 
@@ -438,6 +481,11 @@ def check_flash_bwd(torch, dev):
     main = case(16, 4, 512, 512, torch.bfloat16, [512] + [475] * 15, 2e-2,
                 True)
     case(16, 4, 256, 512, torch.bfloat16, [256] + [219] * 15, 2e-2, True)
+    # the training loop (phase 11) at both of the UNet's resolutions
+    for b, t, lengths in LOOP_CHECKS:
+        case(b, 4, t, 512, torch.bfloat16, lengths, 2e-2, True)
+        case(b, 4, t // 2, 512, torch.bfloat16, _halved(lengths), 2e-2,
+             False)
     return main, rows
 
 
@@ -562,6 +610,10 @@ def check_block1d_bwd(torch, dev):
     for t, cin in ((512, 242), (256, 512), (256, 1024)):
         case(16, t, cin, 512, torch.bfloat16,
              [t] + [t - (37 if t == 512 else 18)] * 15, 2e-2, True)
+    # the training loop (phase 11): the UNet's block shapes
+    for b, t, lengths in LOOP_CHECKS:
+        for tt, cin, lens, timed in _loop_blocks(t, lengths):
+            case(b, tt, cin, 512, torch.bfloat16, lens, 2e-2, timed)
 
     def k7_case(b, t, cin, cout, lengths, tol):
         x = torch.randn((b, t, cin), generator=gen, device=dev).bfloat16()
@@ -2173,6 +2225,453 @@ def decode_path(torch, np, dev, counters, card):
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the training loop
+# ---------------------------------------------------------------------------
+
+# the seeded corpus: 64 utterances of 300-2,900 frames and two of 3,000 or
+# more, which the collater drops; a dev set whose longest (2,900 frames,
+# bucket 2,944) packs to T 5,888 in the eval's self-reference inference
+LOOP_UTTS, LOOP_FRAMES, LOOP_LONG = 64, (300, 2900), (3000, 3100)
+LOOP_DEV = (2900, 1500, 800, 400)
+LOOP_EVAL_T = 2 * 2944
+# phase 2's rows at the loop's shapes: the full budget's B 16 x 1,280
+# (corpus lengths clamped at 1,280) and the recipe's longest bucket at
+# batch 4 (lengths from U(300, 2,900), longest first)
+LOOP_CHECKS = (
+    (16, 1280, [1280, 1280, 903, 1280, 1280, 611, 1280, 1280, 1280, 1166,
+                1280, 402, 1280, 1280, 977, 1280]),
+    (4, 2944, [2900, 2210, 1337, 301]))
+LOOP_STEPS = {"recipe": 16, "fullbudget": 12, "freeze": 3}
+LOOP_FREEZE = ["params/encoder", "params/gst"]
+
+
+class SeededCorpus:
+    """``FeatsDataset``'s interface (``__len__``, ``__getitem__``,
+    ``lengths``) over utterances made from a seed, as
+    ``FeatsDataset(scaler=...)`` gives them: hubert and logmel are drawn
+    already standardized (standard normal, f32), score and loud drawn in
+    their units and min-max scaled by the seeded scaler dicts.  The
+    logmel dict is the eval vocoder's ``trg_stats``."""
+
+    def __init__(self, np, lengths, seed):
+        self._np = np
+        rng = np.random.default_rng(seed)
+        self.scaler = {
+            "hubert": {"mean": rng.normal(size=768), "scale":
+                       rng.uniform(0.5, 2.0, size=768)},
+            "logmel": {"mean": rng.normal(size=80) - 4.0, "scale":
+                       rng.uniform(0.5, 2.0, size=80)},
+            "score": {"min": 0.0, "max": 80.0},
+            "loud": {"min": -80.0, "max": 0.0}}
+        self.items = []
+        for t in lengths:
+            item = {}
+            for key, dim in (("hubert", 768), ("logmel", 80)):
+                item[key] = rng.standard_normal((t, dim), dtype=np.float32)
+            for key, lo, hi in (("score", 40.0, 80.0), ("loud", -60.0, 0.0)):
+                st = self.scaler[key]
+                v = rng.uniform(lo, hi, (t, 1)).astype(np.float32)
+                v -= st["min"]
+                v /= st["max"] - st["min"]
+                item[key] = v
+            self.items.append(item)
+        self.nbytes = sum(a.nbytes for it in self.items for a in it.values())
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def lengths(self, key="hubert"):
+        return self._np.array([it[key].shape[0] for it in self.items])
+
+
+class _Writer:
+    """The trainer's scalars, kept (tensorboardX is not on the card's
+    machine)."""
+
+    def __init__(self):
+        self.scalars = {}
+
+    def add_scalar(self, key, value, step):
+        self.scalars[f"{key}@{step}"] = float(value)
+
+
+class _StepLog(list):
+    """Per-step records of :func:`_recorded_step`, and the last metrics."""
+    metrics = None
+
+
+def _recorded_step(torch, step_fn, log: _StepLog, shape_of):
+    """``step_fn`` with each step's bucket and valid frames
+    (``shape_of(batch)``), its host time and CUDA events around it
+    recorded in ``log``.  Nothing synchronises: the trainer's dispatch
+    window lets the host queue a step while the device runs the last."""
+    def step(state, batch, *rest):
+        start = time.time()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        state, metrics = step_fn(state, batch, *rest)
+        events[1].record()
+        t, frames = shape_of(batch)
+        log.append({"t": t, "frames": frames,
+                    "host_s": time.time() - start, "events": events})
+        log.metrics = metrics
+        return state, metrics
+
+    return step
+
+
+def _rates(torch, log, excluded_s=0.0):
+    """Steps/s and valid frames/s over the loop's window as it ran: on the
+    device's clock from the first step's start to the last step's end,
+    less ``excluded_s`` (the evals' wall).  Apart, for attribution only:
+    each bucket's first visit (host time and device span) beside the
+    mean of its later visits."""
+    torch.cuda.synchronize()
+    for r in log:
+        r["span_s"] = r["events"][0].elapsed_time(r["events"][1]) / 1e3
+    window = (log[0]["events"][0].elapsed_time(log[-1]["events"][1]) / 1e3
+              - excluded_s)
+    visits = {}
+    for r in log:
+        visits.setdefault(r["t"], []).append(r)
+    first = {}
+    for t, rs in visits.items():
+        later = rs[1:]
+        first[str(t)] = {
+            "host_s": rs[0]["host_s"], "span_s": rs[0]["span_s"],
+            "later_visits": len(later),
+            "later_host_s": (sum(r["host_s"] for r in later) / len(later)
+                             if later else None),
+            "later_span_s": (sum(r["span_s"] for r in later) / len(later)
+                             if later else None)}
+    return {"steps": len(log), "window_s": window,
+            "steps_per_s": len(log) / window,
+            "frames_per_s": sum(r["frames"] for r in log) / window,
+            "buckets": sorted(visits), "first_visits": first}
+
+
+def train_loop_path(torch, np, dev, counters, card):
+    """Phase 11: ``SSCTrainer`` at full width over a seeded corpus: (a) the
+    recipe's keys with the host loader (batch 4, two thread workers,
+    prefetch 2), eval samples through the seeded HiFiGAN and an async
+    save at 8; (b) the full-budget keys with the corpus resident on the
+    card (batch 16 at 1,280 frames), an async save at 6 against a
+    synchronous save of the same state, a fresh trainer resumed from
+    step 6 bit for bit and run to 12, one profiled step; (c) 3 steps with
+    the encoder and the GST frozen.  Returns (ok, the phase's
+    launches)."""
+    from serenade_tpu_torch.checkpoint import (
+        restore_checkpoint, save_checkpoint,
+    )
+    from serenade_tpu_torch.collaters.ssc import SSCCollater
+    from serenade_tpu_torch.configs import (
+        TRAIN_CONFIG, TRAIN_CONFIG_FULLBUDGET, VOCODER_CONFIG,
+        serenade_config,
+    )
+    from serenade_tpu_torch.datasets.device_cache import DeviceResidentData
+    from serenade_tpu_torch.datasets.loader import ShardedBatchLoader
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.serenade import Serenade
+    from serenade_tpu_torch.trainers import (
+        SSCTrainer, build_optimizer, build_train_step, create_train_state,
+    )
+    from serenade_tpu_torch.trainers.eval_samples import make_eval_fn
+    from serenade_tpu_torch.utils.model_io import freeze_mask
+    from serenade_tpu_torch.vocoder.vocoder import Vocoder
+
+    t0 = time.time()
+    ok = True
+    cfg = serenade_config()
+    rng = np.random.default_rng(11)
+    lengths = [int(n) for n in rng.integers(
+        LOOP_FRAMES[0], LOOP_FRAMES[1] + 1, LOOP_UTTS)] + list(LOOP_LONG)
+    corpus = SeededCorpus(np, lengths, 11)
+    dev_corpus = SeededCorpus(np, LOOP_DEV, 12)
+    sd0 = init_params_(Serenade(**cfg), seed=0).state_dict()
+    root = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    setup_s = time.time() - t0
+
+    def fresh(trainable=None, config=TRAIN_CONFIG):
+        model = Serenade(**cfg)
+        model.load_state_dict(sd0)
+        model.to(dev)
+        opt, _ = build_optimizer(config, trainable_mask=trainable)
+        return model, opt, create_train_state(model, opt)
+
+    def host_shape(batch):
+        return (int(batch["x"].shape[1]),
+                int(np.asarray(batch["lengths"]).sum()))
+
+    def finite(writer):
+        return bool(writer.scalars) and all(
+            math.isfinite(v) for v in writer.scalars.values())
+
+    counters.reset()
+    try:
+        # (a) the recipe's keys, the host loader, eval samples, async save
+        config = dict(TRAIN_CONFIG, train_max_steps=LOOP_STEPS["recipe"],
+                      log_interval_steps=4, eval_interval_steps=8,
+                      save_interval_steps=8, num_save_intermediate_results=4)
+        model, opt, state = fresh()
+        loader = ShardedBatchLoader(corpus, SSCCollater(),
+                                    batch_size=config["batch_size"], seed=0,
+                                    num_workers=2)
+        dev_batch = next(iter(ShardedBatchLoader(
+            dev_corpus, SSCCollater(), batch_size=len(LOOP_DEV),
+            shuffle=False, drop_last=False)))
+        vocoder = Vocoder(VOCODER_CONFIG, None,
+                          {"mean": np.zeros(80), "scale": np.ones(80)},
+                          trg_stats=corpus.scaler["logmel"], device=dev)
+        eval_dir = os.path.join(root, "a")
+        inner_eval = make_eval_fn(model, dev_batch, outdir=eval_dir,
+                                  vocoder=vocoder, num_save=4, device=dev)
+        evals = []
+
+        def eval_fn(state, steps):
+            # the queued steps finish first, so their time stays the loop's
+            torch.cuda.synchronize()
+            before = counters.read()
+            start = time.time()
+            mel = inner_eval(state, steps)
+            torch.cuda.synchronize()
+            after = counters.read()
+            wavs = sorted(f for f in os.listdir(os.path.join(
+                eval_dir, "predictions", f"{steps}steps"))
+                if f.endswith(".wav"))
+            evals.append({"step": steps, "wall_s": time.time() - start,
+                          "launches": {k: after[k] - before[k] for k in
+                                       ("flash_fwd", "block1d_fwd",
+                                        "resblock_branch")},
+                          "mel_finite": bool(np.isfinite(mel).all()),
+                          "wavs": len(wavs)})
+
+        log, writer = _StepLog(), _Writer()
+        trainer = SSCTrainer(
+            config, _recorded_step(torch, build_train_step(
+                model, opt, device=dev), log, host_shape),
+            state, loader, writer=writer, outdir=os.path.join(root, "a"),
+            eval_fn=eval_fn,
+            generator=torch.Generator(device=dev).manual_seed(2))
+        start = time.time()
+        trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.time() - start
+        loader.shutdown()
+        launches, routed = counters.read(), counters.routed()
+        n = LOOP_STEPS["recipe"]
+        ev = {k: sum(e["launches"][k] for e in evals)
+              for k in ("flash_fwd", "block1d_fwd", "resblock_branch")}
+        per_step = {k: (launches[k] - ev.get(k, 0)) / n for k in
+                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "block1d_fwd", "block1d_bwd_data",
+                     "block1d_bwd_weight")}
+        want = {k: (6 if k.startswith("flash") else 13) for k in per_step}
+        # evals at 8 and 16: Euler-10 (60 K1, 130 K2), 4 samples vocoded
+        # as prediction and ground truth (9 branch calls a vocoder run)
+        a_ok = (per_step == want and not any(routed.values())
+                and finite(writer) and [e["step"] for e in evals] == [8, 16]
+                and all(e["mel_finite"] and e["wavs"] == 8 for e in evals)
+                and ev["flash_fwd"] == 120 and ev["block1d_fwd"] == 260
+                and ev["resblock_branch"] >= 9 * 16
+                and sorted(trainer.save_blocked_s) == [8, 16])
+        emit({"phase": "train_loop", "run": "recipe", "card": card,
+              "batch": config["batch_size"], "workers": 2, "prefetch": 2,
+              "corpus_items": len(corpus), "corpus_host_gb":
+                  corpus.nbytes / 1e9, "run_s": run_s,
+              **_rates(torch, log, sum(e["wall_s"] for e in evals
+                                       if e["step"] < n)),
+              "launches_per_step": per_step, "launches_per_step_expected":
+                  want, "routed": routed, "eval": evals,
+              "save_blocked_s": trainer.save_blocked_s,
+              "losses": {k: v for k, v in writer.scalars.items()
+                         if "loss" in k}, "ok": a_ok})
+        ok &= a_ok
+        del model, opt, state, trainer, vocoder
+        shutil.rmtree(os.path.join(root, "a"), ignore_errors=True)
+
+        # (b) the full-budget keys, the corpus resident on the card
+        fb = dict(TRAIN_CONFIG_FULLBUDGET,
+                  train_max_steps=LOOP_STEPS["fullbudget"],
+                  save_interval_steps=6, log_interval_steps=6,
+                  eval_interval_steps=10 ** 9)
+        pft = fb["collater_params"]["pad_frames_to"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt, state = fresh(config=fb)
+        t = time.time()
+        dr = DeviceResidentData(corpus, pad_frames_to=pft,
+                                batch_size=fb["batch_size"], seed=0,
+                                device=dev)
+        torch.cuda.synchronize()
+        upload_s = time.time() - t
+        log, writer = _StepLog(), _Writer()
+        step = build_train_step(model, opt, device=dev)
+        lens = np.minimum(corpus.lengths(), pft)
+        trainer = SSCTrainer(
+            fb, _recorded_step(torch, dr.wrap_step(step), log, lambda b: (
+                pft, int(lens[b["indices"]].sum()))), state, dr,
+            writer=writer, outdir=os.path.join(root, "b"),
+            generator=torch.Generator(device=dev).manual_seed(2))
+        # the state at step 6 copied to the host before the async save, to
+        # hold the saved file against (the next step updates in place)
+        ref = {}
+        interval_save = trainer.save
+
+        def save(step):
+            if step == 6:
+                ref.update(
+                    params={k: p.detach().to("cpu", copy=True)
+                            for k, p in state.params.items()},
+                    **{part: {k: v.to("cpu", copy=True) for k, v in
+                              state.opt_state[part].items()}
+                       for part in ("mu", "nu")},
+                    count=state.opt_state["count"])
+            interval_save(step)
+
+        trainer.save = save
+        counts0 = counters.read()
+        start = time.time()
+        trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.time() - start
+        counts1 = counters.read()
+        peak = torch.cuda.max_memory_allocated()
+        rates = _rates(torch, log)
+        # the step after the async save waits on the device for its copies
+        after_save = {k: log[6][k] for k in ("host_s", "span_s")}
+        params = {k: p.detach() for k, p in state.params.items()}
+        t = time.time()
+        save_checkpoint(os.path.join(root, "sync"), 12, params,
+                        state.opt_state, epochs=trainer.epochs)
+        sync_s = time.time() - t
+        shutil.rmtree(os.path.join(root, "sync"), ignore_errors=True)
+        prof = device_time(torch, lambda: (
+            step(state, dr.gather(next(iter(dr))["indices"])),
+            torch.cuda.synchronize()))
+        # over the loop's window as it ran: every step as busy as this one
+        prof["device_idle_share"] = 1.0 - (
+            prof["device_busy_s"] * rates["steps"] / rates["window_s"])
+        b_losses = finite(writer)
+        del model, opt
+
+        # a fresh trainer resumed from step 6: the saved state exactly
+        path = os.path.join(root, "b", "checkpoint-6steps")
+        saved = restore_checkpoint(path)
+        model2 = Serenade(**cfg).to(dev)
+        g = torch.Generator(device=dev).manual_seed(5)
+        with torch.no_grad():
+            for p in model2.parameters():
+                p.normal_(generator=g)
+        opt2, _ = build_optimizer(fb)
+        state2 = create_train_state(model2, opt2)
+        writer2 = _Writer()
+        resumed = SSCTrainer(
+            fb, dr.wrap_step(build_train_step(model2, opt2, device=dev)),
+            state2, dr, writer=writer2, outdir=os.path.join(root, "b2"),
+            generator=torch.Generator(device=dev).manual_seed(2))
+        resumed.resume(path)
+        # the file holds the state as it was at the save, and the fresh
+        # trainer holds the file, bit for bit
+        snapshot_exact = (
+            saved["opt_state"]["count"] == ref["count"] == 6
+            and all(torch.equal(saved["params"][k], v)
+                    for k, v in ref["params"].items())
+            and all(torch.equal(saved["opt_state"][part][k], v)
+                    for part in ("mu", "nu") for k, v in ref[part].items()))
+        exact = (
+            snapshot_exact
+            and resumed.steps == saved["meta"]["step"] == 6
+            and resumed.epochs == saved["meta"]["epochs"]
+            and state2.step == 6
+            and state2.opt_state["count"] == saved["opt_state"]["count"]
+            and all(torch.equal(p.cpu(), ref["params"][k])
+                    for k, p in state2.params.items())
+            and all(torch.equal(v.cpu(), ref[part][k])
+                    for part in ("mu", "nu")
+                    for k, v in state2.opt_state[part].items()))
+        resumed.run()
+        torch.cuda.synchronize()
+        routed = counters.routed()
+        b_counts = {k: counts1[k] - counts0[k] for k in counts1}
+        n = LOOP_STEPS["fullbudget"]
+        b_want = {k: n * (6 if k.startswith("flash") else 13)
+                  for k in per_step}
+        b_ok = (b_losses and finite(writer2) and exact
+                and resumed.steps == 12 and not any(routed.values())
+                and all(b_counts[k] == v for k, v in b_want.items())
+                and sorted(trainer.save_blocked_s) == [6, 12])
+        emit({"phase": "train_loop", "run": "fullbudget", "card": card,
+              "batch": [fb["batch_size"], pft], "run_s": run_s, **rates,
+              "corpus_device_gb": dr.nbytes / 1e9, "upload_s": upload_s,
+              "peak_memory_gb": peak / 1e9,
+              "save_blocked_s": trainer.save_blocked_s,
+              "step_after_async_save_s": after_save,
+              "sync_save_s": sync_s, "launches": b_counts,
+              "launches_expected": b_want, "routed": routed,
+              "snapshot_exact": snapshot_exact, "resume_exact": exact,
+              "resumed_steps": resumed.steps,
+              "losses": {k: v for k, v in {**writer.scalars,
+                                           **writer2.scalars}.items()
+                         if "loss" in k}, "ok": b_ok})
+        emit(dict(phase="train_loop_profile", run="fullbudget", **prof))
+        ok &= b_ok
+        del model2, opt2, state2, resumed, trainer, dr, ref, saved
+        shutil.rmtree(os.path.join(root, "b"), ignore_errors=True)
+
+        # (c) the encoder and the GST frozen
+        with torch.device("meta"):
+            mask = freeze_mask(Serenade(**cfg), LOOP_FREEZE)
+        config = dict(TRAIN_CONFIG, train_max_steps=LOOP_STEPS["freeze"],
+                      log_interval_steps=1, eval_interval_steps=10 ** 9,
+                      save_interval_steps=10 ** 9, async_checkpointing=False)
+        model, opt, state = fresh(trainable=mask)
+        before = {k: p.detach().clone() for k, p in state.params.items()}
+        log, writer = _StepLog(), _Writer()
+        loader = ShardedBatchLoader(corpus, SSCCollater(), batch_size=4,
+                                    seed=3)
+        trainer = SSCTrainer(
+            config, _recorded_step(torch, build_train_step(
+                model, opt, device=dev), log, host_shape),
+            state, loader, writer=writer, outdir=os.path.join(root, "c"),
+            generator=torch.Generator(device=dev).manual_seed(2))
+        trainer.run()
+        frozen = [k for k, v in mask.items() if not v]
+        unchanged = [k for k, p in state.params.items()
+                     if torch.equal(p, before[k])]
+        grads = [p.grad for p in state.params.values()]
+        all_norm = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads])))
+        logged = float(log.metrics["train/grad_norm"])
+        frozen_grads = all(state.params[k].grad is not None
+                           and bool(state.params[k].grad.abs().amax() > 0)
+                           for k in frozen)
+        c_ok = (sorted(unchanged) == sorted(frozen) and bool(frozen)
+                and frozen_grads and finite(writer)
+                and abs(logged - all_norm) <= 1e-5 * all_norm
+                and set(state.opt_state["mu"]) == {k for k, v in
+                                                   mask.items() if v}
+                and not any(counters.routed().values()))
+        emit({"phase": "train_loop", "run": "freeze", "card": card,
+              "frozen_prefixes": LOOP_FREEZE, "frozen_tensors": len(frozen),
+              "trainable_tensors": len(mask) - len(frozen),
+              "unchanged_tensors": len(unchanged),
+              "frozen_have_gradients": frozen_grads,
+              "grad_norm_logged": logged, "grad_norm_all": all_norm,
+              "ok": c_ok})
+        ok &= c_ok
+        del model, opt, state, trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = counters.read()
+    emit({"phase": "train_loop_done", "seconds": time.time() - t0,
+          "setup_s": setup_s, "launches": launches, "ok": bool(ok)})
+    return bool(ok), launches
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -2360,6 +2859,10 @@ def main() -> int:
     ok &= decode_ok
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch"):
         entries[name]["decode_launches"] = launches[name]
+    loop_ok, launches = train_loop_path(torch, np, dev, counters, card)
+    ok &= loop_ok
+    for name in entries:
+        entries[name]["loop_launches"] = launches[name]
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

@@ -1,10 +1,11 @@
-"""Checkpoint save/restore, the params side (counterpart of
-serenade_tpu/checkpoint.py).
+"""Checkpoint save/restore (counterpart of serenade_tpu/checkpoint.py).
 
 The same step-named directories as the JAX package,
 ``<root>/checkpoint-<steps>steps``, found by step number.  Each holds one
 ``torch.save`` file, ``checkpoint.pt``: ``{"params": <state dict of the
-port's model>, "opt_state": ..., "meta": {"step", "epochs"}}``.  An Orbax
+port's model>, "opt_state": <the optimizer's state, keyed by parameter
+name (trainers.train_step.Optimizer)>, "meta": {"step", "epochs"}}``,
+written synchronously or by :class:`AsyncSaver`.  An Orbax
 directory written by the JAX package cannot be read without JAX: it is
 refused by name, and its params cross through the param bridge
 (``serenade_tpu_torch.convert``) instead.
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import os
 import re
+import threading
 from typing import Optional
 
 import torch
@@ -28,20 +30,115 @@ def _ckpt_dir(root: str, step: int) -> str:
     return os.path.join(os.path.abspath(root), f"checkpoint-{step}steps")
 
 
+def _ckpt_state(step: int, params, opt_state, epochs: int) -> dict:
+    state = {"params": dict(params)}
+    if opt_state is not None:
+        state["opt_state"] = opt_state
+    state["meta"] = {"step": int(step), "epochs": int(epochs)}
+    return state
+
+
+def _write(path: str, state: dict) -> None:
+    """``state`` into ``path``/checkpoint.pt, through a ``.tmp`` file
+    renamed into place (a reader never sees a partial file)."""
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+    torch.save(state, tmp)
+    os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+
+
 def save_checkpoint(root: str, step: int, params, opt_state=None,
                     epochs: int = 0) -> str:
     """Write ``params`` (a state dict) and ``opt_state`` under
     ``<root>/checkpoint-<step>steps``; returns that directory."""
     path = _ckpt_dir(root, step)
-    os.makedirs(path, exist_ok=True)
-    state = {"params": params}
-    if opt_state is not None:
-        state["opt_state"] = opt_state
-    state["meta"] = {"step": int(step), "epochs": int(epochs)}
-    tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-    torch.save(state, tmp)
-    os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+    _write(path, _ckpt_state(step, params, opt_state, epochs))
     return path
+
+
+def _map_tensors(tree, fn):
+    """``tree`` (nested dicts) with ``fn`` applied to every tensor."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    return fn(tree) if torch.is_tensor(tree) else tree
+
+
+class AsyncSaver:
+    """Checkpoint saves that do not stall the step loop for the write.
+
+    ``save`` snapshots the state first: CUDA tensors are copied into
+    pinned host memory on a side stream that waits for the work queued
+    so far, and the current stream then waits for those copies, so the
+    next step's in-place updates of the parameters and moments run only
+    after the snapshot holds the state as it was (CPU tensors are cloned
+    on the spot).  A background thread then waits for the copies and
+    writes the file (``.tmp``, then renamed).  A save issued while the
+    previous one is still writing waits for it first.  :meth:`wait`
+    blocks until the last save is on disk and raises its error, if any;
+    :meth:`close` does the same at shutdown."""
+
+    def __init__(self):
+        self._thread = None
+        self._error = None
+        self._streams = {}
+
+    def _snapshot(self, state):
+        devices = set()
+        _map_tensors(state, lambda t: devices.add(t.device))
+        cuda = next((d for d in devices if d.type == "cuda"), None)
+        if cuda is None:
+            return _map_tensors(state, lambda t: t.detach().clone()), None
+        side = self._streams.get(cuda)
+        if side is None:
+            side = self._streams[cuda] = torch.cuda.Stream(device=cuda)
+        current = torch.cuda.current_stream(cuda)
+        side.wait_stream(current)
+
+        def to_host(t):
+            if t.device.type != "cuda":
+                return t.detach().clone()
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return host.copy_(t.detach(), non_blocking=True)
+
+        with torch.cuda.stream(side):
+            snap = _map_tensors(state, to_host)
+            done = torch.cuda.Event()
+            done.record(side)
+        current.wait_event(done)
+        return snap, done
+
+    def _commit(self, path, snap, done):
+        try:
+            if done is not None:
+                done.synchronize()
+            _write(path, snap)
+        except BaseException as exc:  # noqa: BLE001 — raised by wait()
+            self._error = exc
+
+    def save(self, root: str, step: int, params, opt_state=None,
+             epochs: int = 0) -> str:
+        """Start saving ``params`` and ``opt_state`` under
+        ``<root>/checkpoint-<step>steps``; returns that directory."""
+        self.wait()
+        path = _ckpt_dir(root, step)
+        snap, done = self._snapshot(
+            _ckpt_state(step, params, opt_state, epochs))
+        self._thread = threading.Thread(target=self._commit,
+                                        args=(path, snap, done),
+                                        name="ckpt-commit")
+        self._thread.start()
+        return path
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            exc, self._error = self._error, None
+            raise exc
+
+    def close(self):
+        self.wait()
 
 
 def restore_checkpoint(path: str) -> dict:

@@ -3,9 +3,9 @@ serenade_tpu/config.py).
 
 ``load_config`` / ``dump_config`` read and write the recipe's YAML
 (``pyyaml``, imported when a file is read or written).  The registry
-holds what the port has: a config's ``model_type`` resolves to its class
-here, and a type the JAX package has but the port does not is refused by
-name.
+holds what the port has: a config's ``model_type``, ``trainer_type``,
+``collater_type`` and ``dataset_type`` resolve to their classes here, and
+a type the JAX package has but the port does not is refused by name.
 """
 
 from __future__ import annotations
@@ -18,11 +18,21 @@ from typing import Any, Dict
 # kind -> name -> "module:attribute", imported on first resolve
 _REGISTRY = {
     "model": {"Serenade": "serenade_tpu_torch.models.serenade:Serenade"},
+    "trainer": {"SSCTrainer": "serenade_tpu_torch.trainers.ssc:SSCTrainer"},
+    "collater": {
+        "SSCCollater": "serenade_tpu_torch.collaters.ssc:SSCCollater"},
+    "dataset": {
+        "FeatsDataset":
+            "serenade_tpu_torch.datasets.feats_dataset:FeatsDataset"},
 }
 # registered in the JAX package, not ported
+_FLUC = "the F0-fluctuation variant is not ported"
 _NOT_PORTED = {
     ("model", "SerenadeNew"): "the F0-fluctuation variant (fluc_channels > "
                               "0) is not ported",
+    ("trainer", "SSCTrainerNew"): _FLUC,
+    ("collater", "SSCCollaterNew"): _FLUC,
+    ("dataset", "FeatsDatasetNew"): _FLUC,
 }
 
 

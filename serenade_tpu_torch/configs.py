@@ -48,7 +48,7 @@ VOCODER_CONFIG = {
 
 
 # egs/gtsinger/ssc1/conf/serenade.yaml, the training keys that
-# ``trainers.build_optimizer`` and a training loop read
+# ``trainers.build_optimizer`` and ``trainers.SSCTrainer`` read
 TRAIN_CONFIG = {
     "batch_size": 4,
     "gradient_accumulate_steps": 1,
@@ -58,7 +58,18 @@ TRAIN_CONFIG = {
     "scheduler_type": "MultiStepLR",
     "scheduler_params": {"gamma": 0.5,
                          "milestones": [100000, 200000, 300000]},
+    "train_max_steps": 40000,
+    "save_interval_steps": 2500,
+    "eval_interval_steps": 2500,
+    "log_interval_steps": 500,
+    "num_save_intermediate_results": 8,
 }
+
+# egs/gtsinger/ssc1/conf/serenade_fullbudget.yaml: batch 16, every batch
+# padded to 1280 frames, the corpus resident on the device
+TRAIN_CONFIG_FULLBUDGET = dict(
+    TRAIN_CONFIG, batch_size=16, collater_params={"pad_frames_to": 1280},
+    device_resident_data=True)
 
 
 def serenade_config(dtype: str = SERENADE_DTYPE) -> dict:

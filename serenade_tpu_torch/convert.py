@@ -21,7 +21,7 @@ Nothing here imports JAX; the caller converts JAX arrays to numpy.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +69,53 @@ _CONVERTERS: Dict[type, Callable[[Mapping], Dict[str, np.ndarray]]] = {
     gst.MaskedGRU: _gru,
     gst.StyleTokenLayer: lambda p: {"gst_embs": p["gst_embs"]},
 }
+
+
+# the flax leaves each port tensor is made from, per module type (the
+# layouts above aside): port key -> flax leaf paths under the module
+_LEAVES: Dict[type, Dict[str, Tuple[str, ...]]] = {
+    layers.Dense: {"weight": ("kernel",), "bias": ("bias",)},
+    layers.Conv1d: {"weight": ("kernel",), "bias": ("bias",)},
+    layers.ConvTranspose1d: {"weight": ("kernel",), "bias": ("bias",)},
+    layers.WNConv1d: {"v": ("v",), "g": ("g",), "bias": ("bias",)},
+    gst.Conv2d: {"weight": ("kernel",)},
+    layers.NormParams: {"scale": ("scale",), "bias": ("bias",)},
+    layers.LayerNorm: {"scale": ("scale",), "bias": ("bias",)},
+    gst.MaskedGroupNorm2d: {"scale": ("scale",), "bias": ("bias",)},
+    gst.FrozenBatchNorm2d: {k: (k,) for k in ("mean", "var", "scale",
+                                               "bias")},
+    gst.MaskedGRU: {
+        "weight_ih": ("ir/kernel", "iz/kernel", "in/kernel"),
+        "weight_hh": ("hr/kernel", "hz/kernel", "hn/kernel"),
+        "bias_ih": ("ir/bias", "iz/bias", "in/bias"),
+        "bias_hn": ("hn/bias",)},
+    gst.StyleTokenLayer: {"gst_embs": ("gst_embs",)},
+}
+
+
+def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """The bridge's name table: each state-dict key of ``module`` -> the
+    "/"-joined paths of the flax leaves it is made from, as the JAX
+    package names them in a full variables tree (``params/encoder/
+    conv_in/kernel``; ``utils/model_io.py`` selects modules by prefixes
+    of these)."""
+    table = {}
+    for name, mod in module.named_modules():
+        leaves = _LEAVES.get(type(mod))
+        if leaves is None:
+            continue
+        parts = ["params"] + [key for part in (name.split(".") if name
+                                               else ())
+                              for key in _FLAX_NAMES.get(part, (part,))]
+        own = dict(mod.named_parameters(recurse=False))
+        for key, subpaths in leaves.items():
+            if key in own:
+                table[f"{name}.{key}" if name else key] = tuple(
+                    "/".join(parts + [p]) for p in subpaths)
+    expected = set(module.state_dict())
+    if set(table) != expected:
+        raise KeyError(f"no flax path for {sorted(expected - set(table))[:5]}")
+    return table
 
 
 def _lookup(tree: Mapping, name: str) -> Mapping:

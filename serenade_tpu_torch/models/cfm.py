@@ -19,8 +19,12 @@ class CFM(nn.Module):
                  decoder_channels: Tuple[int, ...] = (512, 512),
                  decoder_attention_head_dim: int = 512,
                  dtype=torch.float32, sigma_min: float = 1e-4,
-                 dropout: float = 0.05):
+                 dropout: float = 0.05, remat: bool = False):
+        """``remat``: the training estimator keeps no activations for the
+        backward pass and runs again there (``torch.utils.checkpoint``;
+        the same gradients, less memory)."""
         super().__init__()
+        self.remat = remat
         self.out_channels = out_channels
         self.sigma_min = sigma_min
         self.dtype = as_dtype(dtype)
@@ -59,8 +63,11 @@ class CFM(nn.Module):
         x1f = x1.float()
         y = (1.0 - (1.0 - self.sigma_min) * t3) * z + t3 * x1f
         u = x1f - (1.0 - self.sigma_min) * z
-        v = self.estimator(y.to(self.dtype), mask, mu, t3[:, 0, 0], spk,
-                           train=train, generator=generator)
+        args = (y.to(self.dtype), mask, mu, t3[:, 0, 0], spk)
+        if self.remat and torch.is_grad_enabled():
+            v = _rematerialized(self.estimator, args, train, generator)
+        else:
+            v = self.estimator(*args, train=train, generator=generator)
         norm_mask = mask_l if mask_l is not None else mask
         err = torch.square((v - u) * norm_mask)
         loss = err.sum() / (torch.clamp(norm_mask.sum(), min=1.0) * c)
@@ -113,3 +120,28 @@ class CFM(nn.Module):
                 v_prev = v
             return x
         raise ValueError(f"unknown solver '{solver}'")
+
+
+def _rematerialized(estimator, args, train, generator):
+    """``estimator(*args)`` under ``torch.utils.checkpoint``.  The run in
+    the backward pass draws the same dropout masks: the generator is set
+    back to its state before the forward run, and afterwards to where the
+    caller's draws had left it."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = None if generator is None else generator.get_state()
+    runs = []
+
+    def run(*a):
+        again = bool(runs)
+        runs.append(True)
+        if start is None or not again:
+            return estimator(*a, train=train, generator=generator)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:        # a recomputation may be stopped early by an exception
+            return estimator(*a, train=train, generator=generator)
+        finally:
+            generator.set_state(resume)
+
+    return checkpoint(run, *args, use_reentrant=False)

@@ -27,8 +27,8 @@ from serenade_tpu_torch.ops.sequence import pack_pair_time, unpack_suffix_time
 from serenade_tpu_torch.utils.masking import length_mask
 
 # accepted for config compatibility: cfg_prob is unused by the reference
-# too, and remat is not ported
-_ACCEPTED = ("cfg_prob", "remat")
+# too
+_ACCEPTED = ("cfg_prob",)
 LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -43,7 +43,8 @@ class Serenade(nn.Module):
                                                     512),
                  gst_gru_units: int = 128,
                  mask_size: Tuple[float, float] = (0.1, 0.5),
-                 dropout: float = 0.05, dtype="bfloat16", **accepted):
+                 dropout: float = 0.05, dtype="bfloat16",
+                 remat: bool = False, **accepted):
         super().__init__()
         unknown = set(accepted) - set(_ACCEPTED)
         if unknown:
@@ -68,7 +69,7 @@ class Serenade(nn.Module):
             spk_embed_dim=gst_embed_dim,
             decoder_channels=(decoder_channels, decoder_channels),
             decoder_attention_head_dim=decoder_attention_head_dim,
-            dropout=dropout, dtype=dtype)
+            dropout=dropout, dtype=dtype, remat=remat)
 
     def forward(self, x, lengths, logmel, midi, loud, *,
                 generator: Optional[torch.Generator] = None,

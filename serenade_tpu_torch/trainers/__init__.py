@@ -1,3 +1,4 @@
+from serenade_tpu_torch.trainers.ssc import SSCTrainer  # noqa: F401
 from serenade_tpu_torch.trainers.train_step import (  # noqa: F401
     Optimizer,
     TrainState,

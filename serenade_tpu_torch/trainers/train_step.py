@@ -45,13 +45,21 @@ def _f32_power(base: float, count: int) -> float:
 
 class Optimizer:
     """``optax.chain(clip_by_global_norm, adamw | adam | sgd)`` with a
-    schedule, over a list of tensors."""
+    schedule, over named tensors.
+
+    ``trainable_mask`` (name -> bool, ``utils.model_io.freeze_mask``) is
+    ``optax.multi_transform({True: chain, False: set_to_zero})``: the clip's
+    global norm counts the trainable gradients only, and frozen tensors
+    never move and hold no moments.  The state is keyed by name
+    (``{"count", "mu", "nu"}`` or ``{"count", "trace"}``), so a checkpoint
+    restore can check it against the live one."""
 
     def __init__(self, kind: str, schedule: Callable[[int], float], *,
                  grad_norm: Optional[float] = None, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0, mu_dtype=None,
-                 momentum: Optional[float] = None):
+                 momentum: Optional[float] = None,
+                 trainable_mask: Optional[Mapping[str, bool]] = None):
         if kind not in ("AdamW", "Adam", "SGD"):
             raise ValueError(f"unknown optimizer '{kind}'")
         self.kind, self.schedule = kind, schedule
@@ -61,51 +69,79 @@ class Optimizer:
         self.mu_dtype = (getattr(torch, mu_dtype) if isinstance(mu_dtype, str)
                          else mu_dtype)
         self.momentum = momentum or None
+        self.trainable_mask = (None if trainable_mask is None
+                               else dict(trainable_mask))
 
-    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+    def trainable(self, params: Mapping[str, torch.Tensor]) -> List[str]:
+        """The names of ``params`` the optimizer moves."""
+        names = list(params)
+        if self.trainable_mask is None:
+            return names
+        unknown = set(names) ^ set(self.trainable_mask)
+        if unknown:
+            raise KeyError(f"trainable_mask and the parameters differ at "
+                           f"{sorted(map(str, unknown))[:5]}")
+        return [n for n in names if self.trainable_mask[n]]
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        """The state for ``params`` (name -> tensor)."""
+        train = {n: params[n] for n in self.trainable(params)}
         state: Dict[str, Any] = {"count": 0}
         if self.kind == "SGD":
             if self.momentum:
-                state["trace"] = [torch.zeros_like(p) for p in params]
+                state["trace"] = {n: torch.zeros_like(p)
+                                  for n, p in train.items()}
         else:
-            state["mu"] = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
-                           for p in params]
-            state["nu"] = [torch.zeros_like(p) for p in params]
+            state["mu"] = {n: torch.zeros_like(
+                p, dtype=self.mu_dtype or p.dtype) for n, p in train.items()}
+            state["nu"] = {n: torch.zeros_like(p) for n, p in train.items()}
         return state
 
     @torch.no_grad()
-    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, torch.Tensor],
                state: Dict[str, Any]) -> torch.Tensor:
-        """Apply one update to ``params`` in place; returns the global norm
-        of ``grads`` before clipping."""
+        """Apply one update to ``params`` in place (``grads`` keyed as
+        ``params``); returns the global norm of all ``grads`` before
+        clipping."""
         norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+            torch.stack(torch._foreach_norm(list(grads.values()))))
+        names = self.trainable(params)
+        if not names:                   # everything frozen: nothing moves
+            state["count"] += 1
+            return norm
+        params = [params[n] for n in names]
+        grads = [grads[n] for n in names]
         g = grads
         if self.grad_norm is not None:
+            # the trainable gradients' norm (all of them when none is frozen)
+            tnorm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
             # optax's select, kept on the device: t when ‖g‖ < max_norm,
             # else (t / ‖g‖) · max_norm (t / 1 · 1 is t exactly)
-            keep = norm < self.grad_norm
-            one = torch.ones_like(norm)
-            g = torch._foreach_div(grads, torch.where(keep, one, norm))
+            keep = tnorm < self.grad_norm
+            one = torch.ones_like(tnorm)
+            g = torch._foreach_div(grads, torch.where(keep, one, tnorm))
             torch._foreach_mul_(g, torch.where(
-                keep, one, torch.full_like(norm, self.grad_norm)))
+                keep, one, torch.full_like(tnorm, self.grad_norm)))
         count = state["count"]
         lr = self.schedule(count)
         if self.kind == "SGD":
             if self.momentum:
-                torch._foreach_mul_(state["trace"], self.momentum)
-                torch._foreach_add_(state["trace"], g)
-                g = state["trace"]
+                trace = [state["trace"][n] for n in names]
+                torch._foreach_mul_(trace, self.momentum)
+                torch._foreach_add_(trace, g)
+                g = trace
             upd = torch._foreach_mul(g, -lr)
         else:
             b1, b2, c = self.b1, self.b2, count + 1
             # JAX's promotion: b1 is rounded to mu's dtype and b1·mu rounds
             # there; the sum with (1 - b1)·g is f32
             b1_mu = torch.tensor(b1, dtype=self.mu_dtype or torch.float32)
-            mu = [m.float() for m in
-                  torch._foreach_mul(state["mu"], b1_mu.item())]
+            mu = [m.float() for m in torch._foreach_mul(
+                [state["mu"][n] for n in names], b1_mu.item())]
             torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
-            nu = state["nu"]
+            nu = [state["nu"][n] for n in names]
             torch._foreach_mul_(nu, b2)
             torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
             den = torch._foreach_div(nu, 1.0 - _f32_power(b2, c))
@@ -116,20 +152,21 @@ class Optimizer:
             if self.weight_decay:
                 torch._foreach_add_(upd, params, alpha=self.weight_decay)
             torch._foreach_mul_(upd, -lr)
-            if self.mu_dtype is not None:
-                mu = [m.to(self.mu_dtype) for m in mu]
-            state["mu"] = mu
+            # the stored moments in mu_dtype, written in place
+            torch._foreach_copy_([state["mu"][n] for n in names], mu)
         torch._foreach_add_(params, upd)
         state["count"] = count + 1
         return norm
 
 
-def build_optimizer(config: Mapping[str, Any]):
+def build_optimizer(config: Mapping[str, Any],
+                    trainable_mask: Optional[Mapping[str, bool]] = None):
     """(Optimizer, schedule) from a recipe-style config (``optimizer_type``,
     ``optimizer_params`` with ``lr``, ``scheduler_type``,
     ``scheduler_params``, ``grad_norm``), as
     ``serenade_tpu.trainers.build_optimizer`` reads it.  AdamW's weight
-    decay defaults to 0.01, as there."""
+    decay defaults to 0.01, as there.  ``trainable_mask``: parameter name
+    -> trainable (``utils.model_io.freeze_mask``)."""
     opt_params = dict(config.get("optimizer_params", {}))
     lr = opt_params.pop("lr", 1e-3)
     schedule = SCHEDULERS[config.get("scheduler_type", "ConstantLR")](
@@ -141,14 +178,25 @@ def build_optimizer(config: Mapping[str, Any]):
             "Adam": ("b1", "b2", "eps", "mu_dtype"),
             "SGD": ("momentum",)}.get(kind, ())
     opt = Optimizer(kind, schedule, grad_norm=config.get("grad_norm"),
+                    trainable_mask=trainable_mask,
                     **{k: v for k, v in opt_params.items() if k in keys})
     return opt, schedule
 
 
 def create_train_state(model: nn.Module, opt: Optimizer) -> TrainState:
     params = dict(model.named_parameters())
-    return TrainState(params=params,
-                      opt_state=opt.init(list(params.values())), step=0)
+    return TrainState(params=params, opt_state=opt.init(params), step=0)
+
+
+def to_device(v, dev: torch.device) -> torch.Tensor:
+    """A batch array on ``dev``; a host array goes up through pinned
+    memory without blocking (a pageable copy waits for the stream)."""
+    t = torch.as_tensor(v)
+    if t.device.type == dev.type:
+        return t
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def build_train_step(model: nn.Module, opt: Optimizer, *,
@@ -187,7 +235,7 @@ def build_train_step(model: nn.Module, opt: Optimizer, *,
     def step_fn(state: TrainState, batch: Mapping[str, Any],
                 generator: Optional[torch.Generator] = None,
                 draws=None):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        batch = {k: to_device(v, dev) for k, v in batch.items()}
         params = list(state.params.values())
         for p in params:
             p.grad = None
@@ -204,8 +252,8 @@ def build_train_step(model: nn.Module, opt: Optimizer, *,
         if grad_accum > 1:
             torch._foreach_mul_(grads, 1.0 / grad_accum)
         metrics = dict(zip(METRICS, values))
-        metrics["train/grad_norm"] = opt.update(params, grads,
-                                                state.opt_state)
+        metrics["train/grad_norm"] = opt.update(
+            state.params, dict(zip(state.params, grads)), state.opt_state)
         state.step += 1
         return state, metrics
 

@@ -631,3 +631,80 @@ def test_decode_group_on_card_matches_cpu():
             1.0, np.abs(r_c["mel"]).max())
         assert np.abs(r["wav"] - r_c["wav"]).max() <= 1e-3 * wav_scale
         np.testing.assert_array_equal(r["lf0"], r_c["lf0"])
+
+
+@pytest.mark.cuda
+def test_train_loop_on_card_saves_and_resumes_exactly(tmp_path):
+    """3 steps of ``SSCTrainer`` on the card (bf16 compute at head dim
+    512, the host loader with a prefetch thread), an async save at step 2:
+    a fresh trainer resumed from it holds the saved parameters, moments,
+    count, step and epochs bit for bit and runs to step 3; the kernels
+    launched, no call routed, the losses finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.checkpoint import restore_checkpoint
+    from serenade_tpu_torch.collaters.ssc import SSCCollater
+    from serenade_tpu_torch.datasets.loader import ShardedBatchLoader
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.serenade import Serenade
+    from serenade_tpu_torch.trainers import (
+        SSCTrainer, build_optimizer, build_train_step, create_train_state,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    items = [{"hubert": rng.normal(size=(t, 32)).astype(np.float32),
+              "logmel": rng.normal(size=(t, 80)).astype(np.float32),
+              "score": rng.random((t, 1)).astype(np.float32),
+              "loud": rng.random((t, 1)).astype(np.float32)}
+             for t in (150, 120, 97, 130, 64, 110)]
+    config = {"batch_size": 2, "train_max_steps": 3, "log_interval_steps": 1,
+              "save_interval_steps": 2, "eval_interval_steps": 100,
+              "optimizer_type": "AdamW",
+              "optimizer_params": {"lr": 8e-4, "mu_dtype": "bfloat16"},
+              "grad_norm": 1.0}
+    cfg = dict(NARROW, encoder_channels=80, dropout=0.0, dtype="bfloat16")
+
+    class Writer:
+        def __init__(self):
+            self.scalars = {}
+
+        def add_scalar(self, key, value, step):
+            self.scalars[key, step] = value
+
+    def trainer(outdir):
+        model = init_params_(Serenade(**cfg), seed=0).to(dev)
+        opt, _ = build_optimizer(config)
+        loader = ShardedBatchLoader(items, SSCCollater(), batch_size=2,
+                                    seed=1)
+        return SSCTrainer(
+            config, build_train_step(model, opt, device=dev),
+            create_train_state(model, opt), loader, writer=Writer(),
+            outdir=str(outdir),
+            generator=torch.Generator(device=dev).manual_seed(2))
+
+    counts = (flash_cuda.launches, flash_cuda.dkv_launches,
+              block1d_cuda.weight_launches)
+    routed = flash_cuda.routed + block1d_cuda.routed
+    first = trainer(tmp_path / "a")
+    first.run()
+    assert all(n > c for n, c in zip(
+        (flash_cuda.launches, flash_cuda.dkv_launches,
+         block1d_cuda.weight_launches), counts))
+    assert flash_cuda.routed + block1d_cuda.routed == routed
+    assert all(np.isfinite(v) for v in first._writer.scalars.values())
+
+    path = str(tmp_path / "a" / "checkpoint-2steps")
+    saved = restore_checkpoint(path)
+    second = trainer(tmp_path / "b")
+    second.resume(path)
+    assert (second.steps, second.epochs, second.state.step) == (2, 0, 2)
+    assert second.state.opt_state["count"] == 2
+    for name, p in second.state.params.items():
+        assert torch.equal(p.cpu(), saved["params"][name]), name
+    for part in ("mu", "nu"):
+        for name, t in second.state.opt_state[part].items():
+            assert torch.equal(t.cpu(), saved["opt_state"][part][name]), name
+    second.run()
+    assert second.steps == 3
+    assert {s for _, s in second._writer.scalars} == {3}

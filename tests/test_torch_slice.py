@@ -178,11 +178,13 @@ def test_params_as_state_dict_or_flax_tree():
 # rules of the port
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "serenade_tpu", "sklearn"}
-# readers of the recipe's files (h5 dumps, stats.joblib, YAML configs):
-# imported only inside the functions that read them, so the port's
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "ml_dtypes",
+             "serenade_tpu", "sklearn"}
+# readers of the recipe's files (h5 dumps, stats.joblib, YAML configs) and
+# the training loop's optional outputs (mel plots, tensorboard scalars):
+# imported only inside the functions that use them, so the port's
 # runtime imports and runs without them; chip_smoke.py needs none
-READERS = {"h5py", "joblib", "yaml"}
+READERS = {"h5py", "joblib", "yaml", "matplotlib", "tensorboardX"}
 
 
 def _imported_roots(path: Path):

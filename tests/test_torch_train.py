@@ -182,7 +182,7 @@ def test_optimizer_matches_optax(kind, mu_dtype, grad_scale):
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     jstate = tx.init(jparams)
     opt, schedule = build_optimizer(config)
-    tparams = [_t(params[k]) for k in shapes]
+    tparams = {k: _t(params[k]) for k in shapes}
     state = opt.init(tparams)
     for step, g in enumerate(grads):
         assert schedule(step) == pytest.approx(float(jschedule(step)),
@@ -190,10 +190,10 @@ def test_optimizer_matches_optax(kind, mu_dtype, grad_scale):
         jg = jax.tree_util.tree_map(jnp.asarray, g)
         updates, jstate = tx.update(jg, jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        norm = opt.update(tparams, [_t(g[k]) for k in shapes], state)
+        norm = opt.update(tparams, {k: _t(g[k]) for k in shapes}, state)
         np.testing.assert_allclose(float(norm), float(optax.global_norm(jg)),
                                    rtol=1e-6)
-        for k, p in zip(shapes, tparams):
+        for k, p in tparams.items():
             np.testing.assert_allclose(p.numpy(), np.asarray(jparams[k]),
                                        rtol=1e-6, atol=1e-7,
                                        err_msg=f"{k} after update {step}")
@@ -274,14 +274,24 @@ def test_dropout_rate_scale_and_none_in_inference():
 
 def test_training_config_matches_recipe():
     """configs.TRAIN_CONFIG carries the recipe's optimizer, scheduler,
-    clipping and batch size (the card's machine has no pyyaml)."""
-    with open(REPO / "egs" / "gtsinger" / "ssc1" / "conf"
-              / "serenade.yaml") as f:
-        ssc = yaml.safe_load(f)
-    for key in ("optimizer_type", "optimizer_params", "grad_norm",
-                "scheduler_type", "scheduler_params", "batch_size",
-                "gradient_accumulate_steps"):
-        assert configs.TRAIN_CONFIG[key] == ssc[key], key
+    clipping, batch size and loop intervals, TRAIN_CONFIG_FULLBUDGET the
+    full-budget recipe's (the card's machine has no pyyaml)."""
+    conf = REPO / "egs" / "gtsinger" / "ssc1" / "conf"
+    keys = ("optimizer_type", "optimizer_params", "grad_norm",
+            "scheduler_type", "scheduler_params", "batch_size",
+            "gradient_accumulate_steps", "train_max_steps",
+            "save_interval_steps", "eval_interval_steps",
+            "log_interval_steps", "num_save_intermediate_results")
+    for name, config, extra in (
+            ("serenade.yaml", configs.TRAIN_CONFIG, ()),
+            ("serenade_fullbudget.yaml", configs.TRAIN_CONFIG_FULLBUDGET,
+             ("collater_params", "device_resident_data"))):
+        with open(conf / name) as f:
+            ssc = yaml.safe_load(f)
+        assert set(config) == set(keys + extra), name
+        for key in keys + extra:
+            assert config[key] == ssc[key], (name, key)
+    assert configs.TRAIN_CONFIG_FULLBUDGET["batch_size"] == 16
     opt, schedule = build_optimizer(configs.TRAIN_CONFIG)
     assert opt.kind == "AdamW" and opt.mu_dtype == torch.bfloat16
     assert schedule(99_999) == 8e-4 and schedule(100_000) == 4e-4
