@@ -97,7 +97,24 @@ Phases, each printing JSON lines:
                steps with the encoder and the GST frozen.  Steps/s and
                valid frames/s (each bucket's first visit apart), launches
                a step (6 K1/K4/K5, 13 K2/K6/K7), routed calls (0), peak
-               memory, the saves' blocked time.
+               memory, the saves' blocked time;
+12. variant -- the F0-fluctuation variant (``SerenadeNew``, its first
+               Block1D 244 channels wide, which phase 2 holds K2, K6 and
+               K7 at) at full width with ContentVec and the seeded
+               HiFiGAN: (a) four (1024, 512) ``convert_features`` requests
+               with ``f0_fluc`` (launches of K1-K3, routed calls 0); batch
+               rows against lone conversions at the same buckets, noise
+               rows and shifts by phase 8's rule, and a small f32
+               conversion on the card against the CPU by phase 4's; (b)
+               ``convert_wav`` of phase 3b's 10.24 s source, its extracted
+               ``f0_fluc`` against the CPU's; (c) the server with a style
+               that carries ``f0_fluc``: eight /convert_features requests
+               at max_batch 8 and one without ``f0_fluc``, refused alone;
+               (d) a 20 s ``convert_features_stream``; (e)
+               ``SSCTrainerNew`` from the card-resident corpus at B 16 x
+               1,280 for 6 unsynchronised steps (steps/s, 6 K1/K4/K5 and
+               13 K2/K6/K7 launches a step), then one small f32 train step
+               on the card against the CPU by phase 6's rule.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -376,6 +393,10 @@ def check_block1d(torch, dev):
             case(b, tt, cin, 512, torch.bfloat16, lens, 2e-2, timed)
     case(len(LOOP_DEV), LOOP_EVAL_T, 1024, 512, torch.bfloat16,
          [2 * n for n in LOOP_DEV], 2e-2, False)
+    # the F0-fluctuation variant's first Block1D, Cin 244 (phase 12): a
+    # conversion, the full-budget train batch, a small f32 case
+    for b, t, cin, dtype, lengths, tol in VARIANT_CHECKS:
+        case(b, t, cin, 512, getattr(torch, dtype), lengths, tol, True)
     return main, rows
 
 
@@ -557,16 +578,18 @@ def check_block1d_bwd(torch, dev):
             row["data"]["plan"] = {k: plan[k] for k in (
                 "bn", "grid", "ctas", "stages", "smem_bytes")}
             # K6's three kernels apart, ms a call from 10 profiled calls:
-            # the dx product beside the two GroupNorm passes
-            prof = device_time(torch, lambda: (
-                [K.block1d_bwd_data(x, lens, w, gamma, beta, y, stats, g)
-                 for _ in range(10)], torch.cuda.synchronize()))
-            row["data"]["profile_ms"] = {
-                part: prof["port_kernels"][sym]["ms"]
-                / prof["port_kernels"][sym]["count"]
-                for part, sym in (("dx", "k6::dx_bf16_kernel"),
-                                  ("gn_reduce", "gn_reduce_kernel"),
-                                  ("gn_dy", "gn_dy_kernel"))}
+            # the dx product beside the two GroupNorm passes (bf16: f32
+            # runs the FMA kernels)
+            if bf16:
+                prof = device_time(torch, lambda: (
+                    [K.block1d_bwd_data(x, lens, w, gamma, beta, y, stats, g)
+                     for _ in range(10)], torch.cuda.synchronize()))
+                row["data"]["profile_ms"] = {
+                    part: prof["port_kernels"][sym]["ms"]
+                    / prof["port_kernels"][sym]["count"]
+                    for part, sym in (("dx", "k6::dx_bf16_kernel"),
+                                      ("gn_reduce", "gn_reduce_kernel"),
+                                      ("gn_dy", "gn_dy_kernel"))}
             # cuDNN's data gradient of conv1d (k 3, padding 1) on the same
             # dy and weight, (B, C, T) as cuDNN takes them, held against
             # the plain dx on the valid frames (cuDNN does not mask) before
@@ -635,6 +658,9 @@ def check_block1d_bwd(torch, dev):
     for cin in (1024, 242):
         for lengths in ([64, 512, 1, 128], [64] * 4, [1] * 4):
             rows.append(k7_case(4, 512, cin, 512, lengths, 2e-2))
+    # the F0-fluctuation variant's first Block1D (phase 12)
+    for b, t, cin, dtype, lengths, tol in VARIANT_CHECKS:
+        case(b, t, cin, 512, getattr(torch, dtype), lengths, tol, True)
     return main, rows
 
 
@@ -2672,6 +2698,434 @@ def train_loop_path(torch, np, dev, counters, card):
     return bool(ok), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the F0-fluctuation variant
+# ---------------------------------------------------------------------------
+
+# phase 2's rows at the variant's first Block1D, Cin 244: (B, T, Cin,
+# dtype, lengths, tolerance); dtype by name, resolved in the checks
+VARIANT_CHECKS = (
+    (1, 1536, 244, "bfloat16", [1536], 2e-2),
+    (16, 1280, 244, "bfloat16", LOOP_CHECKS[0][2], 2e-2),
+    (2, 150, 244, "float32", [150, 77], 1e-4))
+VARIANT_REQUESTS = 4                 # (1024, 512) conversions
+VARIANT_SERVE, VARIANT_STYLE = 8, 512
+# the serve part's window: long enough that all nine clients arrive in it
+# (a full window of 8 closes at once), so each bucket is one batch
+VARIANT_SERVE_WAIT_MS = 2000.0
+VARIANT_STREAM_FRAMES = 2000         # 20 s: 3 chunks at 1024/128
+VARIANT_CHUNK = (1024, 128)
+VARIANT_UTTS, VARIANT_STEPS = 32, 6
+
+
+def _fluc_feats(np, rng, frames, with_mel, input_dim=768):
+    """``_features`` and an F0 fluctuation of a sung track's scale."""
+    feats = _features(np, rng, frames, with_mel, input_dim=input_dim)
+    feats["f0_fluc"] = 0.02 * rng.normal(size=(frames, 1))
+    return feats
+
+
+def variant_convert(torch, np, dev, counters, conv, card):
+    """Phase 12 (a) and (b): four (1024, 512) feature conversions, then
+    convert_wav of phase 3b's waveforms with ``f0_fluc`` extracted on the
+    card and held against the CPU's extraction."""
+    from serenade_tpu_torch import features
+
+    rng = np.random.default_rng(120)
+    feats = [(_fluc_feats(np, rng, 1024, False),
+              _fluc_feats(np, rng, 512, True))
+             for _ in range(VARIANT_REQUESTS)]
+    conv.convert_features(*feats[0])            # warm-up
+    torch.cuda.synchronize()
+    counters.reset()
+    runs, right = [], True
+    for src, ref in feats:
+        t0 = time.perf_counter()
+        mel, wav, _ = conv.convert_features(src, ref)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        right &= (mel.shape == (1024, 80) and wav.shape == (1024 * HOP,)
+                  and bool(np.isfinite(mel).all())
+                  and bool(np.isfinite(wav).all()))
+    launches, routed = counters.read(), counters.routed()
+    parts = [launches]
+    n = len(runs)
+    counts_ok = (launches["flash_fwd"] == 60 * n
+                 and launches["block1d_fwd"] == 130 * n
+                 and launches["resblock_branch"] >= 9 * n
+                 and not any(routed.values()))
+    a_ok = right and counts_ok
+    emit({"phase": "variant", "part": "convert_features", "card": card,
+          "request": [1024, 512], "wall_s": runs,
+          "mean_rtf": sum(runs) / n / (1024 * HOP / SR),
+          "launches": launches, "routed": routed, "ok": a_ok})
+
+    src = sung(np, SOURCE_S, 50, 196.0)
+    ref = sung(np, REFERENCE_S, 51, 262.0)
+    conv.convert_wav(src, ref, SR)                  # warm-up
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    fs = conv.extract_from_wav(src, SR, "src")
+    fr = conv.extract_from_wav(ref, SR, "ref")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mel, wav, _ = conv.convert_features(fs, fr)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches, routed = counters.read(), counters.routed()
+    parts.append(launches)
+    # the CPU's extraction of the same waveform: F0 and the fluctuation
+    # need no ContentVec
+    fc = features.FeatureConfig.from_dict(conv.config)
+    cpu = features.extract_features("src", src, SR, fc, with_f0_fluc=True,
+                                    f0_range=(70.0, 1100.0), device="cpu")
+    got = fs["f0_fluc"][:, 0]
+    want = cpu["f0_fluc"][:len(got), 0]
+    vuv = fs["vuv"][:, 0] == cpu["vuv"][:len(got), 0]
+    err = np.abs(got - want)
+    fluc = {"frames": len(got), "vuv_agree": float(vuv.mean()),
+            "max_abs_err": float(err[vuv].max()),
+            "mean_abs_err": float(err.mean()), "tol": 2e-3,
+            "ok": bool(vuv.mean() >= 0.995 and err[vuv].max() <= 2e-3
+                       and got.dtype == np.float32)}
+    b_ok = (fluc["ok"] and mel.shape == (1024, 80)
+            and bool(np.isfinite(wav).all())
+            and launches["flash_fwd"] == 60
+            and launches["block1d_fwd"] == 130
+            and launches["resblock_branch"] >= 9
+            and launches["viterbi_f0"] == 2 and not any(routed.values()))
+    emit({"phase": "variant", "part": "convert_wav", "card": card,
+          "source_s": SOURCE_S, "reference_s": REFERENCE_S,
+          "extract_s": t1 - t0, "convert_s": t2 - t1, "wall_s": t2 - t0,
+          "rtf": (t2 - t0) / SOURCE_S, "f0_fluc": fluc,
+          "launches": launches, "routed": routed, "ok": b_ok})
+    return a_ok and b_ok, parts
+
+
+def variant_parity(torch, np, dev, counters):
+    """Phase 12: batched rows against lone conversions at the same
+    buckets, noise rows and shifts (phase 8's rule) with a narrow
+    SerenadeNew whose attention keeps head dim 512 (K1 and K2 run), and a
+    small f32 conversion on the card against the CPU (phase 4's rule)."""
+    from serenade_tpu_torch.api import Converter
+
+    cfg = dict(input_dim=32, output_dim=80, encoder_channels=16,
+               encoder_hidden_dim=32, decoder_channels=64, gst_embed_dim=32,
+               decoder_attention_head_dim=512, gst_tokens=10,
+               gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16)
+    rng = np.random.default_rng(121)
+    frames = ((150, 100), (100, 64), (70, 90))
+    srcs = [_fluc_feats(np, rng, s, False, input_dim=32) for s, _ in frames]
+    refs = [_fluc_feats(np, rng, r, True, input_dim=32) for _, r in frames]
+    ts, tr = 192, 128
+    x0 = 0.667 * rng.normal(size=(4, tr + ts, 80))
+    shifts = [37, 170]
+
+    def run(dtype, device, batched):
+        conv = Converter(dict(cfg, dtype=dtype), None,
+                         _scaler(np, input_dim=32), n_timesteps=4, seed=5,
+                         device=device, model_type="SerenadeNew")
+        if batched:
+            return np.concatenate(conv.convert_features_batch(
+                srcs, refs, ts=ts, tr=tr, pad_batch_pow2=True, x0=x0,
+                shifts=shifts))
+        return np.concatenate([conv.convert_features_batch(
+            [s], [r], ts=ts, tr=tr, x0=x0[i:i + 1], shifts=shifts)[0]
+            for i, (s, r) in enumerate(zip(srcs, refs))])
+
+    counters.reset()
+    batched, alone = run("bfloat16", dev, True), run("bfloat16", dev, False)
+    launches, routed = counters.read(), counters.routed()
+    cpu32 = run("float32", "cpu", False)
+    gap = np.abs(run("bfloat16", "cpu", False) - cpu32)
+    err = np.abs(batched - alone)
+    b32, a32 = run("float32", dev, True), run("float32", dev, False)
+    err32 = float(np.abs(b32 - a32).max())
+    scale = max(1.0, float(np.abs(a32).max()))
+    card_cpu = float(np.abs(a32 - cpu32).max())
+    ok = (bool(np.isfinite(batched).all())
+          and err.mean() <= 1.5 * gap.mean() and err.max() <= 2.0 * gap.max()
+          and err32 <= 1e-3 * scale and card_cpu <= 1e-3 * scale
+          and launches["flash_fwd"] > 0 and launches["block1d_fwd"] > 0
+          and not any(routed.values()))
+    emit({"phase": "variant", "part": "parity", "batch": [4, ts, tr],
+          "shifts": shifts,
+          "bf16_batch": {"max_abs_err": float(err.max()),
+                         "mean_abs_err": float(err.mean()),
+                         "cpu_gap_max": float(gap.max()),
+                         "cpu_gap_mean": float(gap.mean()),
+                         "tol": {"mean": 1.5, "max": 2.0}},
+          "f32_batch": {"max_abs_err": err32, "scale": scale, "tol": 1e-3},
+          "f32_card_vs_cpu": {"max_abs_err": card_cpu, "scale": scale,
+                              "tol": 1e-3},
+          "launches": launches, "routed": routed, "ok": ok})
+    return ok, [launches]
+
+
+def variant_serve_stream(torch, np, conv, counters, card):
+    """Phase 12 (c) and (d): the server with a style that carries its
+    ``f0_fluc``: eight /convert_features requests in four buckets at
+    max_batch 8 and one without ``f0_fluc`` from nine client threads at
+    once, the bad one refused alone and the eight in one batch a bucket
+    (one window that outlasts the clients' arrival); then a 20 s feature
+    stream against the packed style."""
+    import threading
+    import urllib.error
+
+    from serenade_tpu_torch.collaters.ssc import bucket_length
+    from serenade_tpu_torch.serving import (
+        BatchingConverter, decode_response, encode_reference,
+        encode_request, make_server,
+    )
+
+    rng = np.random.default_rng(122)
+    style = _f32(_fluc_feats(np, rng, VARIANT_STYLE, True))
+    srcs = [_f32(_fluc_feats(np, rng, n, False))
+            for n in (1024, 700, 450, 1200) * 2]
+    bad = {k: v for k, v in _f32(_fluc_feats(np, rng, 600, False)).items()
+           if k != "f0_fluc"}
+    batching = BatchingConverter(conv, max_batch=VARIANT_SERVE,
+                                 max_wait_ms=VARIANT_SERVE_WAIT_MS)
+    server = make_server(batching, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    bodies = [encode_request(f, "fluc") for f in srcs] + [
+        encode_request(bad, "fluc")]
+    results, faults = [None] * len(bodies), []
+
+    def client(k):
+        t0 = time.perf_counter()
+        try:
+            out = decode_response(_http(base + "/convert_features",
+                                        bodies[k]))
+            results[k] = (time.perf_counter() - t0,) + out
+        except urllib.error.HTTPError as exc:
+            results[k] = ("refused", exc.code, exc.read().decode()[:200])
+        except Exception as exc:  # noqa: BLE001 — reported, fails the phase
+            faults.append(f"request {k}: {exc!r}")
+
+    try:
+        _http(f"{base}/register_reference?name=fluc",
+              encode_reference(style))
+        counters.reset()
+        start = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(len(bodies))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - start
+        launches, routed = counters.read(), counters.routed()
+        health = json.loads(_http(f"{base}/healthz"))
+        packed = batching.packed_reference("fluc")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batching.close()
+        thread.join(timeout=10)
+    good = results[:-1]
+    refused = results[-1]
+    right = all(r is not None and r[0] != "refused"
+                and r[1].shape == (f["hubert"].shape[0], 80)
+                and r[2].shape == (f["hubert"].shape[0] * HOP,)
+                and bool(np.isfinite(r[1]).all())
+                for r, f in zip(good, srcs))
+    refused_ok = (refused is not None and refused[0] == "refused"
+                  and refused[1] == 400 and "f0_fluc" in refused[2])
+    batches = health["batches"]
+    buckets = len({bucket_length(f["hubert"].shape[0]) for f in srcs})
+    # the refused request is the server's one error; the rows of a bucket
+    # share one batch, so a request that fell out of co-batching (a
+    # variant row the batch path cannot take) fails here
+    serve_ok = (right and refused_ok and not faults
+                and health["requests"] == len(srcs)
+                and health["errors"] == 1 and batches == buckets
+                and launches["flash_fwd"] == 60 * batches
+                and launches["block1d_fwd"] == 130 * batches
+                and not any(routed.values()))
+    lat = [r[0] for r in good if r is not None and r[0] != "refused"]
+    emit({"phase": "variant", "part": "serve", "card": card,
+          "max_batch": VARIANT_SERVE, "max_wait_ms": VARIANT_SERVE_WAIT_MS,
+          "requests": len(srcs), "buckets": buckets, "batches": batches,
+          "refused": refused_ok and list(refused[:2]),
+          "faults": faults[:4], "wall_s": wall,
+          "latency_s": {"p50": float(np.percentile(lat, 50)) if lat else None,
+                        "max": max(lat, default=None)},
+          "errors": health["errors"], "launches": launches,
+          "routed": routed, "ok": serve_ok})
+    parts = [launches]
+
+    src = _fluc_feats(np, rng, VARIANT_STREAM_FRAMES, False)
+    counters.reset()
+    t0 = time.perf_counter()
+    first, frames, segs = None, 0, 0
+    finite = True
+    for start, mel, wav in conv.convert_features_stream(
+            src, packed, chunk_frames=VARIANT_CHUNK[0],
+            overlap_frames=VARIANT_CHUNK[1]):
+        if first is None:
+            first = time.perf_counter() - t0
+        finite &= bool(np.isfinite(mel).all() and np.isfinite(wav).all())
+        frames += mel.shape[0]
+        segs += 1
+    wall = time.perf_counter() - t0
+    launches, routed = counters.read(), counters.routed()
+    parts.append(launches)
+    stream_ok = (finite and frames == VARIANT_STREAM_FRAMES
+                 and launches["flash_fwd"] > 0
+                 and launches["block1d_fwd"] > 0
+                 and launches["resblock_branch"] > 0
+                 and not any(routed.values()))
+    emit({"phase": "variant", "part": "stream", "card": card,
+          "source_s": VARIANT_STREAM_FRAMES * HOP / SR,
+          "chunk_overlap": list(VARIANT_CHUNK), "segments": segs,
+          "first_audio_s": first, "wall_s": wall,
+          "rtf": wall / (VARIANT_STREAM_FRAMES * HOP / SR),
+          "launches": launches, "routed": routed, "ok": stream_ok})
+    return serve_ok and stream_ok, parts
+
+
+def variant_train(torch, np, dev, counters, card):
+    """Phase 12 (e): ``SSCTrainerNew`` at full width from the card-resident
+    corpus (with ``f0_fluc``) at B 16 x 1,280, 6 unsynchronised steps;
+    then one small f32 train step on the card against the CPU."""
+    from serenade_tpu_torch.configs import (
+        TRAIN_CONFIG, TRAIN_CONFIG_FULLBUDGET, serenade_config,
+    )
+    from serenade_tpu_torch.datasets.device_cache import DeviceResidentData
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.serenade_new import SerenadeNew
+    from serenade_tpu_torch.trainers import (
+        build_optimizer, build_train_step, create_train_state,
+    )
+    from serenade_tpu_torch.trainers.ssc import SSCTrainerNew
+
+    t0 = time.time()
+    rng = np.random.default_rng(123)
+    lengths = [int(n) for n in rng.integers(LOOP_FRAMES[0], LOOP_FRAMES[1]
+                                            + 1, VARIANT_UTTS)]
+    corpus = SeededCorpus(np, lengths, 123)
+    for item in corpus.items:
+        item["f0_fluc"] = (0.02 * rng.standard_normal(
+            (item["hubert"].shape[0], 1))).astype(np.float32)
+    fb = dict(TRAIN_CONFIG_FULLBUDGET, train_max_steps=VARIANT_STEPS,
+              log_interval_steps=VARIANT_STEPS, eval_interval_steps=10 ** 9,
+              save_interval_steps=10 ** 9)
+    pft = fb["collater_params"]["pad_frames_to"]
+    model = init_params_(SerenadeNew(**serenade_config()), seed=0).to(dev)
+    opt, _ = build_optimizer(fb)
+    state = create_train_state(model, opt)
+    dr = DeviceResidentData(corpus, pad_frames_to=pft,
+                            batch_size=fb["batch_size"], seed=0, device=dev)
+    log, writer = _StepLog(), _Writer()
+    lens = np.minimum(corpus.lengths(), pft)
+    trainer = SSCTrainerNew(
+        fb, _recorded_step(torch, dr.wrap_step(build_train_step(
+            model, opt, device=dev)), log, lambda b: (
+            pft, int(lens[b["indices"]].sum()))), state, dr,
+        writer=writer, outdir=tempfile.mkdtemp(prefix="chip_smoke_variant_"),
+        generator=torch.Generator(device=dev).manual_seed(2))
+    trainer.save = lambda step: None       # phase 11 times the saves
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run()
+    torch.cuda.synchronize()
+    shutil.rmtree(trainer.outdir, ignore_errors=True)
+    launches, routed = counters.read(), counters.routed()
+    rates = _rates(torch, log)
+    want = {k: VARIANT_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+    finite = bool(writer.scalars) and all(
+        math.isfinite(v) for v in writer.scalars.values())
+    train_ok = (finite and launches == want and not any(routed.values())
+                and "f0_fluc" in dr.arrays)
+    emit({"phase": "variant", "part": "train", "card": card,
+          "batch": [fb["batch_size"], pft], "setup_s": setup_s, **rates,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "losses": writer.scalars, "launches": launches,
+          "launches_expected": want, "routed": routed, "ok": train_ok})
+    del model, opt, state, trainer, dr
+
+    cfg = dict(input_dim=32, output_dim=80, encoder_channels=80,
+               encoder_hidden_dim=32, decoder_channels=64, gst_embed_dim=32,
+               decoder_attention_head_dim=32, gst_tokens=10,
+               gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16, dropout=0.0,
+               dtype="float32")
+    config = dict(TRAIN_CONFIG, optimizer_params=dict(
+        TRAIN_CONFIG["optimizer_params"], eps=1e-3))
+    b, t = 2, 64
+    batch = {"x": rng.normal(size=(b, t, 32)), "lengths": np.array([64, 45]),
+             "logmel": rng.normal(size=(b, t, 80)),
+             "midi": rng.uniform(size=(b, t, 1)),
+             "loud": rng.uniform(size=(b, t, 1)),
+             "f0_fluc": 0.02 * rng.normal(size=(b, t, 1))}
+    batch = {k: v.astype(np.float32) if v.dtype == np.float64 else v
+             for k, v in batch.items()}
+    draws = {"frac": 0.3, "start": 0.4, "t": np.array([0.2, 0.7]),
+             "z": rng.normal(size=(b, t, 80))}
+    out = []
+    for device in ("cpu", dev):
+        model = init_params_(SerenadeNew(**cfg), seed=3).to(device)
+        opt, _ = build_optimizer(config)
+        step = build_train_step(model, opt, device=device)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+             for k, v in draws.items()}
+        d["s1"], d["s2"] = (torch.tensor(s, device=device) for s in (17, 40))
+        _, metrics = step(create_train_state(model, opt), batch, None,
+                          draws=d)
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {n: p.detach().cpu()
+                     for n, p in model.named_parameters()}))
+    (m_cpu, p_cpu), (m_dev, p_dev) = out
+    metric_err = max(abs(m_cpu[k] - m_dev[k]) / max(1.0, abs(m_cpu[k]))
+                     for k in m_cpu)
+    param_err = max(float((p_cpu[n] - p_dev[n]).abs().max()) for n in p_cpu)
+    parity_ok = metric_err <= 1e-4 and param_err <= 1e-5
+    emit({"phase": "variant", "part": "train_parity", "metrics_cpu": m_cpu,
+          "metrics_card": m_dev, "metric_rel_err": metric_err,
+          "param_max_abs_err": param_err,
+          "tol": {"metrics": 1e-4, "params": 1e-5}, "ok": parity_ok})
+    return train_ok and parity_ok, [launches]
+
+
+def variant_path(torch, np, dev, counters, card):
+    """Phase 12: the F0-fluctuation variant, a seeded full-width
+    SerenadeNew with ContentVec and the seeded HiFiGAN, through
+    conversion, raw audio, batch parity, the server, a stream and the
+    trainer.  Returns (ok, launches of the whole phase)."""
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.configs import (
+        CONTENTVEC_CONFIG, VOCODER_CONFIG, serenade_config,
+    )
+
+    t0 = time.time()
+    conv = Converter(serenade_config(), None, _scaler(np),
+                     vocoder_config=VOCODER_CONFIG,
+                     vocoder_stats={"mean": np.zeros(80), "scale": np.ones(80)},
+                     contentvec_config=CONTENTVEC_CONFIG, n_timesteps=10,
+                     solver="euler", seed=0, device=dev,
+                     model_type="SerenadeNew")
+    setup_s = time.time() - t0
+    # each part's counts from its own reset to its read, summed
+    ok, parts = True, []
+    for run in (lambda: variant_convert(torch, np, dev, counters, conv, card),
+                lambda: variant_parity(torch, np, dev, counters),
+                lambda: variant_serve_stream(torch, np, conv, counters, card),
+                lambda: variant_train(torch, np, dev, counters, card)):
+        part_ok, launches = run()
+        ok &= part_ok
+        parts += launches
+    del conv
+    totals = {k: sum(p[k] for p in parts) for k in KERNELS}
+    emit({"phase": "variant_done", "seconds": time.time() - t0,
+          "setup_s": setup_s, "launches": totals, "ok": bool(ok)})
+    return bool(ok), totals
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -2863,6 +3317,10 @@ def main() -> int:
     ok &= loop_ok
     for name in entries:
         entries[name]["loop_launches"] = launches[name]
+    variant_ok, launches = variant_path(torch, np, dev, counters, card)
+    ok &= variant_ok
+    for name in entries:
+        entries[name]["variant_launches"] = launches[name]
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

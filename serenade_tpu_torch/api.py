@@ -4,7 +4,9 @@ from raw audio, ``extract_from_wav``, ``extract_from_wav_batch``,
 ``convert_wav`` and ``style_embedding``; long-form and streaming,
 ``convert_features_long``, ``convert_features_stream``,
 ``convert_wav_stream`` and ``convert_wav_stream_live``; from a trained
-experiment directory, ``Converter.from_expdir``).
+experiment directory, ``Converter.from_expdir``).  The F0-fluctuation
+variant (``model_type="SerenadeNew"``) takes ``f0_fluc`` through every
+entry point, as the JAX Converter's ``variant_new`` does.
 
 Everything comes in as data: model, vocoder and ContentVec configs as
 dicts (``configs.py`` holds the full-width ones), parameters as a flax
@@ -35,6 +37,7 @@ import torch
 
 from serenade_tpu_torch import resolve_device, upload
 from serenade_tpu_torch.collaters.ssc import bucket_length, next_pow2, pad_to
+from serenade_tpu_torch.config import resolve
 from serenade_tpu_torch.configs import FEATURE_CONFIG
 from serenade_tpu_torch.convert import load_params
 from serenade_tpu_torch.features import (
@@ -54,13 +57,14 @@ from serenade_tpu_torch.vocoder.vocoder import Vocoder
 
 SRC_KEYS = ("hubert", "score", "loud")
 REF_KEYS = SRC_KEYS + ("logmel",)
+FLUC = ("f0_fluc",)   # the F0-fluctuation variant's stream, unscaled
 
 
-def load_checkpoint_params(checkpoint: str, model_params: Mapping
-                           ) -> Tuple[dict, dict]:
+def load_checkpoint_params(checkpoint: str, model_params: Mapping,
+                           model_cls=Serenade) -> Tuple[dict, dict]:
     """(state dict, model arguments) of a checkpoint: a port checkpoint
     directory (``checkpoint.restore_params_only``), or a reference torch
-    ``.pkl`` converted for ``Serenade(**model_params)``, whose GST then
+    ``.pkl`` converted for ``model_cls(**model_params)``, whose GST then
     runs the checkpoint's BatchNorm statistics (``gst_norm_type=
     "frozen_batch"``)."""
     model_params = dict(model_params)
@@ -71,7 +75,7 @@ def load_checkpoint_params(checkpoint: str, model_params: Mapping
 
         model_params["gst_norm_type"] = "frozen_batch"
         return convert_serenade(load_torch_serenade_checkpoint(checkpoint),
-                                model_params), model_params
+                                model_params, model_cls), model_params
     from serenade_tpu_torch.checkpoint import restore_params_only
 
     return restore_params_only(checkpoint), model_params
@@ -84,8 +88,10 @@ class Converter:
                  contentvec_config: Optional[Mapping] = None,
                  contentvec_params=None, n_timesteps: int = 10,
                  solver: str = "euler", temperature: float = 0.667,
-                 seed: int = 0, device=None):
-        """``vocoder_config`` None converts to mel only.
+                 seed: int = 0, device=None, model_type: str = "Serenade"):
+        """``model_type``: the registry's model (``"SerenadeNew"``, the
+        F0-fluctuation variant, takes ``f0_fluc`` in every feature dict).
+        ``vocoder_config`` None converts to mel only.
         ``contentvec_config`` (``configs.CONTENTVEC_CONFIG`` at full width)
         turns on the raw-audio entry points, with ``contentvec_params`` a
         Hugging Face ``HubertModel`` state dict (or a path to one), a flax
@@ -95,7 +101,13 @@ class Converter:
         # feature extraction's settings (the recipe's), and the frame rate
         # a server counts audio seconds by
         self.config = dict(FEATURE_CONFIG)
-        model = Serenade(**model_config)
+        model_cls = resolve("model", model_type)
+        # the variant threads the F0 fluctuation through inference: a
+        # capability of the class, as in the JAX Converter
+        self.variant_new = bool(getattr(model_cls, "uses_f0_fluc", False))
+        self._src_keys = SRC_KEYS + (FLUC if self.variant_new else ())
+        self._ref_keys = REF_KEYS + (FLUC if self.variant_new else ())
+        model = model_cls(**model_config)
         if params is None:
             init_params_(model, seed)
         else:
@@ -155,7 +167,7 @@ class Converter:
         ``joblib`` for a ``stats.joblib``.  Runs on CUDA unless ``device``
         says otherwise."""
         from serenade_tpu_torch.checkpoint import find_latest_checkpoint
-        from serenade_tpu_torch.config import load_config, resolve
+        from serenade_tpu_torch.config import load_config
         from serenade_tpu_torch.utils.scalers import load_stats
         from serenade_tpu_torch.vocoder.vocoder import vocoder_from_section
 
@@ -166,13 +178,15 @@ class Converter:
             raise NotImplementedError(f"quantize={quantize!r}: int8 weights "
                                       "are not ported")
         config = load_config(config or os.path.join(expdir, "config.yml"))
-        resolve("model", config["model_type"])     # refuses what is missing
+        model_type = config["model_type"]
+        model_cls = resolve("model", model_type)   # raises on an unknown
         model_params = dict(config.get("model_params", {}))
         if params is None:
             ckpt = checkpoint or find_latest_checkpoint(expdir)
             if ckpt is None:
                 raise FileNotFoundError(f"no checkpoint under {expdir}")
-            params, model_params = load_checkpoint_params(ckpt, model_params)
+            params, model_params = load_checkpoint_params(ckpt, model_params,
+                                                          model_cls)
         if n_timesteps is None:
             n_timesteps = int(config.get("inference_n_timesteps", 10))
         if solver is None:
@@ -185,7 +199,8 @@ class Converter:
                          contentvec_params=contentvec_ckpt)
         conv = cls(model_params, params, load_stats(stats),
                    n_timesteps=n_timesteps, solver=solver,
-                   temperature=temperature, seed=seed, device=device, **extra)
+                   temperature=temperature, seed=seed, device=device,
+                   model_type=model_type, **extra)
         conv.config = dict(FEATURE_CONFIG, **config)
         conv.vocoder = vocoder_from_section(config.get("vocoder"),
                                             conv.scaler["logmel"],
@@ -205,9 +220,12 @@ class Converter:
         hub = feats["hubert"]
         mean, scale = (self._hubert_stats if torch.is_tensor(hub) else
                        (s["hubert"]["mean"], s["hubert"]["scale"]))
-        return {"hubert": (hub - mean) / scale,
-                "score": minmax(feats["score"], s["score"]),
-                "loud": minmax(feats["loud"], s["loud"])}
+        out = {"hubert": (hub - mean) / scale,
+               "score": minmax(feats["score"], s["score"]),
+               "loud": minmax(feats["loud"], s["loud"])}
+        if self.variant_new:
+            out["f0_fluc"] = feats["f0_fluc"]   # unscaled, as dumped
+        return out
 
     def _normalize_ref(self, feats: Mapping[str, np.ndarray]):
         out = self._normalize_src(feats)
@@ -255,9 +273,20 @@ class Converter:
                              device=self.device)
         return x0 * self.temperature
 
-    def _infer(self, src, ref, x0) -> torch.Tensor:
+    def draw_shifts(self, ts: int) -> torch.Tensor:
+        """The variant's next two time shifts from the Converter's
+        generator, in ``[0, max(ts, 1))`` for a source bucket of ``ts``
+        frames: a ``(2,)`` int64 tensor on the device (no host sync), the
+        ``shifts`` a conversion given none rolls by."""
+        from serenade_tpu_torch.models.serenade_new import draw_shifts
+
+        with self._noise_lock:
+            return draw_shifts(ts, self.generator, self.device)
+
+    def _infer(self, src, ref, x0, shifts=None) -> torch.Tensor:
         """``Serenade.inference`` from the noise ``x0`` (already scaled by
-        the temperature; an array or a tensor), drawn here when None."""
+        the temperature; an array or a tensor), drawn here when None; the
+        variant's ``shifts`` likewise."""
         b, ts, _ = src["hubert"].shape
         t = ref["hubert"].shape[1] + ts
         if x0 is None:
@@ -266,27 +295,37 @@ class Converter:
             x0 = x0.to(self.device, torch.float32)
         else:
             x0 = upload(x0, self.device, np.float32)
+        args = [src["hubert"], src["lengths"], src["score"], src["loud"]]
+        ref_args = [ref["hubert"], ref["lengths"], ref["logmel"],
+                    ref["score"], ref["loud"]]
+        extra = {}
+        if self.variant_new:
+            args.append(src["f0_fluc"])
+            ref_args.append(ref["f0_fluc"])
+            extra["shifts"] = (self.draw_shifts(ts) if shifts is None
+                               else shifts)
         return self.model.inference(
-            src["hubert"], src["lengths"], src["score"], src["loud"],
-            ref["hubert"], ref["lengths"], ref["logmel"], ref["score"],
-            ref["loud"], n_timesteps=self.n_timesteps,
-            temperature=self.temperature, solver=self.solver, x0=x0)
+            *args, *ref_args, n_timesteps=self.n_timesteps,
+            temperature=self.temperature, solver=self.solver, x0=x0, **extra)
 
     def convert_features(self, src_feats: Mapping[str, np.ndarray],
                          ref_feats: Mapping[str, np.ndarray],
-                         x0: Optional[np.ndarray] = None
+                         x0: Optional[np.ndarray] = None, shifts=None
                          ) -> Tuple[np.ndarray, Optional[np.ndarray],
                                     Optional[int]]:
         """Conversion from extracted, un-normalized features.
 
-        src_feats needs hubert/score/loud; ref_feats additionally logmel.
-        ``x0`` ``(1, T_ref_bucket + T_src_bucket, mels)`` replaces the
-        noise draw (already scaled by the temperature).
+        src_feats needs hubert/score/loud; ref_feats additionally logmel;
+        both ``f0_fluc`` for the variant.  ``x0`` ``(1, T_ref_bucket +
+        T_src_bucket, mels)`` replaces the noise draw (already scaled by
+        the temperature), ``shifts`` (two ints or a ``(2,)`` tensor) the
+        variant's shift draw.
 
         Returns (mel ``(t_src, mels)``, waveform or None, rate or None).
         """
         mel, (t_src,) = self.convert_features_batch(
-            [src_feats], [ref_feats], x0=x0, return_device=True)
+            [src_feats], [ref_feats], x0=x0, shifts=shifts,
+            return_device=True)
         mel = mel[:, :t_src]
         if self.vocoder is None:
             return mel[0].cpu().numpy(), None, None
@@ -300,7 +339,7 @@ class Converter:
         device (batch dim 1).  ``convert_features_batch(packed_ref=...)``
         takes it again and again with no upload: a registered style."""
         ref = self._normalize_ref(ref_feats)
-        return self._stack([ref], REF_KEYS,
+        return self._stack([ref], self._ref_keys,
                            bucket_length(ref["hubert"].shape[0]))
 
     def convert_features_batch(self, src_list, ref_list=None,
@@ -308,7 +347,8 @@ class Converter:
                                tr: Optional[int] = None, packed_ref=None,
                                pad_batch_pow2: bool = False,
                                return_device: bool = False,
-                               x0: Optional[np.ndarray] = None):
+                               x0: Optional[np.ndarray] = None,
+                               shifts=None):
         """Batched conversion: N (src, ref) pairs padded to shared
         ``(ts, tr)`` buckets (the largest of the requests' where not
         given) in one ``Serenade.inference``.  Pass either one reference a
@@ -318,7 +358,8 @@ class Converter:
         ``pad_batch_pow2`` pads the batch to the next power of two by
         repeating the last request (serving: a few batch shapes per bucket
         pair).  ``x0`` ``(B_padded, tr + ts, mels)`` replaces the noise
-        draw, as in :meth:`convert_features`.
+        draw and ``shifts`` the variant's shift draw, as in
+        :meth:`convert_features`.
 
         Returns the N mels trimmed to their lengths, or with
         ``return_device`` the ``(B_padded, ts, mels)`` tensor on the device
@@ -329,7 +370,7 @@ class Converter:
         src_list = list(src_list) + [src_list[-1]] * pad
         ts = ts or max(bucket_length(f["hubert"].shape[0]) for f in src_list)
         src = self._stack([self._normalize_src(f) for f in src_list],
-                          SRC_KEYS, ts)
+                          self._src_keys, ts)
         if packed_ref is not None:
             # a real tile: the kernels' wrappers take contiguous operands,
             # and expand() alone would hand them a batch stride of 0
@@ -340,8 +381,8 @@ class Converter:
             tr = tr or max(bucket_length(f["hubert"].shape[0])
                            for f in ref_list)
             ref = self._stack([self._normalize_ref(f) for f in ref_list],
-                              REF_KEYS, tr)
-        mels = self._infer(src, ref, x0)
+                              self._ref_keys, tr)
+        mels = self._infer(src, ref, x0, shifts)
         lens = [f["hubert"].shape[0] for f in src_list[:b]]
         if return_device:
             return mels, lens
@@ -363,11 +404,13 @@ class Converter:
         """Features of one waveform (log-mel, loudness, F0, ContentVec and
         the estimated score as ``score``), in the dict form every
         ``convert_*`` method takes.  ``f0_range=(minf0, maxf0)`` narrows
-        the F0 search to the singer's range (default 70-1100 Hz)."""
+        the F0 search to the singer's range (default 70-1100 Hz).  The
+        variant's features carry ``f0_fluc``."""
         self._require_content_fn()
         f = extract_features(name, np.asarray(wav), sr,
                              FeatureConfig.from_dict(self.config),
                              content_fn=self._content_fn, f0_range=f0_range,
+                             with_f0_fluc=self.variant_new,
                              device=self.device)
         if f is None:
             raise ValueError(f"feature extraction failed for {name}")
@@ -386,8 +429,9 @@ class Converter:
             [(n, np.asarray(w), sr, None)
              for n, w, sr in zip(names, wavs, srs)],
             FeatureConfig.from_dict(self.config),
-            content_fn=self._content_fn, pad_group_pow2=True,
-            wire_dtype="int16", f0_ranges=f0_ranges, device=self.device)
+            content_fn=self._content_fn, with_f0_fluc=self.variant_new,
+            pad_group_pow2=True, wire_dtype="int16", f0_ranges=f0_ranges,
+            device=self.device)
         out = []
         for n in names:
             f = feats.get(n)
@@ -511,7 +555,8 @@ class Converter:
                     return extract_stream_window(
                         audio, span, fc, minf0, maxf0,
                         content_fn=self._content_fn,
-                        ctx_frames=extract_ctx_frames, device=self.device)
+                        ctx_frames=extract_ctx_frames,
+                        with_f0_fluc=self.variant_new, device=self.device)
 
             # one window ahead: window i+1 is extracted while chunk i
             # converts and its mel comes down
@@ -560,7 +605,8 @@ class Converter:
         def extract(audio, span):
             return extract_stream_window(
                 audio, span, fc, minf0, maxf0, content_fn=self._content_fn,
-                ctx_frames=extract_ctx_frames, device=self.device)
+                ctx_frames=extract_ctx_frames,
+                with_f0_fluc=self.variant_new, device=self.device)
 
         def segments():
             stitcher = StreamStitcher()
@@ -642,7 +688,7 @@ class Converter:
         Tensors (content features extracted on the device) stay there:
         the chunker only slices them."""
         return {k: src_feats[k] if torch.is_tensor(src_feats[k])
-                else np.asarray(src_feats[k]) for k in SRC_KEYS}
+                else np.asarray(src_feats[k]) for k in self._src_keys}
 
     def _chunk_converter(self, ref_feats):
         """A per-chunk mel converter with the reference normalized, packed

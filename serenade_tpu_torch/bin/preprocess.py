@@ -1,13 +1,31 @@
-"""ContentVec content features for extraction (counterpart of
-``make_content_fn`` in serenade_tpu/bin/preprocess.py).
+"""The preprocessing CLI, ``wav.scp`` -> per-utterance h5 dumps
+(counterpart of serenade_tpu/bin/preprocess.py)::
 
-The preprocessing CLI (wav.scp -> h5 dumps) is not ported: it writes h5,
-which the card's machine cannot, and waits for the decode slice.  This
-module holds the content function that feature extraction and the
-raw-audio serving path call.
+    python -m serenade_tpu_torch.bin.preprocess --wav-scp data/train/wav.scp \
+        --dumpdir dump/train --config conf/serenade.yaml \
+        --f0-path conf/f0.yaml --contentvec-ckpt content-vec-best.pt
+
+The JAX CLI's flags and dump contract (``wave``, ``hubert``, ``logmel``,
+``loud``, ``gt_lf0_score``, ``est_lf0_score``, ``f0``, ``vuv``, ``midi``;
+``bin/preprocess_new.py`` adds ``f0_fluc``): the utterances of a window
+are extracted in batches (``features.extract_features_batch``) on the
+card unless ``--device cpu``.  ``--contentvec-ckpt`` is a ``.pt`` Hugging
+Face ``HubertModel`` state dict; without it, ``--allow-missing-hubert
+true`` dumps everything but ``hubert``.  ``--f0-backend jax`` is plain
+YIN; the Harvest and native backends and ``--midi-model-ckpt`` (the
+phoneme-MIDI transcriber) are refused by name.  Needs pyyaml for the
+config and the F0 table, and h5py for the dumps.
+
+The module also holds ``make_content_fn``, the content function that
+feature extraction and the raw-audio serving path call.
 """
 
 from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
 
 import numpy as np
 import torch
@@ -120,3 +138,172 @@ def make_content_fn(ckpt=None, batch_size: int = 8, *, config=None,
     content_fn.batch = batch
     content_fn.batch24 = batch24
     return content_fn
+
+
+# -- the CLI ----------------------------------------------------------------
+
+# the JAX CLI's backends; its "jax" is the port's plain "yin"
+F0_BACKENDS = ("viterbi", "harvest", "jax", "native", "harvest_native")
+
+
+def str2bool(value) -> bool:
+    if isinstance(value, bool):
+        return value
+    v = value.lower()
+    if v in ("yes", "true", "t", "y", "1"):
+        return True
+    if v in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError(f"boolean value expected, got {value!r}")
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(description="extract SSC features (PyTorch)")
+    p.add_argument("--wav-scp", "--scp", required=True)
+    p.add_argument("--segments", default=None)
+    p.add_argument("--dumpdir", required=True)
+    p.add_argument("--midi-path", default=None,
+                   help="file mapping utt_id -> wav path whose .json holds "
+                        "the GT score (GTSinger layout)")
+    p.add_argument("--f0-path", default=None, help="per-voice f0 range yaml")
+    p.add_argument("--skip-gtmidi", type=str2bool, default=False)
+    p.add_argument("--config", required=True)
+    p.add_argument("--contentvec-ckpt", default=None,
+                   help=".pt Hugging Face HubertModel state dict "
+                        "(ContentVec)")
+    p.add_argument("--midi-model-ckpt", default=None,
+                   help="refused: the phoneme-MIDI transcriber is not "
+                        "ported")
+    p.add_argument("--allow-missing-hubert", type=str2bool, default=False)
+    p.add_argument("--f0-backend", choices=F0_BACKENDS,
+                   default="viterbi",
+                   help="F0 estimator: YIN + Viterbi (default) or plain "
+                        "YIN ('jax'); the Harvest and native backends are "
+                        "refused")
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="utterances of one length bucket and F0 range "
+                        "extracted together")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda)")
+    p.add_argument("--verbose", type=int, default=1)
+    return p
+
+
+def setup_logging(verbose: int):
+    level = (logging.DEBUG if verbose > 1
+             else logging.INFO if verbose > 0 else logging.WARN)
+    logging.basicConfig(
+        level=level, format="%(asctime)s (%(module)s:%(lineno)d) "
+                            "%(levelname)s: %(message)s")
+
+
+def load_gt_note_map(midi_path):
+    """``utt_id /path/to/x.wav`` lines -> {utt_id: "/path/to/x.json"}, the
+    note sequence beside each wav (empty when ``midi_path`` is None or
+    missing)."""
+    mapping = {}
+    if midi_path is None:
+        return mapping
+    if not os.path.exists(midi_path):
+        logging.warning("midi map %s not found; GT score disabled", midi_path)
+        return mapping
+    with open(midi_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            parts = line.split(" /", 1)
+            if len(parts) != 2:
+                continue
+            mapping[parts[0]] = "/" + parts[1].replace(".wav", ".json")
+    return mapping
+
+
+def run(args, with_f0_fluc: bool):
+    """Dump every utterance of ``args.wav_scp`` (``f0_fluc`` too with
+    ``with_f0_fluc``)."""
+    from serenade_tpu_torch import resolve_device
+    from serenade_tpu_torch.config import _yaml, load_config
+    from serenade_tpu_torch.datasets.audio_dataset import AudioSCPDataset
+    from serenade_tpu_torch.features import (
+        FeatureConfig, check_f0_backend, extract_features_batch,
+    )
+    from serenade_tpu_torch.utils.h5 import write_hdf5
+
+    setup_logging(args.verbose)
+    if args.midi_model_ckpt:
+        raise SystemExit("--midi-model-ckpt: the phoneme-MIDI transcriber "
+                         "is not ported (ROADMAP Queue A, item 6); the "
+                         "score comes from F0 note segmentation")
+    backend = "yin" if args.f0_backend == "jax" else args.f0_backend
+    check_f0_backend(backend)
+    if args.contentvec_ckpt is None and not args.allow_missing_hubert:
+        raise SystemExit("no --contentvec-ckpt given; pass "
+                         "--allow-missing-hubert true to dump without "
+                         "content features")
+    dev = resolve_device(args.device)
+    fc = FeatureConfig.from_dict(load_config(args.config))
+    dataset = AudioSCPDataset(args.wav_scp, segments=args.segments)
+    os.makedirs(args.dumpdir, exist_ok=True)
+    f0_table = None
+    if args.f0_path:
+        with open(args.f0_path) as f:
+            f0_table = _yaml().safe_load(f)
+    gt_map = load_gt_note_map(args.midi_path)
+    content_fn = (make_content_fn(args.contentvec_ckpt, device=dev)
+                  if args.contentvec_ckpt else None)
+    batch_size = max(int(args.batch_size or 1), 1)
+    n_done = 0
+
+    def flush(pending):
+        nonlocal n_done
+        if not pending:
+            return
+        results = extract_features_batch(
+            pending, fc, f0_table=f0_table, content_fn=content_fn,
+            with_f0_fluc=with_f0_fluc, f0_backend=backend,
+            max_group=batch_size, device=dev)
+        for utt_id, _, _, _ in pending:
+            feats = results.get(utt_id)
+            if feats is None:
+                continue
+            out = os.path.join(args.dumpdir, f"{utt_id}.h5")
+            for key, value in feats.items():
+                if torch.is_tensor(value):      # content features
+                    value = value.cpu().numpy()
+                write_hdf5(out, key, value)
+            n_done += 1
+            logging.info("dumped %s (%d frames)", utt_id,
+                         feats["logmel"].shape[0])
+
+    # a window of utterances, so same-bucket, same-singer groups share
+    # one extraction pass
+    window = batch_size * 8
+    pending = []
+    for utt_id, (audio, fs) in dataset:
+        gt_note_seq = None
+        if not args.skip_gtmidi and utt_id in gt_map:
+            path = gt_map[utt_id]
+            if not os.path.exists(path):
+                logging.info("WARNING: %s has missing midi information",
+                             utt_id)
+                continue
+            with open(path) as f:
+                gt_note_seq = json.load(f)
+        elif not args.skip_gtmidi and gt_map:
+            logging.info("WARNING: %s not in midi map", utt_id)
+            continue
+        pending.append((utt_id, audio, fs, gt_note_seq))
+        if len(pending) >= window:
+            flush(pending)
+            pending = []
+    flush(pending)
+    logging.info("preprocessing done: %d utterances", n_done)
+
+
+def main(argv=None):
+    run(build_argparser().parse_args(argv), with_f0_fluc=False)
+
+
+if __name__ == "__main__":
+    main()

@@ -23,7 +23,8 @@ takes it (``pyyaml``, ``h5py``, and ``joblib`` for a ``stats.joblib``)::
 or from files that need none of those packages:
 
 * ``--model-config``: JSON of ``Serenade`` arguments (default: the recipe
-  at full width, ``configs.serenade_config()``);
+  at full width, ``configs.serenade_config()``), and ``--model-type
+  SerenadeNew`` for the F0-fluctuation variant;
 * ``--params``: a ``.pt`` state dict of the port's ``Serenade`` (default:
   random weights from seed 0, which the server logs);
 * ``--vocoder-stats`` (``mean``, ``scale``) turns the vocoder on, with
@@ -37,9 +38,9 @@ In both forms:
   ``score_max``, ``loud_min``, ``loud_max``, ``logmel_mean``,
   ``logmel_scale`` (``utils.scalers.load_stats``);
 * ``--ref-dict``: JSON mapping a style name to its reference features,
-  an ``.npz`` (``hubert``, ``score``, ``loud``, ``logmel``) or an h5 dump
-  (its score from ``--score-type``), each registered on the device at
-  start;
+  an ``.npz`` (``hubert``, ``score``, ``loud``, ``logmel``, and
+  ``f0_fluc`` for the variant) or an h5 dump (its score from
+  ``--score-type``), each registered on the device at start;
 * ``--contentvec-ckpt`` turns on raw audio (``/convert_wav``, raw bodies
   of ``/convert_stream``, ``/convert_stream_live``): a ``.pt``
   Hugging Face ``HubertModel`` state dict (ContentVec), read with
@@ -77,6 +78,11 @@ def build_argparser():
     p.add_argument("--model-config", default=None,
                    help="JSON of Serenade arguments (default: the recipe's "
                         "full width)")
+    p.add_argument("--model-type", default="Serenade",
+                   choices=("Serenade", "SerenadeNew"),
+                   help="without --expdir: the model (SerenadeNew, the "
+                        "F0-fluctuation variant, needs f0_fluc in every "
+                        "feature request and style)")
     p.add_argument("--params", default=None,
                    help=".pt state dict of the model (default: random "
                         "weights from seed 0)")
@@ -158,20 +164,31 @@ def _state_dict(path, what: str, seed: int):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def reference_features(path: str, score_type: str) -> dict:
-    """A registered style's features from an ``.npz`` or an h5 dump."""
+def reference_features(path: str, score_type: str,
+                       with_fluc: bool = False) -> dict:
+    """A registered style's features from an ``.npz`` or an h5 dump, with
+    its ``f0_fluc`` for the F0-fluctuation variant (``with_fluc``)."""
+    keys = ("hubert", "score", "loud", "logmel") + (
+        ("f0_fluc",) if with_fluc else ())
     if path.endswith(".npz"):
         with np.load(path) as z:
-            return {k: z[k] for k in ("hubert", "score", "loud", "logmel")}
+            missing = [k for k in keys if k not in z.files]
+            if missing:
+                raise SystemExit(f"--ref-dict: {path} lacks {missing}")
+            return {k: z[k] for k in keys}
     from serenade_tpu_torch.utils.h5 import read_hdf5_many
 
-    raw = read_hdf5_many(path, ("hubert", "logmel", "loud", score_type))
+    names = ("hubert", "logmel", "loud", score_type) + keys[4:]
+    raw = read_hdf5_many(path, names)
     missing = [k for k, v in raw.items() if v is None]
     if missing:
         raise SystemExit(f"--ref-dict: {path} lacks {missing}")
-    return {"hubert": raw["hubert"], "logmel": raw["logmel"],
-            "loud": np.asarray(raw["loud"]).reshape(-1, 1),
-            "score": np.asarray(raw[score_type]).reshape(-1, 1)}
+    out = {"hubert": raw["hubert"], "logmel": raw["logmel"],
+           "loud": np.asarray(raw["loud"]).reshape(-1, 1),
+           "score": np.asarray(raw[score_type]).reshape(-1, 1)}
+    if with_fluc:
+        out["f0_fluc"] = np.asarray(raw["f0_fluc"]).reshape(-1, 1)
+    return out
 
 
 def _converter(args):
@@ -217,7 +234,7 @@ def _converter(args):
         _state_dict(args.params, "model params", 0),
         load_stats(args.stats), n_timesteps=args.n_timesteps or 10,
         solver=args.solver or "euler", temperature=args.temperature,
-        device=args.device, **extra)
+        device=args.device, model_type=args.model_type, **extra)
 
 
 def _warmup_shapes(specs, max_batch: int, flag: str = "--warmup"):
@@ -248,7 +265,8 @@ def build_app(args):
     try:
         for style, path in _json(args.ref_dict, {}).items():
             batching.register_reference(
-                style, reference_features(path, args.score_type))
+                style, reference_features(path, args.score_type,
+                                          conv.variant_new))
             logging.info("registered reference style %r (%s)", style, path)
         if args.warmup:
             warmup_server(batching, _warmup_shapes(args.warmup,

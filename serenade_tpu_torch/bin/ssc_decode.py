@@ -14,6 +14,9 @@ is configured), plus ``{utt}_gt.wav`` and ``00_{style}_reference.wav``.
 (``checkpoint-<N>steps``; ``--average-n`` averages the last N of its
 directory) or the upstream reference's torch ``.pkl``.  The experiment's
 ``config.yml`` sits beside the checkpoint unless ``--config`` names it.
+A checkpoint of the F0-fluctuation variant (its config's model type)
+decodes with its dumps' and references' ``f0_fluc`` too;
+``bin/ssc_decode_new.py`` is the same CLI under the variant's name.
 
 Two parts: :func:`decode_core` converts feature dicts held in memory
 (torch and numpy only), and :func:`main` reads the dump, the statistics,
@@ -117,21 +120,25 @@ def decode_core(conv, sources, styles, references, batch_size: int = 1,
     ``loud``, ``logmel``, ``f0``).  Each chunk of :func:`plan_chunks`
     runs as one batched ``conv.convert_features_batch`` at its group's
     buckets, from noise drawn by ``conv.draw_noise`` (or by ``noise(b,
-    t)`` where given); each mel is then vocoded alone at its length.
+    t)`` where given) and, for the F0-fluctuation variant (whose features
+    carry ``f0_fluc``), the shifts drawn next by ``conv.draw_shifts``;
+    each mel is then vocoded alone at its length.
 
     Yields ``((ts, tr), results)`` per chunk, each result a dict with
     ``utt_id``, ``style``, ``ref_key``, ``mel`` ``(t_src, mels)``, ``wav``
     (None without a vocoder), ``lf0`` (the source F0 shifted by
-    ``linear_midi_shift`` toward the reference's) and ``x0``, the chunk's
-    noise row it started from."""
+    ``linear_midi_shift`` toward the reference's), ``x0``, the chunk's
+    noise row it started from, and ``shifts``, the chunk's (None but for
+    the variant)."""
     draw = noise or conv.draw_noise
     for (ts, tr), chunk in plan_chunks(sources, styles, references,
                                        batch_size):
         x0 = draw(len(chunk), tr + ts)
+        sh = conv.draw_shifts(ts) if conv.variant_new else None
         mels, lens = conv.convert_features_batch(
             [sources[u] for u, _, _ in chunk],
             [references[r] for _, _, r in chunk], ts=ts, tr=tr,
-            return_device=True, x0=x0)
+            return_device=True, x0=x0, shifts=sh)
         results = []
         for i, (utt_id, style, ref_key) in enumerate(chunk):
             mel = mels[i:i + 1, :lens[i]]
@@ -143,7 +150,7 @@ def decode_core(conv, sources, styles, references, batch_size: int = 1,
             results.append({"utt_id": utt_id, "style": style,
                             "ref_key": ref_key, "mel": mel[0].cpu().numpy(),
                             "wav": wav, "lf0": lf0.astype(np.float32),
-                            "x0": x0[i:i + 1]})
+                            "x0": x0[i:i + 1], "shifts": sh})
         yield (ts, tr), results
 
 
@@ -174,14 +181,15 @@ def get_random_ref_style(dumpdir: str, utt_id: str):
     return ref_dict
 
 
-def read_reference(h5path: str) -> dict:
+def read_reference(h5path: str, with_fluc: bool = False) -> dict:
     """A reference dump's features, un-normalized (the Converter applies
     the statistics as the JAX decode's ``_norm_ref`` does), with its F0
-    and waveform."""
+    and waveform, and its ``f0_fluc`` for the variant (``with_fluc``)."""
     from serenade_tpu_torch.utils.h5 import read_hdf5_many
 
     raw = read_hdf5_many(h5path, ("hubert", "logmel", "loud",
-                                  "est_lf0_score", "f0", "wave"))
+                                  "est_lf0_score", "f0", "wave")
+                         + (("f0_fluc",) if with_fluc else ()))
     raw["score"] = raw.pop("est_lf0_score")
     missing = [k for k, v in raw.items() if v is None]
     if missing:
@@ -216,6 +224,8 @@ def _average_params(args):
 
 
 def main(argv=None):
+    """The decode; a checkpoint of the F0-fluctuation variant reads
+    ``FeatsDatasetNew`` sources and references with ``f0_fluc``."""
     args = build_argparser().parse_args(argv)
     logging.basicConfig(
         level=logging.INFO if args.verbose > 0 else logging.WARN,
@@ -231,7 +241,9 @@ def main(argv=None):
         raise SystemExit("--dumpdir is required")
 
     from serenade_tpu_torch.api import Converter
-    from serenade_tpu_torch.datasets.feats_dataset import FeatsDataset
+    from serenade_tpu_torch.datasets.feats_dataset import (
+        FeatsDataset, FeatsDatasetNew,
+    )
     from serenade_tpu_torch.utils.audio import write_wav
     from serenade_tpu_torch.utils.h5 import write_hdf5
 
@@ -249,8 +261,9 @@ def main(argv=None):
         logging.warning("no vocoder available; writing mel h5 instead of "
                         "wavs")
 
-    dataset = FeatsDataset(root_dir=args.dumpdir,
-                           score_type="est_lf0_score", return_utt_id=True)
+    dataset_cls = FeatsDatasetNew if conv.variant_new else FeatsDataset
+    dataset = dataset_cls(root_dir=args.dumpdir,
+                          score_type="est_lf0_score", return_utt_id=True)
     utt_indices = list(range(len(dataset)))
     if args.num_shards > 1:
         utt_indices = utt_indices[args.shard - 1::args.num_shards]
@@ -272,7 +285,8 @@ def main(argv=None):
         for style, ref_h5 in utt_refs.items():
             if style in utt_id or ref_h5 in references:
                 continue
-            references[ref_h5] = read_reference(ref_h5)
+            references[ref_h5] = read_reference(ref_h5,
+                                                with_fluc=conv.variant_new)
             # only shard 1 writes the shared reference wavs: concurrent
             # shards would race on the same path
             if args.shard == 1:

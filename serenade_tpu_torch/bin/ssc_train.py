@@ -15,8 +15,9 @@ the collater declares, ``host_batch_dtype``, ``collater_params``,
 path prefixes; checkpoints ``<outdir>/checkpoint-<N>steps``.
 ``--init-checkpoint`` takes a port checkpoint directory or the upstream
 reference's torch ``.pkl`` (converted; its GST then runs its BatchNorm
-statistics).  One card: ``--model-axis`` and ``--data-axis`` above 1 and
-``--zero1`` are refused, as are the F0-fluctuation variant's types.
+statistics).  The F0-fluctuation variant trains through its config's
+``*New`` types, or through ``bin/ssc_train_new.py``.  One card:
+``--model-axis`` and ``--data-axis`` above 1 and ``--zero1`` are refused.
 Needs h5py, joblib and pyyaml to read the dumps, statistics and config.
 Runs on CUDA unless ``--device cpu``.
 """
@@ -145,7 +146,7 @@ def main(argv=None, dataset_name: str = DEFAULT_DATASET):
     src = None
     if args.init_checkpoint:
         src, ckpt_params = load_checkpoint_params(args.init_checkpoint,
-                                                  model_params)
+                                                  model_params, model_cls)
         if not load_mods:
             model_params = ckpt_params
     config["model_params"] = model_params

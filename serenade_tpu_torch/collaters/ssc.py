@@ -5,7 +5,8 @@ Lengths pad up to the next 64-frame bucket (a handful of shapes, so the
 kernels' launch plans repeat), or to one fixed ``pad_frames_to`` with
 lengths clamped.  Utterances of ``max_frames`` (3000) or more are dropped
 and the batch is sorted longest first, as in the reference.  Keys
-``xs/lens/ys/louds/scores``, channels last ``(B, T, C)``.
+``xs/lens/ys/louds/scores`` (``SSCCollaterNew`` adds ``f0_flucs``),
+channels last ``(B, T, C)``.
 """
 
 from __future__ import annotations
@@ -82,3 +83,9 @@ class SSCCollater:
             out[out_key] = (torch.from_numpy(arr).to(torch.bfloat16)
                             if self.bf16 else arr)
         return out
+
+
+class SSCCollaterNew(SSCCollater):
+    """Pads the F0-fluctuation stream too, as ``f0_flucs``."""
+
+    FEATURE_KEYS = dict(SSCCollater.FEATURE_KEYS, f0_flucs="f0_fluc")

@@ -4,8 +4,9 @@ serenade_tpu/config.py).
 ``load_config`` / ``dump_config`` read and write the recipe's YAML
 (``pyyaml``, imported when a file is read or written).  The registry
 holds what the port has: a config's ``model_type``, ``trainer_type``,
-``collater_type`` and ``dataset_type`` resolve to their classes here, and
-a type the JAX package has but the port does not is refused by name.
+``collater_type`` and ``dataset_type`` resolve to their classes here (the
+JAX package's four pairs, the F0-fluctuation variant's ``*New`` types
+among them).
 """
 
 from __future__ import annotations
@@ -17,30 +18,25 @@ from typing import Any, Dict
 
 # kind -> name -> "module:attribute", imported on first resolve
 _REGISTRY = {
-    "model": {"Serenade": "serenade_tpu_torch.models.serenade:Serenade"},
-    "trainer": {"SSCTrainer": "serenade_tpu_torch.trainers.ssc:SSCTrainer"},
+    "model": {
+        "Serenade": "serenade_tpu_torch.models.serenade:Serenade",
+        "SerenadeNew": "serenade_tpu_torch.models.serenade_new:SerenadeNew"},
+    "trainer": {
+        "SSCTrainer": "serenade_tpu_torch.trainers.ssc:SSCTrainer",
+        "SSCTrainerNew": "serenade_tpu_torch.trainers.ssc:SSCTrainerNew"},
     "collater": {
-        "SSCCollater": "serenade_tpu_torch.collaters.ssc:SSCCollater"},
+        "SSCCollater": "serenade_tpu_torch.collaters.ssc:SSCCollater",
+        "SSCCollaterNew": "serenade_tpu_torch.collaters.ssc:SSCCollaterNew"},
     "dataset": {
         "FeatsDataset":
-            "serenade_tpu_torch.datasets.feats_dataset:FeatsDataset"},
-}
-# registered in the JAX package, not ported
-_FLUC = "the F0-fluctuation variant is not ported"
-_NOT_PORTED = {
-    ("model", "SerenadeNew"): "the F0-fluctuation variant (fluc_channels > "
-                              "0) is not ported",
-    ("trainer", "SSCTrainerNew"): _FLUC,
-    ("collater", "SSCCollaterNew"): _FLUC,
-    ("dataset", "FeatsDatasetNew"): _FLUC,
+            "serenade_tpu_torch.datasets.feats_dataset:FeatsDataset",
+        "FeatsDatasetNew":
+            "serenade_tpu_torch.datasets.feats_dataset:FeatsDatasetNew"},
 }
 
 
 def resolve(kind: str, name: str):
     """The class a config names; raises with the known names on a miss."""
-    if (kind, name) in _NOT_PORTED:
-        raise NotImplementedError(f"{kind} {name!r}: "
-                                  f"{_NOT_PORTED[kind, name]}")
     try:
         target = _REGISTRY[kind][name]
     except KeyError:

@@ -4,7 +4,8 @@ serenade_tpu/datasets/device_cache.py ``DeviceResidentData``).
 The padded corpus is stacked once into tensors on the card and each step
 gathers its batch there by an index tensor, so a step uploads B indices
 instead of its features.  Every item pads (or truncates, lengths clamped)
-to ``pad_frames_to`` frames.
+to ``pad_frames_to`` frames.  The corpus carries ``f0_fluc`` when its
+first item has it (the F0-fluctuation variant).
 """
 
 from __future__ import annotations
@@ -38,16 +39,19 @@ class DeviceResidentData:
             return item[1] if isinstance(item, tuple) else item
 
         first = item_at(0)
+        features = dict(self.FEATURES)
+        if "f0_fluc" in first:
+            features["f0_fluc"] = "f0_fluc"
         self.arrays = {
             arg: torch.zeros((n, t) + np.asarray(first[key]).shape[1:],
                              dtype=torch.float32, device=self.device)
-            for arg, key in self.FEATURES.items()}
+            for arg, key in features.items()}
         lens = np.zeros(n, np.int32)
         for i in range(n):
             item = item_at(i)
             ln = min(int(item["hubert"].shape[0]), t)
             lens[i] = ln
-            for arg, key in self.FEATURES.items():
+            for arg, key in features.items():
                 row = torch.from_numpy(
                     np.asarray(item[key][:ln], np.float32))
                 self.arrays[arg][i, :ln] = row.to(self.device)

@@ -6,8 +6,8 @@ Items are numpy dicts with the JAX package's keys.  With ``scaler`` (the
 fitted scalers of a ``stats.joblib``, ``utils.scalers.load_scalers``) the
 items are normalized in f32 as training reads them: z-norm for hubert and
 logmel, min-max for score and loud; without it they stay as dumped (the
-decode's Converter normalizes them).  The F0-fluctuation variant
-(``FeatsDatasetNew``) is not ported.
+decode's Converter normalizes them).  ``FeatsDatasetNew`` adds the
+F0-fluctuation stream ``f0_fluc``, read as dumped (never scaled).
 """
 
 from __future__ import annotations
@@ -127,4 +127,17 @@ class FeatsDataset:
                 self._cache[idx] = item
         if self.return_utt_id:
             return self.utt_ids[idx], item
+        return item
+
+
+class FeatsDatasetNew(FeatsDataset):
+    """Adds the F0-fluctuation stream, unscaled and 2-D ``(T, 1)``."""
+
+    KEYS = FeatsDataset.KEYS + ("f0_fluc",)
+
+    def _load(self, path: str) -> dict:
+        item = super()._load(path)
+        if "f0_fluc" in item and item["f0_fluc"].ndim != 2:   # not dumped
+            raise KeyError(f"{path} has no 'f0_fluc' dataset (dump it "
+                           "with preprocess_new)")
         return item

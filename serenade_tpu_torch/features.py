@@ -19,9 +19,13 @@ Long-form streams extract window by window (``stream_total_frames``,
 ``extract_stream_window``): each conversion chunk's source features come
 from a context-padded window of the waveform.
 
+``with_f0_fluc`` adds the F0-fluctuation variant's ``f0_fluc``: the F0
+track over ``maxf0`` less its smoothing spline (scipy's
+``UnivariateSpline``, f64 on the host, ``compute_f0_fluctuation``).
+
 F0 backends: "viterbi" (YIN + Viterbi, the default) and "yin".  The
-Harvest and native backends, the phoneme-MIDI transcriber and the F0
-fluctuation feature are not ported (ROADMAP Queue A).
+Harvest and native backends and the phoneme-MIDI transcriber are not
+ported (ROADMAP Queue A, item 6).
 """
 
 from __future__ import annotations
@@ -85,19 +89,27 @@ def f0_range_for(utt_id: str, f0_table: Optional[Dict]) -> tuple:
     return 70.0, 1100.0
 
 
-def _check_options(f0_backend: str, with_f0_fluc: bool) -> None:
+def check_f0_backend(f0_backend: str) -> None:
     if f0_backend in NOT_PORTED_BACKENDS:
         raise NotImplementedError(
             f"f0_backend {f0_backend!r} is not ported (ROADMAP Queue A, "
-            "item 1: what feature extraction left); use 'viterbi' or "
+            "item 6: what feature extraction left); use 'viterbi' or "
             "'yin'")
     if f0_backend not in F0_BACKENDS:
         raise ValueError(f"unknown f0_backend {f0_backend!r}")
-    if with_f0_fluc:
-        raise NotImplementedError(
-            "f0_fluc is not ported (ROADMAP Queue A, item 4: the "
-            "F0-fluctuation variant); the port's Serenade refuses "
-            "fluc_channels > 0")
+
+
+def compute_f0_fluctuation(f0: np.ndarray, maxf0: float,
+                           shiftms: float = 10.0) -> np.ndarray:
+    """The F0 track over ``maxf0`` less its smoothing spline
+    (``UnivariateSpline(s=10)`` over the frame times, in f64), as f32.
+    Raises where the track is too short for the spline."""
+    from scipy.interpolate import UnivariateSpline
+
+    t = np.arange(len(f0)) * shiftms / 1000.0
+    f0_normed = np.asarray(f0, np.float64) / maxf0
+    spline = UnivariateSpline(t, f0_normed, s=10)
+    return (f0_normed - spline(t)).astype(np.float32)
 
 
 def _bucketed(audio: np.ndarray, hop_size: int) -> Tuple[np.ndarray, int]:
@@ -125,7 +137,7 @@ def extract_signal_features_group(
 
     ``wire_dtype="int16"`` uploads PCM16 (``/ 32768`` on the device, as
     read_wav decodes): half the bytes, lossless for PCM16 sources."""
-    _check_options(f0_backend, False)
+    check_f0_backend(f0_backend)
     dev = resolve_device(device)
     if wire_dtype == "int16":
         batch = np.stack([np.clip(np.round(np.asarray(a) * 32768.0),
@@ -167,17 +179,18 @@ def extract_features(
     device=None,
 ) -> Optional[Dict[str, np.ndarray]]:
     """The per-utterance feature dict (wave, hubert, logmel, loud,
-    gt_lf0_score, est_lf0_score, f0, vuv, midi), None where the F0 track
-    gives no note.  ``f0_range=(minf0, maxf0)`` overrides the voice-type
-    table."""
-    _check_options(f0_backend, with_f0_fluc)
+    gt_lf0_score, est_lf0_score, f0, vuv, midi[, f0_fluc]), None where
+    the F0 track gives no note.  ``f0_range=(minf0, maxf0)`` overrides the
+    voice-type table."""
+    check_f0_backend(f0_backend)
     audio = _prepare_audio(utt_id, audio, fs, config)
     audio_b, n_frames = _bucketed(audio, config.hop_size)
     minf0, maxf0 = f0_range or f0_range_for(utt_id, f0_table)
     sig = extract_signal_features_group(
         [audio_b], config, minf0, maxf0, f0_backend, device=device)[0]
-    return _finalize_utt(utt_id, audio, config, sig, n_frames,
-                         gt_note_seq=gt_note_seq, content_fn=content_fn)
+    return _finalize_utt(utt_id, audio, config, sig, n_frames, maxf0,
+                         gt_note_seq=gt_note_seq, content_fn=content_fn,
+                         with_f0_fluc=with_f0_fluc)
 
 
 def validate_waveform(audio, name: str = "audio") -> np.ndarray:
@@ -202,11 +215,12 @@ def _prepare_audio(utt_id, audio, fs, config: FeatureConfig) -> np.ndarray:
 
 
 def _finalize_utt(utt_id, audio, config: FeatureConfig, sig, n_frames: int,
-                  *, gt_note_seq=None, content_fn=None, hubert=None
+                  maxf0: float, *, gt_note_seq=None, content_fn=None,
+                  with_f0_fluc: bool = False, hubert=None
                   ) -> Optional[Dict[str, np.ndarray]]:
     """The host's tail of an utterance: content features (``hubert``
-    when the batch path computed them), the estimated score, and every
-    frame stream cut to the shortest."""
+    when the batch path computed them), the estimated score, ``f0_fluc``,
+    and every frame stream cut to the shortest."""
     logmel = sig["logmel"][:n_frames]
     loud = sig["loud"][:n_frames, None]
     f0 = sig["f0"][:n_frames, None]
@@ -245,6 +259,9 @@ def _finalize_utt(utt_id, audio, config: FeatureConfig, sig, n_frames: int,
         # a tensor on the device from the batch path, else numpy
         feats["hubert"] = (hubert.float() if torch.is_tensor(hubert)
                            else hubert.astype(np.float32))
+    if with_f0_fluc:
+        feats["f0_fluc"] = compute_f0_fluctuation(
+            f0[:, 0], maxf0, config.shiftms)[:, None]
     frame_keys = [k for k in feats if k != "wave"]
     min_len = min(feats[k].shape[0] for k in frame_keys)
     for k in frame_keys:
@@ -278,7 +295,8 @@ def extract_stream_window(
     with_f0_fluc: bool = False,
     device=None,
 ) -> Dict[str, np.ndarray]:
-    """Source features (``hubert``, ``score``, ``loud``, ``f0``) of frames
+    """Source features (``hubert``, ``score``, ``loud``, ``f0``
+    [, ``f0_fluc``, the spline fitted over the window's F0]) of frames
     ``[s, e)`` of an already ``_prepare_audio``'d waveform, extracted from
     a window padded with ``ctx_frames`` of context on each side: the
     streaming form of :func:`extract_features`, whose first chunk is ready
@@ -295,7 +313,6 @@ def extract_stream_window(
     int16 wire, as JAX sends it, and ``content_fn.batch24`` (a 24 kHz
     config) resamples it for ContentVec on the device, where ``hubert``
     stays."""
-    _check_options("viterbi", with_f0_fluc)
     s, e = span
     hop = config.hop_size
     n = e - s
@@ -338,7 +355,7 @@ def extract_stream_window(
         raise ValueError(
             f"content window produced {hub.shape[0]} frames, span {span} "
             f"needs {lc + n}: the caller exceeded stream_total_frames")
-    return {
+    feats = {
         "loud": np.asarray(sig["loud"][lc:lc + n])[:, None]
         .astype(np.float32),
         "f0": f0_w[lc:lc + n, None].astype(np.float32),
@@ -346,6 +363,10 @@ def extract_stream_window(
         # a slice on the device: the chunk's pack takes it there
         "hubert": hub[lc:lc + n],
     }
+    if with_f0_fluc:
+        feats["f0_fluc"] = compute_f0_fluctuation(
+            f0_w, maxf0, config.shiftms)[lc:lc + n, None]
+    return feats
 
 
 def extract_features_batch(
@@ -374,8 +395,9 @@ def extract_features_batch(
     ``wire_dtype="int16"`` uploads PCM16 and, with a 24 kHz config and a
     content function that has ``batch24``, resamples for ContentVec on the
     device from that one upload.  ``f0_ranges``: per-item ``(minf0,
-    maxf0)`` overrides (None falls back to the table)."""
-    _check_options(f0_backend, with_f0_fluc)
+    maxf0)`` overrides (None falls back to the table).  A clip too short
+    for the ``f0_fluc`` spline is None alone, with a warning."""
+    check_f0_backend(f0_backend)
     out: Dict[str, Optional[Dict[str, np.ndarray]]] = {}
     prepared = []
     for j, (utt_id, audio, fs, gt_note_seq) in enumerate(items):
@@ -416,12 +438,13 @@ def extract_features_batch(
                 [prepared[i][2] for i in run], config, minf0, maxf0,
                 f0_backend, wire_dtype=wire_dtype, device=device)
             for i, sig in zip(chunk, sigs):
-                utt_id, audio_p, _, n_frames, _, _, gt_note_seq = prepared[i]
+                utt_id, audio_p, _, n_frames, _, mx, gt_note_seq = \
+                    prepared[i]
                 try:
                     out[utt_id] = _finalize_utt(
-                        utt_id, audio_p, config, sig, n_frames,
+                        utt_id, audio_p, config, sig, n_frames, mx,
                         gt_note_seq=gt_note_seq, content_fn=content_fn,
-                        hubert=huberts.get(i))
+                        with_f0_fluc=with_f0_fluc, hubert=huberts.get(i))
                 except Exception as e:  # noqa: BLE001 — skips alone
                     logger.warning("skipping %s: %s", utt_id, e)
                     out[utt_id] = None

@@ -114,22 +114,27 @@ def _gru_from_reference(sd, p):
             "bias_hn": b_hh[2 * h:]}
 
 
-def _skeleton(model_params: Mapping) -> torch.nn.Module:
-    """The port's Serenade for ``model_params`` with the frozen-BatchNorm
-    GST, on the meta device (names and shapes, no storage)."""
-    from serenade_tpu_torch.models.serenade import Serenade
+def _skeleton(model_params: Mapping, model_cls=None) -> torch.nn.Module:
+    """The port's ``model_cls`` (Serenade by default) for
+    ``model_params`` with the frozen-BatchNorm GST, on the meta device
+    (names and shapes, no storage)."""
+    if model_cls is None:
+        from serenade_tpu_torch.models.serenade import Serenade as model_cls
 
     with torch.device("meta"):
-        return Serenade(**dict(model_params, gst_norm_type="frozen_batch"))
+        return model_cls(**dict(model_params, gst_norm_type="frozen_batch"))
 
 
 def convert_serenade(state_dict: Mapping[str, torch.Tensor],
-                     model_params: Mapping) -> Dict[str, torch.Tensor]:
-    """A reference Serenade state dict -> the state dict of the port's
-    ``Serenade(**model_params, gst_norm_type="frozen_batch")`` (f32).
-    Raises KeyError on a tensor missing from the reference."""
+                     model_params: Mapping, model_cls=None
+                     ) -> Dict[str, torch.Tensor]:
+    """A reference Serenade (or SerenadeNew: ``model_cls``) state dict ->
+    the state dict of the port's ``model_cls(**model_params,
+    gst_norm_type="frozen_batch")`` (f32).  Raises KeyError on a tensor
+    missing from the reference."""
     sd, out = state_dict, {}
-    for name, ref, kind, leaves in _modules(_skeleton(model_params)):
+    for name, ref, kind, leaves in _modules(_skeleton(model_params,
+                                                      model_cls)):
         if kind == "wn":
             got = _wn_from_reference(sd, ref)
         elif kind == "gru":
@@ -143,13 +148,14 @@ def convert_serenade(state_dict: Mapping[str, torch.Tensor],
 
 
 def to_reference_state_dict(state_dict: Mapping[str, torch.Tensor],
-                            model_params: Mapping
+                            model_params: Mapping, model_cls=None
                             ) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`convert_serenade`: the port's state dict in
     the reference's names and layouts (weight norm as ``weight_g`` /
     ``weight_v``, the GRU's r and z biases all on the input side)."""
     sd, out = state_dict, {}
-    for name, ref, kind, leaves in _modules(_skeleton(model_params)):
+    for name, ref, kind, leaves in _modules(_skeleton(model_params,
+                                                      model_cls)):
         p = {k: sd[f"{name}.{k}"] for k in leaves}
         if kind == "wn":
             got = {"weight_v": p["v"], "weight_g": p["g"].reshape(-1, 1, 1)}

@@ -7,8 +7,9 @@ the conditioning mel is zeroed inside it; a Gaussian prior loss ties the
 content encoder to the mel.  Inference packs the reference clip with its
 conditioning mel time-adjacent before the zero-conditioned source, the CFM
 samples the joint sequence and the source part is returned; batch rows may
-have different reference lengths.  ReFlow pair generation and the
-F0-fluctuation variant (``fluc_channels > 0``) are not ported.
+have different reference lengths.  ``fluc_channels`` widens the
+conditioning by that many channels, which a variant hands in as ``fluc``
+(``models/serenade_new.py``).  ReFlow pair generation is not ported.
 """
 
 from __future__ import annotations
@@ -49,13 +50,13 @@ class Serenade(nn.Module):
         unknown = set(accepted) - set(_ACCEPTED)
         if unknown:
             raise TypeError(f"unknown Serenade parameters {sorted(unknown)}")
-        if fluc_channels:
-            raise NotImplementedError("the F0-fluctuation variant is not "
-                                      "ported yet")
         self.output_dim = output_dim
         self.mask_size = tuple(mask_size)
         self.dtype = as_dtype(dtype)
-        conditioning_dim = encoder_channels + 1 + 1 + output_dim
+        self.fluc_channels = fluc_channels
+        # encoder outputs, midi, loudness [, F0 fluctuation], mel
+        conditioning_dim = (encoder_channels + 1 + 1 + fluc_channels
+                            + output_dim)
         self.encoder = Conv1dResnet(input_dim, encoder_channels,
                                     encoder_hidden_dim, num_layers=2,
                                     dtype=dtype)
@@ -73,7 +74,8 @@ class Serenade(nn.Module):
 
     def forward(self, x, lengths, logmel, midi, loud, *,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[Dict[str, torch.Tensor]] = None
+                draws: Optional[Dict[str, torch.Tensor]] = None,
+                fluc: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training losses (``serenade_tpu/models/serenade.py:100-166``).
 
@@ -83,6 +85,8 @@ class Serenade(nn.Module):
         the noise come from ``draws`` (``frac``, ``start`` scalars in
         [0, 1), ``t`` ``(B,)``, ``z`` ``(B, T, output_dim)``) where given,
         else from ``generator``, which also draws the dropout masks.
+        ``fluc`` ``(B, T, fluc_channels)``: the variant's extra
+        conditioning, after loudness.
 
         Returns ``cfm_loss``, ``prior_loss``, ``gauss_mel`` (the encoder
         output) and ``loss``.
@@ -121,8 +125,9 @@ class Serenade(nn.Module):
             torch.clamp(mask.sum(), min=1.0) * self.output_dim)
 
         dt = self.dtype
-        mu = torch.cat([p.to(dt) for p in (enc_outs, midi, loud,
-                                           logmel_f * mask_c)], dim=-1)
+        parts = [enc_outs, midi, loud] + ([] if fluc is None else [fluc])
+        mu = torch.cat([p.to(dt) for p in parts + [logmel_f * mask_c]],
+                       dim=-1)
         cfm_loss, _ = self.cfm_decoder.compute_loss(
             logmel_f * mask_l, mask, mu, spk, mask_l=mask_l,
             t=draws.get("t"), z=draws.get("z"), generator=generator,
@@ -135,11 +140,15 @@ class Serenade(nn.Module):
                   ref_x, ref_lengths, ref_logmel, ref_midi, ref_loud, *,
                   generator: Optional[torch.Generator] = None,
                   n_timesteps: int = 10, temperature: float = 0.667,
-                  solver: str = "euler", x0: Optional[torch.Tensor] = None):
+                  solver: str = "euler", x0: Optional[torch.Tensor] = None,
+                  fluc: Optional[torch.Tensor] = None,
+                  ref_fluc: Optional[torch.Tensor] = None):
         """Batched style conversion.
 
         ``x0`` (``(B, Tr+Ts, output_dim)``, already scaled by temperature)
-        replaces the ODE's noise draw from ``generator``.
+        replaces the ODE's noise draw from ``generator``.  ``fluc`` and
+        ``ref_fluc`` (``(B, Ts | Tr, fluc_channels)``): the variant's extra
+        conditioning of the source and of the reference.
 
         Returns ``(B, Ts, output_dim)`` f32 mels; frames beyond ``lengths``
         are padding.
@@ -153,10 +162,13 @@ class Serenade(nn.Module):
 
         zero_cond = torch.zeros((b, ts, self.output_dim), dtype=dt,
                                 device=x.device)
-        src_mu = torch.cat([p.to(dt) for p in (enc_src, midi, loud)]
-                           + [zero_cond], dim=-1)
-        ref_mu = torch.cat([p.to(dt) for p in (enc_ref, ref_midi, ref_loud,
-                                               ref_logmel)], dim=-1)
+        src_parts = [enc_src, midi, loud] + ([] if fluc is None else [fluc])
+        ref_parts = [enc_ref, ref_midi, ref_loud] + (
+            [] if ref_fluc is None else [ref_fluc])
+        src_mu = torch.cat([p.to(dt) for p in src_parts] + [zero_cond],
+                           dim=-1)
+        ref_mu = torch.cat([p.to(dt) for p in ref_parts + [ref_logmel]],
+                           dim=-1)
         mu, total = pack_pair_time(ref_mu, ref_lengths, src_mu, lengths)
         mask = length_mask(total, tr + ts)[..., None]
         mel = self.cfm_decoder.inference(

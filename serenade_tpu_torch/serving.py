@@ -62,13 +62,16 @@ logger = logging.getLogger(__name__)
 
 def validate_feature_dict(feats, what: str, with_mel: bool,
                           content_dim: int, num_mels: int,
+                          variant_new: bool = False,
                           max_frames: int | None = None) -> None:
     """The submit-time feature contract: reject a malformed dict before it
     reaches a batched dispatch, so a bad payload fails alone.
+    ``variant_new`` (the F0-fluctuation variant) needs ``f0_fluc`` too.
     ``max_frames`` caps a request's duration (an over-long request pads
-    every co-batched neighbour to its bucket).  The F0-fluctuation
-    variant is not ported, so ``f0_fluc`` is neither needed nor read."""
+    every co-batched neighbour to its bucket)."""
     need = ["hubert", "score", "loud"] + (["logmel"] if with_mel else [])
+    if variant_new:
+        need.append("f0_fluc")
     for k in need:
         if k not in feats:
             raise ValueError(f"{what} missing feature {k!r}")
@@ -246,6 +249,7 @@ class BatchingConverter:
             feats, what, with_mel,
             content_dim=sc["hubert"]["mean"].shape[0],
             num_mels=sc["logmel"]["mean"].shape[0],
+            variant_new=self._conv.variant_new,
             max_frames=(int(self.max_request_seconds * self._frames_per_sec)
                         if cap_duration else None))
 
@@ -793,6 +797,8 @@ def warmup_server(batching, shapes, raw_audio: bool = False,
              "loud": (rng.normal(size=(t, 1)).astype(np.float32) - 30.0)}
         if with_mel:
             f["logmel"] = rng.normal(size=(t, n_mels)).astype(np.float32)
+        if conv.variant_new:
+            f["f0_fluc"] = np.zeros((t, 1), np.float32)
         return f
 
     def wav(t: int, f0: float):

@@ -28,7 +28,9 @@ def make_eval_fn(model, dev_batch, *, outdir: str, vocoder=None,
                  num_save: int = 8, device=None):
     """An ``eval_fn(state, steps)`` for ``SSCTrainer``; ``model`` is the
     live model the state's parameters belong to.  ``vocoder``: a
-    ``vocoder.Vocoder`` whose ``trg_stats`` are the logmel scaler's."""
+    ``vocoder.Vocoder`` whose ``trg_stats`` are the logmel scaler's.  A
+    batch with the F0 fluctuation gives it as the source's and the
+    reference's."""
     dev = resolve_device(device)
     rename = SSCTrainer.BATCH_RENAME
     batch = {rename.get(k, k): to_device(v, dev)
@@ -39,9 +41,12 @@ def make_eval_fn(model, dev_batch, *, outdir: str, vocoder=None,
     def eval_fn(state, steps: int):
         b = batch
         gen = torch.Generator(device=dev).manual_seed(int(steps))
-        out = model.inference(b["x"], b["lengths"], b["midi"], b["loud"],
-                              b["x"], b["lengths"], b["logmel"], b["midi"],
-                              b["loud"], generator=gen, n_timesteps=10)
+        src = [b["x"], b["lengths"], b["midi"], b["loud"]]
+        ref = [b["x"], b["lengths"], b["logmel"], b["midi"], b["loud"]]
+        if "f0_fluc" in b:
+            src.append(b["f0_fluc"])
+            ref.append(b["f0_fluc"])
+        out = model.inference(*src, *ref, generator=gen, n_timesteps=10)
         mel_pred = out.float().cpu().numpy()
         dirname = os.path.join(outdir, "predictions", f"{steps}steps")
         os.makedirs(dirname, exist_ok=True)

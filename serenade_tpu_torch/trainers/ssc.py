@@ -79,8 +79,10 @@ class SSCTrainer:
     """Drives a train step (``trainers.build_train_step``) to
     ``train_max_steps``."""
 
+    # f0_flucs: the F0-fluctuation variant's collater only
     BATCH_RENAME = {"xs": "x", "ys": "logmel", "scores": "midi",
-                    "louds": "loud", "lens": "lengths"}
+                    "louds": "loud", "lens": "lengths",
+                    "f0_flucs": "f0_fluc"}
 
     def __init__(self, config: Dict[str, Any], train_step: Callable, state,
                  train_iter: Iterable, writer=None, outdir: str = "exp",
@@ -295,3 +297,8 @@ class SSCTrainer:
             self.epochs = int(restored["meta"].get("epochs", 0))
             self.state.step = self.steps
         logger.info("restored checkpoint %s (steps=%d)", path, self.steps)
+
+
+class SSCTrainerNew(SSCTrainer):
+    """The F0-fluctuation variant's trainer: ``SSCTrainer`` itself, whose
+    ``BATCH_RENAME`` maps ``f0_flucs`` too; a name of the registry."""

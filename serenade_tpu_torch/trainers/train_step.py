@@ -206,7 +206,8 @@ def build_train_step(model: nn.Module, opt: Optimizer, *,
     ``state`` from ``create_train_state(model, opt)``.
 
     ``batch`` holds ``x``, ``lengths``, ``logmel``, ``midi`` and ``loud``
-    with a leading batch axis, or ``(grad_accum, micro_batch, ...)`` when
+    (and ``f0_fluc`` for the F0-fluctuation variant) with a leading batch
+    axis, or ``(grad_accum, micro_batch, ...)`` when
     ``grad_accum > 1``; the gradients and metrics are the means over the
     micro-batches.  ``generator`` (on the device) draws the segments, flow
     times, noise and dropout masks; ``draws`` (one dict per micro-batch,
@@ -223,9 +224,11 @@ def build_train_step(model: nn.Module, opt: Optimizer, *,
         raise ValueError(f"parameters not on {dev}: {bad[:3]}")
 
     def micro(batch, generator, draws, step):
+        # the variant's F0 fluctuation, where the batch has it
+        extra = {"f0_fluc": batch["f0_fluc"]} if "f0_fluc" in batch else {}
         out = model(batch["x"], batch["lengths"], batch["logmel"],
                     batch["midi"], batch["loud"], generator=generator,
-                    draws=draws)
+                    draws=draws, **extra)
         use_prior = float(step > prior_loss_start_steps)
         loss = out["cfm_loss"] + use_prior * out["prior_loss"]
         loss.backward()

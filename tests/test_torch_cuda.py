@@ -708,3 +708,95 @@ def test_train_loop_on_card_saves_and_resumes_exactly(tmp_path):
     second.run()
     assert second.steps == 3
     assert {s for _, s in second._writer.scalars} == {3}
+
+
+@pytest.mark.cuda
+def test_variant_on_card_matches_plain_and_cpu():
+    """The F0-fluctuation variant: K2, K6 and K7 at its first Block1D's
+    Cin 244 (x by cp.async, taps padded to 248) against their plain
+    versions within 2e-2 (bf16); one f32 ``SerenadeNew`` train step and
+    one conversion on the card against the CPU's plain route from the
+    same weights, batch, draws, noise and shifts (1e-4 of the metrics,
+    1e-3 of max(1, |mel|))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.serenade_new import SerenadeNew
+    from serenade_tpu_torch.trainers import (
+        build_optimizer, build_train_step, create_train_state,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(30)
+    lengths = [200, 131, 64, 1]
+    x = torch.randn((4, 200, 244), generator=g, device=dev).bfloat16()
+    w = (torch.randn((512, 244, 3), generator=g, device=dev)
+         / (3 * 244) ** 0.5).bfloat16()
+    bias, gamma, beta = (0.1 * torch.randn((512,), generator=g, device=dev)
+                         for _ in range(3))
+    cot = torch.randn((4, 200, 512), generator=g, device=dev).bfloat16()
+    mask = (torch.arange(200, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None]).float()[..., None]
+    counts = (block1d_cuda.launches, block1d_cuda.data_launches,
+              block1d_cuda.weight_launches)
+    out = block1d_cuda.block1d(x, mask, w, bias, gamma + 1.0, beta)
+    x_, lens, w_, bias_, gamma_, beta_ = block1d_cuda.prepare_forward(
+        x, mask, w, bias, gamma + 1.0, beta)
+    _, y, stats = block1d_cuda._block1d_cuda(x_, lens, w_, bias_, gamma_,
+                                             beta_, 8, 1e-5)
+    dx, dy, (dgam, dbet, db) = block1d_cuda.block1d_bwd_data(
+        x_, lens, w_, gamma_, beta_, y, stats, cot)
+    dw = block1d_cuda.block1d_bwd_weight(x_, lens, dy)
+    # K2 twice (the wrapper, then the forward the backward reads), K6, K7
+    assert (block1d_cuda.launches, block1d_cuda.data_launches,
+            block1d_cuda.weight_launches) == (counts[0] + 2, counts[1] + 1,
+                                              counts[2] + 1)
+    ref = block1d_cuda.block1d_plain(x, mask, w, bias, gamma + 1.0, beta)
+    want = block1d_cuda.block1d_backward_plain(x, mask, w, bias, gamma + 1.0,
+                                               beta, cot)
+    for got, r in ((out, ref), (dx, want[0]), (dw, want[1]), (db, want[2]),
+                   (dgam, want[3]), (dbet, want[4])):
+        err = (got.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, r.float().abs().max().item())
+
+    cfg = dict(NARROW, encoder_channels=80, dropout=0.0, dtype="float32")
+    rng = np.random.default_rng(31)
+    b, t = 2, 64
+    batch = {"x": rng.normal(size=(b, t, 32)), "lengths": np.array([64, 45]),
+             "logmel": rng.normal(size=(b, t, 80)),
+             "midi": rng.uniform(size=(b, t, 1)),
+             "loud": rng.uniform(size=(b, t, 1)),
+             "f0_fluc": 0.05 * rng.normal(size=(b, t, 1))}
+    batch = {k: v.astype(np.float32) if v.dtype == np.float64 else v
+             for k, v in batch.items()}
+    draws = {"frac": 0.3, "start": 0.4, "t": np.array([0.2, 0.7]),
+             "z": rng.normal(size=(b, t, 80)), "s1": 17, "s2": 40}
+    metrics = []
+    for device in ("cpu", dev):
+        model = init_params_(SerenadeNew(**cfg), seed=3).to(device)
+        opt, _ = build_optimizer({"optimizer_type": "AdamW"})
+        step = build_train_step(model, opt, device=device)
+        d = {k: torch.as_tensor(v, device=device) if k in ("s1", "s2")
+             else torch.as_tensor(v, dtype=torch.float32, device=device)
+             for k, v in draws.items()}
+        _, m = step(create_train_state(model, opt), batch, None, draws=d)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for k in metrics[0]:
+        assert abs(metrics[0][k] - metrics[1][k]) <= 1e-4 * max(
+            1.0, abs(metrics[0][k])), k
+
+    src = {**_features(rng, 150, False),
+           "f0_fluc": 0.05 * rng.normal(size=150)}
+    ref = {**_features(rng, 100, True),
+           "f0_fluc": 0.05 * rng.normal(size=100)}
+    x0 = 0.667 * rng.normal(size=(1, 128 + 192, 80))
+    mels = [Converter(dict(NARROW, dtype="float32"), None, _identity_scaler(),
+                      n_timesteps=2, seed=3, device=device,
+                      model_type="SerenadeNew").convert_features(
+        src, ref, x0=x0, shifts=[77, 150])[0] for device in ("cpu", dev)]
+    assert mels[1].shape == (150, 80) and np.isfinite(mels[1]).all()
+    assert np.abs(mels[1] - mels[0]).max() <= 1e-3 * max(
+        1.0, np.abs(mels[0]).max())

@@ -37,6 +37,7 @@ from serenade_tpu.vocoder.convert import (
 )
 from serenade_tpu_torch import checkpoint as pckpt
 from serenade_tpu_torch.api import Converter
+from serenade_tpu_torch.bin import preprocess as ppreprocess
 from serenade_tpu_torch.bin import serve as pserve
 from serenade_tpu_torch.bin import ssc_decode as pdecode
 from serenade_tpu_torch.config import resolve
@@ -643,10 +644,13 @@ def _decode_argv(files, *extra):
 
 
 REFUSALS = {
-    "SerenadeNew": (lambda f: resolve("model", "SerenadeNew"),
-                    NotImplementedError, "F0-fluctuation"),
+    "preprocess_midi_model_ckpt": (lambda f: ppreprocess.main([
+        "--wav-scp", "none.scp", "--dumpdir", str(f["root"] / "refused"),
+        "--config", "none.yml", "--midi-model-ckpt", "m.pt",
+        "--allow-missing-hubert", "true", "--device", "cpu"]), SystemExit,
+        "--midi-model-ckpt"),
     "unknown_model": (lambda f: resolve("model", "NuSVC"), KeyError,
-                      "registered: \\['Serenade'\\]"),
+                      "registered: \\['Serenade', 'SerenadeNew'\\]"),
     "griffin_lim": (lambda f: load_vocoder(
         "none", {"generator_type": "GriffinLim"}), NotImplementedError,
         "Griffin-Lim"),

@@ -331,14 +331,26 @@ def test_midi_helpers_match_jax():
 
 
 def test_unported_backends_and_f0_fluc_are_refused():
+    """The Harvest and native backends are refused by name.  ``f0_fluc``
+    is no longer refused (the name is older than its port): the batch
+    path's is JAX's function of the port's own F0 track and within 2e-3 of
+    JAX's ``f0_fluc`` (their F0 tracks agree by ``assert_f0_agrees``)."""
     cfg = features.FeatureConfig.from_dict(FC)
     for backend in ("harvest", "native", "harvest_native"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             features.extract_features("u", sung(0.5, 9), SR, cfg,
                                       f0_backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match="f0_fluc"):
-        features.extract_features_batch([("u", sung(0.5, 9), SR, None)], cfg,
-                                        with_f0_fluc=True, device="cpu")
+    items = [("u", sung(0.5, 9), SR, None)]
+    got = features.extract_features_batch(items, cfg, with_f0_fluc=True,
+                                          device="cpu")["u"]
+    want = jfeat.extract_features_batch(
+        items, jfeat.FeatureConfig.from_dict(FC), with_f0_fluc=True)["u"]
+    lo, hi = jfeat.f0_range_for("u", None)
+    np.testing.assert_array_equal(
+        got["f0_fluc"][:, 0], jfeat.compute_f0_fluctuation(
+            got["f0"][:, 0], hi, cfg.shiftms))
+    assert got["f0_fluc"].shape == want["f0_fluc"].shape
+    assert np.abs(got["f0_fluc"] - want["f0_fluc"]).max() <= 2e-3
 
 
 # ---------------------------------------------------------------------------

@@ -234,10 +234,16 @@ def test_extract_stream_window_matches_jax(content_fns, where):
     np.testing.assert_array_equal(got["score"], want["score"])
     h, h_j = got["hubert"].numpy(), np.asarray(want["hubert"])
     assert np.abs(h - h_j).max() <= 1e-4 * max(1.0, np.abs(h_j).max())
-    with pytest.raises(NotImplementedError, match="f0_fluc"):
-        features.extract_stream_window(audio, span, cfg, 70.0, 1100.0,
-                                       content_fn=port_fn, ctx_frames=CTX,
-                                       with_f0_fluc=True, device="cpu")
+    # the F0 fluctuation: the spline over the window's F0, sliced to the
+    # span, within 2e-3 of JAX's (their F0 tracks agree as above)
+    got = features.extract_stream_window(
+        audio, span, cfg, 70.0, 1100.0, content_fn=port_fn, ctx_frames=CTX,
+        with_f0_fluc=True, device="cpu")
+    want = jfeat.extract_stream_window(
+        audio, span, jcfg, 70.0, 1100.0, content_fn=jax_fn, ctx_frames=CTX,
+        with_f0_fluc=True)
+    assert got["f0_fluc"].shape == np.asarray(want["f0_fluc"]).shape == (t, 1)
+    assert np.abs(got["f0_fluc"] - want["f0_fluc"]).max() <= 2e-3
 
 
 # ---------------------------------------------------------------------------

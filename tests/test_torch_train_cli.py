@@ -441,14 +441,6 @@ REFUSED = {
     "data_axis": (["--data-axis", "2"], {}, SystemExit, "--data-axis"),
     "zero1": (["--zero1"], {}, SystemExit, "--zero1"),
     "zero1_config": ([], {"zero1": True}, SystemExit, "--zero1"),
-    "SerenadeNew": ([], {"model_type": "SerenadeNew"}, NotImplementedError,
-                    "F0-fluctuation"),
-    "SSCTrainerNew": ([], {"trainer_type": "SSCTrainerNew"},
-                      NotImplementedError, "F0-fluctuation"),
-    "SSCCollaterNew": ([], {"collater_type": "SSCCollaterNew"},
-                       NotImplementedError, "F0-fluctuation"),
-    "FeatsDatasetNew": ([], {"dataset_type": "FeatsDatasetNew"},
-                        NotImplementedError, "F0-fluctuation"),
 }
 
 
@@ -464,6 +456,61 @@ def test_train_cli_refuses_by_name(tmp_path, case):
                      str(tmp_path / "exp"), "--config", cfg, "--device",
                      "cpu"] + argv)
     assert not os.path.exists(tmp_path / "exp")
+
+
+VARIANT_TYPES = {"model": "SerenadeNew", "trainer": "SSCTrainerNew",
+                 "collater": "SSCCollaterNew", "dataset": "FeatsDatasetNew"}
+
+
+@pytest.mark.parametrize("kind", sorted(VARIANT_TYPES))
+def test_variant_types_resolve_and_build(dump, kind, tmp_path):
+    """The F0-fluctuation variant's four types resolve through the
+    registry the train CLI reads, and each builds: the model with two more
+    conditioning channels, the trainer's batch map, the collater's padded
+    ``f0_flucs``, the dataset's unscaled ``f0_fluc``."""
+    from serenade_tpu_torch.config import resolve
+
+    cls = resolve(kind, VARIANT_TYPES[kind])
+    assert cls.__name__ == VARIANT_TYPES[kind]
+    if kind == "model":
+        model = cls(**MODEL_PARAMS)
+        plain = Serenade(**MODEL_PARAMS)
+        assert model.uses_f0_fluc and model.fluc_channels == 2
+        grew = {k: (v.shape, plain.state_dict()[k].shape)
+                for k, v in model.state_dict().items()
+                if v.shape != plain.state_dict()[k].shape}
+        assert grew and all(a[1] == b[1] + 2 for a, b in grew.values())
+    elif kind == "trainer":
+        assert cls.BATCH_RENAME["f0_flucs"] == "f0_fluc"
+        assert cls({}, None, type("S", (), {"step": 0})(), [],
+                   writer=object(), outdir=str(tmp_path)).steps == 0
+    elif kind == "collater":
+        items = [{"hubert": np.ones((t, 2)), "logmel": np.ones((t, 3)),
+                  "loud": np.ones((t, 1)), "score": np.ones((t, 1)),
+                  "f0_fluc": np.full((t, 1), 0.5)} for t in (70, 40)]
+        out = cls()(items)
+        assert out["f0_flucs"].shape == (2, 128, 1)
+        assert out["f0_flucs"][1, :40].min() == 0.5 == \
+            out["f0_flucs"][1, :40].max()
+        assert not out["f0_flucs"][1, 40:].any()
+    else:
+        root = tmp_path / "d"
+        path = str(root / f"{UTTS[0][0]}.h5")
+        for key in ("wave", "hubert", "logmel", "loud", "est_lf0_score",
+                    "midi", "f0"):
+            jh5.write_hdf5(path, key, jh5.read_hdf5(
+                str(dump / "dump" / f"{UTTS[0][0]}.h5"), key))
+        fluc = np.linspace(-0.1, 0.1, UTTS[0][1]).astype(np.float32)
+        jh5.write_hdf5(path, "f0_fluc", fluc)
+        item = cls(str(root), scaler=load_scalers(str(
+            _stats(dump, tmp_path))))[0]
+        np.testing.assert_array_equal(item["f0_fluc"], fluc[:, None])
+
+
+def _stats(dump, tmp_path):
+    pstats.main(["--rootdir", str(dump / "dump"), "--dumpdir",
+                 str(tmp_path), "--config", _yaml(tmp_path / "s.yml")])
+    return tmp_path / "stats.joblib"
 
 
 def test_help_says_the_init_is_the_ports_own(capsys):
