@@ -114,7 +114,30 @@ Phases, each printing JSON lines:
                ``SSCTrainerNew`` from the card-resident corpus at B 16 x
                1,280 for 6 unsynchronised steps (steps/s, 6 K1/K4/K5 and
                13 K2/K6/K7 launches a step), then one small f32 train step
-               on the card against the CPU by phase 6's rule.
+               on the card against the CPU by phase 6's rule;
+13. distill_eval -- few-step distillation and objective evaluation from
+               a seeded full-width teacher: (a) ``bin/distill.
+               distill_core`` in endpoint mode (student 2 Euler steps,
+               teacher Euler-10) through ``SSCTrainer`` from a
+               card-resident corpus at B 16 x 1,280, 6 steps with async
+               saves: steps/s, the teacher's share of a step (CUDA
+               events), peak memory, launches a step (72 K1, 156 K2, 12
+               K4/K5, 26 K6/K7), routed calls 0, finite losses, every
+               ``cfm_decoder`` tensor moved, the encoder, the GST and the
+               teacher equal to the teacher's bit for bit; (b) the same in
+               reflow mode, 3 steps (66 K1, 143 K2, 6 K4/K5, 13 K6/K7 a
+               step); (c) the saved student read back with the distilled
+               config's 2 steps answering phase 3's (1024, 512) request
+               (12 K1, 26 K2, 9 K3), the same Converter at Euler-10 in
+               turns; (d) one small f32 distill step of each mode on the
+               card against the CPU by phase 6's rule; (e)
+               ``bin/evaluate.main`` over phase 3b's waveforms and their
+               identical, pitch-shifted, noised and delayed copies and
+               (c)'s conversion, with ``--device cuda`` and ``--device
+               cpu``: summaries within 0.02 dB MCD, 1 cent and 0.01 V/UV
+               of each other, identical pairs under 0.05 dB and V/UV 0,
+               the Viterbi kernel's launches one a batched analysis,
+               routed calls 0, seconds per audio second.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -579,17 +602,24 @@ def check_block1d_bwd(torch, dev):
                 "bn", "grid", "ctas", "stages", "smem_bytes")}
             # K6's three kernels apart, ms a call from 10 profiled calls:
             # the dx product beside the two GroupNorm passes (bf16: f32
-            # runs the FMA kernels)
+            # runs the FMA kernels).  The profiler has at times reported
+            # none of a kernel's events: up to three profiles, and a part
+            # none of them saw is not measured (null)
             if bf16:
-                prof = device_time(torch, lambda: (
-                    [K.block1d_bwd_data(x, lens, w, gamma, beta, y, stats, g)
-                     for _ in range(10)], torch.cuda.synchronize()))
+                parts = (("dx", "k6::dx_bf16_kernel"),
+                         ("gn_reduce", "gn_reduce_kernel"),
+                         ("gn_dy", "gn_dy_kernel"))
+                for tries in range(1, 4):
+                    seen = device_time(torch, lambda: (
+                        [K.block1d_bwd_data(x, lens, w, gamma, beta, y,
+                                            stats, g) for _ in range(10)],
+                        torch.cuda.synchronize()))["port_kernels"]
+                    if all(sym in seen for _, sym in parts):
+                        break
                 row["data"]["profile_ms"] = {
-                    part: prof["port_kernels"][sym]["ms"]
-                    / prof["port_kernels"][sym]["count"]
-                    for part, sym in (("dx", "k6::dx_bf16_kernel"),
-                                      ("gn_reduce", "gn_reduce_kernel"),
-                                      ("gn_dy", "gn_dy_kernel"))}
+                    part: (seen[sym]["ms"] / seen[sym]["count"]
+                           if sym in seen else None) for part, sym in parts}
+                row["data"]["profile_tries"] = tries
             # cuDNN's data gradient of conv1d (k 3, padding 1) on the same
             # dy and weight, (B, C, T) as cuDNN takes them, held against
             # the plain dx on the valid frames (cuDNN does not mask) before
@@ -3126,6 +3156,390 @@ def variant_path(torch, np, dev, counters, card):
     return bool(ok), totals
 
 
+# ---------------------------------------------------------------------------
+# phase 13: few-step distillation and objective evaluation
+# ---------------------------------------------------------------------------
+
+DISTILL_STEPS = {"endpoint": 6, "reflow": 3}
+DISTILL_UTTS = 48                    # U(300, 2,900) frames, clamped at 1,280
+# a distill step's launches: the teacher's Euler-10 (60 K1, 130 K2 under
+# no_grad), then the student's 2-step rollout (12 K1, 26 K2, their
+# backward 12 K4, 12 K5, 26 K6, 26 K7) or one reflow loss (a train step's)
+DISTILL_LAUNCHES = {
+    "endpoint": {"flash_fwd": 72, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                 "block1d_fwd": 156, "block1d_bwd_data": 26,
+                 "block1d_bwd_weight": 26, "resblock_branch": 0,
+                 "viterbi_f0": 0},
+    "reflow": {"flash_fwd": 66, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+               "block1d_fwd": 143, "block1d_bwd_data": 13,
+               "block1d_bwd_weight": 13, "resblock_branch": 0,
+               "viterbi_f0": 0}}
+STUDENT_TURNS = (2, 10, 10, 2)       # Euler steps of (c)'s turns
+# (e): each target's converted copies, by suffix
+EVAL_SUFFIXES = ("_same", "_shift", "_noise", "_late", "_student")
+
+
+def _teacher_config():
+    from serenade_tpu_torch.configs import (
+        TRAIN_CONFIG_FULLBUDGET, serenade_config,
+    )
+
+    return dict(TRAIN_CONFIG_FULLBUDGET, model_type="Serenade",
+                model_params=serenade_config(), trainer_type="SSCTrainer")
+
+
+def distill_run(torch, np, dev, counters, card, mode, teacher_sd, corpus,
+                root):
+    """Phase 13 (a) or (b): ``bin/distill.distill_core`` in ``mode`` from
+    the card-resident corpus at B 16 x 1,280, through ``SSCTrainer`` with
+    its async saves.  Returns (ok, launches, the student's last
+    checkpoint, the line's figures)."""
+    from serenade_tpu_torch.bin.distill import distill_config, distill_core
+    from serenade_tpu_torch.datasets.device_cache import DeviceResidentData
+
+    n = DISTILL_STEPS[mode]
+    base = _teacher_config()
+    config = distill_config(base, distill_steps=n, lr=1e-4, student_steps=2,
+                            mode=mode, teacher_steps=10, solver="euler")
+    pft = base["collater_params"]["pad_frames_to"]
+    dr = DeviceResidentData(corpus, pad_frames_to=pft,
+                            batch_size=base["batch_size"], seed=0,
+                            device=dev)
+    outdir = os.path.join(root, mode)
+    writer = _Writer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    start = time.time()
+    trainer, teacher = distill_core(
+        config, teacher_sd, dr, outdir=outdir, mode=mode, student_steps=2,
+        teacher_steps=10, temperature=0.667, seed=777, device=dev,
+        writer=writer)
+    torch.cuda.synchronize()
+    run_s = time.time() - start
+    launches, routed = counters.read(), counters.routed()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    student = {k: p.detach() for k, p in trainer.state.params.items()}
+    frozen_equal = all(
+        torch.equal(student[k], teacher_sd[k].to(dev)) for k in student
+        if k.startswith(("encoder.", "gst.")))
+    unmoved = [k for k in student if k.startswith("cfm_decoder.")
+               and torch.equal(student[k], teacher_sd[k].to(dev))]
+    teacher_same = all(torch.equal(v, teacher_sd[k].to(dev))
+                       for k, v in teacher.state_dict().items())
+    losses = {k: v for k, v in writer.scalars.items() if "loss" in k}
+    finite = bool(losses) and all(math.isfinite(v) for v in losses.values())
+    want = {k: n * v for k, v in DISTILL_LAUNCHES[mode].items()}
+    ckpt = os.path.join(outdir, f"checkpoint-{n}steps")
+
+    # the teacher's share of a step: CUDA events around its pass alone and
+    # around one more whole step (after the counters were read)
+    idx = np.arange(base["batch_size"])
+    batch = dr.gather(idx)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    args = (batch["x"], batch["lengths"], batch["logmel"], batch["midi"],
+            batch["loud"])
+    spans = []
+    for _ in range(3):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        teacher.make_reflow_batch(*args, generator=gen, n_timesteps=10)
+        events[1].record()
+        trainer.train_step(trainer.state, {"indices": idx}, gen)
+        events[2].record()
+        spans.append(events)
+    torch.cuda.synchronize()
+    teacher_ms = [e[0].elapsed_time(e[1]) for e in spans]
+    step_ms = [e[1].elapsed_time(e[2]) for e in spans]
+    interval = config["save_interval_steps"]
+    saves = [s for s in range(1, n + 1) if s % interval == 0 or s == n]
+    ok = (finite and frozen_equal and not unmoved and teacher_same
+          and launches == want and not any(routed.values())
+          and os.path.isdir(ckpt) and sorted(trainer.save_blocked_s) == saves)
+    line = {"phase": "distill_eval", "part": mode, "card": card,
+            "batch": [base["batch_size"], pft], "steps": n,
+            "run_s": run_s, "steps_per_s": n / run_s,
+            "teacher_pass_ms": teacher_ms, "distill_step_ms": step_ms,
+            "teacher_share": sum(teacher_ms) / sum(step_ms),
+            "peak_memory_gb": peak_gb, "losses": losses,
+            "save_blocked_s": trainer.save_blocked_s,
+            "launches": launches, "launches_expected": want,
+            "launches_per_step": {k: v / n for k, v in launches.items()},
+            "routed": routed, "frozen_equal": frozen_equal,
+            "cfm_tensors_unmoved": unmoved, "teacher_unchanged": teacher_same,
+            "ok": ok}
+    emit(line)
+    del trainer, teacher, dr
+    return ok, launches, ckpt
+
+
+def student_convert(torch, np, dev, counters, card, ckpt, config):
+    """Phase 13 (c): the distilled student read back from its checkpoint
+    with the distilled config's sampler, as ``Converter.from_expdir``
+    reads them, answering phase 3's (1024, 512) request with the seeded
+    HiFiGAN; the same Converter at Euler-10 in turns.  Returns (ok,
+    launches of the 2-step turns, the last 2-step waveform)."""
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.checkpoint import restore_params_only
+    from serenade_tpu_torch.configs import VOCODER_CONFIG
+
+    steps = int(config.get("inference_n_timesteps", 10))
+    conv = Converter(config["model_params"], restore_params_only(ckpt),
+                     _scaler(np), vocoder_config=VOCODER_CONFIG,
+                     vocoder_stats={"mean": np.zeros(80),
+                                    "scale": np.ones(80)},
+                     n_timesteps=steps,
+                     solver=config.get("inference_solver", "euler"),
+                     seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    src, ref = _features(np, rng, 1024, False), _features(np, rng, 512, True)
+    conv.convert_features(src, ref)          # warm-up
+    torch.cuda.synchronize()
+    turns, by_steps, wav = [], {}, None
+    for n in STUDENT_TURNS:
+        conv.n_timesteps = n
+        counters.reset()
+        start = time.time()
+        mel, out, sr = conv.convert_features(src, ref)
+        torch.cuda.synchronize()
+        wall = time.time() - start
+        launches = counters.read()
+        by_steps.setdefault(n, launches)
+        good = (mel.shape == (1024, 80) and out.shape == (1024 * HOP,)
+                and bool(np.isfinite(mel).all())
+                and bool(np.isfinite(out).all()))
+        turns.append({"n_timesteps": n, "wall_s": wall,
+                      "rtf": wall / (1024 * HOP / SR), "launches": launches,
+                      "routed": counters.routed(), "ok": good})
+        if n == steps:
+            wav = out
+    routed_ok = not any(v for t in turns for v in t["routed"].values())
+    counts_ok = all(
+        by_steps[n]["flash_fwd"] == 6 * n
+        and by_steps[n]["block1d_fwd"] == 13 * n
+        and by_steps[n]["resblock_branch"] >= 9 for n in by_steps)
+    ok = (steps == 2 and routed_ok and counts_ok
+          and all(t["ok"] for t in turns))
+    emit({"phase": "distill_eval", "part": "student_convert", "card": card,
+          "request": [1024, 512], "config_n_timesteps": steps,
+          "turns": turns, "ok": ok})
+    del conv
+    return ok, by_steps[2], wav
+
+
+def distill_parity(torch, np, dev):
+    """Phase 13 (d): one small f32 distill step of each mode on the CPU
+    (plain versions) and on the card (kernels) from the same teacher,
+    batch and draws, by phase 6's rule."""
+    from serenade_tpu_torch.bin.distill import distill_config
+    from serenade_tpu_torch.configs import TRAIN_CONFIG
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.serenade import Serenade
+    from serenade_tpu_torch.trainers import build_optimizer, create_train_state
+    from serenade_tpu_torch.trainers.distill import (
+        build_distill_step, distill_trainable_mask, frozen_teacher,
+    )
+
+    cfg = dict(input_dim=32, output_dim=80, encoder_channels=80,
+               encoder_hidden_dim=32, decoder_channels=64, gst_embed_dim=32,
+               decoder_attention_head_dim=32, gst_tokens=10,
+               gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16, dropout=0.0,
+               dtype="float32")
+    rng = np.random.default_rng(13)
+    b, t = 2, 64
+    batch = {"x": rng.normal(size=(b, t, 32)), "lengths": np.array([64, 45]),
+             "logmel": rng.normal(size=(b, t, 80)),
+             "midi": rng.uniform(size=(b, t, 1)),
+             "loud": rng.uniform(size=(b, t, 1))}
+    batch = {k: v.astype(np.float32) if v.dtype == np.float64 else v
+             for k, v in batch.items()}
+    draws = {"frac": 0.7, "start": 0.2, "t": np.array([0.3, 0.8]),
+             "x0": 0.667 * rng.normal(size=(b, t, 80))}
+    sd = init_params_(Serenade(**cfg), seed=3).state_dict()
+    lines, ok = [], True
+    for mode in ("endpoint", "reflow"):
+        # eps 1e-3: with 1e-8 a gradient whose sign is only rounding
+        # becomes a step of the full learning rate on one side
+        config = distill_config(dict(TRAIN_CONFIG, optimizer_params=dict(
+            TRAIN_CONFIG["optimizer_params"], eps=1e-3)), distill_steps=1,
+            lr=1e-4, student_steps=2, mode=mode, teacher_steps=3,
+            solver="euler")
+        out = []
+        for device in ("cpu", dev):
+            models = []
+            for _ in range(2):
+                m = Serenade(**cfg)
+                m.load_state_dict(sd)
+                models.append(m.to(device))
+            teacher, student = frozen_teacher(models[0]), models[1]
+            opt, _ = build_optimizer(
+                config, trainable_mask=distill_trainable_mask(student))
+            step = build_distill_step(student, teacher, opt, mode=mode,
+                                      n_teacher_steps=3, device=device)
+            d = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                 for k, v in draws.items()}
+            _, metrics = step(create_train_state(student, opt), batch, None,
+                              draws=d)
+            out.append(({k: float(v) for k, v in metrics.items()},
+                        {n: p.detach().cpu()
+                         for n, p in student.named_parameters()}))
+        (m_cpu, p_cpu), (m_dev, p_dev) = out
+        metric_err = max(abs(m_cpu[k] - m_dev[k]) / max(1.0, abs(m_cpu[k]))
+                         for k in m_cpu)
+        param_err = max(float((p_cpu[n] - p_dev[n]).abs().max())
+                        for n in p_cpu)
+        mode_ok = metric_err <= 1e-4 and param_err <= 1e-5
+        ok &= mode_ok
+        lines.append({"mode": mode, "metrics_cpu": m_cpu,
+                      "metrics_card": m_dev, "metric_rel_err": metric_err,
+                      "param_max_abs_err": param_err, "ok": mode_ok})
+    emit({"phase": "distill_eval", "part": "parity", "runs": lines,
+          "tol": {"metrics": 1e-4, "params": 1e-5}, "ok": bool(ok)})
+    return bool(ok)
+
+
+def _pitch_shifted(np, wav, cents):
+    ratio = 2.0 ** (cents / 1200.0)
+    n = int(len(wav) / ratio)
+    return np.interp(np.arange(n) * ratio, np.arange(len(wav)),
+                     wav).astype(np.float32)
+
+
+def _analysis_groups(np, lengths):
+    """The batched analyses ``metrics.extract_eval_feats_batch`` runs
+    over waveforms of these lengths: one a length bucket and 8 rows."""
+    bucket = 128 * (SR * 5 // 1000)
+    groups = {}
+    for n in lengths:
+        groups[-(-n // bucket)] = groups.get(-(-n // bucket), 0) + 1
+    return sum(-(-c // 8) for c in groups.values())
+
+
+def evaluate_run(torch, np, dev, counters, card, student_wav):
+    """Phase 13 (e): ``bin/evaluate.main`` over two wav directories, with
+    ``--device cuda`` and ``--device cpu``.  Targets: phase 3b's four
+    waveforms; converted, for each: an identical copy, one 100 cents up,
+    one with noise 20 dB down, one 60 ms late, and (c)'s 2-step
+    conversion beside the 10.24 s target.  Returns (ok, the card run's
+    launches)."""
+    from serenade_tpu_torch.bin.evaluate import main as evaluate_main
+    from serenade_tpu_torch.utils.audio import write_wav
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    conv_dir, tgt_dir = (os.path.join(root, d) for d in ("conv", "tgt"))
+    os.makedirs(conv_dir)
+    os.makedirs(tgt_dir)
+    rng = np.random.default_rng(14)
+    converted, targets = [], []
+    for i, w in enumerate(feature_wavs(np)):
+        write_wav(os.path.join(tgt_dir, f"w{i}.wav"), w, SR)
+        targets.append(len(w))
+        copies = {"_same": w, "_shift": _pitch_shifted(np, w, 100.0),
+                  "_noise": w + 0.1 * float(np.std(w)) * rng.normal(
+                      size=len(w)).astype(np.float32),
+                  "_late": np.concatenate(
+                      [np.zeros(int(0.06 * SR), np.float32), w])}
+        if abs(len(w) - SOURCE_S * SR) < HOP:
+            copies["_student"] = student_wav
+        for suffix, c in copies.items():
+            write_wav(os.path.join(conv_dir, f"w{i}{suffix}.wav"), c, SR)
+            converted.append(len(c))
+    # the CLI analyses the converted wavs, then every pair's target
+    want_viterbi = (_analysis_groups(np, converted)
+                    + _analysis_groups(np, [targets[int(s)] for s in [
+                        name[1] for name in sorted(os.listdir(conv_dir))]]))
+    argv = ["--converted-dir", conv_dir, "--target-dir", tgt_dir,
+            "--strip-suffixes", *EVAL_SUFFIXES, "--verbose", "0"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        counters.reset()
+        start = time.time()
+        result = evaluate_main(argv + ["--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - start
+        runs[device] = {"result": result, "wall_s": wall,
+                        "launches": counters.read(),
+                        "routed": counters.routed()}
+    shutil.rmtree(root, ignore_errors=True)
+    audio_s = (sum(converted) + sum(
+        targets[int(name[1])] for name in runs["cuda"]["result"][
+            "per_utterance"])) / SR
+    card_run, cpu_run = runs["cuda"], runs["cpu"]
+    per, per_cpu = (r["result"]["per_utterance"] for r in (card_run, cpu_run))
+    tol = {"mcd_db": 0.02, "f0_rmse_cents": 1.0, "vuv_error": 0.01}
+    diffs = {k: max(abs(per[s][k] - per_cpu[s][k]) for s in per
+                    if per[s][k] is not None) for k in tol}
+    same = [per[s] for s in per if s.endswith("_same")]
+    ok = (set(per) == set(per_cpu) and len(per) == len(converted)
+          and all(diffs[k] <= tol[k] for k in tol)
+          and all(m["mcd_db"] < 0.05 and m["vuv_error"] == 0.0
+                  for m in same)
+          and all(math.isfinite(m["mcd_db"]) for m in per.values())
+          and card_run["launches"]["viterbi_f0"] == want_viterbi
+          and not any(card_run["routed"].values()))
+    emit({"phase": "distill_eval", "part": "evaluate", "card": card,
+          "pairs": len(per), "audio_s": audio_s,
+          "summary_card": card_run["result"]["summary"],
+          "summary_cpu": cpu_run["result"]["summary"],
+          "per_utterance_card": per, "max_diff_card_cpu": diffs, "tol": tol,
+          "wall_s": {d: r["wall_s"] for d, r in runs.items()},
+          "s_per_audio_s": {d: r["wall_s"] / audio_s
+                            for d, r in runs.items()},
+          "launches": card_run["launches"], "viterbi_expected": want_viterbi,
+          "routed": card_run["routed"], "ok": ok})
+    return ok, card_run["launches"]
+
+
+def distill_eval_path(torch, np, dev, counters, card):
+    """Phase 13: few-step distillation at full width (a: endpoint, b:
+    reflow) from seeded teacher weights, the student through the Converter
+    (c), a small distill step on the card against the CPU (d), and the
+    evaluation CLI on the card and on the CPU (e).  Returns (ok, launches
+    of the whole phase)."""
+    from serenade_tpu_torch.bin.distill import distill_config
+    from serenade_tpu_torch.configs import serenade_config
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.serenade import Serenade
+
+    t0 = time.time()
+    rng = np.random.default_rng(13)
+    lengths = [int(n) for n in rng.integers(LOOP_FRAMES[0], LOOP_FRAMES[1]
+                                            + 1, DISTILL_UTTS)]
+    corpus = SeededCorpus(np, lengths, 13)
+    teacher_sd = init_params_(Serenade(**serenade_config()),
+                              seed=0).state_dict()
+    root = tempfile.mkdtemp(prefix="chip_smoke_distill_")
+    ok, parts = True, []
+    try:
+        for mode in ("endpoint", "reflow"):
+            part_ok, launches, ckpt = distill_run(
+                torch, np, dev, counters, card, mode, teacher_sd, corpus,
+                root)
+            ok &= part_ok
+            parts.append(launches)
+            if mode == "endpoint":
+                student_ckpt = ckpt
+        config = distill_config(_teacher_config(), distill_steps=6,
+                                lr=1e-4, student_steps=2, mode="endpoint",
+                                teacher_steps=10, solver="euler")
+        part_ok, launches, wav = student_convert(
+            torch, np, dev, counters, card, student_ckpt, config)
+        ok &= part_ok
+        parts.append(launches)
+        ok &= distill_parity(torch, np, dev)
+        part_ok, launches = evaluate_run(torch, np, dev, counters, card, wav)
+        ok &= part_ok
+        parts.append(launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    totals = {k: sum(p[k] for p in parts) for k in KERNELS}
+    emit({"phase": "distill_eval_done", "seconds": time.time() - t0,
+          "launches": totals, "ok": bool(ok)})
+    return bool(ok), totals
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -3321,6 +3735,10 @@ def main() -> int:
     ok &= variant_ok
     for name in entries:
         entries[name]["variant_launches"] = launches[name]
+    distill_ok, launches = distill_eval_path(torch, np, dev, counters, card)
+    ok &= distill_ok
+    for name in entries:
+        entries[name]["distill_eval_launches"] = launches[name]
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

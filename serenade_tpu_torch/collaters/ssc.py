@@ -26,6 +26,13 @@ def next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def pad_pow2(seq: Sequence) -> list:
+    """A non-empty sequence padded to the next power-of-two length by
+    repeating its last element (callers drop the padding's results)."""
+    seq = list(seq)
+    return seq + [seq[-1]] * (next_pow2(len(seq)) - len(seq))
+
+
 def pad_to(x: np.ndarray, length: int) -> np.ndarray:
     pad = length - x.shape[0]
     if pad <= 0:

@@ -80,7 +80,8 @@ class CFM(nn.Module):
                   solver: str = "euler",
                   x0: Optional[torch.Tensor] = None):
         """ODE sampling from ``z·temperature`` (or the pre-scaled ``x0``,
-        to which temperature is not re-applied) over a uniform t grid.
+        to which temperature is not re-applied) over a uniform t grid, with
+        no autograd (:meth:`rollout` is the same loop with it).
 
         Solvers: ``euler`` (1 estimator evaluation per step), ``midpoint``
         (2), ``ab2`` (Adams-Bashforth 2, 1 per step after one Euler step).
@@ -90,17 +91,30 @@ class CFM(nn.Module):
         if x0 is None:
             z = torch.randn((b, T, self.out_channels), generator=generator,
                             dtype=torch.float32, device=mu.device)
-            z = z * temperature
-        else:
-            z = x0.float().to(mu.device)
+            x0 = z * temperature
+        return self.rollout(mu, mask, spk, x0.float().to(mu.device),
+                            n_timesteps=n_timesteps, solver=solver)
+
+    def rollout(self, mu, mask, spk, x0: torch.Tensor, *,
+                n_timesteps: int = 10, solver: str = "euler"):
+        """The ODE from ``x0`` ``(B, T, out_channels)`` under the caller's
+        grad mode: few-step distillation backpropagates through it
+        (``trainers/distill.py``).  The estimator runs as in inference (no
+        dropout), rematerialized in the backward pass under ``remat``."""
+        b = mu.shape[0]
         ts = torch.linspace(0.0, 1.0, n_timesteps + 1,
                             dtype=torch.float32).tolist()
+        remat = self.remat and torch.is_grad_enabled()
 
         def f(x, t):
             tt = torch.full((b,), t, dtype=torch.float32, device=mu.device)
-            return self.estimator(x.to(self.dtype), mask, mu, tt, spk).float()
+            args = (x.to(self.dtype), mask, mu, tt, spk)
+            if remat:
+                return _rematerialized(self.estimator, args, False,
+                                       None).float()
+            return self.estimator(*args).float()
 
-        x = z
+        x = x0.float()
         if solver == "euler":
             for t0, t1 in zip(ts[:-1], ts[1:]):
                 x = x + (t1 - t0) * f(x, t0)

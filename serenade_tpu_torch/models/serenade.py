@@ -9,7 +9,8 @@ conditioning mel time-adjacent before the zero-conditioned source, the CFM
 samples the joint sequence and the source part is returned; batch rows may
 have different reference lengths.  ``fluc_channels`` widens the
 conditioning by that many channels, which a variant hands in as ``fluc``
-(``models/serenade_new.py``).  ReFlow pair generation is not ported.
+(``models/serenade_new.py``).  ``make_reflow_batch`` is the teacher pass
+of few-step distillation (``trainers/distill.py``).
 """
 
 from __future__ import annotations
@@ -91,31 +92,16 @@ class Serenade(nn.Module):
         Returns ``cfm_loss``, ``prior_loss``, ``gauss_mel`` (the encoder
         output) and ``loss``.
         """
-        b, T, _ = x.shape
-        dev = x.device
+        T = x.shape[1]
         draws = draws or {}
         enc_outs = self.encoder(x, lengths)
         spk = self.gst(logmel, lengths)
         mask = length_mask(lengths, T)[..., None]
 
         # random contiguous infill segment, scaled by the batch max length
-        maxlen = lengths.max()
-        lo, hi = self.mask_size
-        frac = draws.get("frac")
-        if frac is None:
-            frac = lo + (hi - lo) * torch.rand((), generator=generator,
-                                               device=dev)
-        start = draws.get("start")
-        if start is None:
-            start = torch.rand((), generator=generator, device=dev)
-        frac = torch.as_tensor(frac, dtype=torch.float32, device=dev)
-        start = torch.as_tensor(start, dtype=torch.float32, device=dev)
-        seg_len = torch.floor(frac * maxlen).to(torch.int32)
-        seg_start = torch.floor(start * (maxlen - seg_len + 1)).to(
-            torch.int32)
-        pos = torch.arange(T, device=dev)[None, :, None]
-        in_seg = ((pos >= seg_start) & (pos < seg_start + seg_len)).to(
-            mask.dtype)
+        in_seg = self._segment(lengths, T, *self.mask_size,
+                               draws.get("frac"), draws.get("start"),
+                               generator).to(mask.dtype)
         mask_l = mask * in_seg           # loss mask: inside the segment
         mask_c = mask * (1.0 - in_seg)   # conditioning: outside it
 
@@ -134,6 +120,74 @@ class Serenade(nn.Module):
             train=True)
         return {"cfm_loss": cfm_loss, "prior_loss": prior_loss,
                 "gauss_mel": enc_outs, "loss": cfm_loss + prior_loss}
+
+    def _segment(self, lengths, T, lo, hi, frac, start, generator):
+        """The infill segment's indicator ``(1, T, 1)``: a fraction
+        ``frac`` ~ U(lo, hi) of the batch's longest length starting at
+        ``start`` ~ U(0, 1) of the room left, drawn from ``generator``
+        where not given; computed on the device, no host sync."""
+        dev = lengths.device
+        maxlen = lengths.max()
+        if frac is None:
+            frac = lo + (hi - lo) * torch.rand((), generator=generator,
+                                               device=dev)
+        if start is None:
+            start = torch.rand((), generator=generator, device=dev)
+        frac = torch.as_tensor(frac, dtype=torch.float32, device=dev)
+        start = torch.as_tensor(start, dtype=torch.float32, device=dev)
+        seg_len = torch.floor(frac * maxlen).to(torch.int32)
+        seg_start = torch.floor(start * (maxlen - seg_len + 1)).to(
+            torch.int32)
+        pos = torch.arange(T, device=dev)[None, :, None]
+        return (pos >= seg_start) & (pos < seg_start + seg_len)
+
+    @torch.no_grad()
+    def make_reflow_batch(self, x, lengths, logmel, midi, loud, *,
+                          generator: Optional[torch.Generator] = None,
+                          draws: Optional[Dict[str, torch.Tensor]] = None,
+                          n_timesteps: int = 10, temperature: float = 0.667,
+                          solver: str = "euler",
+                          extras: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """The teacher pass of few-step distillation
+        (``serenade_tpu/models/serenade.py:173-232``): training-style
+        infilling conditioning with the segment fraction widened to
+        ``(mask_size[0], 1.0)`` (at 1 the conditioning mel is all zero, the
+        source half of inference's packed layout), then the
+        teacher's ODE from a known ``x0``, with no autograd.
+
+        The fraction, start and ``x0`` (``(B, T, output_dim)``, already
+        scaled by ``temperature``) come from ``draws`` (``frac``,
+        ``start``, ``x0``) where given, else from ``generator``.
+        ``extras["fluc"]`` ``(B, T, fluc_channels)`` joins ``mu`` after
+        loudness, as ``forward``'s ``fluc``.
+
+        Returns ``mu`` (B, T, cond), ``mask`` (B, T, 1), ``spk``, ``x0``
+        and ``x1_hat`` (B, T, output_dim), the teacher's endpoint.
+        """
+        b, T, _ = x.shape
+        draws = draws or {}
+        enc_outs = self.encoder(x, lengths)
+        spk = self.gst(logmel, lengths)
+        mask = length_mask(lengths, T)[..., None]
+        in_seg = self._segment(lengths, T, self.mask_size[0], 1.0,
+                               draws.get("frac"), draws.get("start"),
+                               generator).to(mask.dtype)
+        cond = logmel.float() * (mask * (1.0 - in_seg))
+        fluc = (extras or {}).get("fluc")
+        parts = [enc_outs, midi, loud] + ([] if fluc is None else [fluc])
+        mu = torch.cat([p.to(self.dtype) for p in parts + [cond]], dim=-1)
+        x0 = draws.get("x0")
+        if x0 is None:
+            x0 = temperature * torch.randn(
+                (b, T, self.output_dim), generator=generator,
+                dtype=torch.float32, device=x.device)
+        x0 = x0.float().to(x.device)
+        x1_hat = self.cfm_decoder.rollout(mu, mask, spk, x0,
+                                          n_timesteps=n_timesteps,
+                                          solver=solver)
+        return {"mu": mu, "mask": mask, "spk": spk, "x0": x0,
+                "x1_hat": x1_hat}
 
     @torch.no_grad()
     def inference(self, x, lengths, midi, loud,

@@ -54,6 +54,17 @@ def _rolled_pair(x: torch.Tensor, shifts: Sequence[Shift]) -> torch.Tensor:
                      dim=-1)
 
 
+def _train_fluc(f0_fluc, draws, generator) -> torch.Tensor:
+    """Training's two copies of ``f0_fluc`` ``(B, T, 1)``, rolled by
+    ``draws["s1"]`` and ``draws["s2"]`` where given, else by two draws
+    from ``generator`` in ``[0, max(T - 2, 1))``."""
+    high = max(f0_fluc.shape[1] - 2, 1)
+    shifts = [draws[k] if draws.get(k) is not None else torch.randint(
+        0, high, (), generator=generator, device=f0_fluc.device)
+        for k in ("s1", "s2")]
+    return _rolled_pair(f0_fluc, shifts)
+
+
 class SerenadeNew(Serenade):
     # a capability the Converter reads: the F0 fluctuation goes through
     # training and inference
@@ -73,13 +84,30 @@ class SerenadeNew(Serenade):
         if f0_fluc is None:
             raise ValueError("SerenadeNew needs f0_fluc")
         draws = draws or {}
-        high = max(f0_fluc.shape[1] - 2, 1)
-        shifts = [draws[k] if draws.get(k) is not None else torch.randint(
-            0, high, (), generator=generator, device=x.device)
-            for k in ("s1", "s2")]
         return super().forward(x, lengths, logmel, midi, loud,
                                generator=generator, draws=draws,
-                               fluc=_rolled_pair(f0_fluc, shifts))
+                               fluc=_train_fluc(f0_fluc, draws, generator))
+
+    def make_reflow_batch(self, x, lengths, logmel, midi, loud, *,
+                          generator: Optional[torch.Generator] = None,
+                          draws: Optional[Dict[str, torch.Tensor]] = None,
+                          extras: Optional[Dict[str, torch.Tensor]] = None,
+                          **kwargs) -> Dict[str, torch.Tensor]:
+        """``Serenade.make_reflow_batch`` with ``extras["fluc"]``, the
+        unrolled ``f0_fluc`` ``(B, T, 1)`` that distillation's batch
+        adapter hands over (``serenade_tpu/bin/distill.py:158-163``),
+        rolled into the two conditioning channels as ``forward`` rolls it
+        (``draws["s1"]``, ``draws["s2"]``, else two draws from
+        ``generator``).  The JAX package appends the unrolled track as it
+        is, one channel where its parameters take two, and stops on the
+        shape (ROADMAP Queue C)."""
+        if not extras or extras.get("fluc") is None:
+            raise ValueError("SerenadeNew needs extras['fluc'] (f0_fluc)")
+        draws = draws or {}
+        fluc = _train_fluc(extras["fluc"], draws, generator)
+        return super().make_reflow_batch(
+            x, lengths, logmel, midi, loud, generator=generator,
+            draws=draws, extras=dict(extras, fluc=fluc), **kwargs)
 
     @torch.no_grad()
     def inference(self, x, lengths, midi, loud, f0_fluc,

@@ -800,3 +800,102 @@ def test_variant_on_card_matches_plain_and_cpu():
     assert mels[1].shape == (150, 80) and np.isfinite(mels[1]).all()
     assert np.abs(mels[1] - mels[0]).max() <= 1e-3 * max(
         1.0, np.abs(mels[0]).max())
+
+
+@pytest.mark.cuda
+def test_cheaptrick_and_eval_analysis_on_card_match_cpu():
+    """CheapTrick of a sung-like tone and of noise (f64 running sums on
+    both) on the card against the CPU, by the CPU tests' rule against JAX:
+    the log envelope within 2e-2 where it is within 40 dB of its frame's
+    peak, 5e-3 on average within 60 dB; then ``metrics.
+    extract_eval_feats_batch`` on both (the Viterbi kernel on the card):
+    the voicing on 99.5 % of frames, the mel-cepstrum within 1e-3 on
+    average."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch import metrics
+    from serenade_tpu_torch.ops.world import cheaptrick
+
+    sr, hop = 24000, 120
+    rng = np.random.default_rng(40)
+    n = int(0.8 * sr)
+    t = np.arange(n) / sr
+    tone = sum(a * np.sin(2 * np.pi * k * 196.0 * t * (1 + 0.01 * np.sin(
+        2 * np.pi * 5.5 * t))) for k, a in enumerate((0.3, 0.1, 0.05), 1))
+    x = np.stack([tone + 0.01 * rng.normal(size=n),
+                  0.05 * rng.normal(size=n)]).astype(np.float32)
+    frames = 1 + n // hop
+    f0 = np.zeros((2, frames), np.float32)
+    f0[0, 20:] = 196.0
+    envs = [np.log(cheaptrick(torch.from_numpy(x).to(device),
+                              torch.from_numpy(f0).to(device), fs=sr,
+                              f0_floor=70.0).cpu().numpy())
+            for device in ("cpu", "cuda")]
+    err = np.abs(envs[1] - envs[0])
+    peak = envs[0].max(axis=-1, keepdims=True)
+    near = envs[0] >= peak - 4 * np.log(10.0)
+    far = envs[0] >= peak - 6 * np.log(10.0)
+    assert err[near].max() <= 2e-2 and err[far].mean() <= 5e-3
+
+    wavs = [x[0], x[1], x[0][: n // 2]]
+    cpu, card = (metrics.extract_eval_feats_batch(wavs, sr, device=d)
+                 for d in ("cpu", "cuda"))
+    for a, b in zip(cpu, card):
+        assert (a["vuv"] == b["vuv"]).mean() >= 0.995
+        assert np.abs(a["mcep"] - b["mcep"]).mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["endpoint", "reflow"])
+def test_distill_step_on_card_matches_cpu(mode):
+    """One f32 distill step (teacher Euler-3, student 2 steps) on the card
+    (K1, K2 and, through the student's backward, K4-K7) against the CPU's
+    plain route from the same teacher, batch and draws: the metrics within
+    1e-4, the parameters within 1e-5 (phase 6's rule)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.serenade import Serenade
+    from serenade_tpu_torch.trainers import build_optimizer, create_train_state
+    from serenade_tpu_torch.trainers.distill import (
+        build_distill_step, distill_trainable_mask, frozen_teacher,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(NARROW, encoder_channels=80, decoder_attention_head_dim=32,
+               dropout=0.0, dtype="float32")
+    rng = np.random.default_rng(41)
+    b, t = 2, 64
+    batch = {"x": rng.normal(size=(b, t, 32)), "lengths": np.array([64, 45]),
+             "logmel": rng.normal(size=(b, t, 80)),
+             "midi": rng.uniform(size=(b, t, 1)),
+             "loud": rng.uniform(size=(b, t, 1))}
+    batch = {k: v.astype(np.float32) if v.dtype == np.float64 else v
+             for k, v in batch.items()}
+    draws = {"frac": 0.7, "start": 0.2, "t": np.array([0.3, 0.8]),
+             "x0": 0.667 * rng.normal(size=(b, t, 80))}
+    sd = init_params_(Serenade(**cfg), seed=3).state_dict()
+    config = {"optimizer_type": "AdamW",
+              "optimizer_params": {"lr": 1e-4, "eps": 1e-3}, "grad_norm": 1.0}
+    out = []
+    for device in ("cpu", "cuda"):
+        teacher, student = (Serenade(**cfg).to(device) for _ in range(2))
+        teacher.load_state_dict(sd)
+        student.load_state_dict(sd)
+        opt, _ = build_optimizer(
+            config, trainable_mask=distill_trainable_mask(student))
+        step = build_distill_step(student, frozen_teacher(teacher), opt,
+                                  mode=mode, n_teacher_steps=3,
+                                  device=device)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+             for k, v in draws.items()}
+        _, m = step(create_train_state(student, opt), batch, None, draws=d)
+        out.append(({k: float(v) for k, v in m.items()},
+                    {n: p.detach().cpu() for n, p in
+                     student.named_parameters()}))
+    (m_cpu, p_cpu), (m_dev, p_dev) = out
+    for k in m_cpu:
+        assert abs(m_cpu[k] - m_dev[k]) <= 1e-4 * max(1.0, abs(m_cpu[k])), k
+    for n in p_cpu:
+        assert (p_cpu[n] - p_dev[n]).abs().max() <= 1e-5, n

@@ -206,6 +206,12 @@ def _imported_roots(path: Path):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "serenade_tpu_torch").rglob("*.py"))
+    # distillation and evaluation among them (their CLIs read h5py, joblib
+    # and pyyaml inside functions only)
+    walked = {p.relative_to(REPO / "serenade_tpu_torch").as_posix()
+              for p in files}
+    assert {"trainers/distill.py", "bin/distill.py", "metrics.py",
+            "bin/evaluate.py", "ops/world.py", "ops/sptk.py"} <= walked
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     bad = {f"{p.relative_to(REPO)}: {root}" for p in files
@@ -246,6 +252,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_train_step(model, opt)
     build_train_step(model, opt, device="cpu")
+    from serenade_tpu_torch import metrics
+    from serenade_tpu_torch.bin import evaluate
+    from serenade_tpu_torch.trainers.distill import build_distill_step
+
+    teacher = Serenade(**dict(CFG, dtype="float32"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_distill_step(model, teacher, opt)
+    build_distill_step(model, teacher, opt, device="cpu")
+    wav = np.zeros(2400, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        metrics.extract_eval_feats(wav, 24000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate.main(["--converted-dir", ".", "--target-dir", "."])
 
 
 @pytest.mark.parametrize("stats", [None, {"mean": np.zeros(80)},
