@@ -138,6 +138,27 @@ Phases, each printing JSON lines:
                of each other, identical pairs under 0.05 dB and V/UV 0,
                the Viterbi kernel's launches one a batched analysis,
                routed calls 0, seconds per audio second.
+14. deploy  -- deployment at full width: (a) the mel-only Converter with
+               f32 weights, ``quantize="int8"`` and ``"int8_compute"``
+               answering one (1024, 512) request with the same noise:
+               parameter bytes resident on the card, walls, the mel gap
+               to the f32 weights', 60 K1 and 130 K2 a conversion, routed
+               calls 0, ``int8_dot``'s ``torch._int_mm`` calls and routed
+               shapes; the int8 weights under 0.35x the f32 parameters'
+               bytes; (b) ``int8_matmul`` on the card equal to its exact
+               int32 plain version; (c) the Converter with the seeded
+               HiFiGAN exported for CUDA (f32 at (1024, 512) and the
+               decode's largest bucket, (1216, 640); int8 at (1024, 512)),
+               loaded and held against the live Converter at one seed:
+               mel within phase 4's f32 rule, the waveform away from its
+               last 16 frames within 1e-3, the program's custom ops (K1
+               and K2 once in the ODE loop's body, K3 nine times) and a
+               conversion's launches at the live counts (60 K1, 130 K2, 9
+               K3), export, load and conversion seconds, the programs'
+               bytes (the int8 artifact under 0.45x the f32 parameters it
+               holds); (d) ``ArtifactService`` behind ``make_server``:
+               4 clients post 8 (1024, 512) requests naming a registered
+               style, latency p50/p95, /convert_wav refused with 400.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -3540,6 +3561,366 @@ def distill_eval_path(torch, np, dev, counters, card):
     return bool(ok), totals
 
 
+# ---------------------------------------------------------------------------
+# phase 14: deployment (int8 weights, exported artifacts, the artifact
+# server)
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = (None, "int8", "int8_compute")
+QUANT_REPS = 3                       # timed (1024, 512) conversions a mode
+# the main path's bucket and the decode's largest (phase 10's 1,200-frame
+# sources and 600-frame styles), each with a request it is picked for;
+# the int8 artifact takes the first alone, for the card and the CPU
+DEPLOY_BUCKETS = ((1024, 512), (1216, 640))
+DEPLOY_REQUESTS = ((1000, 500), (1200, 600))
+DEPLOY_HTTP = (4, 8)                 # artifact server: clients, requests
+# the custom ops each program holds: in the ODE step's loop body K1 (6)
+# and K2 (13) once, beside it K3 (9 branches)
+PROGRAM_OPS = {"flash_fwd": 6, "block1d_fwd": 13, "resblock_branch": 9}
+# JAX's size bounds (``tests/test_quantize.py``) on int8 bytes over the
+# parameters' bytes at 4 a parameter: resident on the card, and as an
+# artifact
+QUANT_BOUND, ARTIFACT_BOUND = 0.35, 0.45
+INT8_DOT_SHAPES = ((1536, 512, 2048), (1, 2048, 512))   # (m, k, n)
+
+
+def _resident(torch, build):
+    """(what ``build`` returns, the device bytes it left allocated)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def quantized_convert(torch, np, dev, counters, card):
+    """Phase 14a: the mel-only Converter at full width with f32 weights
+    (stored bf16 where the layer computes bf16), ``quantize="int8"`` and
+    ``"int8_compute"``, one seed, Euler-10, the same noise: parameter
+    bytes resident on the card, the (1024, 512) request's wall, the mel
+    gap to the f32 weights', launches a conversion.  Gates: the int8
+    weights' bytes under 0.35x the f32 parameters' at 4 bytes each
+    (JAX's bound on ``quantized_bytes``, ``tests/test_quantize.py``), and
+    under 0.35x that over the f32 Converter's stored bytes times its
+    resident bytes."""
+    from serenade_tpu_torch import quantize as pq
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.configs import serenade_config
+
+    rng = np.random.default_rng(14)
+    src, ref = (_f32(_features(np, rng, 1024, False)),
+                _f32(_features(np, rng, 512, True)))
+    x0 = (0.667 * rng.normal(size=(1, 512 + 1024, 80))).astype(np.float32)
+    rows, mels, ok = {}, {}, True
+    quantized = None
+    for mode in QUANT_MODES:
+        conv, resident = _resident(torch, lambda: Converter(
+            serenade_config(), None, _scaler(np), n_timesteps=10, seed=0,
+            device=dev, quantize=mode))
+        conv.convert_features(src, ref, x0=x0)            # warm-up
+        torch.cuda.synchronize()
+        counters.reset()
+        pq.launches = pq.routed = 0
+        walls = []
+        for _ in range(QUANT_REPS):
+            start = time.time()
+            mel, _, _ = conv.convert_features(src, ref, x0=x0)
+            torch.cuda.synchronize()
+            walls.append(time.time() - start)
+        launches = {k: v // QUANT_REPS for k, v in counters.read().items()}
+        mels[mode] = mel
+        if mode is None:
+            f32_bytes = 4 * sum(p.numel() for p in conv.model.parameters())
+            # as the f32 Converter stores them: bf16 where a layer
+            # computes bf16 (``store_compute_weights_``)
+            stored_bytes = sum(p.numel() * p.element_size()
+                               for p in conv.model.parameters())
+        row = {"resident_bytes": resident, "wall_s": walls,
+               "launches": launches,
+               "routed": counters.routed(),
+               "int8_dot": {"int_mm": pq.launches // QUANT_REPS,
+                            "routed": pq.routed // QUANT_REPS},
+               "finite": bool(np.isfinite(mel).all())}
+        if mode == "int8":
+            quantized = launches
+            # JAX's measure: int8 values and f32 scales, the rest at f32
+            row["quantized_bytes"] = sum(
+                qt.q.numel() + 4 * qt.scale.numel()
+                for qt, _ in conv._qweights.values()) + 4 * sum(
+                p.numel() for p in conv.model.parameters())
+        ok &= (row["finite"] and launches["flash_fwd"] == 60
+               and launches["block1d_fwd"] == 130
+               and not any(row["routed"].values()))
+        rows[str(mode)] = row
+        del conv
+        torch.cuda.empty_cache()
+    for mode in ("int8", "int8_compute"):
+        gap = np.abs(mels[mode] - mels[None])
+        rows[mode]["mel_gap_to_f32"] = {"max": float(gap.max()),
+                                        "mean": float(gap.mean())}
+    ratio = rows["int8"]["resident_bytes"] / f32_bytes
+    # against the f32 Converter's own resident bytes, JAX's bound scaled
+    # by the parameters' bytes at 4 over their bytes as stored
+    resident_ratio = (rows["int8"]["resident_bytes"]
+                      / rows["None"]["resident_bytes"])
+    resident_bound = QUANT_BOUND * f32_bytes / stored_bytes
+    ok &= (ratio < QUANT_BOUND and resident_ratio < resident_bound
+           and rows["int8_compute"]["int8_dot"]["int_mm"] > 0)
+    emit({"phase": "deploy", "part": "quantized", "card": card,
+          "modes": rows, "f32_param_bytes": f32_bytes,
+          "f32_stored_param_bytes": stored_bytes,
+          "int8_over_f32_params": ratio, "bound": QUANT_BOUND,
+          "int8_over_f32_resident": resident_ratio,
+          "resident_bound": resident_bound, "ok": bool(ok)})
+    return bool(ok), quantized
+
+
+def int8_dot_check(torch, dev, card):
+    """Phase 14b: ``int8_matmul`` on the card (``torch._int_mm``, or the
+    plain f64 product for a shape it refuses) against its exact plain
+    version on the same int8 operands: the int32 sums equal."""
+    from serenade_tpu_torch import quantize as pq
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows, ok = [], True
+    for m, k, n in INT8_DOT_SHAPES:
+        a, w = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+                for shape in ((m, k), (n, k)))
+        pq.launches = pq.routed = 0
+        got = pq.int8_matmul(a, w)
+        route = "int_mm" if pq.launches else "plain"
+        equal = bool(torch.equal(got, pq.int8_matmul_plain(a, w)))
+        ok &= equal
+        rows.append({"m": m, "k": k, "n": n, "route": route, "equal": equal,
+                     "ms": cuda_ms(torch, lambda: pq.int8_matmul(a, w), 20),
+                     "plain_ms": cuda_ms(
+                         torch, lambda: pq.int8_matmul_plain(a, w), 20)})
+    emit({"phase": "deploy", "part": "int8_dot", "card": card,
+          "cases": rows, "ok": bool(ok)})
+    return bool(ok)
+
+
+def _dir_bytes(art, suffix=".pt2"):
+    return {f: os.path.getsize(os.path.join(art, f))
+            for f in sorted(os.listdir(art)) if f.endswith(suffix)}
+
+
+def artifact_run(torch, np, dev, counters, card, quantize, buckets, root,
+                 platforms):
+    """Phase 14c: a full-width Converter with the seeded HiFiGAN exported
+    at ``buckets`` for ``platforms`` (None: the Converter's device and the
+    CPU), its CUDA programs loaded and held against the live Converter at
+    one seed, a request each bucket picks: mel within phase 4's f32
+    tolerance (1e-3 of max(1, |mel|)), the waveform away from its last 16
+    frames within 1e-3; each program's custom ops (in the manifest and
+    the loaded graph) and a conversion's launches at the live Converter's
+    60 K1, 130 K2 and 9 K3, 0 routed in both.  A CPU program is loaded
+    and its custom ops counted.  Returns (ok, the first request's
+    launches, the artifact's directory, {parameters, their f32 bytes as
+    stored})."""
+    from serenade_tpu_torch import deploy
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.configs import VOCODER_CONFIG, serenade_config
+
+    conv = Converter(serenade_config(), None, _scaler(np),
+                     vocoder_config=VOCODER_CONFIG,
+                     vocoder_stats={"mean": np.zeros(80),
+                                    "scale": np.ones(80)},
+                     n_timesteps=10, seed=0, device=dev, quantize=quantize)
+    art = os.path.join(root, str(quantize or "f32"))
+    start = time.time()
+    man = deploy.export_converter(conv, art, buckets=buckets,
+                                  platforms=platforms)
+    export_s = time.time() - start
+    start = time.time()
+    exp = deploy.load(art, seed=3, device=dev)
+    load_s = time.time() - start
+    rng = np.random.default_rng(15)
+    ok, rows, first = True, [], None
+    for (t_src, t_ref), bucket in zip(DEPLOY_REQUESTS, buckets):
+        name = "convert_s%d_r%d" % bucket
+        src, ref = (_f32(_features(np, rng, t_src, False)),
+                    _f32(_features(np, rng, t_ref, True)))
+        exp.convert_features(src, ref)             # first call: warm-up
+        runs = {}
+        for run, gen in (("live", conv.generator),
+                         ("artifact", exp.generator)):
+            gen.manual_seed(3)
+            torch.cuda.synchronize()
+            counters.reset()
+            start = time.time()
+            mel, wav, _ = (conv if run == "live" else exp).convert_features(
+                src, ref)
+            torch.cuda.synchronize()
+            runs[run] = {"wall_s": time.time() - start, "mel": mel,
+                         "wav": wav, "launches": counters.read(),
+                         "routed": counters.routed()}
+        live, got = runs["live"], runs["artifact"]
+        ops = deploy.program_ops(exp.programs[name])
+        cut = (live["mel"].shape[0] - 16) * HOP
+        mel_err = float(np.abs(got["mel"] - live["mel"]).max())
+        wav_err = float(np.abs(got["wav"][:cut] - live["wav"][:cut]).max())
+        scale = max(1.0, float(np.abs(live["mel"]).max()))
+        counts = [{k: r["launches"][k] for k in PROGRAM_OPS}
+                  for r in (live, got)]
+        row_ok = (mel_err / scale <= 1e-3 and wav_err <= 1e-3
+                  and ops == PROGRAM_OPS
+                  and man["custom_ops"][name][dev.type] == ops
+                  and counts[0] == counts[1] == {
+                      "flash_fwd": 60, "block1d_fwd": 130,
+                      "resblock_branch": 9}
+                  and not any(live["routed"].values())
+                  and not any(got["routed"].values())
+                  and got["mel"].shape == (t_src, 80)
+                  and bool(np.isfinite(got["wav"]).all()))
+        ok &= row_ok
+        first = first or got["launches"]
+        rows.append({"request": [t_src, t_ref], "bucket": list(bucket),
+                     "live_wall_s": live["wall_s"],
+                     "convert_wall_s": got["wall_s"],
+                     "mel_max_abs_err": mel_err, "mel_scale": scale,
+                     "wav_interior_max_abs_err": wav_err,
+                     "program_ops": ops, "launches": got["launches"],
+                     "live_launches": live["launches"],
+                     "routed": got["routed"], "ok": bool(row_ok)})
+    cpu = {}
+    if "cpu" in man["platforms"]:
+        start = time.time()
+        exp_cpu = deploy.load(art, seed=3, device="cpu")
+        cpu["load_s"] = time.time() - start
+        cpu["program_ops"] = {n: deploy.program_ops(p)
+                              for n, p in exp_cpu.programs.items()}
+        cpu["ok"] = all(o == PROGRAM_OPS == man["custom_ops"][n]["cpu"]
+                        for n, o in cpu["program_ops"].items())
+        ok &= cpu["ok"]
+        del exp_cpu
+    emit({"phase": "deploy", "part": "artifact", "card": card,
+          "quantize": quantize, "buckets": [list(b) for b in buckets],
+          "platforms": man["platforms"], "export_s": export_s,
+          "export_s_per_program": man["export_seconds"], "load_s": load_s,
+          "bytes": _dir_bytes(art), "requests": rows, "cpu_program": cpu,
+          "ok": bool(ok)})
+    params = list(conv.model.parameters()) + list(
+        conv.vocoder.model.parameters())
+    sizes = {"numel": sum(p.numel() for p in params) + sum(
+        qt.q.numel() for qt, _ in conv._qweights.values()),
+        "stored_bytes": sum(p.numel() * p.element_size() for p in params)}
+    del conv, exp
+    torch.cuda.empty_cache()
+    return bool(ok), first, art, sizes
+
+
+def artifact_server(torch, np, dev, card, art):
+    """Phase 14d: ``ArtifactService`` over the f32 artifact behind
+    ``serving.make_server`` on 127.0.0.1:0: a style registered, then
+    ``DEPLOY_HTTP`` clients post (1024, 512) /convert_features requests
+    naming it; latency p50/p95 on the clients' clocks, and /convert_wav
+    refused with 400."""
+    import threading
+    import urllib.error
+    from concurrent.futures import ThreadPoolExecutor
+
+    from serenade_tpu_torch.deploy import ArtifactService
+    from serenade_tpu_torch.serving import (
+        decode_response, encode_request, make_server,
+    )
+
+    service = ArtifactService(art, seed=4, device=dev)
+    rng = np.random.default_rng(16)
+    service.register_reference("style", _f32(_features(np, rng, 512, True)))
+    src = _f32(_features(np, rng, 1024, False))
+    body = encode_request(src, "style")
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        _http(url + "/convert_features", body)       # warm-up
+
+        def one(_):
+            start = time.time()
+            mel, wav, _ = decode_response(_http(url + "/convert_features",
+                                                body))
+            return (time.time() - start, mel.shape == (1024, 80)
+                    and bool(np.isfinite(wav).all()))
+
+        clients, n = DEPLOY_HTTP
+        start = time.time()
+        with ThreadPoolExecutor(clients) as pool:
+            results = list(pool.map(one, range(n)))
+        wall = time.time() - start
+        try:
+            _http(url + "/convert_wav", b"RIFF")
+            refused = False
+        except urllib.error.HTTPError as exc:
+            refused = exc.code == 400
+        health = json.loads(_http(url + "/healthz"))
+    finally:
+        server.shutdown()
+        server.server_close()
+    lat = [r[0] for r in results]
+    ok = all(r[1] for r in results) and refused
+    emit({"phase": "deploy", "part": "server", "card": card,
+          "clients": clients, "requests": n, "wall_s": wall,
+          "latency_s": {"p50": float(np.percentile(lat, 50)),
+                        "p95": float(np.percentile(lat, 95))},
+          "audio_s_per_s": n * 1024 * HOP / SR / wall,
+          "convert_wav_refused": refused, "healthz": health,
+          "ok": bool(ok)})
+    return bool(ok)
+
+
+def deploy_path(torch, np, dev, counters, card):
+    """Phase 14: int8 Converters (a), ``int8_dot`` on the card (b), the
+    f32 artifact at both buckets for the card, and the int8 artifact at
+    the main path's for the card and the CPU (the export's default),
+    exported, loaded and run (c), the artifact server (d).  Gates beside
+    each part's: the int8 artifact's bytes under 0.45x the f32 parameters
+    it was made from at 4 bytes each (JAX's bound on its artifacts,
+    ``tests/test_quantize.py``), and under 0.45x that over the f32
+    artifact's stored parameter bytes times the f32 artifact's bytes.
+    Returns (ok, {"deploy": the f32 artifact's launches a conversion,
+    "quantized": the int8 Converter's})."""
+    t0 = time.time()
+    ok, quantized = quantized_convert(torch, np, dev, counters, card)
+    ok &= int8_dot_check(torch, dev, card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        art_ok, deployed, art, f32 = artifact_run(
+            torch, np, dev, counters, card, None, DEPLOY_BUCKETS, root,
+            (dev.type,))
+        ok &= art_ok
+        q_ok, _, art_q, _ = artifact_run(
+            torch, np, dev, counters, card, "int8", DEPLOY_BUCKETS[:1], root,
+            None)
+        ok &= q_ok
+        main = f"convert_s1024_r512.{dev.type}.pt2"
+        q_bytes = _dir_bytes(art_q)[main]
+        f32_art = _dir_bytes(art)[main]
+        sizes = {"int8_bytes": q_bytes, "f32_artifact_bytes": f32_art,
+                 "f32_param_bytes": 4 * f32["numel"],
+                 "f32_stored_param_bytes": f32["stored_bytes"],
+                 "int8_over_f32_params": q_bytes / (4 * f32["numel"]),
+                 "bound": ARTIFACT_BOUND,
+                 "int8_over_f32_artifact": q_bytes / f32_art,
+                 "artifact_bound": (ARTIFACT_BOUND * 4 * f32["numel"]
+                                    / f32["stored_bytes"])}
+        sizes["ok"] = bool(
+            sizes["int8_over_f32_params"] < ARTIFACT_BOUND
+            and sizes["int8_over_f32_artifact"] < sizes["artifact_bound"])
+        ok &= sizes["ok"]
+        emit({"phase": "deploy", "part": "sizes", "card": card, **sizes})
+        ok &= artifact_server(torch, np, dev, card, art)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "deploy_done", "seconds": time.time() - t0,
+          "ok": bool(ok)})
+    zeros = {k: 0 for k in KERNELS}
+    return bool(ok), {"deploy": dict(zeros, **deployed),
+                      "quantized": dict(zeros, **quantized)}
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -3739,6 +4120,11 @@ def main() -> int:
     ok &= distill_ok
     for name in entries:
         entries[name]["distill_eval_launches"] = launches[name]
+    deploy_ok, launches = deploy_path(torch, np, dev, counters, card)
+    ok &= deploy_ok
+    for name in entries:
+        entries[name]["deploy_launches"] = launches["deploy"][name]
+        entries[name]["quantized_launches"] = launches["quantized"][name]
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

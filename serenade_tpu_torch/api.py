@@ -6,7 +6,9 @@ from raw audio, ``extract_from_wav``, ``extract_from_wav_batch``,
 ``convert_wav_stream`` and ``convert_wav_stream_live``; from a trained
 experiment directory, ``Converter.from_expdir``).  The F0-fluctuation
 variant (``model_type="SerenadeNew"``) takes ``f0_fluc`` through every
-entry point, as the JAX Converter's ``variant_new`` does.
+entry point, as the JAX Converter's ``variant_new`` does.  ``quantize=
+"int8"`` or ``"int8_compute"`` serves int8 weights (``quantize.py``), and
+``deploy.export_converter`` exports a Converter as an artifact.
 
 Everything comes in as data: model, vocoder and ContentVec configs as
 dicts (``configs.py`` holds the full-width ones), parameters as a flax
@@ -45,6 +47,7 @@ from serenade_tpu_torch.features import (
     extract_stream_window, stream_total_frames, validate_waveform,
 )
 from serenade_tpu_torch.models.layers import (
+    compute_weight_dtypes,
     init_params_,
     store_compute_weights_,
 )
@@ -53,11 +56,16 @@ from serenade_tpu_torch.ops.longform import (
     StreamStitcher, convert_in_chunks, convert_in_chunks_stream,
     split_chunks_ramp, stitch_mel_stream,
 )
+from serenade_tpu_torch.quantize import (
+    bound_parameters, quantize_dense_tree, quantize_tree, remove_parameters_,
+    split_quantized,
+)
 from serenade_tpu_torch.vocoder.vocoder import Vocoder
 
 SRC_KEYS = ("hubert", "score", "loud")
 REF_KEYS = SRC_KEYS + ("logmel",)
 FLUC = ("f0_fluc",)   # the F0-fluctuation variant's stream, unscaled
+QUANTIZE_MODES = ("int8", "int8_compute")
 
 
 def load_checkpoint_params(checkpoint: str, model_params: Mapping,
@@ -81,6 +89,12 @@ def load_checkpoint_params(checkpoint: str, model_params: Mapping,
     return restore_params_only(checkpoint), model_params
 
 
+def _check_quantize(quantize: Optional[str]) -> None:
+    if quantize not in (None,) + QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize mode {quantize!r} (supported: "
+                         f"{', '.join(QUANTIZE_MODES)})")
+
+
 class Converter:
     def __init__(self, model_config: Mapping, params, scaler: Mapping, *,
                  vocoder_config: Optional[Mapping] = None,
@@ -88,15 +102,22 @@ class Converter:
                  contentvec_config: Optional[Mapping] = None,
                  contentvec_params=None, n_timesteps: int = 10,
                  solver: str = "euler", temperature: float = 0.667,
-                 seed: int = 0, device=None, model_type: str = "Serenade"):
+                 seed: int = 0, device=None, model_type: str = "Serenade",
+                 quantize: Optional[str] = None):
         """``model_type``: the registry's model (``"SerenadeNew"``, the
         F0-fluctuation variant, takes ``f0_fluc`` in every feature dict).
+        ``quantize="int8"`` keeps the model's weights int8 per channel on
+        the device, dequantized once per conversion; ``"int8_compute"``
+        quantizes only the estimator's Dense weights, whose products then
+        run int8 x int8 (``quantize.py``; the vocoder and ContentVec stay
+        float, as in the JAX Converter).
         ``vocoder_config`` None converts to mel only.
         ``contentvec_config`` (``configs.CONTENTVEC_CONFIG`` at full width)
         turns on the raw-audio entry points, with ``contentvec_params`` a
         Hugging Face ``HubertModel`` state dict (or a path to one), a flax
         tree, or None for weights from ``seed + 2``.  Runs on CUDA unless
         ``device`` says otherwise."""
+        _check_quantize(quantize)
         self.device = resolve_device(device)
         # feature extraction's settings (the recipe's), and the frame rate
         # a server counts audio seconds by
@@ -112,7 +133,22 @@ class Converter:
             init_params_(model, seed)
         else:
             load_params(model, params)
+        # quantized from the f32 parameters, before they are stored in the
+        # dtypes their layers compute in
+        self.quantize = quantize
+        self._qweights = {}
+        if quantize == "int8":
+            dtypes = compute_weight_dtypes(model)
+            self._qweights = {
+                name: (qt.to(self.device), dtypes.get(name, torch.float32))
+                for name, qt in split_quantized(quantize_tree(model)).items()}
+            remove_parameters_(model, self._qweights)
+        elif quantize == "int8_compute":
+            for name, qt in split_quantized(
+                    quantize_dense_tree(model)).items():
+                model.get_submodule(name.rpartition(".")[0]).use_int8_(qt)
         self.model = store_compute_weights_(model.to(self.device).eval())
+        self._weights_lock = threading.Lock()
         self.scaler = {k: {kk: np.asarray(vv, np.float32)
                            for kk, vv in v.items()} for k, v in scaler.items()}
         self.n_timesteps, self.solver = n_timesteps, solver
@@ -160,7 +196,8 @@ class Converter:
         already loaded (an average of checkpoints), stands in for it, the
         statistics file ``stats`` (``stats.joblib`` or ``.npz``), the
         vocoder of the config's ``vocoder:`` section, and ContentVec from
-        ``contentvec_ckpt`` (a Hugging Face ``HubertModel`` state dict).
+        ``contentvec_ckpt`` (a Hugging Face ``HubertModel`` state dict),
+        with the weights quantized as ``quantize`` says (see ``__init__``).
         ``n_timesteps`` and ``solver`` default to the config's
         ``inference_n_timesteps`` / ``inference_solver``, else Euler-10.
         Needs ``pyyaml``, ``h5py`` for the vocoder's statistics and
@@ -174,9 +211,7 @@ class Converter:
         if data_mesh is not None and data_mesh > 1:
             raise NotImplementedError("data_mesh: conversion sharded over a "
                                       "data mesh is not ported")
-        if quantize is not None:
-            raise NotImplementedError(f"quantize={quantize!r}: int8 weights "
-                                      "are not ported")
+        _check_quantize(quantize)
         config = load_config(config or os.path.join(expdir, "config.yml"))
         model_type = config["model_type"]
         model_cls = resolve("model", model_type)   # raises on an unknown
@@ -200,12 +235,29 @@ class Converter:
         conv = cls(model_params, params, load_stats(stats),
                    n_timesteps=n_timesteps, solver=solver,
                    temperature=temperature, seed=seed, device=device,
-                   model_type=model_type, **extra)
+                   model_type=model_type, quantize=quantize, **extra)
         conv.config = dict(FEATURE_CONFIG, **config)
         conv.vocoder = vocoder_from_section(config.get("vocoder"),
                                             conv.scaler["logmel"],
                                             device=conv.device)
         return conv
+
+    @contextlib.contextmanager
+    def weights(self):
+        """The model with every weight in place, for one conversion.  In
+        ``"int8"`` mode the int8 weights are dequantized (each into the
+        dtype its layer computes in, the values casting the f32 result at
+        use gives) and bound for the duration, so the ODE's steps share
+        one dequantization; conversions from several threads take turns
+        binding them."""
+        if not self._qweights:
+            yield self.model
+            return
+        with self._weights_lock, torch.no_grad():
+            dequantized = {name: qt.dequantize().to(dtype)
+                           for name, (qt, dtype) in self._qweights.items()}
+            with bound_parameters(self.model, dequantized) as model:
+                yield model
 
     @property
     def output_sample_rate(self) -> Optional[int]:
@@ -304,9 +356,11 @@ class Converter:
             ref_args.append(ref["f0_fluc"])
             extra["shifts"] = (self.draw_shifts(ts) if shifts is None
                                else shifts)
-        return self.model.inference(
-            *args, *ref_args, n_timesteps=self.n_timesteps,
-            temperature=self.temperature, solver=self.solver, x0=x0, **extra)
+        with self.weights() as model:
+            return model.inference(
+                *args, *ref_args, n_timesteps=self.n_timesteps,
+                temperature=self.temperature, solver=self.solver, x0=x0,
+                **extra)
 
     def convert_features(self, src_feats: Mapping[str, np.ndarray],
                          ref_feats: Mapping[str, np.ndarray],
@@ -476,8 +530,8 @@ class Converter:
         t = mel_n.shape[0]
         mel = upload(pad_to(mel_n.astype(np.float32), bucket_length(t))[None],
                      self.device)
-        with torch.no_grad():
-            emb = self.model.gst(mel, upload(np.asarray([t]), self.device))
+        with torch.no_grad(), self.weights() as model:
+            emb = model.gst(mel, upload(np.asarray([t]), self.device))
         return emb[0].float().cpu().numpy()
 
     # -- long-form and streaming -----------------------------------------

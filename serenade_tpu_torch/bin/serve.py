@@ -49,11 +49,25 @@ In both forms:
   (``{"Tenor": {"minf0": 130, "maxf0": 440}, ...}``; the JAX server reads
   the same table as YAML, ``conf/f0.yaml``).
 
+``--quantize int8`` serves int8 weights dequantized once per
+conversion, ``--quantize int8_compute`` runs the estimator's Dense
+products int8 x int8 (``quantize.py``).
+
 Endpoints: POST ``/convert_features``, ``/register_reference``,
 ``/convert_stream`` (feature or raw-audio bodies, a chunked stream of
 npz blocks back), ``/convert_wav`` and ``/convert_stream_live`` (chunked
 PCM16 in; both with ``--contentvec-ckpt``); GET ``/healthz``,
 ``/metrics``.  Runs on CUDA unless ``--device cpu``.
+
+Deployment: ``--artifact DIR`` serves an exported artifact
+(``bin/export.py``) with no model code, checkpoints or scaler pickles:
+/convert_features and /register_reference (``--ref-dict`` registers its
+styles), while /convert_wav and the stream endpoints answer 400.  The
+flags an export fixes (the model, its statistics, steps, solver,
+temperature, quantization) are refused beside it::
+
+    python -m serenade_tpu_torch.bin.serve --artifact exp/export \
+        --ref-dict styles.json --port 8571
 """
 
 from __future__ import annotations
@@ -67,6 +81,10 @@ import numpy as np
 
 def build_argparser():
     p = argparse.ArgumentParser(description="SSC conversion server (PyTorch)")
+    p.add_argument("--artifact", default=None,
+                   help="serve an exported artifact directory "
+                        "(bin/export.py) instead of a live model: "
+                        "/convert_features and /register_reference only")
     p.add_argument("--expdir", default=None,
                    help="trained experiment directory (config.yml and "
                         "checkpoint-<N>steps); replaces --model-config, "
@@ -86,9 +104,10 @@ def build_argparser():
     p.add_argument("--params", default=None,
                    help=".pt state dict of the model (default: random "
                         "weights from seed 0)")
-    p.add_argument("--stats", required=True,
+    p.add_argument("--stats", default=None,
                    help="stats.joblib of fitted scalers, or an .npz of the "
-                        "scaler arrays (<feature>_<stat>)")
+                        "scaler arrays (<feature>_<stat>); required but "
+                        "with --artifact")
     p.add_argument("--vocoder-config", default=None,
                    help="JSON vocoder config (default: the recipe's HiFiGAN)")
     p.add_argument("--vocoder-params", default=None,
@@ -128,7 +147,13 @@ def build_argparser():
                    choices=["euler", "midpoint", "ab2"],
                    help="CFM ODE solver (default: --expdir's "
                         "inference_solver, else euler)")
-    p.add_argument("--temperature", type=float, default=0.667)
+    p.add_argument("--temperature", type=float, default=None,
+                   help="noise temperature (default 0.667)")
+    p.add_argument("--quantize", default=None,
+                   choices=("int8", "int8_compute"),
+                   help="int8: int8 model weights on the device, "
+                        "dequantized once per conversion; int8_compute: "
+                        "the estimator's Dense products run int8 x int8")
     p.add_argument("--warmup", action="append", default=[],
                    metavar="SRC:REF[:B]",
                    help="run this (src_frames, ref_frames) shape at "
@@ -198,6 +223,9 @@ def _converter(args):
     from serenade_tpu_torch.api import Converter
     from serenade_tpu_torch.utils.scalers import load_stats
 
+    if not args.stats:
+        raise SystemExit("need --stats (or --artifact)")
+    temperature = 0.667 if args.temperature is None else args.temperature
     if args.expdir:
         files = [flag for flag, v in (
             ("--model-config", args.model_config), ("--params", args.params),
@@ -210,7 +238,8 @@ def _converter(args):
             args.expdir, args.stats, checkpoint=args.checkpoint,
             contentvec_ckpt=args.contentvec_ckpt,
             n_timesteps=args.n_timesteps, solver=args.solver,
-            temperature=args.temperature, device=args.device)
+            temperature=temperature, device=args.device,
+            quantize=args.quantize)
     if args.checkpoint:
         raise SystemExit("--checkpoint needs --expdir")
     voc_given = args.vocoder_config or args.vocoder_params
@@ -233,8 +262,9 @@ def _converter(args):
         _json(args.model_config, configs.serenade_config()),
         _state_dict(args.params, "model params", 0),
         load_stats(args.stats), n_timesteps=args.n_timesteps or 10,
-        solver=args.solver or "euler", temperature=args.temperature,
-        device=args.device, model_type=args.model_type, **extra)
+        solver=args.solver or "euler", temperature=temperature,
+        device=args.device, model_type=args.model_type,
+        quantize=args.quantize, **extra)
 
 
 def _warmup_shapes(specs, max_batch: int, flag: str = "--warmup"):
@@ -248,6 +278,38 @@ def _warmup_shapes(specs, max_batch: int, flag: str = "--warmup"):
     return out
 
 
+def _artifact_service(args):
+    """The ArtifactService of ``--artifact``, refusing the flags an export
+    fixes: silently ignoring them would serve another program than the
+    one asked for."""
+    from serenade_tpu_torch.deploy import ArtifactService
+
+    fixed = {"--expdir": args.expdir, "--stats": args.stats,
+             "--checkpoint": args.checkpoint,
+             "--contentvec-ckpt": args.contentvec_ckpt,
+             "--n-timesteps": args.n_timesteps, "--solver": args.solver,
+             "--temperature": args.temperature, "--quantize": args.quantize,
+             "--f0-table": args.f0_table,
+             "--model-config": args.model_config, "--params": args.params,
+             "--vocoder-config": args.vocoder_config,
+             "--vocoder-params": args.vocoder_params,
+             "--vocoder-stats": args.vocoder_stats}
+    bad = [flag for flag, v in fixed.items() if v is not None]
+    if args.model_type != "Serenade":
+        bad.append("--model-type")
+    if bad:
+        raise SystemExit(
+            f"{', '.join(bad)} cannot apply to an exported artifact (they "
+            "are fixed when it is exported); export again with the desired "
+            "settings or serve with --expdir")
+    if args.warmup or args.warmup_raw:
+        raise SystemExit("--warmup applies to a live model; an artifact's "
+                         "programs are exported already")
+    return ArtifactService(args.artifact,
+                           max_request_seconds=args.max_request_seconds,
+                           device=args.device)
+
+
 def build_app(args):
     """(server, batching) from parsed args: the whole CLI but
     ``serve_forever``, so tests run the real entry path on port 0."""
@@ -255,18 +317,23 @@ def build_app(args):
         BatchingConverter, make_server, warmup_server,
     )
 
-    if args.warmup_raw and not args.contentvec_ckpt:
-        raise SystemExit("--warmup-raw needs --contentvec-ckpt")
-    conv = _converter(args)
-    batching = BatchingConverter(
-        conv, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-        busy_hold_ms=args.busy_hold_ms,
-        max_request_seconds=args.max_request_seconds)
+    if args.artifact:
+        batching = _artifact_service(args)
+        variant_new = bool(batching.manifest["variant_new"])
+    else:
+        if args.warmup_raw and not args.contentvec_ckpt:
+            raise SystemExit("--warmup-raw needs --contentvec-ckpt")
+        conv = _converter(args)
+        batching = BatchingConverter(
+            conv, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+            busy_hold_ms=args.busy_hold_ms,
+            max_request_seconds=args.max_request_seconds)
+        variant_new = conv.variant_new
     try:
         for style, path in _json(args.ref_dict, {}).items():
             batching.register_reference(
                 style, reference_features(path, args.score_type,
-                                          conv.variant_new))
+                                          variant_new))
             logging.info("registered reference style %r (%s)", style, path)
         if args.warmup:
             warmup_server(batching, _warmup_shapes(args.warmup,
@@ -289,9 +356,14 @@ def main(argv=None):
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(asctime)s (%(module)s) %(levelname)s: %(message)s")
     server, batching = build_app(args)
-    logging.info("serving on %s:%d (device %s, max_batch=%d, wait=%.0fms)",
-                 args.host, server.server_address[1],
-                 batching.converter.device, args.max_batch, args.max_wait_ms)
+    if args.artifact:
+        logging.info("serving %s on %s:%d (device %s)", args.artifact,
+                     args.host, server.server_address[1], batching.device)
+    else:
+        logging.info("serving on %s:%d (device %s, max_batch=%d, "
+                     "wait=%.0fms)", args.host, server.server_address[1],
+                     batching.converter.device, args.max_batch,
+                     args.max_wait_ms)
 
     # SIGTERM drains like Ctrl-C: stop accepting, fault queued requests
     import signal

@@ -21,7 +21,7 @@ Nothing here imports JAX; the caller converts JAX arrays to numpy.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +91,44 @@ _LEAVES: Dict[type, Dict[str, Tuple[str, ...]]] = {
         "bias_hn": ("hn/bias",)},
     gst.StyleTokenLayer: {"gst_embs": ("gst_embs",)},
 }
+
+
+# the axis of each port tensor that its flax leaves' last axis (their
+# output channel: Dense (in, out), Conv (k, in, out), an embedding table
+# (num, dim)) became in the layouts above; a tensor made of several flax
+# leaves (the GRU's gates) stacks them along that axis.  Tensors of one
+# dimension are left out: a flax leaf of one dimension has no other axis.
+_CHANNEL_AXES: Dict[type, Dict[str, int]] = {
+    layers.Dense: {"weight": 0},
+    layers.Conv1d: {"weight": 0},
+    layers.ConvTranspose1d: {"weight": 1},
+    layers.WNConv1d: {"v": 0},
+    gst.Conv2d: {"weight": 0},
+    gst.MaskedGRU: {"weight_ih": 0, "weight_hh": 0},
+    gst.StyleTokenLayer: {"gst_embs": 1},
+}
+
+
+def flax_leaf_layout(module: nn.Module
+                     ) -> Dict[str, Tuple[Optional[int], int]]:
+    """Each state-dict key of ``module`` -> (the axis its flax leaves' last
+    axis became, or None for a tensor of one dimension; how many flax
+    leaves it is made from, each an equal part of it along that axis).
+    ``quantize.py`` quantises per flax leaf by it, as the JAX package
+    quantises its tree."""
+    out = {}
+    for name, mod in module.named_modules():
+        leaves = _LEAVES.get(type(mod))
+        if leaves is None:
+            continue
+        axes = _CHANNEL_AXES.get(type(mod), {})
+        for key, p in mod.named_parameters(recurse=False):
+            if p.dim() > 1 and key not in axes:
+                raise KeyError(f"no channel axis for {type(mod).__name__}."
+                               f"{key}")
+            out[f"{name}.{key}" if name else key] = (
+                axes.get(key) if p.dim() > 1 else None, len(leaves[key]))
+    return out
 
 
 def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, ...]]:

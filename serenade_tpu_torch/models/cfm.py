@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -102,8 +103,12 @@ class CFM(nn.Module):
         (``trainers/distill.py``).  The estimator runs as in inference (no
         dropout), rematerialized in the backward pass under ``remat``."""
         b = mu.shape[0]
-        ts = torch.linspace(0.0, 1.0, n_timesteps + 1,
-                            dtype=torch.float32).tolist()
+        # the f32 time grid as Python floats: no tensor to read back, so
+        # ``torch.export`` traces it (deploy.py)
+        ts = np.linspace(0.0, 1.0, n_timesteps + 1,
+                         dtype=np.float32).tolist()
+        if torch.compiler.is_exporting():
+            return self._rollout_for_export(mu, mask, spk, x0, ts, solver)
         remat = self.remat and torch.is_grad_enabled()
 
         def f(x, t):
@@ -133,6 +138,66 @@ class CFM(nn.Module):
                 x = x + (t1 - t0) * (1.5 * v - 0.5 * v_prev)
                 v_prev = v
             return x
+        raise ValueError(f"unknown solver '{solver}'")
+
+    def _rollout_for_export(self, mu, mask, spk, x0, ts, solver: str):
+        """:meth:`rollout`'s ODE for an exported program: one traced step
+        iterated by torch's ``while_loop``, as JAX's ``nn.scan`` iterates
+        it, so the program holds the estimator once and not once a step.
+        The arithmetic is the loop's: the grid's points and steps are the
+        same f32 values, here as tensors.  The step counter stays on the
+        host, so the loop's test never waits for the device; each step
+        takes its time and width from the front of the grid and rotates
+        it (the eager ``scan`` of some PyTorch versions evaluates its body
+        once more than it has steps, to learn the outputs' shapes)."""
+        from torch._higher_order_ops.while_loop import while_loop
+
+        b = mu.shape[0]
+        grid = torch.tensor(ts, dtype=torch.float32, device=mu.device)
+        steps = torch.stack([grid[:-1], grid[1:] - grid[:-1]])   # (2, n)
+
+        def f(x, t):
+            return self.estimator(x.to(self.dtype), mask, mu, t.expand(b),
+                                  spk).float()
+
+        def loop(body, carry, n):
+            def cond(i, *_):
+                return i < n
+
+            def counted(i, *rest):
+                return (i + 1, *body(*rest))
+
+            return while_loop(cond, counted,
+                              (torch.zeros((), dtype=torch.int64),
+                               *carry))[1:]
+
+        x = x0.float()
+        if solver == "euler":
+            def euler(x, th):
+                return x + th[1, 0] * f(x, th[0, 0]), th.roll(-1, 1)
+
+            return loop(euler, (x, steps), len(ts) - 1)[0]
+        if solver == "midpoint":
+            def midpoint(x, th):
+                t0, h = th[0, 0], th[1, 0]
+                v1 = f(x, t0)
+                return (x + h * f(x + 0.5 * h * v1, t0 + 0.5 * h),
+                        th.roll(-1, 1))
+
+            return loop(midpoint, (x, steps), len(ts) - 1)[0]
+        if solver == "ab2":
+            v = f(x, steps[0, 0])
+            x = x + steps[1, 0] * v
+            if len(ts) == 2:
+                return x
+
+            def ab2(x, v_prev, th):
+                v = f(x, th[0, 0])
+                return (x + th[1, 0] * (1.5 * v - 0.5 * v_prev), v,
+                        th.roll(-1, 1))
+
+            return loop(ab2, (x, v, steps[:, 1:].contiguous()),
+                        len(ts) - 2)[0]
         raise ValueError(f"unknown solver '{solver}'")
 
 

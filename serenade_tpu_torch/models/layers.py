@@ -19,21 +19,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from serenade_tpu_torch.ops.primitives import (  # noqa: F401 (re-exported)
+    accum_dtype,
+    conv1d,
+    masked_group_norm,
+    mish,
+)
+from serenade_tpu_torch.quantize import QTensor, int8_dot
+
 
 def as_dtype(dtype) -> torch.dtype:
     """``torch.bfloat16`` from ``"bfloat16"`` (configs carry names)."""
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
-
-
-def accum_dtype(dtype) -> torch.dtype:
-    """The type sums accumulate in: f32, or f64 for f64 inputs (gradient
-    checks)."""
-    return torch.promote_types(dtype, torch.float32)
-
-
-def mish(x):
-    """x * tanh(softplus(x)), in one kernel."""
-    return F.mish(x)
 
 
 def dropout(x, p: float, generator: Optional[torch.Generator]):
@@ -50,17 +47,6 @@ def dropout(x, p: float, generator: Optional[torch.Generator]):
 # ---------------------------------------------------------------------------
 # convolution primitives
 # ---------------------------------------------------------------------------
-
-
-def conv1d(x, weight, bias=None, *, stride: int = 1, dilation: int = 1,
-           padding: Tuple[int, int] = (0, 0)):
-    """1-D convolution of ``(B, T, Cin)`` by a ``(Cout, Cin, K)`` kernel with
-    explicit (torch) padding; returns ``(B, T', Cout)``."""
-    h = x.transpose(1, 2)
-    if padding != (0, 0):
-        h = F.pad(h, padding)
-    return F.conv1d(h, weight, bias, stride=stride,
-                    dilation=dilation).transpose(1, 2)
 
 
 def conv_transpose1d(x, weight, bias=None, *, stride: int = 2,
@@ -82,7 +68,12 @@ def _cast(p: Optional[torch.Tensor], dtype):
 
 
 class Dense(nn.Module):
-    """``QDense`` / ``nn.Dense`` twin: a Linear computed in ``dtype``."""
+    """``QDense`` / ``nn.Dense`` twin: a Linear computed in ``dtype``.
+
+    ``use_int8_`` replaces the weight by its int8 values and per-output
+    scales (``quantize.quantize_dense_tree``, the ``int8_compute`` mode):
+    the product then runs int8 x int8 (``quantize.int8_dot``) and returns
+    ``dtype``, as QDense does with a ``QTensor`` kernel."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.float32):
@@ -90,10 +81,20 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (nn.Parameter(torch.zeros(out_features)) if bias
                      else None)
+        self.register_buffer("weight_q", None)
+        self.register_buffer("weight_scale", None)
         self.dtype = as_dtype(dtype)
+
+    def use_int8_(self, qt: QTensor) -> None:
+        self.weight = None
+        self.weight_q, self.weight_scale = qt.q, qt.scale
 
     def forward(self, x):
         dt = self.dtype
+        if self.weight_q is not None:
+            y = int8_dot(x, QTensor(self.weight_q, self.weight_scale),
+                         dtype=dt)
+            return y if self.bias is None else y + self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
@@ -170,32 +171,6 @@ class WNConv1d(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def masked_group_norm(x, mask, scale, bias, *, num_groups: int = 8,
-                      epsilon: float = 1e-5, out_dtype=None):
-    """GroupNorm over (time, channels/group) with f32 (f64 for f64 input)
-    statistics over the valid frames of ``mask`` ``(B, T, 1)`` only;
-    variance in two passes."""
-    b, t, c = x.shape
-    g = num_groups
-    assert c % g == 0, f"channels {c} not divisible by groups {g}"
-    acc = accum_dtype(x.dtype)
-    xf = x.to(acc).reshape(b, t, g, c // g)
-    if mask is None:
-        mean = xf.mean(dim=(1, 3), keepdim=True)
-        var = torch.square(xf - mean).mean(dim=(1, 3), keepdim=True)
-    else:
-        m = mask.to(acc).reshape(b, t, 1, 1)
-        denom = torch.clamp(m.sum(dim=1, keepdim=True) * (c // g), min=1.0)
-        mean = (xf * m).sum(dim=(1, 3), keepdim=True) / denom
-        var = (torch.square(xf - mean) * m).sum(dim=(1, 3),
-                                                keepdim=True) / denom
-    y = (xf - mean) * torch.rsqrt(var + epsilon)
-    y = y.reshape(b, t, c) * scale.to(acc) + bias.to(acc)
-    if mask is not None:
-        y = y * mask
-    return y.to(out_dtype if out_dtype is not None else x.dtype)
-
-
 class NormParams(nn.Module):
     """``scale``/``bias`` of a GroupNorm (the MaskedGroupNorm twin)."""
 
@@ -267,18 +242,29 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(emb)))
 
 
+def compute_weight_dtypes(module: nn.Module) -> dict:
+    """The parameters of every Dense / Conv1d / ConvTranspose1d / Conv2d
+    (state-dict names) -> the dtype that layer computes in."""
+    from serenade_tpu_torch.models.gst import Conv2d
+
+    out = {}
+    for name, m in module.named_modules():
+        if isinstance(m, (Dense, Conv1d, ConvTranspose1d, Conv2d)):
+            for key, _ in m.named_parameters(recurse=False):
+                out[f"{name}.{key}" if name else key] = m.dtype
+    return out
+
+
 def store_compute_weights_(module: nn.Module) -> nn.Module:
     """Store the weights of every Dense / Conv1d / ConvTranspose1d in the
     dtype those layers compute in, so a forward pass casts nothing (the same
     values as casting at each use).  Norm parameters, weight-norm ``v``/``g``
     and f32 layers are left as they are."""
-    from serenade_tpu_torch.models.gst import Conv2d
-
+    dtypes = compute_weight_dtypes(module)
     with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (Dense, Conv1d, ConvTranspose1d, Conv2d)):
-                for p in m.parameters(recurse=False):
-                    p.data = p.data.to(m.dtype)
+        for name, p in module.named_parameters():
+            if name in dtypes:
+                p.data = p.data.to(dtypes[name])
     return module
 
 

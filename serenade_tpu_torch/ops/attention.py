@@ -2,7 +2,8 @@
 
 Square self-attention (``tq == tk``) goes through the flash wrapper at
 every length: the flash kernels on CUDA, their plain versions on the CPU.
-The route is chosen by shape before anything is launched: a square
+The route is chosen by shape before anything is launched (in an
+exported program, by the custom op when the program runs): a square
 attention whose head dim or dtype a flash kernel does not take
 (``flash_cuda.flash_supported``; bf16 at a head dim other than 512) takes
 the plain version, differentiated by autograd, and counts in
@@ -38,10 +39,14 @@ def multi_head_attention(q, k, v, *, num_heads: int,
         return x.reshape(b, t, num_heads, d).transpose(1, 2)
 
     qh, kh, vh = split(q, tq), split(k, tk), split(v, tk)
-    if tq == tk and flash_supported(tq, tk, d, q.dtype):
+    # while a program is exported, square attention of every shape goes to
+    # the custom op, which routes and counts a refused shape when the
+    # program runs (a trace runs nothing)
+    if tq == tk and (torch.compiler.is_exporting()
+                     or flash_supported(tq, tk, d, q.dtype)):
         out = flash_attention(qh, kh, vh, key_mask, scale)
     else:
-        if tq == tk:    # square, but a flash kernel does not take the shape
+        if tq == tk:   # square, but a flash kernel does not take the shape
             flash_cuda.routed += 1
         out, _ = flash_attention_plain(qh, kh, vh, key_mask, scale)
     return out.transpose(1, 2).reshape(b, tq, hd)

@@ -35,7 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from serenade_tpu_torch.models.layers import (
+from serenade_tpu_torch.ops.primitives import (
     accum_dtype,
     conv1d,
     masked_group_norm,
@@ -511,8 +511,17 @@ def block1d(x, mask, weight, bias, gamma, beta, *, groups: int = 8,
         weight: ``(Cout, Cin, 3)``, cast to x's dtype; bias ``(Cout,)``
             conv parameters.
         gamma, beta: ``(Cout,)`` GroupNorm affine, applied in f32.
+
+    While a program is exported, every shape goes through the custom op
+    ``serenade::block1d_fwd`` (``ops/custom_ops.py``), which it can hold
+    and which routes and counts a refused shape when the program runs.
     """
     global routed
+    if torch.compiler.is_exporting():
+        from serenade_tpu_torch.ops import custom_ops
+
+        return custom_ops.block1d_fwd(x, mask, weight, bias, gamma, beta,
+                                      groups, eps)
     b, t, cin = x.shape
     if block1d_cuda_supported(b, t, cin, weight.shape[0], groups, x.dtype):
         return Block1DFunction.apply(x, mask, weight, bias, gamma, beta,

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from serenade_tpu_torch.models.layers import accum_dtype
+from serenade_tpu_torch.ops.primitives import accum_dtype
 from serenade_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
@@ -376,6 +376,12 @@ def flash_attention(q, k, v, key_mask: Optional[torch.Tensor], scale: float,
     """Flash attention over ``(B, H, T, D)`` heads (any strides with a
     contiguous head_dim), differentiable in q, k and v.  CUDA tensors run
     the kernels; CPU tensors run the plain versions.  The CUDA result is a
-    ``(B, H, T, D)`` view of a ``(B, T, H, D)`` buffer."""
+    ``(B, H, T, D)`` view of a ``(B, T, H, D)`` buffer.  While a program is
+    exported, the output goes through the custom op
+    ``serenade::flash_fwd`` (``ops/custom_ops.py``), which it can hold."""
+    if torch.compiler.is_exporting() and not return_lse:
+        from serenade_tpu_torch.ops import custom_ops
+
+        return custom_ops.flash_fwd(q, k, v, key_mask, scale).transpose(1, 2)
     out, lse = FlashAttention.apply(q, k, v, key_mask, scale)
     return (out, lse) if return_lse else out

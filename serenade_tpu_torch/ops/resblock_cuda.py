@@ -23,7 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from serenade_tpu_torch.models.layers import conv1d
+from serenade_tpu_torch.ops.primitives import conv1d
 from serenade_tpu_torch.ops import _cuda
 
 launches = 0   # wrapper calls that launched the kernel since the last reset
@@ -311,9 +311,18 @@ def resblock_branch(x, w1, b1, w2, b2, *, kernel_size: int,
     given as the sequence of its n_dil per-dilation tensors, as
     ``HiFiGANResidualBlock`` passes its parameters.  On CUDA the f32 kernel
     splits the weights once per version of the tensors given
-    (``tf32_operands``): pass the same tensors from call to call.
+    (``tf32_operands``): pass the same tensors from call to call.  While a
+    program is exported, the branch goes through the custom op
+    ``serenade::resblock_branch`` (``ops/custom_ops.py``), which it can
+    hold.
     """
     assert kernel_size % 2 == 1
+    if torch.compiler.is_exporting():
+        from serenade_tpu_torch.ops import custom_ops
+
+        return custom_ops.resblock_branch(
+            x, *(list(_group(p)) for p in (w1, b1, w2, b2)), kernel_size,
+            list(dilations), use_additional_convs)
     if not x.is_cuda:
         w1, w2 = (_stacked(_group(w), 4).to(x.dtype) for w in (w1, w2))
         b1, b2 = (_stacked(_group(p), 2).to(x.dtype) for p in (b1, b2))

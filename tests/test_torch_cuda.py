@@ -899,3 +899,155 @@ def test_distill_step_on_card_matches_cpu(mode):
         assert abs(m_cpu[k] - m_dev[k]) <= 1e-4 * max(1.0, abs(m_cpu[k])), k
     for n in p_cpu:
         assert (p_cpu[n] - p_dev[n]).abs().max() <= 1e-5, n
+
+
+@pytest.mark.cuda
+def test_int8_dot_on_card_matches_exact_plain():
+    """``int8_matmul`` on the card (``torch._int_mm`` where it takes the
+    shape, counted; the plain product where it refuses one, counted as
+    routed) equals the exact int32 plain version, and ``int8_dot`` equals
+    the same rescale of those sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch._int_mm runs on CUDA")
+    from serenade_tpu_torch import quantize as pq
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for (m, k, n), route in (((1536, 512, 2048), "launches"),
+                             ((1, 2048, 512), "routed"),
+                             ((40, 36, 64), "routed")):
+        a, w = (torch.randint(-127, 128, s, generator=g, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+                for s in ((m, k), (n, k)))
+        pq.launches = pq.routed = 0
+        got = pq.int8_matmul(a, w)
+        assert getattr(pq, route) == 1 and pq.launches + pq.routed == 1
+        assert torch.equal(got, pq.int8_matmul_plain(a, w))
+    x = torch.randn((3, 512, 512), generator=g, device=dev)
+    qt = pq.quantize_leaf(torch.randn((1024, 512), generator=g, device=dev)
+                          / 512 ** 0.5, 0)
+    xq, s_x = pq.quantize_rows(x)
+    want = (pq.int8_matmul_plain(xq.reshape(-1, 512), qt.q).float()
+            .reshape(3, 512, 1024) * s_x * qt.scale.reshape(-1))
+    assert torch.equal(pq.int8_dot(x, qt), want)
+
+
+@pytest.mark.cuda
+def test_custom_ops_match_plain_on_card():
+    """Each custom op an exported program holds (``ops/custom_ops.py``)
+    on CUDA tensors launches its kernel (counted) and agrees with its
+    plain version, as the wrappers do; a shape K1 or K2 refuses runs the
+    plain version and counts as routed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.ops import custom_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn((1, 4, 128, 512), generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    mask = torch.ones((1, 128), device=dev)
+    mask[0, 100:] = 0
+    before = flash_cuda.launches
+    out = custom_ops.flash_fwd(q, k, v, mask, 512 ** -0.5)
+    assert flash_cuda.launches == before + 1
+    ref, _ = flash_cuda.flash_attention_plain(q, k, v, mask, 512 ** -0.5)
+    torch.testing.assert_close(out.transpose(1, 2).float(), ref.float(),
+                               rtol=2e-2, atol=2e-2)
+    routed = flash_cuda.routed
+    out = custom_ops.flash_fwd(q[..., :256], k[..., :256], v[..., :256],
+                               mask, 256 ** -0.5)   # bf16 head dim 256
+    assert flash_cuda.launches == before + 1
+    assert flash_cuda.routed == routed + 1
+    ref, _ = flash_cuda.flash_attention_plain(
+        q[..., :256], k[..., :256], v[..., :256], mask, 256 ** -0.5)
+    assert torch.equal(out.transpose(1, 2), ref)
+
+    x = torch.randn((1, 128, 256), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    w = (torch.randn((128, 256, 3), generator=g, device=dev) * 0.05).to(
+        torch.bfloat16)
+    bias, gamma, beta = (torch.randn((128,), generator=g, device=dev)
+                         for _ in range(3))
+    m = (torch.arange(128, device=dev) < 100).float()[None, :, None]
+    before = block1d_cuda.launches
+    got = custom_ops.block1d_fwd(x, m, w, bias, gamma, beta, 8, 1e-5)
+    assert block1d_cuda.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), block1d_cuda.block1d_plain(
+            x, m, w, bias, gamma, beta).float(), rtol=2e-2, atol=2e-2)
+    routed = block1d_cuda.routed
+    got = custom_ops.block1d_fwd(x, m, w[:12], bias[:12], gamma[:12],
+                                 beta[:12], 4, 1e-5)   # bf16 Cout 12
+    assert block1d_cuda.launches == before + 1
+    assert block1d_cuda.routed == routed + 1
+    assert torch.equal(got, block1d_cuda.block1d_plain(
+        x, m, w[:12], bias[:12], gamma[:12], beta[:12], groups=4))
+
+    x = torch.randn((1, 400, 64), generator=g, device=dev)
+    w1, w2 = ([torch.randn((64, 64, 7), generator=g, device=dev) * 0.05
+               for _ in range(3)] for _ in range(2))
+    b1, b2 = ([torch.randn((64,), generator=g, device=dev)
+               for _ in range(3)] for _ in range(2))
+    before = resblock_cuda.launches
+    got = custom_ops.resblock_branch(x, w1, b1, w2, b2, 7, [1, 3, 5], True)
+    assert resblock_cuda.launches == before + 1
+    torch.testing.assert_close(got, resblock_cuda.resblock_branch_plain(
+        x, torch.stack(w1), torch.stack(b1), torch.stack(w2),
+        torch.stack(b2), kernel_size=7, dilations=(1, 3, 5)),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_loaded_artifact_launches_the_kernels(tmp_path):
+    """A narrow Converter with a HiFiGAN exported for CUDA and loaded: one
+    Euler-4 conversion launches K1 and K2 at the live Converter's counts
+    (inside the ODE loop's body), K3 once a residual branch, with no call
+    routed; its mel equals the live Converter's at the same seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch import deploy
+    from serenade_tpu_torch.api import Converter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(input_dim=32, output_dim=80, encoder_channels=16,
+               encoder_hidden_dim=32, decoder_channels=64, gst_embed_dim=32,
+               decoder_attention_head_dim=32, gst_tokens=10,
+               gst_conv_chans=(8, 8, 16, 16), gst_gru_units=16,
+               dtype="float32")
+    voc = {"sampling_rate": 24000, "generator_params": {
+        "channels": 64, "upsample_scales": [4, 3],
+        "upsample_kernel_sizes": [8, 6]}}
+    sc = {"hubert": {"mean": np.zeros(32), "scale": np.ones(32)},
+          "score": {"min": 0.0, "max": 1.0}, "loud": {"min": 0.0, "max": 1.0},
+          "logmel": {"mean": np.zeros(80), "scale": np.ones(80)}}
+    conv = Converter(cfg, None, sc, vocoder_config=voc,
+                     vocoder_stats={"mean": np.zeros(80),
+                                    "scale": np.ones(80)},
+                     n_timesteps=4, seed=0, device="cuda")
+    deploy.export_converter(conv, str(tmp_path / "art"),
+                            buckets=((192, 128),), platforms=("cuda",))
+    exp = deploy.load(str(tmp_path / "art"), seed=9)
+    rng = np.random.default_rng(2)
+    src = {"hubert": rng.normal(size=(150, 32)), "score": rng.random(150),
+           "loud": rng.random(150)}
+    ref = dict({k: rng.random(100) for k in ("score", "loud")},
+               hubert=rng.normal(size=(100, 32)),
+               logmel=rng.normal(size=(100, 80)))
+    counts = []
+    for run in (lambda: exp.convert_features(src, ref),
+                lambda: conv.convert_features(src, ref)):
+        for mod in (flash_cuda, block1d_cuda, resblock_cuda):
+            mod.launches = 0
+        flash_cuda.routed = block1d_cuda.routed = 0
+        mel = run()[0]
+        counts.append((flash_cuda.launches, block1d_cuda.launches,
+                       resblock_cuda.launches, flash_cuda.routed,
+                       block1d_cuda.routed, mel))
+        conv.generator.manual_seed(9)
+    (*art, mel_a), (*live, mel_l) = counts
+    assert art == live == [24, 52, 6, 0, 0]
+    np.testing.assert_allclose(mel_a, mel_l, rtol=1e-4, atol=1e-4)

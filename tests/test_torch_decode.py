@@ -660,8 +660,8 @@ REFUSALS = {
         str(f["pkl"].parent), f["stats"], data_mesh=2, device="cpu"),
         NotImplementedError, "data_mesh"),
     "quantize": (lambda f: Converter.from_expdir(
-        str(f["pkl"].parent), f["stats"], quantize="int8", device="cpu"),
-        NotImplementedError, "quantize"),
+        str(f["pkl"].parent), f["stats"], quantize="int4", device="cpu"),
+        ValueError, "unknown quantize mode 'int4'"),
     "decode_data_axis": (lambda f: pdecode.main(
         _decode_argv(f, "--data-axis", "2")), SystemExit, "--data-axis"),
     "decode_feats_scp": (lambda f: pdecode.main(

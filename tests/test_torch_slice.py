@@ -206,12 +206,14 @@ def _imported_roots(path: Path):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "serenade_tpu_torch").rglob("*.py"))
-    # distillation and evaluation among them (their CLIs read h5py, joblib
-    # and pyyaml inside functions only)
+    # distillation, evaluation and deployment among them (their CLIs read
+    # h5py, joblib and pyyaml inside functions only)
     walked = {p.relative_to(REPO / "serenade_tpu_torch").as_posix()
               for p in files}
     assert {"trainers/distill.py", "bin/distill.py", "metrics.py",
-            "bin/evaluate.py", "ops/world.py", "ops/sptk.py"} <= walked
+            "bin/evaluate.py", "ops/world.py", "ops/sptk.py", "quantize.py",
+            "deploy.py", "bin/export.py", "ops/custom_ops.py",
+            "ops/primitives.py"} <= walked
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     bad = {f"{p.relative_to(REPO)}: {root}" for p in files
@@ -265,6 +267,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         metrics.extract_eval_feats(wav, 24000)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         evaluate.main(["--converted-dir", ".", "--target-dir", "."])
+    from serenade_tpu_torch import deploy
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        deploy.load("artifact")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Converter(dict(CFG, dtype="float32"), None, sc, quantize="int8")
 
 
 @pytest.mark.parametrize("stats", [None, {"mean": np.zeros(80)},
