@@ -8,9 +8,9 @@ Phases, each printing JSON lines:
 1. build    -- compile the CUDA kernels from ``serenade_tpu_torch/csrc``;
 2. kernels  -- each kernel (forward K1-K3, backward K4-K7, the Viterbi
                trellis) against its plain PyTorch version on the card, at
-               small f32 shapes and at the conversion, extraction and
-               training paths' shapes, with times, the roofline bound and
-               a PyTorch yardstick;
+               small f32 shapes and at the conversion, extraction,
+               training and post-processing paths' shapes, with times, the
+               roofline bound and a PyTorch yardstick;
 3. main     -- a full-width Converter (seeded random weights, ContentVec
                too) answers four requests through Euler-10 and the HiFiGAN
                vocoder; the launch counters must show every forward kernel
@@ -159,6 +159,31 @@ Phases, each printing JSON lines:
                holds); (d) ``ArtifactService`` behind ``make_server``:
                4 clients post 8 (1024, 512) requests naming a registered
                style, latency p50/p95, /convert_wav refused with 400.
+15. postprocess -- recipe stage 9, SiFiGAN post-processing (lines
+               ``"phase": "postprocess"`` with ``"part"`` analysis /
+               synthesis / synthesis_parity / decoded / cli_device /
+               cli_native, then ``"postprocess_done"``): (a) phase 2
+               holds K3 without additional convs at SiFiGAN's filter
+               shapes (batch 8 of 10,240 / 40,960 / 122,880 / 245,760
+               rows at C 256 / 128 / 64 / 32, k 3, 5, 7; the bound one
+               conv a stage) and the Viterbi kernel at Harvest's 17
+               states; (b) Harvest, band aperiodicity and D4C of phase
+               3b's waveforms at 5 ms frames, seconds per audio second on
+               the card, one Viterbi launch a waveform, two waveforms on
+               the CPU too (vuv on 99.5 % of frames, f0 within 1e-3, the
+               aperiodicity within 1e-2 dB); (c) the full-width SiFiGAN
+               (the CLI's default generator, seeded weights) at batch 8 x
+               2,048 frames: wall, RTF, the profile's busy share, 12 K3
+               branch calls a synthesis on the split-TF32 route, routed
+               calls 0, and a small f32 synthesis on the card against the
+               CPU within 1e-3; (d) ``postprocess_core`` over phase 10's
+               18 decode outputs (RTF, analysis and synthesis seconds, one
+               Viterbi launch an utterance, 12 K3 calls a batch), then
+               ``bin/ssc_postprocessing.main --anasyn`` over a temporary
+               directory of phase 3b's waveforms (no config, stats or
+               h5); (e) the same with ``--f0-backend harvest_native
+               --analysis-backend native`` (the host library, built by
+               g++).
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -752,27 +777,28 @@ def check_resblock(torch, dev):
     rows = []
     dils = (1, 3, 5)
 
-    def case(b, t, c, k, dtype, tol, timed, emulate=False):
+    def case(b, t, c, k, dtype, tol, timed, emulate=False, add=True):
         x = torch.randn((b, t, c), generator=gen, device=dev).to(dtype)
         ws = [(torch.randn((3, c, c, k), generator=gen, device=dev)
                / math.sqrt(k * c)).to(dtype) for _ in range(2)]
         bs = [0.1 * torch.randn((3, c), generator=gen, device=dev)
               for _ in range(2)]
         args = (x, ws[0], bs[0], ws[1], bs[1])
-        out = K.resblock_branch(*args, kernel_size=k, dilations=dils)
+        kw = dict(kernel_size=k, dilations=dils, use_additional_convs=add)
+        out = K.resblock_branch(*args, **kw)
         ref = K.resblock_branch_plain(
-            x, ws[0], bs[0].to(dtype), ws[1], bs[1].to(dtype),
-            kernel_size=k, dilations=dils)
+            x, ws[0], bs[0].to(dtype), ws[1], bs[1].to(dtype), **kw)
         torch.cuda.synchronize()
         err, rel = rel_err(torch, out, ref)
-        plan = K.k3_plan(b, t, c, k, dils[-1], True, dtype,
+        plan = K.k3_plan(b, t, c, k, dils[-1], add, dtype,
                          _cuda.sm_count(dev))
         row = {"shape": [b, t, c, k], "dtype": str(dtype)[6:],
-               "route": plan["route"], "max_abs_err": err, "rel_err": rel,
-               "tol": tol, "ok": rel <= tol}
+               "additional_convs": add, "route": plan["route"],
+               "max_abs_err": err, "rel_err": rel, "tol": tol,
+               "ok": rel <= tol}
         if dtype == torch.float32:
             ref64 = K.resblock_branch_plain(
-                *(a.double() for a in args), kernel_size=k, dilations=dils)
+                *(a.double() for a in args), **kw)
             row["rel_err_f64"] = rel_err(torch, out, ref64)[1]
             row["plain_rel_err_f64"] = rel_err(torch, ref, ref64)[1]
             if emulate:
@@ -784,9 +810,11 @@ def check_resblock(torch, dev):
                 row["split_plain_rel_err_f64"] = rel_err(torch, emu,
                                                          ref64.cpu())[1]
         if timed:
+            # one conv a stage without additional convs, two with
+            convs = 2 if add else 1
             es = x.element_size()
-            nbytes = es * (2 * b * t * c + 2 * 3 * k * c * c) + 24 * c
-            flops = 3 * 2 * 2.0 * b * t * k * c * c
+            nbytes = es * (2 * b * t * c + convs * 3 * k * c * c) + 24 * c
+            flops = 3 * convs * 2.0 * b * t * k * c * c
             if dtype == torch.float32:
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     3 * flops, nbytes, False, PEAK_TF32)
@@ -799,10 +827,9 @@ def check_resblock(torch, dev):
                                                   "smem_bytes")}
                                for p in plan["convs"]]
             row["ms"] = cuda_ms(torch, lambda: K.resblock_branch(
-                *args, kernel_size=k, dilations=dils), 5)
+                *args, **kw), 5)
             row["plain_ms"] = cuda_ms(torch, lambda: K.resblock_branch_plain(
-                x, ws[0], bs[0].to(dtype), ws[1], bs[1].to(dtype),
-                kernel_size=k, dilations=dils), 5)
+                x, ws[0], bs[0].to(dtype), ws[1], bs[1].to(dtype), **kw), 5)
             row["library_ms"] = None
             row["plain_scope"], row["library_scope"] = ["out"], None
             # a bound is a least time: a kernel under it means a wrong bound
@@ -837,6 +864,14 @@ def check_resblock(torch, dev):
             for k in (3, 7, 11):
                 case(1, frames * up, c, k, torch.float32, 1e-4,
                      frames == 1200)
+    # SiFiGAN's filter network (phase 15): no additional convs, batch 8 of
+    # the 2,048-frame bucket at its four widths, k 3, 5 and 7, and a ragged
+    # small case
+    case(2, 333, 32, 5, torch.float32, 1e-4, False, add=False)
+    for t, c in SIFIGAN_FILTER_SHAPES:
+        for k in (3, 5, 7):
+            case(SIFIGAN_BATCH, t, c, k, torch.float32, 1e-4, True,
+                 add=False)
     return main, rows
 
 
@@ -856,6 +891,13 @@ VITERBI = dict(voiced_bias=0.35, transition_octave_cost=6.0,
                switch_cost=0.4)
 # the 10.24 s source's padded frames (phase 3b's main request)
 VITERBI_MAIN = (1, 1153, 5)
+# Harvest's trellis on a 12 s waveform's 128-hop bucket at 5 ms frames
+VITERBI_HARVEST = (1, 2433, 16)
+# SiFiGAN's synthesis batch (phase 15): 8 rows of the 2,048-frame bucket
+# (10.24 s at 5 ms frames), and its filter network's (T, C) at each level
+SIFIGAN_BATCH, SIFIGAN_FRAMES = 8, 2048
+SIFIGAN_FILTER_SHAPES = ((10240, 256), (40960, 128), (122880, 64),
+                         (245760, 32))
 
 
 def check_viterbi(torch, np, dev):
@@ -905,6 +947,11 @@ def check_viterbi(torch, np, dev):
     main = case(*VITERBI_MAIN, True)
     case(8, 1027, 5, True)
     case(4, 6003, 5, True)
+    # Harvest's 17-state trellis (phase 15) at a 12 s waveform's bucket,
+    # a batch of 2,048-frame rows, and the widest trellis, 32 states
+    case(*VITERBI_HARVEST, True)
+    case(8, 2049, 16, True)
+    case(2, 700, 31, False)
     return main, rows
 
 
@@ -2299,7 +2346,7 @@ def decode_path(torch, np, dev, counters, card):
                           "ok": cpu_ok}})
     ok &= lone_ok and cpu_ok
     emit({"phase": "decode_done", "seconds": time.time() - t0, "ok": ok})
-    return ok, launches
+    return ok, launches, results
 
 
 # ---------------------------------------------------------------------------
@@ -3921,6 +3968,309 @@ def deploy_path(torch, np, dev, counters, card):
                       "quantized": dict(zeros, **quantized)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: SiFiGAN post-processing (recipe stage 9)
+# ---------------------------------------------------------------------------
+
+POST_REPS = 3              # timed full-width syntheses
+
+
+def _synced(torch, fn):
+    """(result, host seconds) of ``fn`` ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def post_analysis(torch, np, dev, counters, card):
+    """(b): Harvest, band aperiodicity, D4C and CheapTrick of phase 3b's
+    waveforms at 5 ms frames, each on its 128-hop bucket as stage 9 runs
+    them: timed on the card (a warm-up call first), and ``sp2mc`` of the
+    envelopes on the host; every waveform also on the CPU, held by phase
+    3b's card-vs-CPU F0 rule (vuv on 99.5 % of frames, f0 within 1e-3
+    relative where both are voiced) and the aperiodicity within 1e-2 dB
+    (both from the card's F0)."""
+    from serenade_tpu_torch.features import _bucketed
+    from serenade_tpu_torch.ops.f0 import smooth_f0_median
+    from serenade_tpu_torch.ops.harvest import harvest_f0
+    from serenade_tpu_torch.ops.sptk import sp2mc
+    from serenade_tpu_torch.ops.world import band_aperiodicity, cheaptrick, d4c
+
+    hop = SR // 200
+    lo, hi = 80.0, 1100.0
+    ops = {"harvest": lambda x, f0: harvest_f0(
+               x, fs=SR, f0_floor=lo, f0_ceil=hi, frame_period_ms=5.0),
+           "bandap": lambda x, f0: band_aperiodicity(x, f0, fs=SR),
+           "d4c": lambda x, f0: d4c(x, f0, fs=SR),
+           "cheaptrick": lambda x, f0: cheaptrick(x, f0, fs=SR)}
+    wavs = feature_wavs(np)
+    audio_s = sum(len(w) for w in wavs) / SR
+    inputs = [torch.from_numpy(_bucketed(w, hop)[0]).to(dev) for w in wavs]
+    # the first calls (filter banks, FFT plans) apart: Harvest's F0, and a
+    # call of each aperiodicity at each length
+    f0s = [smooth_f0_median(ops["harvest"](x, None)[0]) for x in inputs]
+    for x, f0 in zip(inputs, f0s):
+        ops["bandap"](x, f0), ops["d4c"](x, f0), ops["cheaptrick"](x, f0)
+    seconds = {}
+    counters.reset()
+    for name, op in ops.items():
+        seconds[name] = sum(_synced(torch, lambda: op(x, f0))[1]
+                            for x, f0 in zip(inputs, f0s))
+    launches = counters.read()
+    # the mel-cepstrum of each envelope, on the host (SPTK's recursion)
+    envs = [ops["cheaptrick"](x, f0).cpu().numpy()
+            for x, f0 in zip(inputs, f0s)]
+    t0 = time.perf_counter()
+    for env in envs:
+        sp2mc(env, 39, 0.466)
+    seconds["sp2mc_host"] = time.perf_counter() - t0
+    rows, ok = [], launches["viterbi_f0"] == len(wavs)
+    for i in range(len(wavs)):
+        x_cpu, f0_card = inputs[i].cpu(), f0s[i]
+        f0_cpu = smooth_f0_median(ops["harvest"](x_cpu, None)[0])
+        g, w = f0_card.cpu().numpy(), f0_cpu.numpy()
+        both = (g > 0) & (w > 0)
+        row = {"seconds": FEATURE_WAVS[i][0], "frames": len(g),
+               "vuv_agree": float(((g > 0) == (w > 0)).mean()),
+               "voiced": float((w > 0).mean()),
+               "f0_max_rel_err": float((np.abs(g - w)[both]
+                                        / w[both]).max())}
+        for name in ("bandap", "d4c"):
+            card_ap = ops[name](inputs[i], f0_card).cpu().numpy()
+            cpu_ap = ops[name](x_cpu, f0_card.cpu()).numpy()
+            row[f"{name}_max_abs_err_db"] = float(np.abs(card_ap
+                                                         - cpu_ap).max())
+            row[f"{name}_min_db"] = float(cpu_ap.min())
+        row["ok"] = (row["vuv_agree"] >= 0.995 and row["voiced"] > 0.5
+                     and row["f0_max_rel_err"] <= 1e-3
+                     and row["bandap_max_abs_err_db"] <= 1e-2
+                     and row["d4c_max_abs_err_db"] <= 1e-2)
+        ok &= row["ok"]
+        rows.append(row)
+    emit({"phase": "postprocess", "part": "analysis", "card": card,
+          "audio_s": audio_s, "seconds": seconds,
+          "s_per_audio_s": {k: v / audio_s for k, v in seconds.items()},
+          "launches": launches, "card_vs_cpu": rows, "ok": bool(ok)})
+    return bool(ok)
+
+
+def _sifigan_inputs(np, batch, frames, seed):
+    """Aux features, the excitation (the stage's SignalGenerator) and the
+    dense factors of ``batch`` rows from a seed, at the full-width
+    config's rates."""
+    from serenade_tpu_torch.bin.ssc_postprocessing import DEFAULT_CONFIG
+    from serenade_tpu_torch.sifigan.features import (
+        SignalGenerator, dense_factors_per_level,
+    )
+
+    rng = np.random.default_rng(seed)
+    gen = SignalGenerator(sample_rate=SR, hop_size=SR // 200, seed=seed)
+    c = rng.normal(size=(batch, frames, 43)).astype(np.float32)
+    sines, dfs = [], []
+    for _ in range(batch):
+        f0 = rng.uniform(150.0, 450.0) * (1 + 0.02 * np.sin(
+            np.arange(frames) * 0.1))
+        sines.append(gen(f0))
+        dfs.append(dense_factors_per_level(
+            f0, SR, DEFAULT_CONFIG["dense_factors"], (5, 4, 3, 2)))
+    return (np.stack(sines), c,
+            [np.stack([d[i] for d in dfs]) for i in range(4)])
+
+
+def post_synthesis(torch, np, dev, counters, card):
+    """(c): the full-width SiFiGAN (the CLI's default generator, seeded
+    weights) at SIFIGAN_BATCH x SIFIGAN_FRAMES: wall, RTF, a profile's
+    busy share, launches (12 K3 branch calls a synthesis, every filter
+    stage on the split-TF32 route), routed calls 0; then a small f32
+    synthesis on the card against the CPU by phase 4's rule (the waveform
+    and the excitation within 1e-3 of the CPU's peak).  Returns (ok, the
+    generator on the card)."""
+    from serenade_tpu_torch.bin.ssc_postprocessing import (
+        DEFAULT_CONFIG, load_generator,
+    )
+    from serenade_tpu_torch.ops import _cuda, resblock_cuda
+
+    model = load_generator(DEFAULT_CONFIG, None, device=dev)
+    sine, c, dfs = _sifigan_inputs(np, SIFIGAN_BATCH, SIFIGAN_FRAMES, 15)
+    args = [torch.from_numpy(a).to(dev) for a in [sine, c] + dfs]
+
+    def run():
+        with torch.no_grad():
+            return model(args[0], args[1], args[2:])
+
+    (y, e), first_s = _synced(torch, run)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    walls = [_synced(torch, run)[1] for _ in range(POST_REPS)]
+    launches, routed = counters.read(), counters.routed()
+    peak = torch.cuda.max_memory_allocated()
+    audio_s = SIFIGAN_BATCH * SIFIGAN_FRAMES * 5e-3
+    wall = sum(walls) / len(walls)
+    prof = device_time(torch, run)
+    plans = {f"{t}x{c_}": resblock_cuda.k3_plan(
+        SIFIGAN_BATCH, t, c_, k, 5, False, torch.float32,
+        _cuda.sm_count(dev))["route"]
+        for t, c_ in SIFIGAN_FILTER_SHAPES for k in (3,)}
+    right = (tuple(y.shape) == (SIFIGAN_BATCH, SIFIGAN_FRAMES * 120, 1)
+             and tuple(e.shape) == tuple(y.shape)
+             and bool(torch.isfinite(y).all()) and float(y.abs().max()) > 0)
+    counts_ok = (launches["resblock_branch"] == 12 * POST_REPS
+                 and all(v == 0 for k, v in launches.items()
+                         if k != "resblock_branch")
+                 and not any(routed.values())
+                 and set(plans.values()) == {"tf32"})
+    emit({"phase": "postprocess", "part": "synthesis", "card": card,
+          "batch": [SIFIGAN_BATCH, SIFIGAN_FRAMES], "first_call_s": first_s,
+          "walls_s": walls, "wall_s": wall, "audio_s": audio_s,
+          "rtf": wall / audio_s, "s_per_audio_s": wall / audio_s,
+          "device_busy_s": prof["device_busy_s"],
+          "device_busy_share": prof["device_busy_s"] / wall,
+          "top": prof["top"], "port_kernels": prof["port_kernels"],
+          "peak_bytes": peak,
+          "launches_per_synthesis": {k: v / POST_REPS
+                                     for k, v in launches.items()},
+          "routed": routed, "k3_routes": plans, "right": right,
+          "ok": bool(right and counts_ok)})
+
+    # a small f32 synthesis, the same seeded weights, card against CPU
+    small = _sifigan_inputs(np, 1, 96, 16)
+    cpu_model = load_generator(DEFAULT_CONFIG, None, device="cpu")
+    outs = []
+    for m, d in ((model, dev), (cpu_model, torch.device("cpu"))):
+        a = [torch.from_numpy(x).to(d) for x in [small[0], small[1]]
+             + small[2]]
+        with torch.no_grad():
+            outs.append([o.cpu() for o in m(a[0], a[1], a[2:])])
+    wav_err = float((outs[0][0] - outs[1][0]).abs().max())
+    exc_err = float((outs[0][1] - outs[1][1]).abs().max())
+    wav_scale = float(outs[1][0].abs().max())
+    exc_scale = float(outs[1][1].abs().max())
+    parity_ok = (wav_scale > 0 and exc_scale > 0
+                 and wav_err <= 1e-3 * wav_scale
+                 and exc_err <= 1e-3 * exc_scale)
+    emit({"phase": "postprocess", "part": "synthesis_parity",
+          "frames": 96, "wav_max_abs_err": wav_err, "wav_scale": wav_scale,
+          "excitation_max_abs_err": exc_err, "excitation_scale": exc_scale,
+          "tol": 1e-3, "ok": bool(parity_ok)})
+    return bool(right and counts_ok and parity_ok), model
+
+
+def post_decoded(torch, np, dev, counters, card, model, decoded):
+    """(d), first half: ``postprocess_core`` over phase 10's decode
+    outputs (their wavs and shifted lf0, Harvest's default range),
+    synthesis with (c)'s generator.  The stage's RTF, its analysis and
+    synthesis seconds (split where the core enters ``synthesize``, all
+    analysis done), launches (one Viterbi launch an utterance, 12 K3
+    branch calls a synthesis batch), routed calls 0."""
+    from serenade_tpu_torch.bin import ssc_postprocessing as post
+    from serenade_tpu_torch.bin.ssc_postprocessing import (
+        DEFAULT_CONFIG, postprocess_core, voice_range_for,
+    )
+
+    utts = [{"key": f"{r['utt_id']}_{r['style']}", "wav": r["wav"],
+             "lf0": r["lf0"], "f0_range": voice_range_for(r["utt_id"])}
+            for r in decoded]
+    audio_s = sum(len(u["wav"]) for u in utts) / SR
+    # the synthesis batches: same-bucket items, up to 8
+    buckets = {}
+    for u in utts:
+        t = 1 + len(u["wav"]) // 120
+        buckets[-(-t // 128)] = buckets.get(-(-t // 128), 0) + 1
+    batches = sum(-(-n // 8) for n in buckets.values())
+    synthesize, marks = post.synthesize, {}
+
+    def marked(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["synthesis"] = time.perf_counter()
+        yield from synthesize(*args, **kwargs)
+
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post.synthesize = marked
+    try:
+        outs = list(postprocess_core(model, utts, DEFAULT_CONFIG,
+                                     device=dev))
+    finally:
+        post.synthesize = synthesize
+    wall = time.perf_counter() - t0
+    analysis_s = marks["synthesis"] - t0
+    launches, routed = counters.read(), counters.routed()
+    lengths = {u["key"]: (1 + len(u["wav"]) // 120) * 120 for u in utts}
+    right = (len(outs) == len(utts)
+             and all(suffix == "_sifigan" and wav.shape == (lengths[key],)
+                     and bool(np.isfinite(wav).all())
+                     for key, suffix, wav in outs))
+    counts_ok = (launches["viterbi_f0"] == len(utts)
+                 and launches["resblock_branch"] == 12 * batches
+                 and all(launches[k] == 0 for k in launches
+                         if k not in ("viterbi_f0", "resblock_branch"))
+                 and not any(routed.values()))
+    emit({"phase": "postprocess", "part": "decoded", "card": card,
+          "utterances": len(utts), "synthesis_batches": batches,
+          "wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
+          "analysis_s": analysis_s, "synthesis_s": wall - analysis_s,
+          "launches": launches, "routed": routed, "right": right,
+          "ok": bool(right and counts_ok)})
+    return bool(right and counts_ok), launches
+
+
+def post_cli(torch, np, card):
+    """(d), second half, and (e): ``bin/ssc_postprocessing.main --anasyn``
+    over a temporary directory of phase 3b's waveforms (no config, stats
+    or h5: the full-width default, seeded weights) on the card, then with
+    ``--f0-backend harvest_native --analysis-backend native`` (Harvest,
+    CheapTrick and band aperiodicity on the host, built by g++; the
+    synthesis on the card).  Each writes every ``*_anasyn.wav`` at its
+    length, finite."""
+    from serenade_tpu_torch.bin import ssc_postprocessing as post
+    from serenade_tpu_torch.utils.audio import read_wav, write_wav
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_post_")
+    names = ["song_Tenor", "song_Alto", "song_Bass", "song_Soprano"]
+    ok = True
+    try:
+        wavs = feature_wavs(np)
+        for name, w in zip(names, wavs):
+            write_wav(os.path.join(root, f"{name}.wav"), w, SR)
+        for kind, extra in (("device", []),
+                            ("native", ["--f0-backend", "harvest_native",
+                                        "--analysis-backend", "native"])):
+            _, wall = _synced(torch, lambda: post.main(
+                ["--in-dir", root, "--anasyn", "--verbose", "0", *extra]))
+            right = True
+            for name, w in zip(names, wavs):
+                y, sr = read_wav(os.path.join(root, f"{name}_anasyn.wav"))
+                right &= (sr == SR and len(y) == (1 + len(w) // 120) * 120
+                          and bool(np.isfinite(y).all()))
+            emit({"phase": "postprocess", "part": f"cli_{kind}",
+                  "card": card, "wavs": len(wavs), "wall_s": wall,
+                  "audio_s": sum(len(w) for w in wavs) / SR,
+                  "ok": bool(right)})
+            ok &= right
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return bool(ok)
+
+
+def postprocess_path(torch, np, dev, counters, card, decoded):
+    """Phase 15: recipe stage 9.  Returns (ok, the launches of (d)'s
+    run over the decode outputs)."""
+    t0 = time.time()
+    ok = post_analysis(torch, np, dev, counters, card)
+    synth_ok, model = post_synthesis(torch, np, dev, counters, card)
+    decoded_ok, launches = post_decoded(torch, np, dev, counters, card,
+                                        model, decoded)
+    del model
+    cli_ok = post_cli(torch, np, card)
+    ok &= synth_ok and decoded_ok and cli_ok
+    emit({"phase": "postprocess_done", "seconds": time.time() - t0,
+          "ok": bool(ok)})
+    return bool(ok), launches
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -4020,11 +4370,22 @@ def kernel_entries(torch, np, dev):
         emit({"phase": "kernels", "kernel": name, "cases": rows})
         ok &= all(r["ok"] for r in rows)
         entry(name, main_row, main_row)
+        if name == "resblock_branch":
+            # SiFiGAN's filter network: no additional convs (phase 15)
+            entries[name]["filter_rows"] = [
+                {k: r[k] for k in ("shape", "ms", "bound_ms", "plain_ms",
+                                   "max_abs_err")}
+                for r in rows if not r["additional_convs"] and "ms" in r]
     main_row, rows = check_viterbi(torch, np, dev)
     emit({"phase": "kernels", "kernel": "viterbi_f0", "cases": rows})
     ok &= all(r["ok"] for r in rows)
     entry("viterbi_f0", main_row, main_row)
     entries["viterbi_f0"]["pallas_counterpart"] = None
+    # Harvest's 17-state trellis (phase 15)
+    entries["viterbi_f0"]["harvest_rows"] = [
+        {k: r[k] for k in ("shape", "ms", "bound_ms", "plain_ms",
+                           "states_differing")}
+        for r in rows if r["shape"][2] == 16 and "ms" in r]
     for names, check in ((("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")),
                          check_flash_bwd), \
             ((("block1d_bwd_data", "data"), ("block1d_bwd_weight", "weight")),
@@ -4104,7 +4465,8 @@ def main() -> int:
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch",
                  "viterbi_f0"):
         entries[name]["stream_launches"] = launches[name]
-    decode_ok, launches = decode_path(torch, np, dev, counters, card)
+    decode_ok, launches, decoded = decode_path(torch, np, dev, counters,
+                                               card)
     ok &= decode_ok
     for name in ("flash_fwd", "block1d_fwd", "resblock_branch"):
         entries[name]["decode_launches"] = launches[name]
@@ -4125,6 +4487,11 @@ def main() -> int:
     for name in entries:
         entries[name]["deploy_launches"] = launches["deploy"][name]
         entries[name]["quantized_launches"] = launches["quantized"][name]
+    post_ok, launches = postprocess_path(torch, np, dev, counters, card,
+                                         decoded)
+    ok &= post_ok
+    for name in entries:
+        entries[name]["postprocess_launches"] = launches[name]
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

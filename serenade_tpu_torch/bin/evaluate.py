@@ -71,7 +71,7 @@ def build_argparser():
     p.add_argument("--f0-backend", default="viterbi",
                    choices=("viterbi", "yin", "harvest"),
                    help="preprocessing's names: viterbi (YIN+Viterbi, "
-                        "default), yin (plain); harvest is not ported")
+                        "default), yin (plain), harvest")
     p.add_argument("--frame-period-ms", type=float, default=5.0)
     p.add_argument("--mcep-order", type=int, default=34)
     p.add_argument("--no-dtw", action="store_true",
@@ -142,7 +142,7 @@ def main(argv=None):
     )
     from serenade_tpu_torch.utils.audio import read_wav, resample
 
-    check_f0_backend(args.f0_backend)
+    check_f0_backend(args.f0_backend, host=False)
     dev = resolve_device(args.device)
     if not args.target_dir and not args.target_scp:
         raise SystemExit("need --target-dir or --target-scp")

@@ -12,8 +12,9 @@ are extracted in batches (``features.extract_features_batch``) on the
 card unless ``--device cpu``.  ``--contentvec-ckpt`` is a ``.pt`` Hugging
 Face ``HubertModel`` state dict; without it, ``--allow-missing-hubert
 true`` dumps everything but ``hubert``.  ``--f0-backend jax`` is plain
-YIN; the Harvest and native backends and ``--midi-model-ckpt`` (the
-phoneme-MIDI transcriber) are refused by name.  Needs pyyaml for the
+YIN, ``harvest`` Harvest on the device, ``native`` and ``harvest_native``
+YIN and Harvest on the host (``native.py``); ``--midi-model-ckpt`` (the
+phoneme-MIDI transcriber) is refused by name.  Needs pyyaml for the
 config and the F0 table, and h5py for the dumps.
 
 The module also holds ``make_content_fn``, the content function that
@@ -177,9 +178,10 @@ def build_argparser():
     p.add_argument("--allow-missing-hubert", type=str2bool, default=False)
     p.add_argument("--f0-backend", choices=F0_BACKENDS,
                    default="viterbi",
-                   help="F0 estimator: YIN + Viterbi (default) or plain "
-                        "YIN ('jax'); the Harvest and native backends are "
-                        "refused")
+                   help="F0 estimator: YIN + Viterbi (default), plain "
+                        "YIN ('jax') or Harvest on the device, or YIN "
+                        "('native') or Harvest ('harvest_native') on the "
+                        "host")
     p.add_argument("--batch-size", type=int, default=8,
                    help="utterances of one length bucket and F0 range "
                         "extracted together")

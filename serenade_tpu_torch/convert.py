@@ -15,6 +15,8 @@ inverse of ``serenade_tpu/models/convert_serenade.py``:
 
 Every mapping is a transpose or a concatenation, so it is linear and
 applies to gradients and optimizer updates of the same tree as well.
+The SiFiGAN generators (``sifigan/generator.py``) name their modules as
+flax does too, so a flax SiFiGAN tree maps by the same table.
 
 Nothing here imports JAX; the caller converts JAX arrays to numpy.
 """

@@ -17,15 +17,20 @@
 // products by 0 or 1 are exact), and cost[j] is the least total, the
 // first i on ties as jnp.argmin takes it.
 //
-// Design: one warp per row.  Lane j < K+1 holds state j's cost and log
-// frequency in registers and reads the others' by __shfl_sync (the state
-// count is a template parameter, so the shuffles and the 1 + K compares
-// unroll without a branch between them); a chunk of
-// frames' emissions and log frequencies is staged in shared memory by the
-// whole warp (coalesced), and the chunk's back pointers (uint8) are
+// Design: one warp per row, 1 <= K <= 31 candidates, so that each of the
+// K+1 states has a lane: YIN's trellis has K = 5, Harvest's
+// (serenade_tpu/ops/harvest.py:356) K = 16.  Lane j < K+1 holds state j's
+// cost and log frequency in registers and reads the others' by
+// __shfl_sync (the state count is a template parameter, so the shuffles
+// and the 1 + K compares unroll without a branch between them); a chunk
+// of frames' emissions and log frequencies is staged in shared memory by
+// the whole warp (coalesced), and the chunk's back pointers (uint8) are
 // written to global scratch (B, N, K+1) in one coalesced store.  The
 // backtrace walks the chunks in reverse: the warp stages a chunk of back
 // pointers, lane 0 follows them, and the warp stores the chunk's states.
+// A chunk is 256 frames up to 17 states (38.25 KB of static shared
+// memory at 17) and 128 frames above (36 KB at 32), under the 48 KB a
+// block may hold statically.
 //
 // Bound: the recursion is serial in frames, so the kernel is bound by
 // latency (a few shuffles, adds and compares a frame), not by the card's
@@ -39,7 +44,6 @@
 
 namespace vit {
 
-constexpr int kChunk = 256;     // frames staged in shared memory at once
 constexpr unsigned kFull = 0xffffffffu;
 
 template <int S>
@@ -47,7 +51,9 @@ __global__ void __launch_bounds__(32)
 viterbi_kernel(const float* __restrict__ em, const float* __restrict__ lf,
                uint8_t* __restrict__ bp, int64_t* __restrict__ states, int n,
                float voiced_bias, float toc, float sc) {
+  static_assert(S >= 2 && S <= 32, "one lane a state");
   constexpr int k = S - 1;
+  constexpr int kChunk = S <= 17 ? 256 : 128;  // frames staged at once
   __shared__ float s_em[kChunk * k];
   __shared__ float s_lf[kChunk * k];
   __shared__ uint8_t s_bp[kChunk * S];
@@ -152,13 +158,13 @@ extern "C" int serenade_viterbi_f0(const float* em, const float* lf,
     vit::viterbi_kernel<S><<<b, 32, 0, stream>>>(em, lf, bp, states, n,  \
                                                  voiced_bias, toc, sc);  \
     break;
-    VIT_CASE(2)
-    VIT_CASE(3)
-    VIT_CASE(4)
-    VIT_CASE(5)
-    VIT_CASE(6)
-    VIT_CASE(7)
-    VIT_CASE(8)
+    VIT_CASE(2) VIT_CASE(3) VIT_CASE(4) VIT_CASE(5) VIT_CASE(6)
+    VIT_CASE(7) VIT_CASE(8) VIT_CASE(9) VIT_CASE(10) VIT_CASE(11)
+    VIT_CASE(12) VIT_CASE(13) VIT_CASE(14) VIT_CASE(15) VIT_CASE(16)
+    VIT_CASE(17) VIT_CASE(18) VIT_CASE(19) VIT_CASE(20) VIT_CASE(21)
+    VIT_CASE(22) VIT_CASE(23) VIT_CASE(24) VIT_CASE(25) VIT_CASE(26)
+    VIT_CASE(27) VIT_CASE(28) VIT_CASE(29) VIT_CASE(30) VIT_CASE(31)
+    VIT_CASE(32)
 #undef VIT_CASE
     default:
       return (int)cudaErrorInvalidValue;

@@ -23,9 +23,12 @@ from a context-padded window of the waveform.
 track over ``maxf0`` less its smoothing spline (scipy's
 ``UnivariateSpline``, f64 on the host, ``compute_f0_fluctuation``).
 
-F0 backends: "viterbi" (YIN + Viterbi, the default) and "yin".  The
-Harvest and native backends and the phoneme-MIDI transcriber are not
-ported (ROADMAP Queue A, item 6).
+F0 backends: "viterbi" (YIN + Viterbi, the default), "yin" and
+"harvest" (``ops/harvest.py``) on the device; "native" and
+"harvest_native" run YIN or Harvest per waveform on the host
+(``native.py``, the C++ library built by g++), the log-mel, loudness and
+smoothing on the device.  The phoneme-MIDI transcriber is not ported
+(ROADMAP Queue A, item 6).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from serenade_tpu_torch import resolve_device, upload
 from serenade_tpu_torch.collaters.ssc import next_pow2
 from serenade_tpu_torch.ops.f0 import smooth_f0_median, yin_f0, yin_f0_viterbi
+from serenade_tpu_torch.ops.harvest import harvest_f0
 from serenade_tpu_torch.ops.mel import logmelfilterbank, loudness_extract
 from serenade_tpu_torch.ops.midi import (
     f0_to_note_events, midi_note_array_to_hz, note_seq_to_frames,
@@ -49,8 +53,10 @@ from serenade_tpu_torch.utils.audio import resample, to_mono
 
 logger = logging.getLogger(__name__)
 
-F0_BACKENDS = {"viterbi": yin_f0_viterbi, "yin": yin_f0}
-NOT_PORTED_BACKENDS = ("harvest", "native", "harvest_native")
+F0_BACKENDS = {"viterbi": yin_f0_viterbi, "yin": yin_f0,
+               "harvest": harvest_f0}
+# F0 on the host, one waveform at a time (the native library)
+HOST_F0_BACKENDS = ("native", "harvest_native")
 
 
 @dataclasses.dataclass
@@ -89,14 +95,20 @@ def f0_range_for(utt_id: str, f0_table: Optional[Dict]) -> tuple:
     return 70.0, 1100.0
 
 
-def check_f0_backend(f0_backend: str) -> None:
-    if f0_backend in NOT_PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"f0_backend {f0_backend!r} is not ported (ROADMAP Queue A, "
-            "item 6: what feature extraction left); use 'viterbi' or "
-            "'yin'")
-    if f0_backend not in F0_BACKENDS:
-        raise ValueError(f"unknown f0_backend {f0_backend!r}")
+def check_f0_backend(f0_backend: str, host: bool = True) -> None:
+    """Raise on an F0 backend the caller cannot run: an unknown name, or a
+    host backend where ``host`` is False (the batched device analyses)."""
+    known = tuple(F0_BACKENDS) + (HOST_F0_BACKENDS if host else ())
+    if f0_backend not in known:
+        raise ValueError(f"unknown f0_backend {f0_backend!r}; this path "
+                         f"takes {known}")
+
+
+def _host_f0(f0_backend: str):
+    from serenade_tpu_torch.native import harvest_f0_native, yin_f0_native
+
+    return (harvest_f0_native if f0_backend == "harvest_native"
+            else yin_f0_native)
 
 
 def compute_f0_fluctuation(f0: np.ndarray, maxf0: float,
@@ -153,9 +165,14 @@ def extract_signal_features_group(
         fmin=config.fmin, fmax=config.fmax, eps=config.eps,
         log_base=config.log_base)
     loud = loudness_extract(wav, fs, config.hop_size)
-    f0_raw, _ = F0_BACKENDS[f0_backend](
-        wav, fs=fs, f0_floor=minf0, f0_ceil=maxf0,
-        frame_period_ms=config.shiftms)
+    if f0_backend in HOST_F0_BACKENDS:
+        f0_raw = upload(np.stack([_host_f0(f0_backend)(
+            np.asarray(a, np.float32), fs=fs, f0_floor=minf0, f0_ceil=maxf0,
+            frame_period_ms=config.shiftms)[0] for a in audios_b]), dev)
+    else:
+        f0_raw, _ = F0_BACKENDS[f0_backend](
+            wav, fs=fs, f0_floor=minf0, f0_ceil=maxf0,
+            frame_period_ms=config.shiftms)
     f0 = smooth_f0_median(f0_raw)
     # one download: the host needs F0 for the score
     host = torch.cat([logmel, loud[..., None], f0[..., None]],

@@ -12,8 +12,9 @@ The analysis (F0 and the envelope) runs on the device, same-bucket
 waveforms batched together, with the length buckets of preprocessing
 (``features._bucketed``) and groups padded to powers of two, as in the
 JAX package; the mel-cepstral recursion and DTW are host numpy.  F0
-backends: "viterbi" (YIN + the Viterbi trellis kernel, the default) and
-"yin"; "harvest" is refused by name (ROADMAP Queue A, item 6).
+backends: "viterbi" (YIN + the Viterbi trellis kernel, the default),
+"yin" and "harvest" (``ops/harvest.py``, its trellis on the same
+kernel).
 Everything runs on CUDA unless ``device`` says otherwise.
 """
 
@@ -89,7 +90,7 @@ def extract_eval_feats(
 ) -> Dict[str, np.ndarray]:
     """Per-frame analysis of one waveform: mel-cepstrum ``(T, order+1)``,
     f0 ``(T,)`` and vuv ``(T,)``."""
-    check_f0_backend(f0_backend)
+    check_f0_backend(f0_backend, host=False)
     dev = resolve_device(device)
     wav = _check_eval_wav(to_mono(np.asarray(wav)), "eval wav")
     hop = int(sr * frame_period_ms / 1000.0)
@@ -118,7 +119,7 @@ def extract_eval_feats_batch(
     analysis up to the batched ops' rounding).  Returns the feature dicts
     in input order; a corrupt waveform gives ``None`` at its index (and a
     warning) instead of failing its batch."""
-    check_f0_backend(f0_backend)
+    check_f0_backend(f0_backend, host=False)
     dev = resolve_device(device)
     hop = int(sr * frame_period_ms / 1000.0)
     prepped = [None] * len(wavs)

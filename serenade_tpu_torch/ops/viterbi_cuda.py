@@ -22,7 +22,7 @@ from serenade_tpu_torch.ops import _cuda
 
 launches = 0   # wrapper calls that launched the kernel since the last reset
 
-MAX_STATES = 8   # K + 1 states at most (the kernel's template cases)
+MAX_STATES = 32  # K + 1 states at most: one lane of the row's warp each
 
 
 def viterbi_states_plain(emission_voiced, log_f0, *, voiced_bias: float,
@@ -65,14 +65,15 @@ def viterbi_states(emission_voiced, log_f0, *, voiced_bias: float,
                    switch_cost: float) -> torch.Tensor:
     """The best path's states ``(B, N)`` int64 of the trellis over
     ``(B, N, K)`` voiced emissions and log2 frequencies (state K is
-    unvoiced).  CUDA tensors launch the kernel once for all rows; CPU
-    tensors run ``viterbi_states_plain``."""
+    unvoiced), 1 <= K <= 31.  CUDA tensors launch the kernel once for all
+    rows; CPU tensors run ``viterbi_states_plain``.  The shapes are
+    checked on both, so a CPU run refuses what the kernel would."""
     global launches
     kw = dict(voiced_bias=voiced_bias,
               transition_octave_cost=transition_octave_cost,
               switch_cost=switch_cost)
-    if not emission_voiced.is_cuda:
-        return viterbi_states_plain(emission_voiced, log_f0, **kw)
+    _cuda.require(emission_voiced.dim() == 3,
+                  f"emissions {tuple(emission_voiced.shape)} are not (B, N, K)")
     b, n, k = emission_voiced.shape
     _cuda.require(tuple(log_f0.shape) == (b, n, k)
                   and log_f0.device == emission_voiced.device,
@@ -80,6 +81,8 @@ def viterbi_states(emission_voiced, log_f0, *, voiced_bias: float,
     _cuda.require(1 <= k < MAX_STATES and n >= 1 and b >= 1,
                   f"viterbi_f0 takes 1 <= K <= {MAX_STATES - 1} candidates "
                   f"and N >= 1 frames; got {(b, n, k)}")
+    if not emission_voiced.is_cuda:
+        return viterbi_states_plain(emission_voiced, log_f0, **kw)
     em = emission_voiced.float().contiguous()
     lf = log_f0.float().contiguous()
     back = torch.empty((b, n, k + 1), dtype=torch.uint8, device=em.device)

@@ -1,4 +1,5 @@
-"""Waveform I/O and host resampling (copied from serenade_tpu/utils/audio.py).
+"""Waveform I/O, host resampling and the low-cut filter (copied from
+serenade_tpu/utils/audio.py).
 
 wav I/O rides scipy, and host resampling is polyphase
 (``scipy.signal.resample_poly``), as in the JAX package.  All functions
@@ -54,3 +55,12 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     g = math.gcd(int(orig_sr), int(target_sr))
     up, down = target_sr // g, orig_sr // g
     return resample_poly(audio, up, down).astype(audio.dtype)
+
+
+def low_cut_filter(x: np.ndarray, fs: int, cutoff: float = 70.0) -> np.ndarray:
+    """High-pass (low-cut) FIR filter: 255 taps of ``firwin`` above
+    ``cutoff`` Hz, run by ``lfilter`` (the reference utils/signal.py:13)."""
+    from scipy.signal import firwin, lfilter
+
+    taps = firwin(255, cutoff / (fs // 2), pass_zero=False)
+    return lfilter(taps, 1, x).astype(x.dtype)

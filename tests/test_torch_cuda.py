@@ -1051,3 +1051,51 @@ def test_loaded_artifact_launches_the_kernels(tmp_path):
     (*art, mel_a), (*live, mel_l) = counts
     assert art == live == [24, 52, 6, 0, 0]
     np.testing.assert_allclose(mel_a, mel_l, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k", [(2, 600, 16), (1, 300, 31)])
+def test_viterbi_kernel_at_harvest_width(b, n, k):
+    """The Viterbi kernel at Harvest's K = 16 (17 states, 256-frame
+    chunks) and at its widest K = 31 (32 states, 128-frame chunks) against
+    the plain frame loop on seeded candidates with absent ones (emission
+    4e6, Harvest's rejected cost): identical states, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.ops import viterbi_cuda
+
+    rng = np.random.default_rng(k)
+    kw = dict(voiced_bias=0.12, transition_octave_cost=6.0, switch_cost=0.4)
+    cand = rng.uniform(80.0, 800.0, (b, n, k)).astype(np.float32)
+    em = rng.uniform(0.0, 1.0, (b, n, k)).astype(np.float32)
+    em[rng.random((b, n, k)) < 0.5] = 4e6
+    em, lf = (torch.from_numpy(a).cuda()
+              for a in (em, np.log2(np.maximum(cand, 1.0))))
+    before = viterbi_cuda.launches
+    got = viterbi_cuda.viterbi_states(em, lf, **kw)
+    assert viterbi_cuda.launches - before == 1
+    assert torch.equal(got, viterbi_cuda.viterbi_states_plain(em, lf, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(256, 3), (32, 7)])
+def test_residual_branch_without_additional_convs(c, k):
+    """K3 as SiFiGAN's filter network runs it (one conv a dilation, the
+    residual fused) at batch 2 and a ragged T, against the plain branch
+    (cuDNN without TF32): within 1e-4 of max(1, |ref|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((2, 1111, c), generator=g, device=dev)
+    w = torch.randn((3, c, c, k), generator=g, device=dev) / (k * c) ** 0.5
+    b = 0.1 * torch.randn((3, c), generator=g, device=dev)
+    args = dict(kernel_size=k, dilations=(1, 3, 5),
+                use_additional_convs=False)
+    before = resblock_cuda.launches
+    out = resblock_cuda.resblock_branch(x, w, b, w, b, **args)
+    assert resblock_cuda.launches - before == 1
+    ref = resblock_cuda.resblock_branch_plain(x, w, b, w, b, **args)
+    assert (out - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())

@@ -331,15 +331,16 @@ def test_midi_helpers_match_jax():
 
 
 def test_unported_backends_and_f0_fluc_are_refused():
-    """The Harvest and native backends are refused by name.  ``f0_fluc``
-    is no longer refused (the name is older than its port): the batch
-    path's is JAX's function of the port's own F0 track and within 2e-3 of
-    JAX's ``f0_fluc`` (their F0 tracks agree by ``assert_f0_agrees``)."""
+    """An unknown F0 backend is refused by name.  The Harvest and native
+    backends are no longer refused (the name is older than their port;
+    tests/test_torch_world.py holds them against JAX), nor is ``f0_fluc``:
+    the batch path's is JAX's function of the port's own F0 track and
+    within 2e-3 of JAX's ``f0_fluc`` (their F0 tracks agree by
+    ``assert_f0_agrees``)."""
     cfg = features.FeatureConfig.from_dict(FC)
-    for backend in ("harvest", "native", "harvest_native"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            features.extract_features("u", sung(0.5, 9), SR, cfg,
-                                      f0_backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="pyin"):
+        features.extract_features("u", sung(0.5, 9), SR, cfg,
+                                  f0_backend="pyin", device="cpu")
     items = [("u", sung(0.5, 9), SR, None)]
     got = features.extract_features_batch(items, cfg, with_f0_fluc=True,
                                           device="cpu")["u"]

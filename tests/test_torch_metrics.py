@@ -238,19 +238,39 @@ def test_pair_metrics_summarize_cosine_match_jax(jax_feats):
 def test_refused_by_name(case, tmp_path):
     wav = _wavs()[0]
     if case == "harvest":
-        with pytest.raises(NotImplementedError, match="harvest"):
-            metrics.extract_eval_feats(wav, SR, f0_backend="harvest",
+        # Harvest runs on the device, against JAX's evaluation with
+        # Harvest: vuv equal on every frame and F0 within 1e-5 relative
+        # (the Harvest rule of tests/test_torch_world.py), the
+        # mel-cepstrum by ``assert_feats_agree``; its F0 is that of
+        # ``harvest_f0`` on the bucket.  The host Harvest is refused by
+        # name, as JAX's evaluation takes device backends only
+        from serenade_tpu_torch.ops.harvest import harvest_f0
+
+        got = metrics.extract_eval_feats(wav, SR, f0_backend="harvest",
+                                         device="cpu")
+        want = jmetrics.extract_eval_feats(wav, SR, f0_backend="harvest")
+        np.testing.assert_array_equal(got["vuv"], want["vuv"])
+        assert 0.5 < (want["vuv"] > 0).mean() < 1
+        np.testing.assert_allclose(got["f0"], want["f0"], rtol=1e-5, atol=0)
+        assert_feats_agree(got, want)
+        wav_b, n = metrics._bucketed(wav, 120)
+        f0 = harvest_f0(torch.from_numpy(wav_b), fs=SR, f0_floor=70.0,
+                        f0_ceil=1100.0, frame_period_ms=5.0)[0].numpy()
+        np.testing.assert_array_equal(got["f0"], f0[:n])
+        with pytest.raises(ValueError, match="harvest_native"):
+            metrics.extract_eval_feats(wav, SR, f0_backend="harvest_native",
                                        device="cpu")
-        with pytest.raises(NotImplementedError, match="harvest"):
-            metrics.extract_eval_feats_batch([wav], SR, f0_backend="harvest",
-                                             device="cpu")
+        with pytest.raises(ValueError, match="harvest_native"):
+            metrics.extract_eval_feats_batch(
+                [wav], SR, f0_backend="harvest_native", device="cpu")
         for d in ("c", "t"):
             (tmp_path / d).mkdir()
             write_wav(str(tmp_path / d / "u.wav"), wav, SR)
-        with pytest.raises(NotImplementedError, match="harvest"):
+        with pytest.raises(SystemExit):
             pevaluate.main(["--converted-dir", str(tmp_path / "c"),
                             "--target-dir", str(tmp_path / "t"),
-                            "--f0-backend", "harvest", "--device", "cpu"])
+                            "--f0-backend", "harvest_native",
+                            "--device", "cpu"])
         return
     bad = np.zeros(0, np.float32) if case == "empty" else wav.copy()
     if case == "nan":

@@ -213,7 +213,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"trainers/distill.py", "bin/distill.py", "metrics.py",
             "bin/evaluate.py", "ops/world.py", "ops/sptk.py", "quantize.py",
             "deploy.py", "bin/export.py", "ops/custom_ops.py",
-            "ops/primitives.py"} <= walked
+            "ops/primitives.py", "ops/harvest.py", "ops/world_synth.py",
+            "utils/signal.py", "native.py", "sifigan/features.py",
+            "sifigan/generator.py", "sifigan/convert.py",
+            "bin/ssc_postprocessing.py"} <= walked
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     bad = {f"{p.relative_to(REPO)}: {root}" for p in files
@@ -273,6 +276,18 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         deploy.load("artifact")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Converter(dict(CFG, dtype="float32"), None, sc, quantize="int8")
+    from serenade_tpu_torch.bin import ssc_postprocessing
+    from serenade_tpu_torch.sifigan.features import world_mcep_bap
+    from serenade_tpu_torch.utils.signal import world_extract
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ssc_postprocessing.load_generator(ssc_postprocessing.DEFAULT_CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ssc_postprocessing.main(["--in-dir", "."])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        world_mcep_bap(wav, np.zeros(21, np.float32), 24000, 5.0, 39)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        world_extract(wav, 24000)
 
 
 @pytest.mark.parametrize("stats", [None, {"mean": np.zeros(80)},
