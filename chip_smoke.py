@@ -184,6 +184,33 @@ Phases, each printing JSON lines:
                h5); (e) the same with ``--f0-backend harvest_native
                --analysis-backend native`` (the host library, built by
                g++).
+16. vocoder -- the Griffin-Lim vocoder, the transcriber and vocoder
+               training (lines ``"phase": "vocoder"`` with ``"part"``
+               griffin_lim / transcriber / sifigan_extract /
+               train_hifigan / synthesis_hifigan / train_sifigan /
+               synthesis_sifigan, then ``"vocoder_done"``): (a) phase 3's
+               (1024, 512) request through ``Converter.from_expdir`` on a
+               tree written here whose ``vocoder:`` section is
+               ``conf/vocoder_griffin_lim.yaml`` (as JSON): wall, RTF, 60
+               K1 and 130 K2 a conversion, no K3, routed calls 0, the
+               waveform within 1e-3 of the CPU's Griffin-Lim peak; (b) the
+               transcriber at 229 mels x 768 from a seeded upstream-layout
+               ``midi_model.pt`` on phase 3b's 10.24 s source: the card's
+               notes and intervals equal to the CPU's, the logits' gap, one
+               Viterbi launch, then preprocessing with it (``bin/
+               preprocess.main --midi-model-ckpt`` where h5py is here,
+               else the extraction it runs); (c) ``bin/
+               sifigan_extract_features`` over phase 3b's waveforms, then
+               both vocoder families trained at the recipe's widths
+               (``conf/vocoder_hifigan.yaml``, ``conf/vocoder_sifigan.yaml``:
+               batch 16 x 32 frames) on the conv backend: no kernel
+               launch, every parameter's gradient nonzero, losses finite,
+               steps/s, peak memory, the profiled step's idle share; each
+               state saved by ``AsyncSaver`` and read back exactly, then
+               synthesis from the HiFiGAN directory through
+               ``load_vocoder`` (K3, within 1e-3 of the trained
+               generator's conv backend) and from the SiFiGAN directory
+               through ``postprocess_core`` (K3), routed calls 0.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -1063,7 +1090,23 @@ def device_time(torch, fn) -> dict:
     # cudaMemcpyAsync + cudaStreamSynchronize)
     syncs = {ev.key: ev.count for ev in prof.key_averages()
              if "Synchronize" in ev.key or ev.key == "cudaMemcpyAsync"}
+    # the device's timeline: its first kernel's start to its last one's
+    # end, and the time some kernel ran (kernels of libraries' side
+    # streams overlap, so their sum can exceed it)
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+    covered, reach = 0.0, None
+    for b, e in spans:
+        if reach is None or b > reach:
+            covered += e - b
+            reach = e
+        elif e > reach:
+            covered += e - reach
+            reach = e
     return {"device_busy_s": sum(us for us, _, _ in rows) / 1e6,
+            "device_span_s": (spans[-1][1] - spans[0][0]) / 1e6
+            if spans else 0.0,
+            "device_covered_s": covered / 1e6,
             "host_waits": syncs,
             "device_launches": sum(count for _, _, count in rows),
             "top": [{"kernel": key[:60], "ms": us / 1e3, "count": count}
@@ -4271,6 +4314,510 @@ def postprocess_path(torch, np, dev, counters, card, decoded):
     return bool(ok), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the Griffin-Lim vocoder, the transcriber, vocoder training
+# ---------------------------------------------------------------------------
+
+GL_REQUEST = (1024, 512)
+GL_REPS = 3                          # timed conversions
+# the upstream transcriber's config keys at full width (229 mels, 768 =
+# model_complexity 48 x 16); the phase's own seeded model, no released one
+MIDI_CONFIG = dict(n_mels=229, model_complexity=48, sample_rate=16000,
+                   win_length=2048, hop_length=320, fmin=30.0, fmax=8000.0,
+                   onset_threshold=0.5, offset_threshold=0.5,
+                   pitch_sum="median")
+VOC_WARMUP, VOC_TIMED = 2, 3         # GAN steps a family
+VOC_SYNTH_FRAMES = 1024              # a trained HiFiGAN's synthesis
+
+
+def _has(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def _write_yaml(path: str, obj) -> None:
+    """``obj`` as YAML by the port's writer of an experiment's
+    ``config.yml`` (its tuples as lists, through JSON)."""
+    from serenade_tpu_torch.config import dump_config
+
+    dump_config(json.loads(json.dumps(obj)), path)
+
+
+def gl_convert(torch, np, dev, counters, card):
+    """(a): phase 3's (1024, 512) request through ``Converter.from_expdir``
+    on a tree written here (the recipe's model, seeded weights as a port
+    checkpoint, ``config.yml`` whose ``vocoder:`` section names
+    ``conf/vocoder_griffin_lim.yaml``'s values and identity ``.npz``
+    statistics): wall and RTF over GL_REPS conversions, K1's and
+    K2's launches (60 and 130 a conversion), no K3 launch, nothing
+    routed; the waveform against the same Griffin-Lim on the CPU from the
+    card's mel, within 1e-3 of the CPU's peak."""
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.checkpoint import save_checkpoint
+    from serenade_tpu_torch.configs import GRIFFIN_LIM_CONFIG, serenade_config
+    from serenade_tpu_torch.models.serenade import Serenade
+    from serenade_tpu_torch.vocoder.vocoder import Vocoder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gl_")
+    try:
+        exp = os.path.join(root, "exp")
+        sc = _scaler(np)
+        np.savez(os.path.join(root, "stats.npz"), **{
+            f"{feat}_{k}": v for feat, d in sc.items() for k, v in d.items()})
+        np.savez(os.path.join(root, "voc_stats.npz"), mean=np.zeros(80),
+                 scale=np.ones(80))
+        _write_yaml(os.path.join(root, "vocoder_griffin_lim.yaml"),
+                    GRIFFIN_LIM_CONFIG)
+        params = serenade_config()
+        sd = _seeded_state_dict(torch, Serenade(**params), 160)
+        save_checkpoint(exp, 1, sd)
+        _write_yaml(os.path.join(exp, "config.yml"), {
+            "sampling_rate": SR, "model_type": "Serenade",
+            "model_params": params, "inference_n_timesteps": 10,
+            "vocoder": {
+                "config": os.path.join(root, "vocoder_griffin_lim.yaml"),
+                "stats": os.path.join(root, "voc_stats.npz")}})
+        t0 = time.time()
+        conv = Converter.from_expdir(exp, os.path.join(root, "stats.npz"),
+                                     seed=0, device=dev)
+        setup_s = time.time() - t0
+        rng = np.random.default_rng(16)
+        src = _features(np, rng, GL_REQUEST[0], False)
+        ref = _features(np, rng, GL_REQUEST[1], True)
+        conv.convert_features(src, ref)               # warm-up
+        torch.cuda.synchronize()
+        counters.reset()
+        walls = []
+        for _ in range(GL_REPS):
+            (mel, wav, sr), wall = _synced(
+                torch, lambda: conv.convert_features(src, ref))
+            walls.append(wall)
+        launches, routed = counters.read(), counters.routed()
+        # host-bound (32 iterations of small launches): timed on the wall
+        mel_dev = torch.from_numpy(mel[None]).to(dev)
+        voc_ms = 1e3 * min(_synced(torch, lambda: conv.vocoder.synthesize(
+            mel_dev))[1] for _ in range(3))
+        voc_prof = device_time(torch, lambda: (
+            conv.vocoder.synthesize(mel_dev), torch.cuda.synchronize()))
+        cpu = Vocoder.from_files("", os.path.join(
+            root, "vocoder_griffin_lim.yaml"), os.path.join(
+            root, "voc_stats.npz"), trg_stats=sc["logmel"], device="cpu")
+        want = cpu.decode(mel)[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    err = float(np.abs(wav - want).max())
+    scale = float(np.abs(want).max())
+    audio_s = GL_REQUEST[0] * HOP / SR
+    right = (type(conv.vocoder.model).__name__ == "GriffinLimSynth"
+             and sr == SR and wav.shape == (GL_REQUEST[0] * HOP,)
+             and bool(np.isfinite(wav).all()) and scale > 0)
+    counts_ok = (launches["flash_fwd"] == 60 * GL_REPS
+                 and launches["block1d_fwd"] == 130 * GL_REPS
+                 and all(v == 0 for k, v in launches.items()
+                         if k not in ("flash_fwd", "block1d_fwd"))
+                 and not any(routed.values()))
+    ok = bool(right and counts_ok and err <= 1e-3 * scale)
+    emit({"phase": "vocoder", "part": "griffin_lim", "card": card,
+          "request": list(GL_REQUEST), "setup_s": setup_s, "walls_s": walls,
+          "rtf": sum(walls) / len(walls) / audio_s,
+          "griffin_lim_wall_ms": voc_ms,
+          "griffin_lim_device_busy_ms": 1e3 * voc_prof["device_busy_s"],
+          "griffin_lim_device_launches": voc_prof["device_launches"],
+          "n_iter": 32, "launches": launches,
+          "routed": routed, "wav_max_abs_err": err, "wav_scale": scale,
+          "tol": 1e-3, "ok": ok})
+    return ok, launches
+
+
+def transcriber_run(torch, np, dev, counters, card):
+    """(b): the transcriber at 229 mels x 768 from a seeded
+    ``midi_model.pt`` in the upstream layout (its output layer scaled and
+    centred on this source's median logits, so its tracks cross the
+    decoder's thresholds), on phase 3b's 10.24 s source: the card's notes
+    and intervals equal to the CPU's, the frame logits' gap, the wall;
+    then ``bin/preprocess.main --midi-model-ckpt`` over that waveform
+    (``features.extract_features_batch`` with the transcriber where the
+    machine has no h5py or pyyaml to read and write the recipe's files),
+    its score from the transcriber."""
+    from serenade_tpu_torch.modules.phoneme_midi.convert import (
+        to_upstream_state_dict,
+    )
+    from serenade_tpu_torch.modules.phoneme_midi.model import (
+        TranscriptionModel, load_transcriber, mel_db_frontend,
+    )
+    from serenade_tpu_torch.utils.audio import resample
+
+    cfg = MIDI_CONFIG
+    source = feature_wavs(np)[2]                       # the 10.24 s one
+    model = TranscriptionModel(cfg["n_mels"], cfg["model_complexity"] * 16)
+    model.load_state_dict(_seeded_state_dict(torch, model, 161))
+    model = model.to(dev).eval()
+    wav16 = resample(source, SR, cfg["sample_rate"])
+    args = (cfg["sample_rate"], cfg["win_length"], cfg["hop_length"],
+            cfg["n_mels"], cfg["fmin"], cfg["fmax"])
+    mel = mel_db_frontend(torch.from_numpy(wav16), *args)
+    with torch.no_grad():
+        model.combined_fc.weight.mul_(20.0)
+        logits = model(mel[None].to(dev))[0]
+        model.combined_fc.bias.sub_(logits.median(dim=0).values)
+    root = tempfile.mkdtemp(prefix="chip_smoke_midi_")
+    try:
+        ckpt = os.path.join(root, "midi_model.pt")
+        torch.save({"config": cfg, "model_state_dict": to_upstream_state_dict(
+            {k: v.cpu() for k, v in model.state_dict().items()})}, ckpt)
+        fns = {"card": load_transcriber(ckpt, device=dev),
+               "cpu": load_transcriber(ckpt, device="cpu")}
+        with torch.no_grad():
+            gap = float((fns["card"].model(mel[None].to(dev)).cpu()
+                         - fns["cpu"].model(mel[None])).abs().max())
+        fns["card"](source, SR)                        # warm-up
+        counters.reset()
+        card_out, wall = _synced(torch, lambda: fns["card"](source, SR))
+        launches = counters.read()
+        cpu_out = fns["cpu"](source, SR)
+        pre = preprocess_with_transcriber(np, root, ckpt, source, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    right = card_out == cpu_out and len(card_out[0]) > 0
+    ok = bool(right and launches["viterbi_f0"] == 1 and pre["ok"])
+    emit({"phase": "vocoder", "part": "transcriber", "card": card,
+          "n_mels": cfg["n_mels"], "model_size": cfg["model_complexity"] * 16,
+          "audio_s": len(source) / SR, "wall_s": wall,
+          "s_per_audio_s": wall / (len(source) / SR),
+          "notes": len(card_out[0]), "notes_equal": card_out == cpu_out,
+          "logits_max_abs_gap": gap, "launches": launches,
+          "preprocess": pre, "ok": ok})
+    return ok
+
+
+def preprocess_with_transcriber(np, root, ckpt, source, dev):
+    """``bin/preprocess.main --midi-model-ckpt`` over ``source`` (a wav.scp
+    of one file, the feature config as YAML, no ContentVec), or, without
+    h5py and pyyaml here, the extraction it runs: the dumped score must
+    differ from F0 note segmentation's."""
+    from serenade_tpu_torch.configs import FEATURE_CONFIG
+    from serenade_tpu_torch.features import (
+        FeatureConfig, extract_features_batch,
+    )
+    from serenade_tpu_torch.modules.phoneme_midi.model import load_transcriber
+
+    fc = FeatureConfig.from_dict(FEATURE_CONFIG)
+    plain = extract_features_batch([("u0", source, SR, None)], fc,
+                                   device=dev)["u0"]
+    t0 = time.time()
+    if _has("h5py") and _has("yaml"):
+        from serenade_tpu_torch.bin import preprocess
+        from serenade_tpu_torch.utils.audio import write_wav
+        from serenade_tpu_torch.utils.h5 import read_hdf5
+
+        write_wav(os.path.join(root, "u0.wav"), source, SR)
+        with open(os.path.join(root, "wav.scp"), "w") as f:
+            f.write(f"u0 {os.path.join(root, 'u0.wav')}\n")
+        _write_yaml(os.path.join(root, "conf.yml"), FEATURE_CONFIG)
+        preprocess.main(["--wav-scp", os.path.join(root, "wav.scp"),
+                         "--dumpdir", os.path.join(root, "dump"), "--config",
+                         os.path.join(root, "conf.yml"),
+                         "--midi-model-ckpt", ckpt,
+                         "--allow-missing-hubert", "true", "--device",
+                         str(dev), "--verbose", "0"])
+        midi = read_hdf5(os.path.join(root, "dump", "u0.h5"), "midi")
+        route = "preprocess.main"
+    else:
+        feats = extract_features_batch(
+            [("u0", source, SR, None)], fc, device=dev,
+            midi_transcribe_fn=load_transcriber(ckpt, device=dev))["u0"]
+        midi = None if feats is None else feats["midi"]
+        route = "extract_features_batch"
+    ok = (midi is not None and plain is not None
+          and midi.shape == plain["midi"].shape
+          and not np.array_equal(midi, plain["midi"]))
+    return {"route": route, "wall_s": time.time() - t0,
+            "frames": None if midi is None else int(midi.shape[0]),
+            "ok": bool(ok)}
+
+
+def _recording_grads(torch, opt, seen):
+    """``opt`` recording, at its first update, whether each gradient
+    has a nonzero element."""
+    update = opt.update
+
+    def recorded(params, grads, state):
+        if not seen:
+            seen.update({n: bool(torch.count_nonzero(g)) for n, g in
+                         grads.items()})
+        return update(params, grads, state)
+
+    opt.update = recorded
+
+
+def _train_family(torch, np, dev, counters, card, family, items):
+    """One family's GAN steps at the recipe's widths: VOC_WARMUP steps,
+    then VOC_TIMED synchronised ones, one profiled; returns (entry, the
+    generator, the discriminator, the state)."""
+    from serenade_tpu_torch.bin import vocoder_train as ptrain
+    from serenade_tpu_torch.configs import (
+        SIFIGAN_TRAIN_CONFIG, VOCODER_TRAIN_CONFIG,
+    )
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.trainers import vocoder_trainer as vt
+    from serenade_tpu_torch.vocoder.losses import residual_loss
+
+    config = (VOCODER_TRAIN_CONFIG if family == "hifigan"
+              else SIFIGAN_TRAIN_CONFIG)
+    gen, hop = ptrain.build_generator(config, family)
+    disc = ptrain.build_discriminator(
+        "univnet" if family == "sifigan" else "msd_mpd")
+    init_params_(gen, 0)
+    init_params_(disc, 1)
+    gen.to(dev).train()
+    disc.to(dev).train()
+    gopt, dopt = (vt.adamw_chain(float(config["gen_lr"])),
+                  vt.adamw_chain(float(config["disc_lr"])))
+    seen_g, seen_d = {}, {}
+    _recording_grads(torch, gopt, seen_g)
+    _recording_grads(torch, dopt, seen_d)
+    state = vt.create_vocoder_state(gen, disc, gopt, dopt)
+    kw = dict(sampling_rate=SR, lambda_adv=config["lambda_adv"],
+              lambda_fm=config["lambda_fm"], lambda_mel=config["lambda_mel"])
+    rng = np.random.default_rng(int(config["seed"]))
+    batch, frames = config["vocoder_batch_size"], config["segment_frames"]
+    if family == "sifigan":
+        kw.update(lambda_reg=config["lambda_reg"],
+                  gen_forward=vt.sifigan_forward(gen, with_excitation=True),
+                  reg_loss_fn=lambda aux, b: residual_loss(
+                      aux, b["wav"], b["cf0"], sampling_rate=SR,
+                      hop_size=hop))
+
+        def sample():
+            return vt.sample_sifigan_segments(items, rng, batch, frames, hop)
+    else:
+        def sample():
+            return vt.sample_mel_wav_segments(items, rng, batch, frames, hop)
+    step = vt.build_vocoder_train_step(gen, disc, gopt, dopt, **kw)
+    batches = [vt.batch_to_device(sample(), dev)
+               for _ in range(VOC_WARMUP + VOC_TIMED + 1)]
+    metrics_seen = []
+    counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    first_s = []
+    for b in batches[:VOC_WARMUP]:
+        (state, m), s = _synced(torch, lambda: step(state, b))
+        first_s.append(s)
+        metrics_seen.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[VOC_WARMUP:VOC_WARMUP + VOC_TIMED]:
+        state, m = step(state, b)
+        metrics_seen.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    # idle: the profiled step's timeline where no kernel runs (its kernels'
+    # sum exceeds both the span and the unprofiled wall: some overlap)
+    prof = device_time(torch, lambda: (step(state, batches[-1]),
+                                       torch.cuda.synchronize()))
+    launches = counters.read()
+    finite = all(bool(torch.isfinite(v)) for m in metrics_seen
+                 for v in m.values())
+    grads_ok = (len(seen_g) == len(state.gen_params) and all(seen_g.values())
+                and len(seen_d) == len(state.disc_params)
+                and all(seen_d.values()))
+    per_step = wall / VOC_TIMED
+    entry = {"phase": "vocoder", "part": f"train_{family}", "card": card,
+             "batch": [batch, frames], "samples": frames * hop,
+             "generator_params": sum(p.numel() for p in gen.parameters()),
+             "discriminator_params": sum(p.numel()
+                                         for p in disc.parameters()),
+             "first_steps_s": first_s, "step_s": per_step,
+             "steps_per_s": 1.0 / per_step, "peak_bytes": peak,
+             "device_busy_s": prof["device_busy_s"],
+             "device_span_s": prof["device_span_s"],
+             "device_covered_s": prof["device_covered_s"],
+             "device_idle_share": 1.0 - prof["device_covered_s"] / max(
+                 prof["device_span_s"], 1e-9),
+             "top": prof["top"][:5],
+             "metrics": {k: float(v) for k, v in metrics_seen[-1].items()},
+             "finite": finite,
+             "zero_grad_params": [n for n, v in list(seen_g.items())
+                                  + list(seen_d.items()) if not v],
+             "launches": launches,
+             "ok": bool(finite and grads_ok
+                        and not any(launches.values()))}
+    return entry, gen, disc, state
+
+
+def vocoder_train(torch, np, dev, counters, card):
+    """(c): both families trained at the recipe's widths
+    (``conf/vocoder_hifigan.yaml``: 512 channels, upsample (8, 6, 5),
+    batch 16 x 32 frames, multi-scale + multi-period; and
+    ``conf/vocoder_sifigan.yaml``: 512, (5, 4, 3, 2), in 43, UnivNet +
+    multi-period, the residual loss at lambda 1), on the conv backend: no
+    kernel launches, every parameter of both networks with a nonzero
+    gradient, every loss finite; steps/s, peak memory, the idle share.
+    The SiFiGAN's streams come from ``sifigan_extract_features`` over
+    phase 15's waveforms (``main`` where h5py is here, its
+    ``extract_core`` otherwise), the HiFiGAN's log-mels from the same
+    waveforms.  Each trained state is saved by ``AsyncSaver`` and read
+    back exactly; then synthesis from the HiFiGAN directory through
+    ``load_vocoder`` and from the SiFiGAN directory through
+    ``postprocess_core``, on the fused backend: K3 launched, nothing
+    routed, the HiFiGAN's waveform within 1e-3 of its peak of the
+    trained (conv backend) generator's.  Returns (ok, the training's
+    launches, the synthesis launches)."""
+    from serenade_tpu_torch.bin import sifigan_extract_features as extract
+    from serenade_tpu_torch.bin import ssc_postprocessing as post
+    from serenade_tpu_torch.bin.vocoder_train import vocoder_checkpoint
+    from serenade_tpu_torch.checkpoint import AsyncSaver, restore_checkpoint
+    from serenade_tpu_torch.configs import FEATURE_CONFIG
+    from serenade_tpu_torch.ops.mel import logmelfilterbank
+
+    wavs = feature_wavs(np)
+    root = tempfile.mkdtemp(prefix="chip_smoke_voc_")
+    ok, train_launches, synth = True, {}, {}
+    try:
+        t0 = time.perf_counter()
+        if _has("h5py"):
+            from serenade_tpu_torch.utils.audio import write_wav
+
+            lines = []
+            for i, w in enumerate(wavs):
+                path = os.path.join(root, f"u{i}.wav")
+                write_wav(path, w, SR)
+                lines.append(f"u{i} {path}\n")
+            with open(os.path.join(root, "wav.scp"), "w") as f:
+                f.writelines(lines)
+            extract.main(["--wav-scp", os.path.join(root, "wav.scp"),
+                          "--dumpdir", os.path.join(root, "feats"),
+                          "--device", str(dev), "--verbose", "0"])
+            items = extract.load_precomputed(os.path.join(root, "feats"))
+            route = "main"
+        else:
+            items = [f for _, f in extract.extract_core(
+                ((f"u{i}", (w, SR)) for i, w in enumerate(wavs)),
+                device=dev)]
+            route = "extract_core"
+        extract_s = time.perf_counter() - t0
+        streams_ok = (len(items) == len(wavs) and all(
+            it["sine"].shape[0] == it["c"].shape[0] * 120
+            and it["c"].shape[1] == 43 and np.isfinite(it["c"]).all()
+            for it in items))
+        emit({"phase": "vocoder", "part": "sifigan_extract", "route": route,
+              "wavs": len(wavs), "audio_s": sum(len(w) for w in wavs) / SR,
+              "wall_s": extract_s, "ok": bool(streams_ok)})
+        ok &= streams_ok
+        fc = FEATURE_CONFIG
+        mels = [{"logmel": logmelfilterbank(
+            torch.from_numpy(w).to(dev), SR, fft_size=fc["fft_size"],
+            hop_size=fc["hop_size"], win_length=fc["win_length"],
+            num_mels=fc["num_mels"], fmin=fc["fmin"], fmax=fc["fmax"],
+            eps=fc["eps"]).cpu().numpy(), "wave": w} for w in wavs]
+
+        saver = AsyncSaver()
+        for family, data in (("hifigan", mels), ("sifigan", items)):
+            entry, gen, disc, state = _train_family(
+                torch, np, dev, counters, card, family, data)
+            train_launches[family] = entry["launches"]
+            t0 = time.perf_counter()
+            path = saver.save(os.path.join(root, family), state.step,
+                              *vocoder_checkpoint(state))
+            entry["save_blocked_s"] = time.perf_counter() - t0
+            saver.wait()
+            back = restore_checkpoint(path)
+            exact = all(torch.equal(back["params"][net][k].to(dev), v)
+                        for net, live in (("generator", state.gen_params),
+                                          ("discriminator",
+                                           state.disc_params))
+                        for k, v in live.items())
+            entry["restored_exactly"] = exact
+            entry["ok"] = bool(entry["ok"] and exact)
+            emit(entry)
+            ok &= entry["ok"]
+            del disc, state
+            if family == "hifigan":
+                ok &= _hifigan_synthesis(torch, np, dev, counters, card,
+                                         path, gen, synth)
+            else:
+                ok &= _sifigan_synthesis(torch, np, dev, counters, card,
+                                         path, post, wavs, synth)
+            del gen
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return bool(ok), train_launches, synth
+
+
+def _hifigan_synthesis(torch, np, dev, counters, card, path, gen, synth):
+    """A trained HiFiGAN directory through ``load_vocoder`` into a
+    ``Vocoder`` (identity statistics, the fused backend)."""
+    from serenade_tpu_torch.configs import VOCODER_TRAIN_CONFIG
+    from serenade_tpu_torch.vocoder.vocoder import Vocoder, load_vocoder
+
+    ident = {"mean": np.zeros(80), "scale": np.ones(80)}
+    voc = Vocoder(VOCODER_TRAIN_CONFIG, load_vocoder(
+        path, VOCODER_TRAIN_CONFIG), ident, take_norm_feat=False,
+        device=dev)
+    mel = np.random.default_rng(17).normal(
+        size=(VOC_SYNTH_FRAMES, 80)).astype(np.float32) - 3.0
+    voc.decode(mel)                                    # warm-up
+    counters.reset()
+    (y, _), wall = _synced(torch, lambda: voc.decode(mel))
+    launches, routed = counters.read(), counters.routed()
+    gen.eval()
+    with torch.no_grad():
+        want = gen(torch.from_numpy(mel[None]).to(dev))[0, :, 0].cpu(
+            ).numpy()
+    err, scale = float(np.abs(y - want).max()), float(np.abs(want).max())
+    right = (y.shape == (VOC_SYNTH_FRAMES * HOP,)
+             and bool(np.isfinite(y).all()) and scale > 0)
+    ok = bool(right and launches["resblock_branch"] > 0
+              and not any(routed.values()) and err <= 1e-3 * scale)
+    synth["hifigan"] = launches
+    emit({"phase": "vocoder", "part": "synthesis_hifigan", "card": card,
+          "frames": VOC_SYNTH_FRAMES, "wall_s": wall,
+          "rtf": wall / (VOC_SYNTH_FRAMES * HOP / SR), "launches": launches,
+          "routed": routed, "wav_max_abs_err_vs_conv_backend": err,
+          "wav_scale": scale, "tol": 1e-3, "ok": ok})
+    return ok
+
+
+def _sifigan_synthesis(torch, np, dev, counters, card, path, post, wavs,
+                       synth):
+    """A trained SiFiGAN directory through stage 9's ``load_generator``
+    and ``postprocess_core`` (``--anasyn``) over phase 15's waveforms."""
+    model = post.load_generator(post.DEFAULT_CONFIG, path, device=dev)
+    utts = [{"key": f"u{i}", "wav": w, "lf0": None,
+             "f0_range": (130, 660)} for i, w in enumerate(wavs)]
+    counters.reset()
+    outs, wall = _synced(torch, lambda: list(post.postprocess_core(
+        model, utts, post.DEFAULT_CONFIG, anasyn=True, device=dev)))
+    launches, routed = counters.read(), counters.routed()
+    right = (len(outs) == len(utts)
+             and all(bool(np.isfinite(w).all()) and w.shape[0] > 0
+                     for _, _, w in outs))
+    ok = bool(right and launches["resblock_branch"] > 0
+              and not any(routed.values()))
+    synth["sifigan"] = launches
+    emit({"phase": "vocoder", "part": "synthesis_sifigan", "card": card,
+          "utterances": len(utts), "wall_s": wall,
+          "audio_s": sum(len(w) for w in wavs) / SR, "launches": launches,
+          "routed": routed, "ok": ok})
+    return ok
+
+
+def vocoder_path(torch, np, dev, counters, card):
+    """Phase 16.  Returns (ok, the launches of (a), of (c)'s training and
+    of (c)'s syntheses)."""
+    t0 = time.time()
+    ok, gl_launches = gl_convert(torch, np, dev, counters, card)
+    ok &= transcriber_run(torch, np, dev, counters, card)
+    train_ok, train_launches, synth = vocoder_train(torch, np, dev,
+                                                    counters, card)
+    ok &= train_ok
+    emit({"phase": "vocoder_done", "seconds": time.time() - t0,
+          "ok": bool(ok)})
+    return bool(ok), gl_launches, train_launches, synth
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -4492,6 +5039,15 @@ def main() -> int:
     ok &= post_ok
     for name in entries:
         entries[name]["postprocess_launches"] = launches[name]
+    voc_ok, gl_launches, train_launches, synth = vocoder_path(
+        torch, np, dev, counters, card)
+    ok &= voc_ok
+    for name in entries:
+        entries[name]["griffin_lim_launches"] = gl_launches[name]
+        entries[name]["vocoder_train_launches"] = {
+            f: v[name] for f, v in train_launches.items()}
+        entries[name]["vocoder_synthesis_launches"] = {
+            f: v[name] for f, v in synth.items()}
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

@@ -200,9 +200,9 @@ class Converter:
         with the weights quantized as ``quantize`` says (see ``__init__``).
         ``n_timesteps`` and ``solver`` default to the config's
         ``inference_n_timesteps`` / ``inference_solver``, else Euler-10.
-        Needs ``pyyaml``, ``h5py`` for the vocoder's statistics and
-        ``joblib`` for a ``stats.joblib``.  Runs on CUDA unless ``device``
-        says otherwise."""
+        Needs ``pyyaml``, ``h5py`` for the vocoder's statistics unless
+        they are an ``.npz``, and ``joblib`` for a ``stats.joblib``.  Runs on CUDA unless ``device`` says
+        otherwise."""
         from serenade_tpu_torch.checkpoint import find_latest_checkpoint
         from serenade_tpu_torch.config import load_config
         from serenade_tpu_torch.utils.scalers import load_stats

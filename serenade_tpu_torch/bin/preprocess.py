@@ -13,9 +13,11 @@ card unless ``--device cpu``.  ``--contentvec-ckpt`` is a ``.pt`` Hugging
 Face ``HubertModel`` state dict; without it, ``--allow-missing-hubert
 true`` dumps everything but ``hubert``.  ``--f0-backend jax`` is plain
 YIN, ``harvest`` Harvest on the device, ``native`` and ``harvest_native``
-YIN and Harvest on the host (``native.py``); ``--midi-model-ckpt`` (the
-phoneme-MIDI transcriber) is refused by name.  Needs pyyaml for the
-config and the F0 table, and h5py for the dumps.
+YIN and Harvest on the host (``native.py``); ``--midi-model-ckpt`` (an
+upstream ``midi_model.pt``) takes the estimated score from the
+phoneme-MIDI transcriber (``modules/phoneme_midi``) in place of F0 note
+segmentation.  Needs pyyaml for the config and the F0 table, and h5py for
+the dumps.
 
 The module also holds ``make_content_fn``, the content function that
 feature extraction and the raw-audio serving path call.
@@ -173,8 +175,8 @@ def build_argparser():
                    help=".pt Hugging Face HubertModel state dict "
                         "(ContentVec)")
     p.add_argument("--midi-model-ckpt", default=None,
-                   help="refused: the phoneme-MIDI transcriber is not "
-                        "ported")
+                   help="phoneme-MIDI transcriber checkpoint (upstream "
+                        "midi_model.pt; optional)")
     p.add_argument("--allow-missing-hubert", type=str2bool, default=False)
     p.add_argument("--f0-backend", choices=F0_BACKENDS,
                    default="viterbi",
@@ -233,10 +235,6 @@ def run(args, with_f0_fluc: bool):
     from serenade_tpu_torch.utils.h5 import write_hdf5
 
     setup_logging(args.verbose)
-    if args.midi_model_ckpt:
-        raise SystemExit("--midi-model-ckpt: the phoneme-MIDI transcriber "
-                         "is not ported (ROADMAP Queue A, item 6); the "
-                         "score comes from F0 note segmentation")
     backend = "yin" if args.f0_backend == "jax" else args.f0_backend
     check_f0_backend(backend)
     if args.contentvec_ckpt is None and not args.allow_missing_hubert:
@@ -254,6 +252,11 @@ def run(args, with_f0_fluc: bool):
     gt_map = load_gt_note_map(args.midi_path)
     content_fn = (make_content_fn(args.contentvec_ckpt, device=dev)
                   if args.contentvec_ckpt else None)
+    midi_fn = None
+    if args.midi_model_ckpt:
+        from serenade_tpu_torch.modules.phoneme_midi import load_transcriber
+
+        midi_fn = load_transcriber(args.midi_model_ckpt, device=dev)
     batch_size = max(int(args.batch_size or 1), 1)
     n_done = 0
 
@@ -263,7 +266,8 @@ def run(args, with_f0_fluc: bool):
             return
         results = extract_features_batch(
             pending, fc, f0_table=f0_table, content_fn=content_fn,
-            with_f0_fluc=with_f0_fluc, f0_backend=backend,
+            midi_transcribe_fn=midi_fn, with_f0_fluc=with_f0_fluc,
+            f0_backend=backend,
             max_group=batch_size, device=dev)
         for utt_id, _, _, _ in pending:
             feats = results.get(utt_id)

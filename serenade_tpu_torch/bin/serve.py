@@ -114,7 +114,8 @@ def build_argparser():
                    help=".pt state dict of the generator (default: random "
                         "weights from seed 1)")
     p.add_argument("--vocoder-stats", default=None,
-                   help=".npz with mean and scale; turns the vocoder on")
+                   help=".npz (or stats.h5) with mean and scale; turns "
+                        "the vocoder on")
     p.add_argument("--ref-dict", default=None,
                    help="JSON: style name -> .npz of reference features "
                         "or an h5 dump, each registered on the device at "
@@ -222,6 +223,7 @@ def _converter(args):
     from serenade_tpu_torch import configs
     from serenade_tpu_torch.api import Converter
     from serenade_tpu_torch.utils.scalers import load_stats
+    from serenade_tpu_torch.vocoder.vocoder import read_vocoder_stats
 
     if not args.stats:
         raise SystemExit("need --stats (or --artifact)")
@@ -248,13 +250,11 @@ def _converter(args):
                          "--vocoder-stats (the vocoder's mean and scale)")
     extra = {}
     if args.vocoder_stats:
-        with np.load(args.vocoder_stats) as z:
-            stats = {"mean": z["mean"], "scale": z["scale"]}
         extra = dict(
             vocoder_config=_json(args.vocoder_config, configs.VOCODER_CONFIG),
             vocoder_params=_state_dict(args.vocoder_params, "vocoder params",
                                        1),
-            vocoder_stats=stats)
+            vocoder_stats=read_vocoder_stats(args.vocoder_stats))
     if args.contentvec_ckpt:
         extra.update(contentvec_config=configs.CONTENTVEC_CONFIG,
                      contentvec_params=args.contentvec_ckpt)

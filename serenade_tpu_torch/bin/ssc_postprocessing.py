@@ -19,11 +19,14 @@ reads, on arrays; ``main`` reads the wavs, the lf0 h5s (h5py), the YAML
 config (pyyaml) and the aux scalers (joblib), each imported where it is
 read.
 
-Refused by name: a checkpoint directory (a SiFiGAN from
-``serenade-vocoder-train``, whose training is not ported, ROADMAP Queue A
-item 7, or any other Orbax directory, item 8).  A ``--checkpoint-path``
-or ``--stats`` that does not exist is an error, where the JAX CLI falls
-back to random weights or no scaler.
+``--checkpoint-path`` is a released SiFiGAN ``.pkl`` or a
+``checkpoint-<N>steps`` directory of the port's vocoder trainer
+(``bin/vocoder_train.py --vocoder-type sifigan``), whose generator was
+trained on raw mcep/bap (give no ``--stats`` unless it was trained with
+that normalization).  Refused by name: an Orbax directory of the JAX
+package (``checkpoint.py``; its parameters cross through the param
+bridge).  A ``--checkpoint-path`` or ``--stats`` that does not exist is
+an error, where the JAX CLI falls back to random weights or no scaler.
 """
 
 from __future__ import annotations
@@ -152,20 +155,21 @@ def build_generator(config: Dict):
 def load_generator(config: Dict, checkpoint: Optional[str] = None,
                    device=None):
     """The generator on ``device`` (the card unless named), in eval mode,
-    f32 as JAX's CLI runs it: from a released SiFiGAN ``.pkl``, or random
-    weights from seed 0 without a checkpoint.  A checkpoint directory is
-    refused by name."""
+    f32 as JAX's CLI runs it: from a released SiFiGAN ``.pkl``, from a
+    checkpoint directory of ``bin/vocoder_train.py``, or random weights
+    from seed 0 without a checkpoint.  An Orbax directory is refused by
+    name (``checkpoint.restore_checkpoint``)."""
     dev = resolve_device(device)
     model = build_generator(config)
     if checkpoint is None:
         init_params_(model, 0)
         logger.warning("using RANDOM SiFiGAN weights (no checkpoint)")
     elif os.path.isdir(checkpoint):
-        raise NotImplementedError(
-            f"--checkpoint-path {checkpoint} is a directory: a SiFiGAN "
-            "checkpoint of serenade-vocoder-train (vocoder training is not "
-            "ported, ROADMAP Queue A item 7) or another Orbax directory "
-            "(refused, item 8); give a released SiFiGAN .pkl")
+        from serenade_tpu_torch.checkpoint import restore_generator_params
+
+        model.load_state_dict(restore_generator_params(checkpoint),
+                              strict=True)
+        logger.info("loaded the trained SiFiGAN checkpoint %s", checkpoint)
     elif not os.path.exists(checkpoint):
         raise FileNotFoundError(f"no SiFiGAN checkpoint {checkpoint}")
     else:
@@ -350,8 +354,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "absent")
     p.add_argument("--checkpoint-path", default=None,
                    help="a released SiFiGAN torch .pkl (converted on the "
-                        "fly); seeded random weights when absent (smoke and "
-                        "testing only); a directory is refused")
+                        "fly) or a checkpoint directory of vocoder_train "
+                        "--vocoder-type sifigan; seeded random weights when "
+                        "absent (smoke and testing only)")
     p.add_argument("--f0-backend", default="harvest", choices=F0_BACKENDS,
                    help="re-analysis F0: Harvest (the reference's), "
                         "'harvest_native' on the host, or YIN + Viterbi")
@@ -410,6 +415,12 @@ def main(argv=None):
     dev = resolve_device(args.device)
     model = load_generator(config, args.checkpoint_path, device=dev)
     scaler = None
+    if args.stats and args.checkpoint_path and os.path.isdir(
+            args.checkpoint_path):
+        logger.warning(
+            "--stats given with a trained checkpoint directory: the trainer "
+            "conditions on raw mcep/bap (no scaler); a released model's "
+            "scaler mis-scales the aux features")
     if args.stats:
         if not os.path.exists(args.stats):
             raise FileNotFoundError(f"no aux-feature stats {args.stats}")

@@ -90,19 +90,14 @@ def _refuse(args, config) -> None:
 
 
 def _vocoder(config, scaler, device):
-    """The eval samples' vocoder from the config's ``vocoder:`` section,
-    with the logmel scaler as its target statistics; None (mel-only
-    samples) where it cannot be built."""
+    """The eval samples' vocoder from the config's ``vocoder:`` section
+    (HiFiGAN or Griffin-Lim), with the logmel scaler as its target
+    statistics; None (mel-only samples) where it cannot synthesize."""
     from serenade_tpu_torch.utils.scalers import scaler_dicts
     from serenade_tpu_torch.vocoder.vocoder import vocoder_from_section
 
-    try:
-        return vocoder_from_section(config.get("vocoder"),
-                                    scaler_dicts(scaler)["logmel"],
-                                    device=device)
-    except NotImplementedError as exc:
-        logging.warning("eval samples will be mel-only: %s", exc)
-        return None
+    return vocoder_from_section(config.get("vocoder"),
+                                scaler_dicts(scaler)["logmel"], device=device)
 
 
 def main(argv=None, dataset_name: str = DEFAULT_DATASET):

@@ -4,7 +4,10 @@ The same step-named directories as the JAX package,
 ``<root>/checkpoint-<steps>steps``, found by step number.  Each holds one
 ``torch.save`` file, ``checkpoint.pt``: ``{"params": <state dict of the
 port's model>, "opt_state": <the optimizer's state, keyed by parameter
-name (trainers.train_step.Optimizer)>, "meta": {"step", "epochs"}}``,
+name (trainers.train_step.Optimizer)>, "meta": {"step", "epochs", and
+what the caller adds}}`` (a vocoder checkpoint holds ``{"generator",
+"discriminator"}`` state dicts under each of ``params`` and
+``opt_state``, and its segment sampler's state under ``meta``),
 written synchronously or by :class:`AsyncSaver`.  An Orbax
 directory written by the JAX package cannot be read without JAX: it is
 refused by name, and its params cross through the param bridge
@@ -30,11 +33,12 @@ def _ckpt_dir(root: str, step: int) -> str:
     return os.path.join(os.path.abspath(root), f"checkpoint-{step}steps")
 
 
-def _ckpt_state(step: int, params, opt_state, epochs: int) -> dict:
+def _ckpt_state(step: int, params, opt_state, epochs: int,
+                meta: Optional[dict] = None) -> dict:
     state = {"params": dict(params)}
     if opt_state is not None:
         state["opt_state"] = opt_state
-    state["meta"] = {"step": int(step), "epochs": int(epochs)}
+    state["meta"] = dict(meta or {}, step=int(step), epochs=int(epochs))
     return state
 
 
@@ -116,13 +120,14 @@ class AsyncSaver:
             self._error = exc
 
     def save(self, root: str, step: int, params, opt_state=None,
-             epochs: int = 0) -> str:
-        """Start saving ``params`` and ``opt_state`` under
-        ``<root>/checkpoint-<step>steps``; returns that directory."""
+             epochs: int = 0, meta: Optional[dict] = None) -> str:
+        """Start saving ``params``, ``opt_state`` and the entries of
+        ``meta`` under ``<root>/checkpoint-<step>steps``; returns that
+        directory."""
         self.wait()
         path = _ckpt_dir(root, step)
         snap, done = self._snapshot(
-            _ckpt_state(step, params, opt_state, epochs))
+            _ckpt_state(step, params, opt_state, epochs, meta))
         self._thread = threading.Thread(target=self._commit,
                                         args=(path, snap, done),
                                         name="ckpt-commit")
@@ -160,6 +165,17 @@ def restore_checkpoint(path: str) -> dict:
 def restore_params_only(path: str) -> dict:
     """The ``params`` state dict of a checkpoint."""
     return restore_checkpoint(path)["params"]
+
+
+def restore_generator_params(path: str) -> dict:
+    """The generator's state dict of a vocoder checkpoint of
+    ``bin/vocoder_train.py``, whose ``params`` hold ``{"generator",
+    "discriminator"}`` (the JAX trainer's layout)."""
+    params = restore_checkpoint(path)["params"]
+    if "generator" not in params:
+        raise KeyError(f"{path} is not a vocoder checkpoint (no generator "
+                       "under its params)")
+    return params["generator"]
 
 
 def find_latest_checkpoint(root: str) -> Optional[str]:

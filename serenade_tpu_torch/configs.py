@@ -46,6 +46,35 @@ VOCODER_CONFIG = {
     },
 }
 
+# egs/gtsinger/ssc1/conf/vocoder_griffin_lim.yaml: the checkpoint-free
+# vocoder of the full-budget configs (serenade_fullbudget.yaml:33)
+GRIFFIN_LIM_CONFIG = {
+    "sampling_rate": 24000,
+    "generator_type": "GriffinLim",
+    "generator_params": {"fft_size": 512, "hop_size": 240, "win_length": 480,
+                         "num_mels": 80, "fmin": 63, "fmax": 12000,
+                         "n_iter": 32, "log_base": 10.0},
+}
+
+# the training keys of egs/gtsinger/ssc1/conf/vocoder_hifigan.yaml and
+# vocoder_sifigan.yaml that ``bin/vocoder_train.py`` reads
+VOCODER_TRAIN_CONFIG = dict(
+    VOCODER_CONFIG, segment_frames=32, vocoder_batch_size=16, gen_lr=2.0e-4,
+    disc_lr=2.0e-4, lambda_adv=1.0, lambda_fm=2.0, lambda_mel=45.0,
+    vocoder_train_max_steps=500000, log_interval_steps=100,
+    save_interval_steps=10000, seed=0)
+SIFIGAN_TRAIN_CONFIG = {
+    "sampling_rate": 24000, "sifigan_shiftms": 5.0, "mcep_dim": 39,
+    "dense_factors": [0.5, 1, 4, 8],
+    "generator_params": {"channels": 512, "in_channels": 43,
+                         "upsample_scales": [5, 4, 3, 2],
+                         "upsample_kernel_sizes": [10, 8, 6, 4]},
+    "segment_frames": 32, "vocoder_batch_size": 16, "gen_lr": 2.0e-4,
+    "disc_lr": 2.0e-4, "discriminator_type": "univnet", "lambda_adv": 1.0,
+    "lambda_fm": 2.0, "lambda_mel": 45.0, "lambda_reg": 1.0,
+    "vocoder_train_max_steps": 500000, "log_interval_steps": 100,
+    "save_interval_steps": 10000, "seed": 0}
+
 
 # egs/gtsinger/ssc1/conf/serenade.yaml, the training keys that
 # ``trainers.build_optimizer`` and ``trainers.SSCTrainer`` read

@@ -9,14 +9,23 @@ inverse of ``serenade_tpu/models/convert_serenade.py``:
   flax Conv1d   (k, in, out)       -> weight (out, in, k)
   flax ConvT1d  (k, in, out)       -> weight (in, out, k)
   flax Conv2d   (kh, kw, in, out)  -> weight (out, in, kh, kw)
+  grouped Conv1d (k, in/g, out)    -> weight (out, in/g, k)
+  BiLSTM fw/bw w_ih (in, 4h), w_hh (h, 4h), b (4h)
+                                   -> weight_ih_l0[_reverse] (4h, in),
+                                      weight_hh_l0[_reverse] (4h, h),
+                                      bias_ih_l0[_reverse] b, bias_hh 0
   weight norm   v (k, in, out), g  -> v (out, in, k), g
   GRUCell ir/iz/in, hr/hz/hn       -> weight_ih, weight_hh (r, z, n rows),
                                       bias_ih (r, z, n), bias_hn (hn bias)
 
 Every mapping is a transpose or a concatenation, so it is linear and
 applies to gradients and optimizer updates of the same tree as well.
-The SiFiGAN generators (``sifigan/generator.py``) name their modules as
-flax does too, so a flax SiFiGAN tree maps by the same table.
+The SiFiGAN generators (``sifigan/generator.py``), the discriminators
+(``vocoder/hifigan.py``, ``vocoder/univnet.py``) and the transcriber
+(``modules/phoneme_midi/model.py``) name their modules as flax does too,
+so their flax trees map by the same table.  JAX folds an LSTM's two
+biases into one vector; the bridge puts it in ``bias_ih`` and zeros in
+``bias_hh``, which sum to it.
 
 Nothing here imports JAX; the caller converts JAX arrays to numpy.
 """
@@ -33,6 +42,18 @@ from serenade_tpu_torch.models import gst, layers
 
 # port module name -> flax path parts, where flax names it differently
 _FLAX_NAMES = {"gru": ("MaskedGRU_0", "GRUCell_0")}
+
+
+def _lstm(p):
+    """torch ``nn.LSTM(bidirectional=True)`` weights from JAX's BiLSTM."""
+    out = {}
+    for d, suffix in (("fw", ""), ("bw", "_reverse")):
+        b = np.asarray(p[f"{d}_b"])
+        out[f"weight_ih_l0{suffix}"] = np.asarray(p[f"{d}_w_ih"]).T
+        out[f"weight_hh_l0{suffix}"] = np.asarray(p[f"{d}_w_hh"]).T
+        out[f"bias_ih_l0{suffix}"] = b
+        out[f"bias_hh_l0{suffix}"] = np.zeros_like(b)
+    return out
 
 
 def _with_bias(p, out):
@@ -62,7 +83,9 @@ _CONVERTERS: Dict[type, Callable[[Mapping], Dict[str, np.ndarray]]] = {
         p, {"weight": np.transpose(p["kernel"], (1, 2, 0))}),
     layers.WNConv1d: lambda p: _with_bias(
         p, {"v": np.transpose(p["v"], (2, 1, 0)), "g": p["g"]}),
-    gst.Conv2d: lambda p: {"weight": np.transpose(p["kernel"], (3, 2, 0, 1))},
+    layers.Conv2d: lambda p: _with_bias(
+        p, {"weight": np.transpose(p["kernel"], (3, 2, 0, 1))}),
+    nn.LSTM: _lstm,
     layers.NormParams: lambda p: {"scale": p["scale"], "bias": p["bias"]},
     layers.LayerNorm: lambda p: {"scale": p["scale"], "bias": p["bias"]},
     gst.MaskedGroupNorm2d: lambda p: {"scale": p["scale"], "bias": p["bias"]},
@@ -80,7 +103,7 @@ _LEAVES: Dict[type, Dict[str, Tuple[str, ...]]] = {
     layers.Conv1d: {"weight": ("kernel",), "bias": ("bias",)},
     layers.ConvTranspose1d: {"weight": ("kernel",), "bias": ("bias",)},
     layers.WNConv1d: {"v": ("v",), "g": ("g",), "bias": ("bias",)},
-    gst.Conv2d: {"weight": ("kernel",)},
+    layers.Conv2d: {"weight": ("kernel",), "bias": ("bias",)},
     layers.NormParams: {"scale": ("scale",), "bias": ("bias",)},
     layers.LayerNorm: {"scale": ("scale",), "bias": ("bias",)},
     gst.MaskedGroupNorm2d: {"scale": ("scale",), "bias": ("bias",)},
@@ -105,7 +128,7 @@ _CHANNEL_AXES: Dict[type, Dict[str, int]] = {
     layers.Conv1d: {"weight": 0},
     layers.ConvTranspose1d: {"weight": 1},
     layers.WNConv1d: {"v": 0},
-    gst.Conv2d: {"weight": 0},
+    layers.Conv2d: {"weight": 0},
     gst.MaskedGRU: {"weight_ih": 0, "weight_hh": 0},
     gst.StyleTokenLayer: {"gst_embs": 1},
 }
@@ -175,7 +198,9 @@ def state_dict_from_flax(module: nn.Module, params: Mapping
         params = params["params"]
     sd = {}
     for name, mod in module.named_modules():
-        conv = _CONVERTERS.get(type(mod))
+        # a module's own type first, then its bases (BiLSTM is an LSTM)
+        conv = next((_CONVERTERS[t] for t in type(mod).__mro__
+                     if t in _CONVERTERS), None)
         if conv is None:
             continue
         for key, arr in conv(_lookup(params, name)).items():

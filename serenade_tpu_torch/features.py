@@ -27,8 +27,12 @@ F0 backends: "viterbi" (YIN + Viterbi, the default), "yin" and
 "harvest" (``ops/harvest.py``) on the device; "native" and
 "harvest_native" run YIN or Harvest per waveform on the host
 (``native.py``, the C++ library built by g++), the log-mel, loudness and
-smoothing on the device.  The phoneme-MIDI transcriber is not ported
-(ROADMAP Queue A, item 6).
+smoothing on the device.
+
+The estimated score comes from F0 note segmentation, or from the
+phoneme-MIDI transcriber where ``midi_transcribe_fn`` is given
+(``modules/phoneme_midi``, ``load_transcriber``: ``(audio, fs) ->
+(notes, intervals in seconds)``), as in JAX.
 """
 
 from __future__ import annotations
@@ -190,6 +194,7 @@ def extract_features(
     f0_table: Optional[Dict] = None,
     gt_note_seq: Optional[list] = None,
     content_fn=None,
+    midi_transcribe_fn=None,
     with_f0_fluc: bool = False,
     f0_backend: str = "viterbi",
     f0_range: Optional[tuple] = None,
@@ -207,6 +212,7 @@ def extract_features(
         [audio_b], config, minf0, maxf0, f0_backend, device=device)[0]
     return _finalize_utt(utt_id, audio, config, sig, n_frames, maxf0,
                          gt_note_seq=gt_note_seq, content_fn=content_fn,
+                         midi_transcribe_fn=midi_transcribe_fn,
                          with_f0_fluc=with_f0_fluc)
 
 
@@ -233,11 +239,12 @@ def _prepare_audio(utt_id, audio, fs, config: FeatureConfig) -> np.ndarray:
 
 def _finalize_utt(utt_id, audio, config: FeatureConfig, sig, n_frames: int,
                   maxf0: float, *, gt_note_seq=None, content_fn=None,
-                  with_f0_fluc: bool = False, hubert=None
-                  ) -> Optional[Dict[str, np.ndarray]]:
+                  midi_transcribe_fn=None, with_f0_fluc: bool = False,
+                  hubert=None) -> Optional[Dict[str, np.ndarray]]:
     """The host's tail of an utterance: content features (``hubert``
-    when the batch path computed them), the estimated score, ``f0_fluc``,
-    and every frame stream cut to the shortest."""
+    when the batch path computed them), the estimated score (from
+    ``midi_transcribe_fn`` where given, else from the F0 track),
+    ``f0_fluc``, and every frame stream cut to the shortest."""
     logmel = sig["logmel"][:n_frames]
     loud = sig["loud"][:n_frames, None]
     f0 = sig["f0"][:n_frames, None]
@@ -248,8 +255,11 @@ def _finalize_utt(utt_id, audio, config: FeatureConfig, sig, n_frames: int,
             resample(audio, config.sampling_rate, 16000)))
 
     total_seconds = audio.shape[-1] / config.sampling_rate
-    notes, intervals = f0_to_note_events(
-        f0[:, 0], frame_shift_s=config.shiftms / 1000.0)
+    if midi_transcribe_fn is not None:
+        notes, intervals = midi_transcribe_fn(audio, config.sampling_rate)
+    else:
+        notes, intervals = f0_to_note_events(
+            f0[:, 0], frame_shift_s=config.shiftms / 1000.0)
     if not notes:
         logger.info("skipping %s: no MIDI information", utt_id)
         return None
@@ -392,6 +402,7 @@ def extract_features_batch(
     *,
     f0_table: Optional[Dict] = None,
     content_fn=None,
+    midi_transcribe_fn=None,
     with_f0_fluc: bool = False,
     f0_backend: str = "viterbi",
     max_group: int = 8,
@@ -461,6 +472,7 @@ def extract_features_batch(
                     out[utt_id] = _finalize_utt(
                         utt_id, audio_p, config, sig, n_frames, mx,
                         gt_note_seq=gt_note_seq, content_fn=content_fn,
+                        midi_transcribe_fn=midi_transcribe_fn,
                         with_f0_fluc=with_f0_fluc, hubert=huberts.get(i))
                 except Exception as e:  # noqa: BLE001 — skips alone
                     logger.warning("skipping %s: %s", utt_id, e)

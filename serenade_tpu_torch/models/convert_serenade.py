@@ -35,7 +35,7 @@ _LEAVES = {
            "bias": "bias"},
 }
 _KINDS = {layers.Dense: "plain", layers.Conv1d: "plain",
-          layers.ConvTranspose1d: "plain", gst.Conv2d: "plain",
+          layers.ConvTranspose1d: "plain", layers.Conv2d: "plain",
           gst.StyleTokenLayer: "plain", layers.NormParams: "norm",
           layers.LayerNorm: "norm", gst.FrozenBatchNorm2d: "bn",
           layers.WNConv1d: "wn", gst.MaskedGRU: "gru"}

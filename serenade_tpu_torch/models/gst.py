@@ -15,25 +15,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from serenade_tpu_torch.models.layers import Dense, NormParams, as_dtype
+from serenade_tpu_torch.models.layers import (
+    Conv2d, Dense, NormParams, as_dtype,
+)
 from serenade_tpu_torch.ops.attention import multi_head_attention
-
-
-class Conv2d(nn.Module):
-    """Bias-free 3x3 stride-2 conv2d, weight ``(out, in, kh, kw)``."""
-
-    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 stride: int = 2, dtype=torch.float32):
-        super().__init__()
-        self.weight = nn.Parameter(
-            torch.empty(cout, cin, kernel_size, kernel_size))
-        self.stride = stride
-        self.padding = (kernel_size - 1) // 2
-        self.dtype = as_dtype(dtype)
-
-    def forward(self, x):
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        stride=self.stride, padding=self.padding)
 
 
 class MaskedGRU(nn.Module):
@@ -128,8 +113,11 @@ class ReferenceEncoder(nn.Module):
         self.n_convs = len(conv_chans)
         cin, freq = 1, idim
         for i, ch in enumerate(conv_chans):
-            setattr(self, f"conv{i}",
-                    Conv2d(cin, ch, kernel_size, stride, dtype=dtype))
+            # bias-free, stride 2, same padding
+            setattr(self, f"conv{i}", Conv2d(
+                cin, ch, (kernel_size,) * 2, stride=(stride,) * 2,
+                padding=((kernel_size - 1) // 2,) * 2, bias=False,
+                dtype=dtype))
             setattr(self, f"norm{i}",
                     FrozenBatchNorm2d(ch, dtype=dtype)
                     if norm_type == "frozen_batch" else

@@ -99,18 +99,19 @@ class Dense(nn.Module):
 
 
 class Conv1d(nn.Module):
-    """Conv1d with torch-style symmetric padding (None: ``(k-1)//2 * d``).
-    Also the parameter holder of Block1D and the HiFiGAN branches."""
+    """Conv1d with torch-style symmetric padding (None: ``(k-1)//2 * d``),
+    grouped by ``groups`` (flax's ``feature_group_count``).  Also the
+    parameter holder of Block1D and the HiFiGAN branches."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, dilation: int = 1,
                  padding: Optional[int] = None, bias: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, groups: int = 1):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel_size))
+            torch.empty(out_channels, in_channels // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
-        self.stride, self.dilation = stride, dilation
+        self.stride, self.dilation, self.groups = stride, dilation, groups
         self.padding = ((kernel_size - 1) // 2 * dilation if padding is None
                         else padding)
         self.dtype = as_dtype(dtype)
@@ -119,7 +120,34 @@ class Conv1d(nn.Module):
         dt = self.dtype
         return conv1d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
                       stride=self.stride, dilation=self.dilation,
-                      padding=(self.padding, self.padding))
+                      padding=(self.padding, self.padding),
+                      groups=self.groups)
+
+
+class Conv2d(nn.Module):
+    """2-D convolution of channels-first ``(B, C, H, W)`` images (flax's
+    NHWC ``nn.Conv`` with explicit padding), weight ``(out, in, kh, kw)``:
+    the GST reference encoder's, the period and spectral discriminators'
+    and the transcriber's conv stacks, whose feature maps stay in this
+    layout."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Tuple[int, int], stride=(1, 1),
+                 padding=(0, 0), dilation=(1, 1), bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.dilation = tuple(dilation)
+        self.dtype = as_dtype(dtype)
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
+                        stride=self.stride, padding=self.padding,
+                        dilation=self.dilation)
 
 
 class ConvTranspose1d(nn.Module):
@@ -245,8 +273,6 @@ class TimestepEmbedding(nn.Module):
 def compute_weight_dtypes(module: nn.Module) -> dict:
     """The parameters of every Dense / Conv1d / ConvTranspose1d / Conv2d
     (state-dict names) -> the dtype that layer computes in."""
-    from serenade_tpu_torch.models.gst import Conv2d
-
     out = {}
     for name, m in module.named_modules():
         if isinstance(m, (Dense, Conv1d, ConvTranspose1d, Conv2d)):

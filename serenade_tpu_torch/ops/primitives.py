@@ -27,14 +27,14 @@ def mish(x):
 
 
 def conv1d(x, weight, bias=None, *, stride: int = 1, dilation: int = 1,
-           padding: Tuple[int, int] = (0, 0)):
-    """1-D convolution of ``(B, T, Cin)`` by a ``(Cout, Cin, K)`` kernel with
-    explicit (torch) padding; returns ``(B, T', Cout)``."""
+           padding: Tuple[int, int] = (0, 0), groups: int = 1):
+    """1-D convolution of ``(B, T, Cin)`` by a ``(Cout, Cin / groups, K)``
+    kernel with explicit (torch) padding; returns ``(B, T', Cout)``."""
     h = x.transpose(1, 2)
     if padding != (0, 0):
         h = F.pad(h, padding)
-    return F.conv1d(h, weight, bias, stride=stride,
-                    dilation=dilation).transpose(1, 2)
+    return F.conv1d(h, weight, bias, stride=stride, dilation=dilation,
+                    groups=groups).transpose(1, 2)
 
 
 def masked_group_norm(x, mask, scale, bias, *, num_groups: int = 8,

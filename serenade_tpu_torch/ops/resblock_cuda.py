@@ -51,7 +51,7 @@ def resblock_branch_plain(x, w1, b1, w2, b2, *, kernel_size: int,
                           dilations: Tuple[int, ...],
                           use_additional_convs: bool = True):
     """x ``(B,T,C)``; w1/w2 ``(n_dil, C, C, K)`` in torch layout; b1/b2
-    ``(n_dil, C)``."""
+    ``(n_dil, C)``; each stacked, or a sequence of its n_dil tensors."""
     k = kernel_size
     h = x
     for i, d in enumerate(dilations):

@@ -61,28 +61,43 @@ def _operands(fft_size: int, win_length: int, device: torch.device):
             torch.from_numpy(basis).to(device))
 
 
+def reflect_pad(audio, pad: int):
+    """``(..., T)`` reflect-padded by ``pad`` on both sides, reflecting
+    again where ``pad >= T`` (numpy's and ``jnp.pad``'s "reflect": the
+    signal extended with period ``2 (T - 1)``), which ``F.pad`` refuses."""
+    t = audio.shape[-1]
+    if pad < t:
+        shape = audio.shape
+        out = F.pad(audio.reshape(-1, 1, t), (pad, pad), mode="reflect")
+        return out.reshape(*shape[:-1], out.shape[-1])
+    period = 2 * (t - 1)
+    idx = torch.remainder(torch.arange(-pad, t + pad, device=audio.device),
+                          period)
+    return audio[..., torch.where(idx >= t, period - idx, idx)]
+
+
 def frame_signal(audio, fft_size: int, hop_size: int, center: bool = True):
     """``(..., T)`` -> frames ``(..., n_frames, fft_size)``, a strided view
     of the centered, reflect-padded signal."""
     if center:
-        shape = audio.shape
-        audio = F.pad(audio.reshape(-1, 1, shape[-1]),
-                      (fft_size // 2, fft_size // 2), mode="reflect")
-        audio = audio.reshape(*shape[:-1], audio.shape[-1])
+        audio = reflect_pad(audio, fft_size // 2)
     return audio.unfold(-1, fft_size, hop_size)
 
 
 def stft_power(audio, fft_size: int, hop_size: int,
-               win_length: int | None = None, center: bool = True):
-    """Power spectrogram ``|STFT|^2``, ``(..., n_frames, fft_size//2+1)``."""
+               win_length: int | None = None, center: bool = True,
+               dtype=torch.float32):
+    """Power spectrogram ``|STFT|^2``, ``(..., n_frames, fft_size//2+1)``,
+    framed and returned in ``dtype`` (the DFT sums in f64 either way)."""
     win_length = win_length or fft_size
     window, basis = _operands(fft_size, win_length, audio.device)
-    fw = frame_signal(audio.float(), fft_size, hop_size, center) * window
-    re, im = (fw.double() @ basis).float().chunk(2, dim=-1)
+    fw = frame_signal(audio.to(dtype), fft_size, hop_size, center) * window
+    re, im = (fw.double() @ basis).to(dtype).chunk(2, dim=-1)
     return re * re + im * im
 
 
 def stft_magnitude(audio, fft_size: int, hop_size: int,
-                   win_length: int | None = None, center: bool = True):
+                   win_length: int | None = None, center: bool = True,
+                   dtype=torch.float32):
     return torch.sqrt(stft_power(audio, fft_size, hop_size, win_length,
-                                 center) + 1e-30)
+                                 center, dtype) + 1e-30)

@@ -27,6 +27,7 @@ coded bands to a full linear spectrum on the host.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -57,10 +58,11 @@ def _dc_correct(power, f0_safe, bin_hz: float):
     return torch.where(k < f0_bins, power + replica, power)
 
 
-def _linear_smooth(spec, width_bins):
+def _linear_smooth(spec, width_bins, dtype=torch.float32):
     """WORLD LinearSmoothing of ``(..., T, F)``: a box filter of
     fractional width ``width_bins`` ``(..., T)`` per row, integrated from
-    a running sum (in f64) with linear interpolation at the edges."""
+    a running sum (in f64) with linear interpolation at the edges; the
+    result in ``dtype``."""
     n_bins = spec.shape[-1]
     spec64 = spec.double()
     csum = torch.nn.functional.pad(torch.cumsum(spec64, dim=-1), (1, 0))
@@ -75,14 +77,18 @@ def _linear_smooth(spec, width_bins):
                 spec64, -1, torch.clamp(hi_i, max=n_bins - 1))
             - (lo - lo_i).double() * torch.gather(
                 spec64, -1, torch.clamp(lo_i, max=n_bins - 1)))
-    return (area / torch.clamp(hi - lo, min=1e-6).double()).float()
+    return (area / torch.clamp(hi - lo, min=1e-6).double()).to(dtype)
 
 
 def cheaptrick(x: torch.Tensor, f0: torch.Tensor, fs: int = 24000,
                f0_floor: float = 71.0, frame_period_ms: float = 5.0,
-               elim_0th: bool = False) -> torch.Tensor:
-    """Spectral envelope |H(w)|², ``(..., T, fft_size // 2 + 1)`` with
-    ``fft_size`` the power of two above 3·fs/f0_floor.
+               elim_0th: bool = False,
+               fft_size: Optional[int] = None,
+               dtype=torch.float32) -> torch.Tensor:
+    """Spectral envelope |H(w)|², ``(..., T, fft_size // 2 + 1)``;
+    ``fft_size`` by default the power of two above 3·fs/f0_floor.
+    Computed in ``dtype`` (f64 where a caller asks, as an f64 training
+    step's residual loss does), the smoothing's sums in f64 either way.
 
     Args:
         x: ``(..., N)`` waveforms.
@@ -92,10 +98,11 @@ def cheaptrick(x: torch.Tensor, f0: torch.Tensor, fs: int = 24000,
             envelope (its overall gain; the SiFiGAN residual-loss
             convention).
     """
-    fft_size = _fft_size_for(fs, f0_floor)
+    if fft_size is None:
+        fft_size = _fft_size_for(fs, f0_floor)
     hop = int(fs * frame_period_ms / 1000.0)
     n_frames = f0.shape[-1]
-    f0 = f0.float()
+    f0 = f0.to(dtype)
     f0_safe = torch.where(f0 <= 0, DEFAULT_F0, f0)
     f0_safe = torch.clamp(f0_safe, min=f0_floor)
 
@@ -103,7 +110,7 @@ def cheaptrick(x: torch.Tensor, f0: torch.Tensor, fs: int = 24000,
     # [t·hop - fft_size/2, t·hop + fft_size/2)
     max_half = fft_size // 2
     pad = max_half + 1
-    xp = torch.nn.functional.pad(x.float(), (pad, pad))
+    xp = torch.nn.functional.pad(x.to(dtype), (pad, pad))
     frames = xp[..., 1:].unfold(-1, fft_size, hop)
     if frames.shape[-2] < n_frames:
         raise ValueError(f"{n_frames} F0 frames at hop {hop} exceed the "
@@ -111,9 +118,9 @@ def cheaptrick(x: torch.Tensor, f0: torch.Tensor, fs: int = 24000,
     frames = frames[..., :n_frames, :]
 
     # pitch-synchronous Hanning of length 3·T0, masked inside the buffer
-    offs = torch.arange(-max_half, max_half, device=x.device)
+    offs = torch.arange(-max_half, max_half, device=x.device).to(dtype)
     half_len = torch.round(1.5 * fs / f0_safe).to(torch.int32)[..., None]
-    in_win = (offs.abs() <= half_len).float()
+    in_win = (offs.abs() <= half_len).to(dtype)
     win = 0.5 + 0.5 * torch.cos(
         math.pi * offs / torch.clamp(half_len, min=1))
     win = win * in_win
@@ -134,7 +141,7 @@ def cheaptrick(x: torch.Tensor, f0: torch.Tensor, fs: int = 24000,
 
     bin_hz = fs / fft_size
     power = _dc_correct(power, f0_safe, bin_hz)
-    smoothed = _linear_smooth(power, (2.0 * f0_safe / 3.0) / bin_hz)
+    smoothed = _linear_smooth(power, (2.0 * f0_safe / 3.0) / bin_hz, dtype)
 
     # cepstral liftering: log spectrum -> quefrency -> lifter -> back
     log_s = torch.log(torch.clamp(smoothed, min=1e-12)) + torch.log(
@@ -144,7 +151,7 @@ def cheaptrick(x: torch.Tensor, f0: torch.Tensor, fs: int = 24000,
         ceps = torch.cat([torch.zeros_like(ceps[..., :1]), ceps[..., 1:]],
                          dim=-1)
     q_idx = torch.arange(fft_size, device=x.device)
-    q = torch.minimum(q_idx, fft_size - q_idx).float() / fs
+    q = torch.minimum(q_idx, fft_size - q_idx).to(dtype) / fs
     f0q = f0_safe[..., None] * q
     lifter = torch.where(
         f0q == 0, 1.0,

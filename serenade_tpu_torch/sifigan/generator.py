@@ -19,6 +19,8 @@ channels-last ``(B, T, C)``.
 The filter network's residual blocks run the HiFiGAN residual-branch
 kernel (K3, ``csrc/resblock_branch.cu``) on the card, without additional
 convs by default: one TF32 conv launch a dilation, the residual fused.
+Training builds them with ``resblock_backend="conv"``, a differentiable
+conv chain, as JAX trains through its ``conv`` lowering.
 The pitch-dependent taps are index gathers and their three 1x1 convs
 plain products, which JAX also computes outside Pallas.  Modules are
 named as flax names them, so ``convert.py``'s bridge maps a flax tree
@@ -116,7 +118,8 @@ class SiFiGANGenerator(nn.Module):
                  filter_resblock_dilations=((1, 3, 5),) * 3,
                  filter_use_additional_convs: bool = False,
                  share_upsamples: bool = False,
-                 share_downsamples: bool = False, dtype=torch.float32):
+                 share_downsamples: bool = False, dtype=torch.float32,
+                 resblock_backend: str = "fused"):
         super().__init__()
         if self.direct and share_downsamples:
             raise ValueError("the Direct generator's filter downsamples "
@@ -153,7 +156,7 @@ class SiFiGANGenerator(nn.Module):
                     self.filter_resblock_dilations)):
                 setattr(self, f"fn_block{i}_{j}", HiFiGANResidualBlock(
                     k_res, ch, dils, filter_use_additional_convs,
-                    dtype=dtype))
+                    dtype=dtype, backend=resblock_backend))
         # downsamples[i] runs at level n_up - 1 - i's geometry: the stride
         # and kernel of the mirrored upsample, channels doubling
         for i in range(n_up - 1):

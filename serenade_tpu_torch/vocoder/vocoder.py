@@ -6,8 +6,13 @@ statistics and renormalized by the vocoder's own training statistics
 before synthesis.  Statistics and parameters come in as arrays
 (``Vocoder``), or as the files a recipe names (``Vocoder.from_files``:
 the upstream torch pickle, its YAML config and ``stats.h5``).  The
-checkpoint-free Griffin-Lim generator and a vocoder checkpoint written by
-the JAX package's vocoder trainer are not ported.
+generator is the HiFiGAN of the config's ``generator_params``, or the
+checkpoint-free Griffin-Lim inversion where ``generator_type`` is
+``GriffinLim`` (``vocoder/griffin_lim.py``).  The checkpoint is the
+upstream torch pickle or a ``checkpoint-<N>steps`` directory of the
+port's vocoder trainer (``bin/vocoder_train.py``); an Orbax directory of
+the JAX package's trainer is refused by name (``checkpoint.py``), and its
+parameters cross through the param bridge.
 """
 
 from __future__ import annotations
@@ -22,11 +27,33 @@ import torch
 from serenade_tpu_torch import resolve_device, upload
 from serenade_tpu_torch.convert import load_params
 from serenade_tpu_torch.models.layers import init_params_
+from serenade_tpu_torch.vocoder.griffin_lim import GriffinLimSynth
 from serenade_tpu_torch.vocoder.hifigan import HiFiGANGenerator
 
+_CHECKPOINT_FREE_GENERATORS = ("griffinlim", "griffin_lim")
 
-def generator_from_config(config: Mapping) -> HiFiGANGenerator:
+
+def is_griffin_lim(config: Mapping) -> bool:
+    return str(config.get("generator_type", "")).lower() in \
+        _CHECKPOINT_FREE_GENERATORS
+
+
+def generator_from_config(config: Mapping):
+    """The generator a vocoder config describes: ``GriffinLimSynth`` for
+    ``generator_type: GriffinLim`` (the keys JAX's ``load_vocoder``
+    reads), else ``HiFiGANGenerator`` on K3 (``fused``)."""
     gp = dict(config.get("generator_params", {}))
+    if is_griffin_lim(config):
+        return GriffinLimSynth(
+            sampling_rate=int(config.get("sampling_rate", 24000)),
+            fft_size=int(gp.get("fft_size", 512)),
+            hop_size=int(gp.get("hop_size", 240)),
+            win_length=int(gp.get("win_length", 480)),
+            num_mels=int(gp.get("num_mels", gp.get("in_channels", 80))),
+            fmin=float(gp.get("fmin", 63.0)),
+            fmax=float(gp.get("fmax", 12000.0)),
+            n_iter=int(gp.get("n_iter", 32)),
+            log_base=float(gp.get("log_base", 10.0)))
     if "upsample_kernal_sizes" in gp:   # the reference config's typo
         gp["upsample_kernel_sizes"] = gp.pop("upsample_kernal_sizes")
     return HiFiGANGenerator(
@@ -46,8 +73,6 @@ def generator_from_config(config: Mapping) -> HiFiGANGenerator:
 
 logger = logging.getLogger(__name__)
 
-_CHECKPOINT_FREE_GENERATORS = ("griffinlim", "griffin_lim")
-
 
 def generator_layout(config: Mapping) -> dict:
     """The layout arguments of ``vocoder.convert`` for a vocoder config."""
@@ -61,8 +86,7 @@ def generator_layout(config: Mapping) -> dict:
 
 def vocoder_available(voc_cfg: Optional[Mapping]) -> bool:
     """Whether a ``vocoder:`` config section can synthesize: its
-    checkpoint exists, or its config names a checkpoint-free generator
-    (which :func:`load_vocoder` then refuses)."""
+    checkpoint exists, or its config names a checkpoint-free generator."""
     from serenade_tpu_torch.config import load_config
 
     voc_cfg = voc_cfg or {}
@@ -71,29 +95,39 @@ def vocoder_available(voc_cfg: Optional[Mapping]) -> bool:
         return True
     cfg_path = voc_cfg.get("config")
     if cfg_path and os.path.exists(str(cfg_path)):
-        gtype = str((load_config(cfg_path) or {}).get("generator_type", ""))
-        return gtype.lower() in _CHECKPOINT_FREE_GENERATORS
+        return is_griffin_lim(load_config(cfg_path) or {})
     return False
 
 
 def load_vocoder(checkpoint: str, config: Mapping) -> dict:
-    """The generator's state dict from the upstream torch pickle at
-    ``checkpoint``, converted for the layout ``config`` describes."""
+    """The generator's state dict: none for Griffin-Lim; the generator of
+    a ``checkpoint-<N>steps`` directory of ``bin/vocoder_train.py``
+    (``checkpoint.restore_generator_params``, which refuses an Orbax
+    directory by name); or the upstream torch pickle at ``checkpoint``,
+    converted for the layout ``config`` describes."""
     from serenade_tpu_torch.vocoder.convert import (
         convert_hifigan_generator, load_torch_vocoder_checkpoint,
     )
 
-    if str(config.get("generator_type", "")).lower() in \
-            _CHECKPOINT_FREE_GENERATORS:
-        raise NotImplementedError(
-            "the checkpoint-free Griffin-Lim vocoder is not ported")
+    if is_griffin_lim(config):
+        return {}
     if os.path.isdir(checkpoint):
-        raise NotImplementedError(
-            f"{checkpoint} is a vocoder checkpoint directory of the JAX "
-            "package's vocoder trainer (Orbax), which is not ported; give "
-            "the upstream torch pickle")
+        from serenade_tpu_torch.checkpoint import restore_generator_params
+
+        return restore_generator_params(checkpoint)
     return convert_hifigan_generator(
         load_torch_vocoder_checkpoint(checkpoint), **generator_layout(config))
+
+
+def read_vocoder_stats(path: str) -> dict:
+    """The ``{"mean", "scale"}`` a vocoder was trained with, from an
+    ``.npz`` or from a ``stats.h5`` (``h5py``)."""
+    if str(path).endswith(".npz"):
+        with np.load(path) as z:
+            return {"mean": z["mean"], "scale": z["scale"]}
+    from serenade_tpu_torch.utils.h5 import read_hdf5
+
+    return {"mean": read_hdf5(path, "mean"), "scale": read_hdf5(path, "scale")}
 
 
 def _stats(stats, what: str):
@@ -104,12 +138,14 @@ def _stats(stats, what: str):
 
 
 class Vocoder:
-    """HiFiGAN synthesis with the SSC model's normalization contract.
+    """HiFiGAN or Griffin-Lim synthesis with the SSC model's normalization
+    contract.
 
     Args:
-        config: vocoder config dict (``generator_params``, ``sampling_rate``).
+        config: vocoder config dict (``generator_params``, ``sampling_rate``,
+            ``generator_type``).
         params: flax tree or state dict of the generator; None draws
-            seeded random weights (``seed``).
+            seeded random weights (``seed``); Griffin-Lim has none.
         stats: ``{"mean", "scale"}`` arrays the vocoder was trained with.
         trg_stats: the SSC model's logmel ``{"mean", "scale"}``, required
             when ``take_norm_feat``.
@@ -142,16 +178,16 @@ class Vocoder:
     def from_files(cls, checkpoint: str, config: str, stats: str,
                    trg_stats: Optional[Mapping] = None,
                    device=None) -> "Vocoder":
-        """The vocoder a recipe names: the upstream torch pickle, its YAML
+        """The vocoder a recipe names: the upstream torch pickle or a
+        trained checkpoint directory (none for Griffin-Lim), its YAML
         config and the ``stats.h5`` (``mean``, ``scale``) it was trained
-        with (serenade_tpu/vocoder/vocoder.py ``Vocoder``)."""
+        with (serenade_tpu/vocoder/vocoder.py ``Vocoder``), or an ``.npz``
+        of them (:func:`read_vocoder_stats`)."""
         from serenade_tpu_torch.config import load_config
-        from serenade_tpu_torch.utils.h5 import read_hdf5
 
         cfg = load_config(config)
-        mean, scale = read_hdf5(stats, "mean"), read_hdf5(stats, "scale")
         return cls(cfg, load_vocoder(checkpoint, cfg),
-                   {"mean": mean, "scale": scale}, trg_stats=trg_stats,
+                   read_vocoder_stats(stats), trg_stats=trg_stats,
                    device=device)
 
     def _normalize(self, c: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 forward (K1-K3) and, through the autograd Functions, backward (K4-K7);
 the serving path's batched shapes (a registered style tiled over a
 batch, the vocoder tail at batch 8), extraction and the long-form streams
-against the CPU's plain route.
+against the CPU's plain route; the Griffin-Lim vocoder, the transcriber
+and a vocoder GAN step with the trained weights' K3 synthesis.
 
 Needs an NVIDIA GPU and the CUDA toolkit (the kernels are built with nvcc
 at first use); skips without a card.  Imports only torch and the port, so
@@ -18,6 +19,16 @@ import pytest
 import torch
 
 from serenade_tpu_torch.ops import block1d_cuda, flash_cuda, resblock_cuda
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.cuda
@@ -1099,3 +1110,103 @@ def test_residual_branch_without_additional_convs(c, k):
     ref = resblock_cuda.resblock_branch_plain(x, w, b, w, b, **args)
     assert (out - ref).abs().max().item() <= 1e-4 * max(
         1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_griffin_lim_on_card_matches_cpu():
+    """The Griffin-Lim vocoder (32 iterations, f32 DFT products) on the
+    card against its CPU run, within 1e-3 of the CPU's peak."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from serenade_tpu_torch.vocoder.griffin_lim import GriffinLimSynth
+
+    g = torch.Generator().manual_seed(16)
+    mel = torch.randn((2, 300, 80), generator=g) - 3.0
+    synth = GriffinLimSynth()
+    with torch.no_grad():
+        cpu = synth(mel)
+        gpu = synth(mel.cuda()).cpu()
+    scale = cpu.abs().amax(dim=1)
+    assert ((gpu - cpu).abs().amax(dim=1) <= 1e-3 * scale).all()
+
+
+@pytest.mark.cuda
+def test_transcriber_on_card_matches_cpu():
+    """The transcriber (cuDNN's LSTM) at a narrow width on the card: its
+    logits within 1e-4 of the CPU's, and the decoder's F0 (the Viterbi
+    trellis kernel) giving the CPU's notes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.modules.phoneme_midi.decoding import (
+        FramewiseDecoder,
+    )
+    from serenade_tpu_torch.modules.phoneme_midi.model import (
+        TranscriptionModel,
+    )
+
+    model = init_params_(TranscriptionModel(40, 64), 3).eval()
+    mel = torch.randn((1, 120, 40), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        cpu = model(mel)
+        gpu = model.cuda()(mel.cuda()).cpu()
+    assert (gpu - cpu).abs().max().item() <= 1e-4
+    cfg = dict(sample_rate=16000, win_length=1024, hop_length=160,
+               onset_threshold=0.5, offset_threshold=0.5, pitch_sum="median")
+    t = np.arange(120 * 160) / 16000
+    audio = (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    pred = np.full((120, 3), -8.0, np.float32)
+    pred[10, 0] = pred[100, 1] = 8.0
+    pred[10:101, 2] = 8.0
+    want = FramewiseDecoder(cfg, device="cpu").decode(pred, audio=audio)
+    got = FramewiseDecoder(cfg, device="cuda").decode(pred, audio=audio)
+    assert got[1] == want[1] == [(10, 101)]
+    assert abs(got[0][0] - want[0][0]) <= 0.01 and round(got[0][0]) == 57
+
+
+@pytest.mark.cuda
+def test_vocoder_gan_step_and_trained_synthesis_on_card():
+    """One HiFiGAN GAN step on the card (the conv backend, no kernel
+    launch), every parameter of both networks moved; then the trained
+    weights on the fused backend launch K3 and synthesize what the conv
+    backend does, within 1e-3 of the peak."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.trainers import vocoder_trainer as vt
+    from serenade_tpu_torch.vocoder.hifigan import (
+        HiFiGANGenerator, MultiPeriodDiscriminator,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = dict(in_channels=8, channels=32, upsample_scales=(4, 2),
+               upsample_kernel_sizes=(8, 4), resblock_kernel_sizes=(3,),
+               resblock_dilations=((1, 3),))
+    gen = init_params_(HiFiGANGenerator(**cfg, resblock_backend="conv"), 0)
+    disc = init_params_(MultiPeriodDiscriminator(periods=(2, 3)), 1)
+    gen.to(dev)
+    disc.to(dev)
+    before = {k: v.clone() for k, v in list(gen.state_dict().items())
+              + list(disc.state_dict().items())}
+    gopt, dopt = vt.adamw_chain(2e-3), vt.adamw_chain(2e-3)
+    state = vt.create_vocoder_state(gen, disc, gopt, dopt)
+    step = vt.build_vocoder_train_step(gen, disc, gopt, dopt)
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {"mel": torch.randn((2, 16, 8), generator=g, device=dev),
+             "wav": 0.1 * torch.randn((2, 128, 1), generator=g, device=dev)}
+    k3 = resblock_cuda.launches
+    state, metrics = step(state, batch)
+    assert resblock_cuda.launches == k3
+    assert all(torch.isfinite(v) for v in metrics.values())
+    after = dict(list(gen.state_dict().items())
+                 + list(disc.state_dict().items()))
+    assert all(not torch.equal(before[k], after[k]) for k in before)
+    fused = HiFiGANGenerator(**cfg).to(dev).eval()
+    fused.load_state_dict(gen.state_dict())
+    mel = torch.randn((1, 50, 8), generator=g, device=dev)
+    with torch.no_grad():
+        want = gen.eval()(mel)
+        got = fused(mel)
+    assert resblock_cuda.launches > k3
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()

@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from serenade_tpu_torch import deploy
 from serenade_tpu_torch.api import Converter
@@ -36,6 +37,16 @@ from tests.test_torch_decode import (  # noqa: F401 (fixtures)
 REPO = Path(__file__).resolve().parent.parent
 HOP = 4             # the decode tests' vocoder: upsample scales (2, 2)
 EDGE = 16           # frames near the end the edge-pad may change
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

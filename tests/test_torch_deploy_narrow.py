@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from serenade_tpu_torch import deploy
 from serenade_tpu_torch.api import Converter
@@ -29,6 +30,16 @@ SCALER = {"hubert": {"mean": np.linspace(-0.5, 0.5, 32),
                      "scale": np.linspace(0.5, 2.0, 80)}}
 SRC_T, REF_T = 150, 100
 MODES = {"f32": None, "int8": "int8"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _feats(rng, t, mel):

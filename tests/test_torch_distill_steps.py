@@ -28,6 +28,16 @@ from test_torch_distill import (  # noqa: F401 (fixtures)
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("mode", ["endpoint", "reflow"])
 def test_two_distill_steps_match_jax(jax_models, mode):
     """Two steps of ``build_distill_step`` against JAX's with the same

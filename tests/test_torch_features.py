@@ -59,6 +59,16 @@ CV = dict(dim=64, num_layers=2, heads=4, ffn_dim=128)
 CFG64 = dict(CFG, input_dim=64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def sung(seconds, seed, f0=220.0):
     """A sung-like waveform: a harmonic tone with 5.5 Hz vibrato, a note
     change (a minor third up) halfway, a 50 ms fade at each end and

@@ -44,6 +44,16 @@ from serenade_tpu_torch.utils.masking import length_mask
 from serenade_tpu_torch.vocoder.hifigan import HiFiGANGenerator
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -271,16 +271,18 @@ def test_native_backends_through_the_cli(assets):
                                   "missing_stats", "factors_without_anasyn",
                                   "native_d4c", "no_lf0"])
 def test_refusals_by_name(assets, tmp_path, case):
-    """A checkpoint directory (vocoder training's SiFiGAN, ROADMAP Queue A
-    item 7, or any Orbax directory, item 8), a checkpoint or stats file
-    that does not exist (JAX falls back), F0 factors outside --anasyn, D4C
-    on the native backend, and an SSC utterance without its lf0."""
+    """An Orbax checkpoint directory of the JAX package (a directory of
+    the port's vocoder trainer loads, ``tests/test_torch_vocoder_cli.py``),
+    a checkpoint or stats file that does not exist (JAX falls back), F0
+    factors outside --anasyn, D4C on the native backend, and an SSC
+    utterance without its lf0."""
     root, cfg, ckpt, wavs = assets
     d = str(tmp_path / "in")
     _write_wavs(d, {"utt_a_Tenor": wavs["utt_a_Tenor"]})
     base = ["--in-dir", d, "--config", cfg, "--device", "cpu"]
     if case == "directory":
-        with pytest.raises(NotImplementedError, match="vocoder training"):
+        (tmp_path / "_CHECKPOINT_METADATA").write_text("")
+        with pytest.raises(ValueError, match="Orbax"):
             post.main(base + ["--checkpoint-path", str(tmp_path)])
     elif case == "missing_ckpt":
         with pytest.raises(FileNotFoundError, match="checkpoint"):

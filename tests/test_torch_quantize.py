@@ -40,6 +40,16 @@ CFG = dict(input_dim=32, output_dim=80, encoder_channels=16,
            gst_conv_chans=(8, 8, 16, 16), gst_gru_units=32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def bridged():
     """Seeded JAX parameters at ``CFG`` and the port's Serenade with the

@@ -43,6 +43,16 @@ TS, TR = 192, 128
 VOC_CONFIG = {"sampling_rate": 24000, "generator_params": VOC}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_inputs(sc, srcs, refs, ts, tr):
     """The stacked, normalized inputs of JAX's ``Serenade.inference``, the
     last request repeated to a power-of-two batch as

@@ -39,6 +39,16 @@ VOC = dict(in_channels=80, channels=32, upsample_scales=(2, 3),
 TEMP, STEPS = 0.667, 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _features(rng, frames, with_mel):
     feats = {"hubert": rng.normal(size=(frames, 32)) * 2 + 1,
              "score": rng.uniform(40, 80, size=frames),
@@ -238,6 +248,15 @@ def test_full_width_configs_match_recipe():
     for key in ("sampling_rate", "num_mels", "hop_size"):
         assert configs.VOCODER_CONFIG[key] == voc[key]
     assert configs.VOCODER_CONFIG["sampling_rate"] == ssc["sampling_rate"]
+    assert configs.VOCODER_TRAIN_CONFIG == voc
+    for name, cfg in (("vocoder_sifigan.yaml", configs.SIFIGAN_TRAIN_CONFIG),
+                      ("vocoder_griffin_lim.yaml",
+                       configs.GRIFFIN_LIM_CONFIG)):
+        with open(conf / name) as f:
+            assert cfg == yaml.safe_load(f), name
+    with open(conf / "serenade_fullbudget.yaml") as f:
+        assert yaml.safe_load(f)["vocoder"]["config"].endswith(
+            "vocoder_griffin_lim.yaml")
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

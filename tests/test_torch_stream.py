@@ -25,6 +25,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,16 @@ from test_torch_slice import STEPS, VOC, _jax_side
 
 CHUNK, OVERLAP, CTX = 128, 32, 32   # windows of at most 1.92 s: one 2 s
                                     # ContentVec bucket
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU ops beside JAX's thread pools and the other test
+    workers: torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
