@@ -211,6 +211,28 @@ Phases, each printing JSON lines:
                ``load_vocoder`` (K3, within 1e-3 of the trained
                generator's conv backend) and from the SiFiGAN directory
                through ``postprocess_core`` (K3), routed calls 0.
+17. nusvc  -- the model variants and small tools (lines ``"phase":
+               "nusvc"`` with ``"part"`` inference / train / fused_qkv /
+               snakebeta_unet / param_count, then ``"nusvc_done"``); phase
+               2 holds K1, K4 and K5 at NUSVC's head dim 256: (a) NUSVC at
+               its published widths (771 in, encoder 384, decoder (256,
+               256), head dim 256, GST 50 tokens x 256; bf16 compute, f32
+               parameters, seeded weights) converts a (1024, 512) request
+               with Euler-10 twice: 60 K1 and 130 K2 launches each, routed
+               calls 0, a finite (1, 1024, 80) mel, then a short f32
+               conversion on the card against the CPU within 1e-3; (b)
+               ``loss``, its backward and the recipe's AdamW at B 16 x 512,
+               2 warm-up and 5 timed steps: 6 K1/K4/K5 and 13 K2/K6/K7
+               launches a step, routed calls 0, every gradient finite and
+               nonzero, steps/s; (c) phase 3's (1024, 512) request with
+               ``SERENADE_FUSE_QKV=1`` and without, from the same noise:
+               60 K1 launches each, routed calls 0, the mels within phase
+               8's rule of each other against the card's own bf16 - f32
+               gap; (d) Serenade's UNet with ``act_fn="snakebeta"``, one
+               bf16 evaluation at T 1536: 6 K1 and 13 K2 launches; (e)
+               ``bin/param_count --config`` on Serenade's full-width config
+               and NUSVC's defaults, each total equal to the instantiated
+               model's.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -407,6 +429,11 @@ def check_flash(torch, dev):
              False)
     case(len(LOOP_DEV), 4, LOOP_EVAL_T, 512, torch.bfloat16,
          [2 * n for n in LOOP_DEV], 2e-2, True)
+    # NUSVC's head dim 256 (phase 17): its (1024, 512) inference and its
+    # B 16 x 512 train step's forward, and a ragged shape
+    for b, t, lengths in NUSVC_CHECKS:
+        case(b, 4, t, 256, torch.bfloat16, lengths, 2e-2, True)
+    case(3, 4, 200, 256, torch.bfloat16, [200, 96, 1], 2e-2, False)
     return main, rows
 
 
@@ -603,6 +630,12 @@ def check_flash_bwd(torch, dev):
         case(b, 4, t, 512, torch.bfloat16, lengths, 2e-2, True)
         case(b, 4, t // 2, 512, torch.bfloat16, _halved(lengths), 2e-2,
              False)
+    # NUSVC's head dim 256 (phase 17): the train step at both resolutions,
+    # and key blocks wholly padded
+    b, t, lengths = NUSVC_CHECKS[1]
+    case(b, 4, t, 256, torch.bfloat16, lengths, 2e-2, True)
+    case(b, 4, t // 2, 256, torch.bfloat16, _halved(lengths), 2e-2, False)
+    case(3, 4, 200, 256, torch.bfloat16, [200, 96, 1], 2e-2, False)
     return main, rows
 
 
@@ -4818,6 +4851,297 @@ def vocoder_path(torch, np, dev, counters, card):
     return bool(ok), gl_launches, train_launches, synth
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the model variants and small tools
+# ---------------------------------------------------------------------------
+
+# NUSVC's attention at head dim 256 (phase 2's rows): its (1024, 512)
+# inference and its train step, as (B, T, valid lengths)
+NUSVC_CHECKS = ((1, 1024, [1024]), (16, 512, [512] + [475] * 15))
+NUSVC_REQUEST = (1024, 512)          # source, reference frames
+NUSVC_STEPS = 10                     # Euler steps of (a)
+NUSVC_TRAIN_STEPS = 5                # timed steps of (b), after 2 warm-up
+NUSVC_PARITY = (64, 48, 2)           # (a)'s f32 parity: frames, ref, steps
+FUSED_REQUEST = (1024, 512)          # (c): phase 3's first request
+SNAKE_T = 1536                       # (d): its packed length
+# a UNet evaluation of NUSVC's and of Serenade's: 6 transformer blocks and
+# 13 Block1Ds
+UNET_LAUNCHES = {"flash_fwd": 6, "block1d_fwd": 13}
+
+
+def _nusvc_inputs(torch, dev, b, t, t_ref, lengths, seed, input_dim=771):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, t, input_dim), generator=g, device=dev),
+            torch.tensor(lengths, device=dev),
+            torch.randn((b, t_ref, 80), generator=g, device=dev))
+
+
+def _only(launches, want) -> bool:
+    """Each kernel in ``want`` launched that many times, every other kernel
+    never."""
+    return all(n == want.get(k, 0) for k, n in launches.items())
+
+
+def nusvc_infer(torch, np, dev, counters, card):
+    """(a) NUSVC at its published widths (bf16 compute, f32 parameters,
+    seeded weights) converts a (1024, 512) request, Euler-10; then a short
+    f32 conversion on the card against the CPU."""
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.nusvc import NUSVC
+
+    t0 = time.time()
+    model = init_params_(NUSVC(), seed=3).to(dev).eval()
+    setup_s = time.time() - t0
+    s, r = NUSVC_REQUEST
+    x, lengths, ref = _nusvc_inputs(torch, dev, 1, s, r, [s], 4)
+    ref_lengths = torch.tensor([r], device=dev)
+    model.inference(x, lengths, ref, ref_lengths, n_timesteps=2)  # warm-up
+    torch.cuda.synchronize()
+    counters.reset()
+    walls = []
+    for _ in range(2):
+        start = time.time()
+        mel = model.inference(x, lengths, ref, ref_lengths,
+                              n_timesteps=NUSVC_STEPS)
+        torch.cuda.synchronize()
+        walls.append(time.time() - start)
+    launches, routed = counters.read(), counters.routed()
+    evals = 2 * NUSVC_STEPS
+    want = {k: v * evals for k, v in UNET_LAUNCHES.items()}
+    ok = (tuple(mel.shape) == (1, s, 80) and bool(torch.isfinite(mel).all())
+          and _only(launches, want) and not any(routed.values()))
+    # f32 at a short length: the card's kernels against the CPU's plain
+    # versions, from the same weights and noise (phase 4's 1e-3)
+    t, tr, steps = NUSVC_PARITY
+    cpu_model = NUSVC(dtype="float32")
+    cpu_model.load_state_dict(model.state_dict())
+    card_model = NUSVC(dtype="float32").to(dev)
+    card_model.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(5)
+    arrays = [rng.normal(size=shape).astype(np.float32) for shape in
+              ((1, t, 771), (1, tr, 80), (1, t, 80))]
+    outs = []
+    for m, d in ((cpu_model, torch.device("cpu")), (card_model, dev)):
+        xs, refs, x0 = (torch.from_numpy(a).to(d) for a in arrays)
+        outs.append(m.inference(
+            xs, torch.tensor([t - 5], device=d), refs,
+            torch.tensor([tr], device=d), n_timesteps=steps,
+            x0=0.667 * x0).cpu().numpy())
+    err = float(np.abs(outs[0] - outs[1]).max())
+    scale = max(1.0, float(np.abs(outs[0]).max()))
+    parity_ok = err / scale <= 1e-3
+    wall = min(walls)
+    emit({"phase": "nusvc", "part": "inference", "card": card,
+          "request": list(NUSVC_REQUEST), "steps": NUSVC_STEPS,
+          "params": sum(p.numel() for p in model.parameters()),
+          "setup_s": setup_s, "wall_s": walls,
+          "rtf": wall / (s * HOP / SR), "launches": launches,
+          "launches_expected": want, "routed": routed,
+          "f32_parity": {"frames": t, "steps": steps, "max_abs_err": err,
+                         "scale": scale, "tol": 1e-3, "ok": parity_ok},
+          "ok": ok and parity_ok})
+    return ok and parity_ok, launches, model
+
+
+def nusvc_train(torch, np, dev, counters, card, model):
+    """(b) One step at a time of NUSVC's ``loss`` at B 16 x 512 (dropout
+    on), its backward and the recipe's AdamW: 2 warm-up and 5 timed
+    steps."""
+    from serenade_tpu_torch.configs import TRAIN_CONFIG
+    from serenade_tpu_torch.trainers import build_optimizer, \
+        create_train_state
+
+    model.train()
+    opt, _ = build_optimizer(TRAIN_CONFIG)
+    state = create_train_state(model, opt)
+    b, t, lengths = NUSVC_CHECKS[1]
+    x, lens, mel = _nusvc_inputs(torch, dev, b, t, t, lengths, 6)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def step():
+        for p in state.params.values():
+            p.grad = None
+        out = model(x, lens, mel, generator=gen)
+        out["loss"].backward()
+        grads = {n: p.grad for n, p in state.params.items()}
+        norm = opt.update(state.params, grads, state.opt_state)
+        return out, grads, norm
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    counters.reset()
+    walls, losses = [], []
+    for _ in range(NUSVC_TRAIN_STEPS):
+        start = time.time()
+        out, grads, norm = step()
+        torch.cuda.synchronize()
+        walls.append(time.time() - start)
+        losses.append({k: float(v.detach()) for k, v in out.items()})
+    launches, routed = counters.read(), counters.routed()
+    model.eval()
+    no_grad = [n for n, g in grads.items()
+               if g is None or not bool(torch.isfinite(g).all())
+               or not bool(g.abs().amax() > 0)]
+    want = {k: n * NUSVC_TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()
+            if n}
+    finite = all(math.isfinite(v) for r in losses for v in r.values())
+    ok = (finite and not no_grad and math.isfinite(float(norm))
+          and _only(launches, want) and not any(routed.values()))
+    step_s = sum(walls) / len(walls)
+    emit({"phase": "nusvc", "part": "train", "card": card,
+          "batch": [b, t], "step_s": walls, "steps_per_s": 1.0 / step_s,
+          "frames_per_s": sum(lengths) / step_s, "losses": losses,
+          "params_without_finite_grad": no_grad, "launches": launches,
+          "launches_expected": want, "routed": routed, "ok": ok})
+    return ok, launches
+
+
+def fused_qkv_convert(torch, np, dev, counters, card, conv):
+    """(c) Phase 3's Converter answers its (1024, 512) request with the
+    fused QKV projection (``SERENADE_FUSE_QKV=1``) and without, from the
+    same noise: the mels within phase 8's rule of each other, measured
+    against the card's own bf16 - f32 gap (an f32 Converter from the same
+    seeded weights), 60 K1 launches each, no call routed."""
+    from serenade_tpu_torch.api import Converter
+    from serenade_tpu_torch.configs import serenade_config
+
+    rng = np.random.default_rng(8)
+    s, r = FUSED_REQUEST
+    src, ref = _features(np, rng, s, False), _features(np, rng, r, True)
+    x0 = 0.667 * rng.normal(size=(1, s + r, 80))
+    runs, ok = {}, True
+    old = os.environ.get("SERENADE_FUSE_QKV")
+    try:
+        for fused in ("1", "0"):
+            os.environ["SERENADE_FUSE_QKV"] = fused
+            conv.convert_features(src, ref, x0=x0)         # warm-up
+            torch.cuda.synchronize()
+            counters.reset()
+            start = time.time()
+            mel, _, _ = conv.convert_features(src, ref, x0=x0)
+            torch.cuda.synchronize()
+            wall = time.time() - start
+            launches, routed = counters.read(), counters.routed()
+            runs[fused] = (mel, wall, launches, routed)
+            ok &= (launches["flash_fwd"] == 6 * conv.n_timesteps
+                   and not any(routed.values()))
+    finally:
+        if old is None:
+            os.environ.pop("SERENADE_FUSE_QKV", None)
+        else:
+            os.environ["SERENADE_FUSE_QKV"] = old
+    f32 = Converter(serenade_config("float32"), None, _scaler(np),
+                    n_timesteps=10, solver="euler", seed=0, device=dev)
+    mel32, _, _ = f32.convert_features(src, ref, x0=x0)
+    del f32
+    fused, unfused = runs["1"][0], runs["0"][0]
+    gap, err = np.abs(unfused - mel32), np.abs(fused - unfused)
+    rule = bool(err.mean() <= 1.5 * gap.mean()
+                and err.max() <= 2.0 * gap.max())
+    ok &= rule and bool(np.isfinite(fused).all())
+    emit({"phase": "nusvc", "part": "fused_qkv", "card": card,
+          "request": [s, r], "wall_s": {"fused": runs["1"][1],
+                                        "unfused": runs["0"][1]},
+          "launches": {"fused": runs["1"][2], "unfused": runs["0"][2]},
+          "routed": {"fused": runs["1"][3], "unfused": runs["0"][3]},
+          "max_abs_diff": float(err.max()), "mean_abs_diff": float(err.mean()),
+          "bf16_gap_max": float(gap.max()), "bf16_gap_mean": float(gap.mean()),
+          "tol": {"mean": 1.5, "max": 2.0}, "ok": bool(ok)})
+    return bool(ok)
+
+
+def snakebeta_unet(torch, np, dev, counters, card):
+    """(d) Serenade's UNet (242 -> 80, channels (512, 512), head dim 512)
+    with ``act_fn="snakebeta"`` in bf16: one evaluation at the packed T
+    1536 of a (1024, 512) request."""
+    from serenade_tpu_torch.configs import SERENADE_MODEL_PARAMS as P
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.transformer import SnakeBeta
+    from serenade_tpu_torch.models.unet import Decoder
+
+    cond = P["encoder_channels"] + 2 + P["output_dim"]
+    dec = init_params_(Decoder(
+        cond + P["output_dim"], P["output_dim"],
+        channels=(P["decoder_channels"],) * 2,
+        attention_head_dim=P["decoder_attention_head_dim"],
+        spk_dim=P["gst_embed_dim"], act_fn="snakebeta",
+        dtype=torch.bfloat16), seed=9).to(dev)
+    snakes = sum(isinstance(m, SnakeBeta) for m in dec.modules())
+    t = SNAKE_T
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((1, t, 80), generator=g, device=dev)
+    mu = torch.randn((1, t, cond), generator=g, device=dev)
+    spk = torch.randn((1, P["gst_embed_dim"]), generator=g, device=dev)
+    mask = torch.ones((1, t, 1), device=dev)
+    tt = torch.full((1,), 0.5, device=dev)
+    with torch.no_grad():
+        dec(x, mask, mu, tt, spk)                       # warm-up
+        torch.cuda.synchronize()
+        counters.reset()
+        out = dec(x, mask, mu, tt, spk)
+        torch.cuda.synchronize()
+    launches, routed = counters.read(), counters.routed()
+    ok = (snakes == 6 and tuple(out.shape) == (1, t, 80)
+          and bool(torch.isfinite(out).all())
+          and _only(launches, UNET_LAUNCHES) and not any(routed.values()))
+    emit({"phase": "nusvc", "part": "snakebeta_unet", "card": card, "t": t,
+          "snakebeta_blocks": snakes, "launches": launches,
+          "launches_expected": UNET_LAUNCHES, "routed": routed, "ok": ok})
+    return ok
+
+
+def param_counts(torch, np, card, nusvc_params):
+    """(e) ``bin/param_count --config`` on Serenade's full-width config and
+    NUSVC's defaults (written as YAML where pyyaml is; else the function
+    the CLI runs on the same dict), each total against the instantiated
+    model's parameters."""
+    from serenade_tpu_torch.bin import param_count
+    from serenade_tpu_torch.configs import serenade_config
+    from serenade_tpu_torch.models.serenade import Serenade
+
+    serenade_n = sum(p.numel() for p in Serenade(
+        **serenade_config()).parameters())
+    totals, ok = {}, True
+    with tempfile.TemporaryDirectory() as root:
+        for name, params, want in (("Serenade", serenade_config(),
+                                    serenade_n),
+                                   ("NUSVC", {}, nusvc_params)):
+            config = {"model_type": name, "model_params": params}
+            if _has("yaml"):
+                path = os.path.join(root, f"{name}.yml")
+                _write_yaml(path, config)
+                out = param_count.main(["--config", path])
+                route = "cli"
+            else:
+                out = param_count.count_tree(param_count.config_tree(config))
+                route = "config_tree"
+            totals[name] = {"total": out["total"],
+                            "per_module": out["per_module"], "route": route}
+            ok &= out["total"] == want
+    emit({"phase": "nusvc", "part": "param_count", "card": card,
+          "totals": totals, "ok": bool(ok)})
+    return bool(ok)
+
+
+def nusvc_path(torch, np, dev, counters, card, conv):
+    """Phase 17.  Returns (ok, the launches of (a)'s inference and of
+    (b)'s train steps)."""
+    t0 = time.time()
+    ok, infer_launches, model = nusvc_infer(torch, np, dev, counters, card)
+    train_ok, train_launches = nusvc_train(torch, np, dev, counters, card,
+                                           model)
+    ok &= train_ok
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    ok &= fused_qkv_convert(torch, np, dev, counters, card, conv)
+    ok &= snakebeta_unet(torch, np, dev, counters, card)
+    ok &= param_counts(torch, np, card, n_params)
+    emit({"phase": "nusvc_done", "seconds": time.time() - t0,
+          "ok": bool(ok)})
+    return bool(ok), infer_launches, train_launches
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -4883,6 +5207,19 @@ class Counters:
                 for name, (mod, attr) in ROUTED.items()}
 
 
+def _head_dims(entry, rows, part=None):
+    """The head dims a flash kernel ran at in phase 2, and its timed rows
+    at NUSVC's head dim 256 (ms, bound, plain, SDPA)."""
+    entry["head_dims"] = sorted({r["shape"][3] for r in rows})
+    entry["head_dim_256_rows"] = [
+        {"shape": r["shape"],
+         "max_abs_err": (max(r["max_abs_err"][k] for k in OUTPUTS[
+             f"flash_bwd_{part}"]) if part else r["max_abs_err"]),
+         **{k: (r[part] if part else r)[k] for k in ("ms", "bound_ms")},
+         "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
+        for r in rows if r["shape"][3] == 256 and "plain_ms" in r]
+
+
 def kernel_entries(torch, np, dev):
     """Phase 2: every kernel against its plain version; one entry each for
     the kernels line (launches filled in by the path that runs them)."""
@@ -4923,6 +5260,8 @@ def kernel_entries(torch, np, dev):
                 {k: r[k] for k in ("shape", "ms", "bound_ms", "plain_ms",
                                    "max_abs_err")}
                 for r in rows if not r["additional_convs"] and "ms" in r]
+        if name == "flash_fwd":
+            _head_dims(entries[name], rows)
     main_row, rows = check_viterbi(torch, np, dev)
     emit({"phase": "kernels", "kernel": "viterbi_f0", "cases": rows})
     ok &= all(r["ok"] for r in rows)
@@ -4943,6 +5282,8 @@ def kernel_entries(torch, np, dev):
         ok &= all(r["ok"] for r in rows)
         for name, part in names:
             entry(name, main_row, main_row[part])
+            if name.startswith("flash"):
+                _head_dims(entries[name], rows, part)
         if "library_backend" in main_row:
             entries[names[0][0]]["library_backend"] = \
                 main_row["library_backend"]
@@ -5048,6 +5389,12 @@ def main() -> int:
             f: v[name] for f, v in train_launches.items()}
         entries[name]["vocoder_synthesis_launches"] = {
             f: v[name] for f, v in synth.items()}
+    nusvc_ok, infer_launches, train_launches = nusvc_path(
+        torch, np, dev, counters, card, conv)
+    ok &= nusvc_ok
+    for name in entries:
+        entries[name]["nusvc_launches"] = {
+            "inference": infer_launches[name], "train": train_launches[name]}
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

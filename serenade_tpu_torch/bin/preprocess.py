@@ -40,6 +40,7 @@ from serenade_tpu_torch.modules.contentvec import (
     ContentVecEncoder, load_contentvec_params,
 )
 from serenade_tpu_torch.ops.resample import resample_device
+from serenade_tpu_torch.utils.types import str2bool
 
 BUCKET_16K = 32000   # 2 s at 16 kHz: one batch shape per bucket
 BUCKET_24K = 48000   # the same 2 s at 24 kHz, which the 2/3 resample maps
@@ -147,17 +148,6 @@ def make_content_fn(ckpt=None, batch_size: int = 8, *, config=None,
 
 # the JAX CLI's backends; its "jax" is the port's plain "yin"
 F0_BACKENDS = ("viterbi", "harvest", "jax", "native", "harvest_native")
-
-
-def str2bool(value) -> bool:
-    if isinstance(value, bool):
-        return value
-    v = value.lower()
-    if v in ("yes", "true", "t", "y", "1"):
-        return True
-    if v in ("no", "false", "f", "n", "0"):
-        return False
-    raise argparse.ArgumentTypeError(f"boolean value expected, got {value!r}")
 
 
 def build_argparser():

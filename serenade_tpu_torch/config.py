@@ -6,7 +6,7 @@ serenade_tpu/config.py).
 holds what the port has: a config's ``model_type``, ``trainer_type``,
 ``collater_type`` and ``dataset_type`` resolve to their classes here (the
 JAX package's four pairs, the F0-fluctuation variant's ``*New`` types
-among them).
+among them, and the legacy ``NUSVC`` model).
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from typing import Any, Dict
 _REGISTRY = {
     "model": {
         "Serenade": "serenade_tpu_torch.models.serenade:Serenade",
-        "SerenadeNew": "serenade_tpu_torch.models.serenade_new:SerenadeNew"},
+        "SerenadeNew": "serenade_tpu_torch.models.serenade_new:SerenadeNew",
+        "NUSVC": "serenade_tpu_torch.models.nusvc:NUSVC"},
     "trainer": {
         "SSCTrainer": "serenade_tpu_torch.trainers.ssc:SSCTrainer",
         "SSCTrainerNew": "serenade_tpu_torch.trainers.ssc:SSCTrainerNew"},

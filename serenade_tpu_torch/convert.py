@@ -20,8 +20,12 @@ inverse of ``serenade_tpu/models/convert_serenade.py``:
 
 Every mapping is a transpose or a concatenation, so it is linear and
 applies to gradients and optimizer updates of the same tree as well.
-The SiFiGAN generators (``sifigan/generator.py``), the discriminators
-(``vocoder/hifigan.py``, ``vocoder/univnet.py``) and the transcriber
+NUSVC (``models/nusvc.py``), the transformer options (SnakeBeta's
+``proj``, ``alpha`` and ``beta``; ``norm2`` and ``attn2``), the GST
+attention variants (``modules/gst_attention.py``: ``linear_*``,
+``linear_pos``, ``pos_bias_u`` / ``pos_bias_v``), the SiFiGAN generators
+(``sifigan/generator.py``), the discriminators (``vocoder/hifigan.py``,
+``vocoder/univnet.py``) and the transcriber
 (``modules/phoneme_midi/model.py``) name their modules as flax does too,
 so their flax trees map by the same table.  JAX folds an LSTM's two
 biases into one vector; the bridge puts it in ``bias_ih`` and zeros in
@@ -38,7 +42,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from serenade_tpu_torch.models import gst, layers
+from serenade_tpu_torch.models import gst, layers, transformer
+from serenade_tpu_torch.modules import gst_attention
 
 # port module name -> flax path parts, where flax names it differently
 _FLAX_NAMES = {"gru": ("MaskedGRU_0", "GRUCell_0")}
@@ -93,7 +98,12 @@ _CONVERTERS: Dict[type, Callable[[Mapping], Dict[str, np.ndarray]]] = {
                                       ("mean", "var", "scale", "bias")},
     gst.MaskedGRU: _gru,
     gst.StyleTokenLayer: lambda p: {"gst_embs": p["gst_embs"]},
+    transformer.SnakeBeta: lambda p: {"alpha": p["alpha"], "beta": p["beta"]},
+    gst_attention.RelPositionMultiHeadedAttention: lambda p: {
+        "pos_bias_u": p["pos_bias_u"], "pos_bias_v": p["pos_bias_v"]},
 }
+
+_POS_BIAS = {"pos_bias_u": ("pos_bias_u",), "pos_bias_v": ("pos_bias_v",)}
 
 
 # the flax leaves each port tensor is made from, per module type (the
@@ -115,6 +125,9 @@ _LEAVES: Dict[type, Dict[str, Tuple[str, ...]]] = {
         "bias_ih": ("ir/bias", "iz/bias", "in/bias"),
         "bias_hn": ("hn/bias",)},
     gst.StyleTokenLayer: {"gst_embs": ("gst_embs",)},
+    transformer.SnakeBeta: {"alpha": ("alpha",), "beta": ("beta",)},
+    gst_attention.RelPositionMultiHeadedAttention: _POS_BIAS,
+    gst_attention.LegacyRelPositionMultiHeadedAttention: _POS_BIAS,
 }
 
 
@@ -131,6 +144,10 @@ _CHANNEL_AXES: Dict[type, Dict[str, int]] = {
     layers.Conv2d: {"weight": 0},
     gst.MaskedGRU: {"weight_ih": 0, "weight_hh": 0},
     gst.StyleTokenLayer: {"gst_embs": 1},
+    gst_attention.RelPositionMultiHeadedAttention: {"pos_bias_u": 1,
+                                                    "pos_bias_v": 1},
+    gst_attention.LegacyRelPositionMultiHeadedAttention: {"pos_bias_u": 1,
+                                                          "pos_bias_v": 1},
 }
 
 

@@ -20,8 +20,15 @@
 // in registers, and the dK + dV accumulators of 64 keys (256 KB) exceed
 // the 227 KB of shared memory.
 //
-// K4, bf16 (the training path), designed for Hopper; head_dim 512 only
-// (ops/flash_cuda.py k4_plan raises on another).  One CTA of 384 threads
+// K4 and K5 in bf16 are templated on the head dim (HD): 512 as designed
+// (described below), and 256 (NUSVC) in the same layout at half the
+// columns: K4's halves of K and V are 128 columns (8 KB slots) and each
+// consumer's dQ block 64 x 128 in 64 registers (m64n128k16); K5's
+// gradients^T are four m64 tiles in 64 registers a thread.  Shared memory
+// at 256: K4 113 KB, K5 109 KB (ops/flash_cuda.py k4_plan, k5_plan raise
+// on another head dim).
+//
+// K4, bf16 (the training path), designed for Hopper.  One CTA of 384 threads
 // per 64 query rows of one (b, h) keeps Q and dO resident (64 KB each,
 // loaded once) and walks 32-key tiles of K and V through a ring of five
 // 16 KB slots, each half a tile (256 columns); with the dS tile that is
@@ -49,8 +56,7 @@
 // the refills and dQ together keep shared memory near its rate (NVIDIA
 // H100 80GB HBM3, 700 W).
 //
-// K5, bf16 (the training path), designed for Hopper; head_dim 512 only
-// (ops/flash_cuda.py k5_plan raises on another).  One CTA of 384 threads
+// K5, bf16 (the training path), designed for Hopper.  One CTA of 384 threads
 // per 32 keys of one (b, h): the dK + dV accumulators of 32 keys x 512
 // columns in f32 take 128 KB, half the register file, and K, V (64 KB)
 // plus one 64-query tile of Q and of dO (128 KB) leave no room in the
@@ -284,23 +290,32 @@ using bf16 = __nv_bfloat16;
 
 namespace k4 {
 
-constexpr int HD = 512;               // the head dim this design takes
+// The design takes head dims 512 and 256 (a template on HD; 512 as it was
+// designed, 256 the same layout with halves of 128 columns).
 constexpr int BQ = 64;                // queries a CTA
 constexpr int BKEY = 32;              // keys a tile
 constexpr int THREADS = 384;
 constexpr int SLOTS = 5;              // half tiles of K or V in the ring
 constexpr int QBOX = BQ * 128;        // 64 rows x 64 d, bytes
 constexpr int KBOX = BKEY * 128;      // 32 rows x 64 d
-constexpr int TILE = 8 * QBOX;        // Q or dO, 64 KB
-constexpr int HALF = 4 * KBOX;        // 256 columns of a K or V tile, 16 KB
-constexpr int OFF_Q = 0, OFF_G = TILE, OFF_SLOT = 2 * TILE;
-constexpr int OFF_DS = OFF_SLOT + SLOTS * HALF;
-// dS as [query][key] rows of 128 bytes (keys 0-31 in the first 64 bytes)
-constexpr int SMEM = OFF_DS + BQ * 128 + 1024;   // + alignment
-// the epilogue stages each consumer's 64 x 256 dQ block as rows padded by
-// 16 bytes, the first consumer's in the Q tile and the second's in dO's
-constexpr int OUT_LD = 256 * 2 + 16;
-static_assert(BQ * OUT_LD <= TILE, "a staged dQ block fits in its tile");
+
+template <int HD>
+struct Dims {
+  static_assert(HD == 256 || HD == 512, "K4 takes head dims 256 and 512");
+  static constexpr int HB = HD / 128;           // 64-column blocks a half
+  static constexpr int TILE = 2 * HB * QBOX;    // Q or dO, 64 KB at 512
+  static constexpr int HALF = HB * KBOX;        // half a K or V tile
+  static constexpr int OFF_Q = 0, OFF_G = TILE, OFF_SLOT = 2 * TILE;
+  static constexpr int OFF_DS = OFF_SLOT + SLOTS * HALF;
+  // dS as [query][key] rows of 128 bytes (keys 0-31 in the first 64 bytes)
+  static constexpr int SMEM = OFF_DS + BQ * 128 + 1024;   // + alignment
+  // the epilogue stages each consumer's 64 x HD / 2 dQ block as rows
+  // padded by 16 bytes, the first consumer's in the Q tile and the
+  // second's in dO's
+  static constexpr int OUT_LD = HD + 16;
+  static_assert(BQ * OUT_LD <= TILE, "a staged dQ block fits in its tile");
+  static constexpr int ACC = HD / 4;            // dQ registers a thread
+};
 
 // The slots of one key tile's four halves: K's columns 0-255 (ka) and
 // 256-511 (kb), V's (va, vb), and the slot that already holds the next
@@ -319,14 +334,17 @@ struct Slots {
   }
 };
 
-// the half `half` (four 64-column blocks, one TMA instruction) of the K or
-// V tile at keys k0 into slot s; called by one thread
+// the half `half` (HD / 128 64-column blocks, one TMA instruction) of the
+// K or V tile at keys k0 into slot s; called by one thread
+template <int HD>
 __device__ __forceinline__ void load_half(uint8_t* ring, int s,
                                           const CUtensorMap* map,
                                           uint64_t* full, int k0, int half,
                                           int h, int b) {
-  hopper::mbar_expect_tx(&full[s], HALF);
-  hopper::tma_load_blocks(ring + s * HALF, map, &full[s], k0, 4 * half, h, b);
+  using Dm = Dims<HD>;
+  hopper::mbar_expect_tx(&full[s], Dm::HALF);
+  hopper::tma_load_blocks(ring + s * Dm::HALF, map, &full[s], k0,
+                          Dm::HB * half, h, b);
 }
 
 // the key mask at key t of a sample's row `mb` (1 without a mask), from
@@ -343,27 +361,29 @@ __device__ __forceinline__ float mask_at(const float* mb, int t, int Tk) {
 }
 
 // acc (64 queries x 32 keys) = rows (Q or dO) x the tile (K or V) over the
-// head dim: columns 0-255 from slot s0, 256-511 from s1, each as it lands.
-// After each wait the products are fenced anew: the wait is a loop, and
-// without the fence ptxas puts its own on the loop's path and serialises
-// every product.
+// head dim: its first half of the columns from slot s0, the second from
+// s1, each as it lands.  After each wait the products are fenced anew: the
+// wait is a loop, and without the fence ptxas puts its own on the loop's
+// path and serialises every product.
+template <int HD>
 __device__ __forceinline__ void scores(float (&acc)[16], uint32_t rows,
                                        uint32_t ring, uint64_t* full,
                                        int s0, int s1, uint32_t par) {
+  constexpr int HB = Dims<HD>::HB;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int s = half ? s1 : s0;
-    const uint32_t keys = ring + s * HALF;
+    const uint32_t keys = ring + s * Dims<HD>::HALF;
     hopper::mbar_wait(&full[s], (par >> s) & 1);
     hopper::wgmma_fence();
     hopper::fence_regs(acc);
 #pragma unroll
-    for (int db = 0; db < 4; ++db)
+    for (int db = 0; db < HB; ++db)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         hopper::wgmma_m64n32k16_ss<0, 0>(
             acc,
-            hopper::desc_sw128(rows + (4 * half + db) * QBOX + 32 * kk, 16,
+            hopper::desc_sw128(rows + (HB * half + db) * QBOX + 32 * kk, 16,
                                1024),
             hopper::desc_sw128(keys + db * KBOX + 32 * kk, 16, 1024),
             (half | db | kk) != 0);
@@ -380,6 +400,18 @@ __device__ __forceinline__ void scores(float (&acc)[16], uint32_t rows,
 constexpr int BAR_VA = 4, BAR_VB = 5, BAR_DS_READY = 6, BAR_DS_FREE = 7;
 constexpr int BAR_EPILOGUE = 2;   // + the consumer's index
 
+// dQ block += dS K half over HD / 2 columns: m64n256k16 at 512,
+// m64n128k16 at 256
+template <int HD>
+__device__ __forceinline__ void dq_product(float (&acc)[HD / 4], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (HD == 512)
+    hopper::wgmma_m64n256k16_ss<0, 1>(acc, da, db, 1);
+  else
+    hopper::wgmma_m64n128k16_ss<0, 1>(acc, da, db, 1);
+}
+
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
@@ -388,6 +420,11 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                const float* __restrict__ mask, const float* __restrict__ lse,
                const float* __restrict__ dsum, Out dq, int H, int Tq, int Tk,
                float scale) {
+  using Dm = Dims<HD>;
+  constexpr int HB = Dm::HB, TILE = Dm::TILE, OFF_Q = Dm::OFF_Q,
+                OFF_G = Dm::OFF_G, OFF_SLOT = Dm::OFF_SLOT,
+                OFF_DS = Dm::OFF_DS, OUT_LD = Dm::OUT_LD, ACC = Dm::ACC,
+                HALF = Dm::HALF;
   extern __shared__ uint8_t smem_raw[];
   // qfull / gfull: the Q and dO tiles have landed; full: a slot has
   __shared__ __align__(8) uint64_t qfull, gfull, full[SLOTS];
@@ -430,16 +467,16 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       hopper::mbar_expect_tx(&qfull, TILE);
       hopper::mbar_expect_tx(&gfull, TILE);
       for (int half = 0; half < 2; ++half) {
-        hopper::tma_load_blocks(sm + OFF_Q + 4 * half * QBOX, &q_map, &qfull,
-                                q0, 4 * half, h, b);
-        hopper::tma_load_blocks(sm + OFF_G + 4 * half * QBOX, &g_map, &gfull,
-                                q0, 4 * half, h, b);
+        hopper::tma_load_blocks(sm + OFF_Q + HB * half * QBOX, &q_map,
+                                &qfull, q0, HB * half, h, b);
+        hopper::tma_load_blocks(sm + OFF_G + HB * half * QBOX, &g_map,
+                                &gfull, q0, HB * half, h, b);
       }
-      load_half(ring, s.ka, &k_map, full, 0, 0, h, b);
-      load_half(ring, s.kb, &k_map, full, 0, 1, h, b);
-      load_half(ring, s.va, &v_map, full, 0, 0, h, b);
-      load_half(ring, s.vb, &v_map, full, 0, 1, h, b);
-      if (nk > 1) load_half(ring, s.nxt, &k_map, full, BKEY, 0, h, b);
+      load_half<HD>(ring, s.ka, &k_map, full, 0, 0, h, b);
+      load_half<HD>(ring, s.kb, &k_map, full, 0, 1, h, b);
+      load_half<HD>(ring, s.va, &v_map, full, 0, 0, h, b);
+      load_half<HD>(ring, s.vb, &v_map, full, 0, 1, h, b);
+      if (nk > 1) load_half<HD>(ring, s.nxt, &k_map, full, BKEY, 0, h, b);
     }
     const long long row0 = ((long long)b * H + h) * Tq;
     const float* mb = mask ? mask + (long long)b * Tk : nullptr;
@@ -468,8 +505,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         km[i] = mask_at(mb, t + BKEY, Tk);
       }
       float sc[16], dp[16];
-      scores(sc, base + OFF_Q, rbase, full, s.ka, s.kb, par);
-      scores(dp, base + OFF_G, rbase, full, s.va, s.vb, par);
+      scores<HD>(sc, base + OFF_Q, rbase, full, s.ka, s.kb, par);
+      scores<HD>(dp, base + OFF_G, rbase, full, s.va, s.vb, par);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       hopper::fence_regs(dp);
@@ -504,23 +541,24 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     return;
   }
 
-  // ---- warpgroups 1 and 2: dQ[:, 256 cw .. + 255] += dS K[:, same] (wgmma
-  // m64n256k16; A dS K-major, B the K half [key][d] MN-major through the
-  // descriptor's transpose bit), 64 x 256 in 128 registers a thread.  The
-  // thread 0 of each refills a V half warpgroup 0 freed and, after its
-  // products, its own K half, where its warpgroup has no product in flight.
+  // ---- warpgroups 1 and 2: dQ[:, HD / 2 cw ..] += dS K[:, same] (wgmma
+  // m64n(HD / 2)k16; A dS K-major, B the K half [key][d] MN-major through
+  // the descriptor's transpose bit), 64 x HD / 2 in HD / 4 registers a
+  // thread.  The thread 0 of each refills a V half warpgroup 0 freed and,
+  // after its products, its own K half, where its warpgroup has no product
+  // in flight.
   const int cw = wg - 1;
-  float acc[128];
+  float acc[ACC];
 #pragma unroll
-  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
   for (int j = 0; j < nk; ++j) {
     const int mine = cw ? s.kb : s.ka;
     // va takes the next tile's K columns 256-511, vb its V columns 0-255
     if (j + 1 < nk && w == 0) {
       hopper::named_barrier(BAR_VA + cw, 160);
       if (tid == 0)
-        load_half(ring, cw ? s.vb : s.va, cw ? &v_map : &k_map, full,
-                  (j + 1) * BKEY, cw ? 0 : 1, h, b);
+        load_half<HD>(ring, cw ? s.vb : s.va, cw ? &v_map : &k_map, full,
+                      (j + 1) * BKEY, cw ? 0 : 1, h, b);
     }
     hopper::named_barrier(BAR_DS_READY, 384);
     hopper::mbar_wait(&full[mine], (par >> mine) & 1);   // warpgroup 0 saw it
@@ -528,9 +566,9 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(acc);
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks)
-      hopper::wgmma_m64n256k16_ss<0, 1>(
+      dq_product<HD>(
           acc, hopper::desc_sw128(base + OFF_DS + 32 * ks, 16, 1024),
-          hopper::desc_sw128(rbase + mine * HALF + 2048 * ks, KBOX, 1024), 1);
+          hopper::desc_sw128(rbase + mine * HALF + 2048 * ks, KBOX, 1024));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
@@ -539,8 +577,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     // of the tile after next
     const int ahead = cw ? 2 : 1;
     if (tid == 0 && j + ahead < nk)
-      load_half(ring, mine, cw ? &k_map : &v_map, full, (j + ahead) * BKEY,
-                cw ? 0 : 1, h, b);
+      load_half<HD>(ring, mine, cw ? &k_map : &v_map, full,
+                    (j + ahead) * BKEY, cw ? 0 : 1, h, b);
     par ^= s.mask();
     s = s.next();
   }
@@ -548,22 +586,23 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   // epilogue: dQ through shared memory (the Q or dO tile: warpgroup 0 is
   // done with both) to (B, Tq, H, D) rows, 16 bytes a store.  Element e of
   // acc is query 16 w + g8 + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 t4 +
-  // (e & 1) of this consumer's 256.
+  // (e & 1) of this consumer's HD / 2.
   uint8_t* own = sm + (cw ? OFF_G : OFF_Q);
 #pragma unroll
-  for (int e = 0; e < 128; e += 2) {
+  for (int e = 0; e < ACC; e += 2) {
     const int q = 16 * w + g8 + 8 * ((e >> 1) & 1);
     const int c = 8 * (e >> 2) + 2 * t4;
     *reinterpret_cast<uint32_t*>(own + q * OUT_LD + 2 * c) =
         serenade::pack_bf16(acc[e], acc[e + 1]);
   }
   hopper::named_barrier(BAR_EPILOGUE + cw, 128);
-  for (int c = tid; c < BQ * 32; c += 128) {
-    const int q = c / 32, ch = c % 32;
+  constexpr int CHUNKS = HD / 16;   // 16-byte chunks of a consumer's row
+  for (int c = tid; c < BQ * CHUNKS; c += 128) {
+    const int q = c / CHUNKS, ch = c % CHUNKS;
     if (q0 + q < Tq)
       *reinterpret_cast<uint4*>(static_cast<bf16*>(dq.p) + b * dq.sb +
                                 h * dq.sh + (long long)(q0 + q) * dq.st +
-                                256 * cw + 8 * ch) =
+                                HD / 2 * cw + 8 * ch) =
           *reinterpret_cast<const uint4*>(own + q * OUT_LD + 16 * ch);
   }
 }
@@ -576,41 +615,51 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 
 namespace k5 {
 
-constexpr int HD = 512;               // the head dim this design takes
+// The design takes head dims 512 and 256 (a template on HD; 512 as it was
+// designed, 256 the same layout with four m64 tiles of the gradient^T).
 constexpr int BKEY = 32;              // keys a CTA
 constexpr int BQ = 64;                // queries a tile
 constexpr int THREADS = 384;
 constexpr int QBOX = BQ * 128;        // 64 rows x 64 d, bytes
 constexpr int KBOX = BKEY * 128;      // 32 rows x 64 d
-constexpr int TILE = 8 * QBOX;        // a Q or dO tile, 64 KB
-constexpr int KV = 8 * KBOX;          // K or V, 32 KB
 constexpr int PT = BKEY * 128;        // a [key][query] bf16 tile, 4 KB
-constexpr int OFF_Q = 0, OFF_G = TILE, OFF_K = 2 * TILE, OFF_V = OFF_K + KV;
-constexpr int OFF_PHI = OFF_V + KV, OFF_PLO = OFF_PHI + PT;
-constexpr int OFF_DS = OFF_PLO + PT;
-constexpr int SMEM = OFF_DS + PT + 1024;   // + alignment
-// the epilogue stages dK (in the Q tile) and dV (in the dO tile) as
-// [key][d] rows, padded by 16 bytes so neighbouring keys change bank
-constexpr int OUT_LD = HD * 2 + 16;
-static_assert(BKEY * OUT_LD <= TILE, "a staged gradient fits in its tile");
+
+template <int HD>
+struct Dims {
+  static_assert(HD == 256 || HD == 512, "K5 takes head dims 256 and 512");
+  static constexpr int NB = HD / 64;            // 64-column blocks, m64 tiles
+  static constexpr int HB = NB / 2;             // blocks a half tile
+  static constexpr int TILE = NB * QBOX;        // a Q or dO tile, 64 KB at 512
+  static constexpr int KV = NB * KBOX;          // K or V, 32 KB at 512
+  static constexpr int OFF_Q = 0, OFF_G = TILE, OFF_K = 2 * TILE;
+  static constexpr int OFF_V = OFF_K + KV, OFF_PHI = OFF_V + KV;
+  static constexpr int OFF_PLO = OFF_PHI + PT, OFF_DS = OFF_PLO + PT;
+  static constexpr int SMEM = OFF_DS + PT + 1024;   // + alignment
+  // the epilogue stages dK (in the Q tile) and dV (in the dO tile) as
+  // [key][d] rows, padded by 16 bytes so neighbouring keys change bank
+  static constexpr int OUT_LD = HD * 2 + 16;
+  static_assert(BKEY * OUT_LD <= TILE, "a staged gradient fits in its tile");
+};
 
 // the row of key `t` of head h of sample b in dK or dV
 __device__ __forceinline__ bf16* out_row(const Out& o, int b, int h, int t) {
   return static_cast<bf16*>(o.p) + b * o.sb + h * o.sh + (long long)t * o.st;
 }
 
-// the tile of Q or dO at queries q0.. into `dst`, each half (four
+// the tile of Q or dO at queries q0.. into `dst`, each half (HD / 128
 // 64-column blocks, one TMA instruction) once its slot is free; called by
 // one thread
+template <int HD>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
                                           uint64_t (&full)[2],
                                           uint64_t (&empty)[2], int parity,
                                           int q0, int h, int b) {
+  constexpr int HB = Dims<HD>::HB;
   for (int half = 0; half < 2; ++half) {
     hopper::mbar_wait(&empty[half], parity);
-    hopper::mbar_expect_tx(&full[half], TILE / 2);
-    hopper::tma_load_blocks(dst + 4 * half * QBOX, map, &full[half], q0,
-                            4 * half, h, b);
+    hopper::mbar_expect_tx(&full[half], Dims<HD>::TILE / 2);
+    hopper::tma_load_blocks(dst + HB * half * QBOX, map, &full[half], q0,
+                            HB * half, h, b);
   }
 }
 
@@ -618,16 +667,18 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
 // dim, each half of the tile as it lands.  After each wait the products
 // are fenced anew: the wait is a loop, and without the fence ptxas puts
 // its own on the loop's path and serialises every product.
+template <int HD>
 __device__ __forceinline__ void scores(float (&d)[16], uint32_t tile,
                                        uint32_t keys, uint64_t (&full)[2],
                                        int ph) {
+  constexpr int HB = Dims<HD>::HB;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     hopper::mbar_wait(&full[half], ph);
     hopper::wgmma_fence();
     hopper::fence_regs(d);
 #pragma unroll
-    for (int db = 4 * half; db < 4 * half + 4; ++db)
+    for (int db = HB * half; db < HB * half + HB; ++db)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         hopper::wgmma_m64n32k16_ss<0, 0>(
@@ -641,48 +692,48 @@ __device__ __forceinline__ void scores(float (&d)[16], uint32_t tile,
   hopper::fence_regs(d);
 }
 
-// acc (eight m64 tiles of the gradient^T: d 64 i + row, 32 keys) +=
+// acc (HD / 64 m64 tiles of the gradient^T: d 64 i + row, 32 keys) +=
 // tile^T B over the tile's 64 queries, for each B in `bs`; the tile is
 // read MN-major (the descriptors' transpose bit), B [key][query] K-major.
-// Each half of the tile (four m64 tiles) is freed once its products are
-// done (every thread arrives: no branch while a product is in flight),
+// Each half of the tile (HD / 128 m64 tiles) is freed once its products
+// are done (every thread arrives: no branch while a product is in flight),
 // so that the next tile's half loads while the other is still read.
-template <int NB>
-__device__ __forceinline__ void grad_products(float (&acc)[8][16],
-                                              uint32_t tile,
-                                              const uint32_t (&bs)[NB],
-                                              uint64_t (&full)[2],
-                                              uint64_t (&empty)[2], int ph) {
+template <int HD, int NBS>
+__device__ __forceinline__ void grad_products(
+    float (&acc)[Dims<HD>::NB][16], uint32_t tile, const uint32_t (&bs)[NBS],
+    uint64_t (&full)[2], uint64_t (&empty)[2], int ph) {
+  constexpr int NB = Dims<HD>::NB, HB = Dims<HD>::HB;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     hopper::mbar_wait(&full[half], ph);   // landed: warpgroup 0 saw it
     hopper::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+    for (int i = 0; i < NB; ++i) hopper::fence_regs(acc[i]);
 #pragma unroll
-    for (int i = 4 * half; i < 4 * half + 4; ++i)
+    for (int i = HB * half; i < HB * half + HB; ++i)
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
+        for (int j = 0; j < NBS; ++j)
           hopper::wgmma_m64n32k16_ss<1, 0>(
               acc[i],
               hopper::desc_sw128(tile + i * QBOX + ks * 2048, QBOX, 1024),
               hopper::desc_sw128(bs[j] + 32 * ks, 16, 1024), 1);
     hopper::wgmma_commit();
 #pragma unroll
-    for (int i = 0; i < 8; ++i) hopper::fence_regs(acc[i]);
+    for (int i = 0; i < NB; ++i) hopper::fence_regs(acc[i]);
   }
   hopper::wgmma_wait<1>();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) hopper::fence_regs(acc[i]);
+  for (int i = 0; i < HB; ++i) hopper::fence_regs(acc[i]);
   hopper::mbar_arrive(&empty[0]);
   hopper::wgmma_wait<0>();
 #pragma unroll
-  for (int i = 4; i < 8; ++i) hopper::fence_regs(acc[i]);
+  for (int i = HB; i < NB; ++i) hopper::fence_regs(acc[i]);
   hopper::mbar_arrive(&empty[1]);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
@@ -692,8 +743,14 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                 const float* __restrict__ lse,
                 const float* __restrict__ dsum, Out dk, Out dv, int H,
                 int Tq, int Tk, float scale) {
+  using Dm = Dims<HD>;
+  constexpr int NB = Dm::NB, KV = Dm::KV, OFF_Q = Dm::OFF_Q,
+                OFF_G = Dm::OFF_G, OFF_K = Dm::OFF_K, OFF_V = Dm::OFF_V,
+                OFF_PHI = Dm::OFF_PHI, OFF_PLO = Dm::OFF_PLO,
+                OFF_DS = Dm::OFF_DS, OUT_LD = Dm::OUT_LD;
+  constexpr int CHUNKS = HD / 8;   // 16-byte chunks of a dK or dV row
   extern __shared__ uint8_t smem_raw[];
-  // full / empty [0]: the Q tile, [1]: the dO tile, by halves of four
+  // full / empty [0]: the Q tile, [1]: the dO tile, by halves of HD / 128
   // boxes; ready: a tile's P and dS are in shared memory
   __shared__ __align__(8) uint64_t kvfull, full[2][2], empty[2][2], ready;
   __shared__ float kbias[BKEY];
@@ -737,11 +794,11 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int sample_valid = __syncthreads_or(any);
   const int block_valid = __syncthreads_or(mine);
   if (mb && sample_valid && !block_valid) {
-    for (int c = threadIdx.x; c < 2 * BKEY * 64; c += THREADS) {
-      const int key = (c / 64) % BKEY, ch = c % 64;
+    for (int c = threadIdx.x; c < 2 * BKEY * CHUNKS; c += THREADS) {
+      const int key = (c / CHUNKS) % BKEY, ch = c % CHUNKS;
       if (k0 + key < Tk)
         *reinterpret_cast<uint4*>(
-            out_row(c < BKEY * 64 ? dk : dv, b, h, k0 + key) + 8 * ch) =
+            out_row(c < BKEY * CHUNKS ? dk : dv, b, h, k0 + key) + 8 * ch) =
             make_uint4(0u, 0u, 0u, 0u);
     }
     return;
@@ -765,8 +822,8 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       hopper::prefetch_map(&g_map);
       hopper::tma_load_blocks(sm + OFF_K, &k_map, &kvfull, k0, 0, h, b);
       hopper::tma_load_blocks(sm + OFF_V, &v_map, &kvfull, k0, 0, h, b);
-      load_tile(sm + OFF_Q, &q_map, full[0], empty[0], 1, 0, h, b);
-      load_tile(sm + OFF_G, &g_map, full[1], empty[1], 1, 0, h, b);
+      load_tile<HD>(sm + OFF_Q, &q_map, full[0], empty[0], 1, 0, h, b);
+      load_tile<HD>(sm + OFF_G, &g_map, full[1], empty[1], 1, 0, h, b);
     }
     hopper::mbar_wait(&kvfull, 0);
     for (int qt = 0; qt < nq; ++qt) {
@@ -782,18 +839,18 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       if (qt > 0 && tid == 0) {
         // each half as the last tile's dK (Q) and dV (dO) free them, in
         // that order: the dO load then overlaps Q's and S
-        load_tile(sm + OFF_Q, &q_map, full[0], empty[0], ph ^ 1, qt * BQ, h,
-                  b);
-        load_tile(sm + OFF_G, &g_map, full[1], empty[1], ph ^ 1, qt * BQ, h,
-                  b);
+        load_tile<HD>(sm + OFF_Q, &q_map, full[0], empty[0], ph ^ 1, qt * BQ,
+                      h, b);
+        load_tile<HD>(sm + OFF_G, &g_map, full[1], empty[1], ph ^ 1, qt * BQ,
+                      h, b);
       }
-      scores(s, base + OFF_Q, base + OFF_K, full[0], ph);
+      scores<HD>(s, base + OFF_Q, base + OFF_K, full[0], ph);
       // P = exp(S scale + key bias - L)
 #pragma unroll
       for (int e = 0; e < 16; ++e)
         s[e] = expf(s[e] * scale + kbias[8 * (e >> 2) + 2 * t4 + (e & 1)] -
                     L[(e >> 1) & 1]);
-      scores(dp, base + OFF_G, base + OFF_V, full[1], ph);
+      scores<HD>(dp, base + OFF_G, base + OFF_V, full[1], ph);
       // dS = P (dP - D) scale, cast to bf16 for dK as JAX casts it; P as
       // bf16 hi + lo (16 bits of mantissa) for dV, where JAX keeps P f32.
       // All three as [key][query] rows, 128-byte swizzled: K-major B
@@ -819,24 +876,24 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   // ---- warpgroup 1: dK^T += Q^T dS; warpgroup 2: dV^T += dO^T P, P as
-  // hi then lo.  M = head dim (eight m64 tiles), N = 32 keys, K = 64
-  // queries; each holds its gradient's 512 x 32 in 128 registers a
+  // hi then lo.  M = head dim (HD / 64 m64 tiles), N = 32 keys, K = 64
+  // queries; each holds its gradient's HD x 32 in HD / 4 registers a
   // thread, and frees its tile after its products.
   const int cw = wg - 1;
   uint8_t* own = sm + (cw ? OFF_G : OFF_Q);
-  float acc[8][16];
+  float acc[NB][16];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NB; ++i)
 #pragma unroll
     for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
   for (int qt = 0; qt < nq; ++qt) {
     hopper::mbar_wait(&ready, qt & 1);
     if (cw == 0) {
       const uint32_t bs[1] = {base + OFF_DS};
-      grad_products(acc, base + OFF_Q, bs, full[0], empty[0], qt & 1);
+      grad_products<HD>(acc, base + OFF_Q, bs, full[0], empty[0], qt & 1);
     } else {
       const uint32_t bs[2] = {base + OFF_PHI, base + OFF_PLO};
-      grad_products(acc, base + OFF_G, bs, full[1], empty[1], qt & 1);
+      grad_products<HD>(acc, base + OFF_G, bs, full[1], empty[1], qt & 1);
     }
   }
 
@@ -846,7 +903,7 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   // 8 (e >> 2) + 2 t4 + (e & 1).
   const int w = tid / 32, g8 = (tid % 32) / 4, t4 = tid % 4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NB; ++i)
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
       const int d = 64 * i + 16 * w + g8 + 8 * ((e >> 1) & 1);
@@ -856,8 +913,8 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   hopper::named_barrier(2 + cw, 128);
   const Out& o = cw ? dv : dk;
-  for (int c = tid; c < BKEY * 64; c += 128) {
-    const int key = c / 64, ch = c % 64;
+  for (int c = tid; c < BKEY * CHUNKS; c += 128) {
+    const int key = c / CHUNKS, ch = c % CHUNKS;
     if (k0 + key < Tk)
       *reinterpret_cast<uint4*>(out_row(o, b, h, k0 + key) + 8 * ch) =
           *reinterpret_cast<const uint4*>(own + key * OUT_LD + 16 * ch);
@@ -899,7 +956,7 @@ int check_args(const Heads& a, int B, int dtype) {
 
 // 5-D maps (hopper::encode_heads_blocks) over the strided (B, H, T, D)
 // views of q, k, v and dO, in that order: boxes of 64 columns x `qrows`
-// rows x 4 column blocks (half a Q or dO tile) and of 64 columns x
+// rows x D / 128 column blocks (half a Q or dO tile) and of 64 columns x
 // `krows` rows x `kblocks` blocks for K and V
 int encode_maps(CUtensorMap (&maps)[4], const Heads& a, int B, int qrows,
                 int krows, int kblocks) {
@@ -908,7 +965,7 @@ int encode_maps(CUtensorMap (&maps)[4], const Heads& a, int B, int qrows,
                   sh[4] = {a.qsh, a.ksh, a.vsh, a.gsh},
                   st[4] = {a.qst, a.kst, a.vst, a.gst};
   const int rows[4] = {qrows, krows, krows, qrows};
-  const int blocks[4] = {4, kblocks, kblocks, 4};
+  const int blocks[4] = {a.D / 128, kblocks, kblocks, a.D / 128};
   const int lens[4] = {a.Tq, a.Tk, a.Tk, a.Tq};
   for (int i = 0; i < 4; ++i) {
     const int e = hopper::encode_heads_blocks(&maps[i], ptrs[i], sb[i], sh[i],
@@ -940,7 +997,7 @@ int launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
 
 // The caller plans the launch (ops/flash_cuda.py k4_plan): grid
 // (grid_x, H, B), `threads` a CTA and `smem` bytes of dynamic shared
-// memory.  bf16 takes head_dim 512 only, on the Hopper kernel; a plan that
+// memory.  bf16 takes head_dim 256 or 512, on the Hopper kernel; a plan that
 // does not match either kernel's own query rows a CTA, threads and shared
 // memory returns cudaErrorInvalidValue.
 extern "C" int serenade_flash_bwd_dq(SERENADE_HEAD_ARGS, void* dq,
@@ -958,15 +1015,17 @@ extern "C" int serenade_flash_bwd_dq(SERENADE_HEAD_ARGS, void* dq,
   if (dtype == 1) {
     // 16-byte stores of dQ rows
     if (dsb % 8 || dsh % 8 || dst % 8 || reinterpret_cast<size_t>(dq) % 16 ||
-        D != k4::HD || grid_x != (Tq + k4::BQ - 1) / k4::BQ ||
-        threads != k4::THREADS || smem != k4::SMEM)
+        (D != 256 && D != 512) || grid_x != (Tq + k4::BQ - 1) / k4::BQ ||
+        threads != k4::THREADS ||
+        smem != (D == 512 ? k4::Dims<512>::SMEM : k4::Dims<256>::SMEM))
       return (int)cudaErrorInvalidValue;
+    // K and V by halves
     CUtensorMap maps[4];
-    const int e = encode_maps(maps, a, B, k4::BQ, k4::BKEY, 4);
+    const int e = encode_maps(maps, a, B, k4::BQ, k4::BKEY, D / 128);
     if (e) return e;
-    return launch(k4::dq_bf16_kernel, dim3(grid_x, H, B), threads, smem,
-                  stream, maps[0], maps[1], maps[2], maps[3], mask, lse, dsum,
-                  o, H, Tq, Tk, scale);
+    return launch(D == 512 ? k4::dq_bf16_kernel<512> : k4::dq_bf16_kernel<256>,
+                  dim3(grid_x, H, B), threads, smem, stream, maps[0], maps[1],
+                  maps[2], maps[3], mask, lse, dsum, o, H, Tq, Tk, scale);
   }
   if (grid_x != (Tq + F_T - 1) / F_T || threads != F_THREADS ||
       (size_t)smem !=
@@ -978,7 +1037,7 @@ extern "C" int serenade_flash_bwd_dq(SERENADE_HEAD_ARGS, void* dq,
 
 // The caller plans the launch (ops/flash_cuda.py k5_plan): grid
 // (grid_x, H, B), `threads` a CTA and `smem` bytes of dynamic shared
-// memory.  bf16 takes head_dim 512 only, on the Hopper kernel; a plan that
+// memory.  bf16 takes head_dim 256 or 512, on the Hopper kernel; a plan that
 // does not match either kernel's own keys a CTA, threads and shared
 // memory returns cudaErrorInvalidValue.
 extern "C" int serenade_flash_bwd_dkv(SERENADE_HEAD_ARGS, void* dk,
@@ -1000,17 +1059,20 @@ extern "C" int serenade_flash_bwd_dkv(SERENADE_HEAD_ARGS, void* dk,
     const long long st[] = {dksb, dksh, dkst, dvsb, dvsh, dvst};
     for (long long x : st)
       if (x % 8) return (int)cudaErrorInvalidValue;
-    if (D != k5::HD || grid_x != (Tk + k5::BKEY - 1) / k5::BKEY ||
-        threads != k5::THREADS || smem != k5::SMEM ||
+    if ((D != 256 && D != 512) || grid_x != (Tk + k5::BKEY - 1) / k5::BKEY ||
+        threads != k5::THREADS ||
+        smem != (D == 512 ? k5::Dims<512>::SMEM : k5::Dims<256>::SMEM) ||
         (reinterpret_cast<size_t>(dk) | reinterpret_cast<size_t>(dv)) % 16)
       return (int)cudaErrorInvalidValue;
-    // Q and dO by halves (four 64-column blocks), K and V whole
+    // Q and dO by halves (D / 128 64-column blocks), K and V whole
     CUtensorMap maps[4];
-    const int e = encode_maps(maps, a, B, k5::BQ, k5::BKEY, 8);
+    const int e = encode_maps(maps, a, B, k5::BQ, k5::BKEY, D / 64);
     if (e) return e;
-    return launch(k5::dkv_bf16_kernel, dim3(grid_x, H, B), threads, smem,
-                  stream, maps[0], maps[1], maps[2], maps[3], mask, lse, dsum,
-                  ok, ov, H, Tq, Tk, scale);
+    return launch(D == 512 ? k5::dkv_bf16_kernel<512>
+                           : k5::dkv_bf16_kernel<256>,
+                  dim3(grid_x, H, B), threads, smem, stream, maps[0], maps[1],
+                  maps[2], maps[3], mask, lse, dsum, ok, ov, H, Tq, Tk,
+                  scale);
   }
   if (grid_x != (Tk + F_T - 1) / F_T || threads != F_THREADS ||
       (size_t)smem != sizeof(float) * ((size_t)4 * F_T * (D + 1) +

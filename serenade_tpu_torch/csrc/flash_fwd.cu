@@ -6,7 +6,8 @@
 // backward kernels of the training slice need.  Padded keys get a -1e30
 // bias; keys past Tk (the ragged tail of the last tile) get no weight.
 //
-// What bounds it on the H100: head_dim is 512.  One 64-row bf16 tile of
+// What bounds it on the H100: head_dim is 512 (Serenade) or 256 (NUSVC).
+// At 512 one 64-row bf16 tile of
 // each of Q, K and V is 192 KB of the 227 KB of shared memory, and a
 // 64 x 512 f32 accumulator is 128 KB, so the TPU's 256 x 512 blocks do not
 // carry over.  At the serving shape (B 1, H 4, T 1536, D 512) the work is
@@ -16,8 +17,10 @@
 //
 // Two kernels, chosen by dtype.
 //
-// bf16 (the serving and training path), designed for Hopper; head_dim
-// 512 only (the wrapper raises on another).  One CTA of 384 threads per
+// bf16 (the serving and training path), designed for Hopper at head_dim
+// 512 and templated on it (HD): HD 256 keeps the same layout with every
+// tile and accumulator at half the columns (the wrapper raises on another
+// head dim).  Described at 512 below.  One CTA of 384 threads per
 // (b, h, 64-query tile).  Warpgroup 0 is the producer: one thread loads
 // the Q tile once (64 KB) and keeps a ring of two stages of 32 keys of K
 // and V (64 KB a stage) in flight with TMA (4-D tensor maps over the
@@ -34,6 +37,12 @@
 // get the -1e30 bias, keys past Tk -inf; rows past Tq are not stored.
 // Fill at batch 1, H 4 (one CTA per SM: 226 KB of shared memory): T 1536
 // runs 96 CTAs on 96 of the 132 SMs, T 1024 64, T 768 48, T 512 32.
+//
+// At head dim 256 each consumer owns 128 columns: S over 2 blocks, O in
+// 64 registers a thread (m64n128k16 with P from registers), 129 KB of
+// shared memory; the CTA count at a shape is the same as at 512.  A
+// design of its own for 256 (128 query rows a CTA, a deeper ring) is later
+// work.
 //
 // f32 (parity checks): one block of 256 threads per (b, h, 32-query
 // tile) on FMA units.  Q, K and V tiles are held as f32 (197 KB at
@@ -197,18 +206,27 @@ flash_fwd_f32_kernel(const float* __restrict__ q, long long qsb, long long qsh,
 
 namespace k1 {
 
-constexpr int HD = 512;               // the head dim this design takes
+// The design takes head dims 512 and 256 (a template on HD; 512 as it was
+// designed, 256 the same layout with each consumer owning 128 columns).
 constexpr int BQ = 64;                // query rows a CTA
 constexpr int BKEY = 32;              // keys a stage
 constexpr int STAGES = 2;
 constexpr int QBOX = BQ * 128;        // 64 rows x 64 d, bytes
 constexpr int KBOX = BKEY * 128;      // 32 rows x 64 d
-constexpr int Q_BYTES = 8 * QBOX;     // 64 KB
-constexpr int KV_BYTES = 8 * KBOX;    // 32 KB a K or V tile
-constexpr int STAGE = 2 * KV_BYTES;
 constexpr int XCH = 2 * 2 * 128 * 16 * 4;   // S partials: parity x half
-constexpr int SMEM = Q_BYTES + STAGES * STAGE + XCH + 1024;
 constexpr int THREADS = 384;
+
+template <int HD>
+struct Dims {
+  static_assert(HD == 256 || HD == 512, "K1 takes head dims 256 and 512");
+  static constexpr int NB = HD / 64;            // 64-column blocks
+  static constexpr int CB = NB / 2;             // blocks a consumer owns
+  static constexpr int Q_BYTES = NB * QBOX;     // 64 KB at 512
+  static constexpr int KV_BYTES = NB * KBOX;    // 32 KB a K or V tile at 512
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int SMEM = Q_BYTES + STAGES * STAGE + XCH + 1024;
+  static constexpr int ACC = HD / 4;            // O registers a thread
+};
 
 // one tensor's 4-D map holds (D, T, H, B) or (D, H, T, B), the order that
 // keeps its strides increasing; bit `which` of `order` says (D, H, T, B)
@@ -221,6 +239,19 @@ __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
     hopper::tma_load_4d(dst, map, bar, d0, t0, h, b);
 }
 
+// O += P V over this consumer's HD / 2 columns: m64n256k16 at 512,
+// m64n128k16 at 256
+template <int HD>
+__device__ __forceinline__ void pv_product(float (&o)[HD / 4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (HD == 512)
+    hopper::wgmma_m64n256k16_rs<1>(o, a, db, 1);
+  else
+    hopper::wgmma_m64n128k16_rs<1>(o, a, db, 1);
+}
+
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
@@ -229,6 +260,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       __nv_bfloat16* __restrict__ out, long long osb,
                       long long osh, long long ost, float* __restrict__ lse,
                       int H, int Tq, int Tk, float scale) {
+  using Dm = Dims<HD>;
+  constexpr int NB = Dm::NB, CB = Dm::CB, Q_BYTES = Dm::Q_BYTES,
+                KV_BYTES = Dm::KV_BYTES, STAGE = Dm::STAGE, ACC = Dm::ACC;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t qfull, full[STAGES], empty[STAGES];
   uint8_t* qs = reinterpret_cast<uint8_t*>(
@@ -254,14 +288,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::setmaxnreg_dec<40>();
     if (tid == 0) {
       hopper::mbar_expect_tx(&qfull, Q_BYTES);
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < NB; ++i)
         load_rows(qs + i * QBOX, &q_map, &qfull, order, 0, 64 * i, q0, h, b);
       int s = 0, ph = 0;
       for (int kt = 0; kt < nk; ++kt) {
         uint8_t* st = ring + s * STAGE;
         hopper::mbar_wait(&empty[s], ph ^ 1);
         hopper::mbar_expect_tx(&full[s], STAGE);
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < NB; ++i) {
           load_rows(st + i * KBOX, &k_map, &full[s], order, 1, 64 * i,
                     kt * BKEY, h, b);
           load_rows(st + KV_BYTES + i * KBOX, &v_map, &full[s], order, 2,
@@ -274,30 +308,30 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
   } else {
-    // ---- consumers: warpgroup cw owns head-dim columns 256 cw .. +255 ----
+    // ---- consumers: warpgroup cw owns head-dim columns HD / 2 cw .. on ----
     hopper::setmaxnreg_inc<232>();
     const int cw = wg - 1;
     const int w = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
     const float* mb = mask ? mask + (long long)b * Tk : nullptr;
-    float o[128];
+    float o[ACC];
 #pragma unroll
-    for (int e = 0; e < 128; ++e) o[e] = 0.f;
+    for (int e = 0; e < ACC; ++e) o[e] = 0.f;
     float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
-    const uint32_t qa = hopper::smem_addr(qs + 4 * cw * QBOX);
+    const uint32_t qa = hopper::smem_addr(qs + CB * cw * QBOX);
     hopper::mbar_wait(&qfull, 0);
 
     int s = 0, ph = 0;
     for (int kt = 0; kt < nk; ++kt) {
       uint8_t* st = ring + s * STAGE;
       hopper::mbar_wait(&full[s], ph);
-      const uint32_t ka = hopper::smem_addr(st + 4 * cw * KBOX);
-      const uint32_t va = hopper::smem_addr(st + KV_BYTES + 4 * cw * KBOX);
+      const uint32_t ka = hopper::smem_addr(st + CB * cw * KBOX);
+      const uint32_t va = hopper::smem_addr(st + KV_BYTES + CB * cw * KBOX);
 
-      // this half's partial S = Q K^T over its 256 columns of the head dim
+      // this half's partial S = Q K^T over its HD / 2 columns
       float sc[16];
       hopper::wgmma_fence();
 #pragma unroll
-      for (int db = 0; db < 4; ++db)
+      for (int db = 0; db < CB; ++db)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
           hopper::wgmma_m64n32k16_ss<0, 0>(
@@ -358,10 +392,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         l[r] = l[r] * corr[r] + psum[r];
       }
 #pragma unroll
-      for (int e = 0; e < 128; ++e) o[e] *= corr[(e >> 1) & 1];
+      for (int e = 0; e < ACC; ++e) o[e] *= corr[(e >> 1) & 1];
 
       // O += P V: P (rounded to bf16, as the Pallas kernel casts it to V's
-      // type) from registers, V [key][d] MN-major, N = 256
+      // type) from registers, V [key][d] MN-major, N = HD / 2
       hopper::wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
@@ -370,8 +404,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
             serenade::pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]),
             serenade::pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]),
             serenade::pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7])};
-        hopper::wgmma_m64n256k16_rs<1>(
-            o, a, hopper::desc_sw128(va + ks * 2048, KBOX, 1024), 1);
+        pv_product<HD>(o, a, hopper::desc_sw128(va + ks * 2048, KBOX, 1024));
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -384,7 +417,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     }
 
     // element e of O: row 16 w + g + 8 ((e >> 1) & 1), column
-    // 256 cw + 8 (e >> 2) + 2 t4 + (e & 1)
+    // HD / 2 cw + 8 (e >> 2) + 2 t4 + (e & 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + 16 * w + g + 8 * r;
@@ -392,9 +425,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       const float denom = fmaxf(l[r], 1e-30f);
       const float inv = 1.f / denom;
       __nv_bfloat16* orow =
-          out + b * osb + h * osh + row * ost + 256 * cw + 2 * t4;
+          out + b * osb + h * osh + row * ost + HD / 2 * cw + 2 * t4;
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
+      for (int i = 0; i < ACC / 4; ++i)
         *reinterpret_cast<uint32_t*>(orow + 8 * i) = serenade::pack_bf16(
             o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
       if (cw == 0 && t4 == 0)
@@ -422,8 +455,9 @@ extern "C" int serenade_flash_fwd(
     return (int)cudaErrorInvalidValue;
   const dim3 grid(grid_x, H, B);
   if (dtype == 1) {
-    if (D != k1::HD || grid_x != (Tq + k1::BQ - 1) / k1::BQ ||
-        threads != k1::THREADS || smem != k1::SMEM)
+    if ((D != 256 && D != 512) || grid_x != (Tq + k1::BQ - 1) / k1::BQ ||
+        threads != k1::THREADS ||
+        smem != (D == 512 ? k1::Dims<512>::SMEM : k1::Dims<256>::SMEM))
       return (int)cudaErrorInvalidValue;
     // (D, T, H, B) or (D, H, T, B) maps, whichever keeps the strides
     // increasing; the (B, H, T, D) views of (B, T, H, D) buffers take the
@@ -450,11 +484,12 @@ extern "C" int serenade_flash_fwd(
                                             strides, box);
       if (e) return e;
     }
+    auto kernel = D == 512 ? k1::flash_fwd_bf16_kernel<512>
+                           : k1::flash_fwd_bf16_kernel<256>;
     cudaError_t e = cudaFuncSetAttribute(
-        k1::flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    k1::flash_fwd_bf16_kernel<<<grid, threads, smem, stream>>>(
+    kernel<<<grid, threads, smem, stream>>>(
         maps[0], maps[1], maps[2], order, mask,
         static_cast<__nv_bfloat16*>(out), osb, osh, ost, lse, H, Tq, Tk,
         scale);

@@ -15,7 +15,9 @@ one of names (the JAX converter's, module by module) plus two merges:
                       -> mean, var, scale, bias (num_batches_tracked unused)
 
 The GST must then run ``gst_norm_type="frozen_batch"``: the checkpoint's
-BatchNorm running statistics, applied exactly.
+BatchNorm running statistics, applied exactly.  The transformer options
+map as the reference names them: SnakeBeta's ``alpha`` and ``beta`` at
+``ff.net.0``, the style cross-attention's ``norm2`` and ``attn2``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict, Mapping
 
 import torch
 
-from serenade_tpu_torch.models import gst, layers
+from serenade_tpu_torch.models import gst, layers, transformer
 
 # port leaf -> reference leaf, per module kind
 _LEAVES = {
@@ -38,7 +40,8 @@ _KINDS = {layers.Dense: "plain", layers.Conv1d: "plain",
           layers.ConvTranspose1d: "plain", layers.Conv2d: "plain",
           gst.StyleTokenLayer: "plain", layers.NormParams: "norm",
           layers.LayerNorm: "norm", gst.FrozenBatchNorm2d: "bn",
-          layers.WNConv1d: "wn", gst.MaskedGRU: "gru"}
+          layers.WNConv1d: "wn", gst.MaskedGRU: "gru",
+          transformer.SnakeBeta: "plain"}
 _ENCODER_BLOCK = {"conv1": "block.2", "conv2": "block.4",
                   "shortcut": "shortcut"}
 # (pattern, replacement) on a port module path, applied in order
@@ -55,8 +58,9 @@ _RENAMES = [
     (r"\.(block[12]|final_block)\.norm$", r".\1.block.1"),
     (r"(_blocks\.\d+\.0)\.time_mlp$", r"\1.mlp.1"),
     (r"\.speaker_adapter\.w_(scale|bias)$", r".speaker_projection.W_\1"),
-    (r"\.attn1\.to_out$", r".attn1.to_out.0"),
+    (r"\.(attn[12])\.to_out$", r".\1.to_out.0"),
     (r"\.ff\.act\.proj$", r".ff.net.0.proj"),
+    (r"\.ff\.act$", r".ff.net.0"),
     (r"\.ff\.out$", r".ff.net.2"),
 ]
 

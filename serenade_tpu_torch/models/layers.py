@@ -64,7 +64,9 @@ def reflect_pad_time(x, pad: int):
 
 
 def _cast(p: Optional[torch.Tensor], dtype):
-    return None if p is None else p.to(dtype)
+    """``p`` in ``dtype``: itself where it already is (an exported program
+    then holds no cast node for it; ``to`` would return it unchanged)."""
+    return p if p is None or p.dtype == dtype else p.to(dtype)
 
 
 class Dense(nn.Module):
@@ -95,7 +97,8 @@ class Dense(nn.Module):
             y = int8_dot(x, QTensor(self.weight_q, self.weight_scale),
                          dtype=dt)
             return y if self.bias is None else y + self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        return F.linear(_cast(x, dt), _cast(self.weight, dt),
+                        _cast(self.bias, dt))
 
 
 class Conv1d(nn.Module):
@@ -118,8 +121,9 @@ class Conv1d(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        return conv1d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
-                      stride=self.stride, dilation=self.dilation,
+        return conv1d(_cast(x, dt), _cast(self.weight, dt),
+                      _cast(self.bias, dt), stride=self.stride,
+                      dilation=self.dilation,
                       padding=(self.padding, self.padding),
                       groups=self.groups)
 
@@ -145,9 +149,17 @@ class Conv2d(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
-                        stride=self.stride, padding=self.padding,
-                        dilation=self.dilation)
+        args = [_cast(t, dt) for t in (x, self.weight, self.bias)]
+        # bf16 on the CPU: the bf16 operands summed in f32 and rounded
+        # once, as the bf16 conv computes them; oneDNN's bf16 conv2d (torch
+        # 2.13) returned NaN for some calls of the GST's stride-2 convs
+        # there, varying from call to call on the same inputs
+        cpu_bf16 = dt == torch.bfloat16 and x.device.type == "cpu"
+        if cpu_bf16:
+            args = [_cast(t, torch.float32) for t in args]
+        y = F.conv2d(*args, stride=self.stride, padding=self.padding,
+                     dilation=self.dilation)
+        return y.to(dt) if cpu_bf16 else y
 
 
 class ConvTranspose1d(nn.Module):
@@ -164,7 +176,7 @@ class ConvTranspose1d(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        return conv_transpose1d(x.to(dt), self.weight.to(dt),
+        return conv_transpose1d(_cast(x, dt), _cast(self.weight, dt),
                                 _cast(self.bias, dt), stride=self.stride,
                                 padding=self.padding,
                                 output_padding=self.output_padding)
@@ -190,7 +202,7 @@ class WNConv1d(nn.Module):
         norm = torch.sqrt(torch.sum(self.v * self.v, dim=(1, 2), keepdim=True)
                           + 1e-12)
         kernel = (self.g[:, None, None] * self.v / norm).to(dt)
-        return conv1d(x.to(dt), kernel, _cast(self.bias, dt),
+        return conv1d(_cast(x, dt), kernel, _cast(self.bias, dt),
                       dilation=self.dilation, padding=self.padding)
 
 

@@ -69,13 +69,16 @@ class ResnetBlock1D(nn.Module):
 
 class Decoder(nn.Module):
     """``(x, mask, mu, t, spk) -> v``: x ``(B,T,out)``, mask ``(B,T,1)``,
-    mu ``(B,T,in-out)``, t ``(B,)`` or scalar, spk ``(B,spk_dim)``."""
+    mu ``(B,T,in-out)``, t ``(B,)`` or scalar, spk ``(B,spk_dim)``.
+    ``act_fn`` is every transformer block's FFN activation ("snakebeta",
+    or GEGLU for anything else)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  channels: Tuple[int, ...] = (512, 512),
                  attention_head_dim: int = 512, num_heads: int = 4,
                  num_mid_blocks: int = 2, spk_dim: int = 256,
-                 dropout: float = 0.05, dtype=torch.float32):
+                 dropout: float = 0.05, act_fn: str = "snake",
+                 dtype=torch.float32):
         super().__init__()
         self.in_channels = in_channels
         self.dtype = as_dtype(dtype)
@@ -86,7 +89,8 @@ class Decoder(nn.Module):
 
         def tx(dim):
             return BasicTransformerBlock(dim, num_heads, attention_head_dim,
-                                         dropout=dropout, dtype=dtype)
+                                         dropout=dropout,
+                                         activation_fn=act_fn, dtype=dtype)
 
         def resnet(cin, cout):
             return ResnetBlock1D(cin, cout, time_dim, spk_dim, dtype=dtype)

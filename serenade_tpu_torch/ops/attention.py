@@ -5,8 +5,8 @@ every length: the flash kernels on CUDA, their plain versions on the CPU.
 The route is chosen by shape before anything is launched (in an
 exported program, by the custom op when the program runs): a square
 attention whose head dim or dtype a flash kernel does not take
-(``flash_cuda.flash_supported``; bf16 at a head dim other than 512) takes
-the plain version, differentiated by autograd, and counts in
+(``flash_cuda.flash_supported``; bf16 at a head dim other than 256 and
+512) takes the plain version, differentiated by autograd, and counts in
 ``flash_cuda.routed``; so does non-square attention (the GST token
 attention, tq=1), uncounted, as ``_xla_attention`` does in JAX.  Padded
 keys get a -1e30 bias and the softmax runs in f32.

@@ -10,7 +10,7 @@
   backward, recomputing ``P = exp(S - L)`` blockwise; ``D = rowsum(dO∘O)``
   is one PyTorch op outside the kernels, as in JAX.  K4's and K5's bf16
   kernels run on Hopper's wgmma as ``k4_plan`` and ``k5_plan`` lay them
-  out (head_dim 512 only).
+  out (head dims 256 and 512, ``BF16_HEAD_DIMS``).
 
 ``flash_attention`` goes through ``FlashAttention`` (a
 ``torch.autograd.Function``): CUDA tensors launch K1 forward and K4, K5
@@ -34,6 +34,9 @@ from serenade_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 512
+# the head dims of the bf16 Hopper kernels K1, K4 and K5: Serenade's 512
+# and NUSVC's 256, one design templated on the head dim
+BF16_HEAD_DIMS = (256, 512)
 
 # kernel launches since the last reset: K1, K4, K5; and the square
 # attentions ``attention.multi_head_attention`` routed to the plain version
@@ -46,12 +49,12 @@ routed = 0
 
 def flash_supported(tq: int, tk: int, d: int, dtype) -> bool:
     """Whether K1 and its backward K4, K5 all take this shape: in bf16
-    square attention at head_dim 512 (the Hopper kernels' one head dim), in
-    f32 a head_dim that is a multiple of 32 up to 512.  The planners
-    refuse what this rejects, and JAX likewise sends any other shape to
-    its XLA attention (``serenade_tpu/ops/attention.py``)."""
+    square attention at head_dim 256 or 512 (the Hopper kernels' head
+    dims), in f32 a head_dim that is a multiple of 32 up to 512.  The
+    planners refuse what this rejects, and JAX likewise sends any other
+    shape to its XLA attention (``serenade_tpu/ops/attention.py``)."""
     if dtype == torch.bfloat16:
-        return tq == tk and d == K1_BF16_HEAD_DIM
+        return tq == tk and d in BF16_HEAD_DIMS
     return dtype == torch.float32 and d % 32 == 0 and d <= MAX_HEAD_DIM
 
 
@@ -135,14 +138,23 @@ def _mask_ptr(key_mask):
     return ctypes.c_void_p(0 if key_mask is None else key_mask.data_ptr())
 
 
-# K1's bf16 kernel: head_dim 512, a CTA of 384 threads per 64 query rows,
-# Q (64 KB), two stages of K and V (64 KB each) and the S exchange (32 KB)
-# in shared memory, plus 1 KB for alignment.  The C entry checks a plan
-# against the kernels' own constants and refuses one that does not match.
-K1_BF16_HEAD_DIM = 512
+def _bf16_head_dim(d: int, what: str) -> None:
+    dims = " or ".join(map(str, BF16_HEAD_DIMS))
+    _cuda.require(d in BF16_HEAD_DIMS, f"bf16 {what}: head_dim {d}; the "
+                  f"Hopper kernel takes {dims}")
+
+
+# K1's bf16 kernel: head_dim d in BF16_HEAD_DIMS, a CTA of 384 threads per
+# 64 query rows, Q (64 x d bf16: 64 KB at 512), two stages of K and V (32
+# keys x d each) and the S exchange (32 KB) in shared memory, plus 1 KB
+# for alignment.  The C entry checks a plan against the kernels' own
+# constants and refuses one that does not match.
 K1_BF16_ROWS = 64
-K1_BF16_SMEM = 64 * 1024 + 2 * 64 * 1024 + 32 * 1024 + 1024
 K1_F32_ROWS, K1_F32_KEYS = 32, 32
+
+
+def k1_bf16_smem(d: int) -> int:
+    return 64 * d * 2 + 2 * 2 * 32 * d * 2 + 32 * 1024 + 1024
 
 
 def k1_plan(b: int, h: int, tq: int, d: int, dtype, sm_count: int) -> dict:
@@ -152,9 +164,8 @@ def k1_plan(b: int, h: int, tq: int, d: int, dtype, sm_count: int) -> dict:
     per SM: either kernel's shared memory holds one).  Raises
     ``ValueError`` on a head dim the kernel of that dtype does not take."""
     if dtype == torch.bfloat16:
-        _cuda.require(d == K1_BF16_HEAD_DIM, f"bf16 flash forward: head_dim "
-                      f"{d}; the Hopper kernel takes {K1_BF16_HEAD_DIM} only")
-        rows, threads, smem = K1_BF16_ROWS, 384, K1_BF16_SMEM
+        _bf16_head_dim(d, "flash forward")
+        rows, threads, smem = K1_BF16_ROWS, 384, k1_bf16_smem(d)
     else:
         _f32_head_dim(d)
         rows, threads = K1_F32_ROWS, 256
@@ -224,16 +235,19 @@ def _dims(q, k, scale):
             ctypes.c_int(_cuda.DTYPE_CODE[q.dtype]), _cuda.stream())
 
 
-# K4's bf16 kernel: head_dim 512, a CTA of 384 threads per 64 query rows
-# of one (b, h), Q and dO resident (64 KB each), a ring of five 16 KB
-# slots of half K or V tiles (32 keys x 256 columns), the dS tile (8 KB)
-# and 1 KB for alignment.  The C entry checks a plan against the kernels'
-# own constants and refuses one that does not match.
-K4_BF16_HEAD_DIM = 512
+# K4's bf16 kernel: head_dim d in BF16_HEAD_DIMS, a CTA of 384 threads per
+# 64 query rows of one (b, h), Q and dO resident (64 x d each: 64 KB at
+# 512), a ring of five slots of half K or V tiles (32 keys x d / 2
+# columns: 16 KB at 512), the dS tile (8 KB) and 1 KB for alignment.  The
+# C entry checks a plan against the kernels' own constants and refuses one
+# that does not match.
 K4_BF16_QUERIES, K4_BF16_KEYS, K4_BF16_SLOTS = 64, 32, 5
-K4_BF16_SMEM = (2 * 64 * 1024 + K4_BF16_SLOTS * 16 * 1024 + 64 * 128
-                + 1024)
 K4_F32_ROWS = 16
+
+
+def k4_bf16_smem(d: int) -> int:
+    return (2 * 64 * d * 2 + K4_BF16_SLOTS * 32 * (d // 2) * 2 + 64 * 128
+            + 1024)
 
 
 def k4_plan(b: int, h: int, tq: int, tk: int, d: int, dtype,
@@ -245,10 +259,9 @@ def k4_plan(b: int, h: int, tq: int, tk: int, d: int, dtype,
     and the SMs they occupy (one CTA per SM).  Raises ``ValueError`` on a
     head dim the kernel of that dtype does not take; never falls back."""
     if dtype == torch.bfloat16:
-        _cuda.require(d == K4_BF16_HEAD_DIM, f"bf16 flash dQ: head_dim "
-                      f"{d}; the Hopper kernel takes {K4_BF16_HEAD_DIM} only")
+        _bf16_head_dim(d, "flash dQ")
         rows, keys, slots = K4_BF16_QUERIES, K4_BF16_KEYS, K4_BF16_SLOTS
-        threads, smem = 384, K4_BF16_SMEM
+        threads, smem = 384, k4_bf16_smem(d)
     else:
         _f32_head_dim(d)
         rows = keys = K4_F32_ROWS
@@ -283,15 +296,17 @@ def flash_bwd_dq(q, k, v, key_mask, g, lse, dsum, scale):
     return dq_v
 
 
-# K5's bf16 kernel: head_dim 512, a CTA of 384 threads per 32 keys of one
-# (b, h), looping over 64-query tiles with one stage each of Q and dO (64
-# KB each), K and V (32 KB each), the P and dS tiles (3 x 4 KB) and 1 KB
-# for alignment.  The C entry checks a plan
+# K5's bf16 kernel: head_dim d in BF16_HEAD_DIMS, a CTA of 384 threads per
+# 32 keys of one (b, h), looping over 64-query tiles with one stage each of
+# Q and dO (64 x d each: 64 KB at 512), K and V (32 x d each), the P and
+# dS tiles (3 x 4 KB) and 1 KB for alignment.  The C entry checks a plan
 # against the kernels' own constants and refuses one that does not match.
-K5_BF16_HEAD_DIM = 512
 K5_BF16_KEYS, K5_BF16_QUERIES = 32, 64
-K5_BF16_SMEM = 2 * 64 * 1024 + 2 * 32 * 1024 + 3 * 4096 + 1024
 K5_F32_KEYS = 16
+
+
+def k5_bf16_smem(d: int) -> int:
+    return 2 * 64 * d * 2 + 2 * 32 * d * 2 + 3 * 4096 + 1024
 
 
 def k5_plan(b: int, h: int, tq: int, tk: int, d: int, dtype,
@@ -303,10 +318,9 @@ def k5_plan(b: int, h: int, tq: int, tk: int, d: int, dtype,
     they occupy (one CTA per SM).  Raises ``ValueError`` on a head dim
     the kernel of that dtype does not take; never falls back."""
     if dtype == torch.bfloat16:
-        _cuda.require(d == K5_BF16_HEAD_DIM, f"bf16 flash dK/dV: head_dim "
-                      f"{d}; the Hopper kernel takes {K5_BF16_HEAD_DIM} only")
+        _bf16_head_dim(d, "flash dK/dV")
         keys, queries, stages = K5_BF16_KEYS, K5_BF16_QUERIES, 1
-        threads, smem = 384, K5_BF16_SMEM
+        threads, smem = 384, k5_bf16_smem(d)
     else:
         _f32_head_dim(d)
         keys, queries, stages, threads = K5_F32_KEYS, K5_F32_KEYS, 0, 256

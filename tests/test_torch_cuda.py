@@ -136,9 +136,9 @@ def test_hopper_flash_forward_at_a_ragged_bf16_shape():
     for got, want in ((out, ref), (lse, ref_lse)):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
-    with pytest.raises(ValueError, match="head_dim 256"):
-        flash_cuda.flash_attention(q[..., :256], k[..., :256],
-                                   v[..., :256], mask, 0.1)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        flash_cuda.flash_attention(q[..., :128], k[..., :128],
+                                   v[..., :128], mask, 0.1)
 
 
 @pytest.mark.cuda
@@ -243,9 +243,9 @@ def test_hopper_flash_dkv_at_ragged_bf16_shapes():
         assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
     # the padded key blocks get exactly zero
     assert not dk[1, :, 96:].any() and not dv[1, :, 96:].any()
-    with pytest.raises(ValueError, match="head_dim 256"):
-        flash_cuda.flash_bwd_dkv(*(t[..., :256] for t in (q, k, v)), mask,
-                                 cot[..., :256], lse, dsum, scale)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        flash_cuda.flash_bwd_dkv(*(t[..., :128] for t in (q, k, v)), mask,
+                                 cot[..., :128], lse, dsum, scale)
 
 
 @pytest.mark.cuda
@@ -292,7 +292,7 @@ def test_hopper_flash_dq_at_ragged_bf16_shapes():
     """K4's wgmma/TMA kernel at Tq = Tk = 200 (a ragged last query block
     and key tile) on the (B, H, T, D) views of (B, T, H, D) buffers, with
     key lengths 200, 96 and 1, against the plain backward: within 2e-2 of
-    max(1, |ref|); the planner refuses head dim 256."""
+    max(1, |ref|); the planner refuses head dim 128."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -312,9 +312,74 @@ def test_hopper_flash_dq_at_ragged_bf16_shapes():
                                                      cot, scale)[0]
     err = (dq.float() - want.float()).abs().max().item()
     assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
-    with pytest.raises(ValueError, match="head_dim 256"):
-        flash_cuda.flash_bwd_dq(*(t[..., :256] for t in (q, k, v)), mask,
-                                cot[..., :256], lse, dsum, scale)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        flash_cuda.flash_bwd_dq(*(t[..., :128] for t in (q, k, v)), mask,
+                                cot[..., :128], lse, dsum, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,lengths", [(3, 200, [200, 96, 1]),
+                                         (2, 512, [512, 475])])
+def test_hopper_flash_at_head_dim_256(b, t, lengths):
+    """K1, K4 and K5 at NUSVC's head dim 256 (the same Hopper designs,
+    each consumer warpgroup owning 128 columns) on the (B, H, T, D) views
+    of (B, T, H, D) buffers, with padded keys (a sample with one valid
+    key; key blocks wholly padded store zeros), against the plain
+    versions: within 2e-2 of max(1, |ref|), one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v, cot = (torch.randn((b, t, 4, 256), generator=g, device=dev)
+                    .bfloat16().transpose(1, 2) for _ in range(4))
+    mask = (torch.arange(t, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None]).float()
+    scale = 256 ** -0.5
+    counts = (flash_cuda.launches, flash_cuda.dq_launches,
+              flash_cuda.dkv_launches)
+    out, lse = flash_cuda.flash_attention(q, k, v, mask, scale,
+                                          return_lse=True)
+    cot, dsum = flash_cuda.flash_bwd_prepare(out, cot, torch.bfloat16)
+    dq = flash_cuda.flash_bwd_dq(q, k, v, mask, cot, lse, dsum, scale)
+    dk, dv = flash_cuda.flash_bwd_dkv(q, k, v, mask, cot, lse, dsum, scale)
+    assert (flash_cuda.launches, flash_cuda.dq_launches,
+            flash_cuda.dkv_launches) == tuple(c + 1 for c in counts)
+    ref, ref_lse = flash_cuda.flash_attention_plain(q, k, v, mask, scale)
+    grads = flash_cuda.flash_attention_backward_plain(q, k, v, mask, out,
+                                                      lse, cot, scale)
+    for got, want in zip((out, lse, dq, dk, dv), (ref, ref_lse, *grads)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
+    if lengths[1] % 32 == 0:
+        assert not dk[1, :, lengths[1]:].any()
+        assert not dv[1, :, lengths[1]:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [512, 256])
+def test_fused_qkv_views_launch_k1(d):
+    """The fused QKV projection's q, k and v are views of one (B, T,
+    3·H·D) product (row stride 3·H·D): K1 takes them as they are, with
+    no call routed, and agrees with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from serenade_tpu_torch.ops.attention import multi_head_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    qkv = torch.randn((1, 384, 3 * 4 * d), generator=g, device=dev).bfloat16()
+    q, k, v = qkv.chunk(3, dim=-1)
+    mask = (torch.arange(384, device=dev) < 350).float()[None]
+    before = (flash_cuda.launches, flash_cuda.routed)
+    out = multi_head_attention(q, k, v, num_heads=4, key_mask=mask)
+    assert (flash_cuda.launches, flash_cuda.routed) == (before[0] + 1,
+                                                        before[1])
+    ref, _ = flash_cuda.flash_attention_plain(
+        *(x.reshape(1, 384, 4, d).transpose(1, 2) for x in (q, k, v)),
+        mask, d ** -0.5)
+    want = ref.transpose(1, 2).reshape(1, 384, 4 * d)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * max(1.0, want.float().abs().max().item())
 
 
 @pytest.mark.cuda
@@ -968,12 +1033,12 @@ def test_custom_ops_match_plain_on_card():
     torch.testing.assert_close(out.transpose(1, 2).float(), ref.float(),
                                rtol=2e-2, atol=2e-2)
     routed = flash_cuda.routed
-    out = custom_ops.flash_fwd(q[..., :256], k[..., :256], v[..., :256],
-                               mask, 256 ** -0.5)   # bf16 head dim 256
+    out = custom_ops.flash_fwd(q[..., :128], k[..., :128], v[..., :128],
+                               mask, 128 ** -0.5)   # bf16 head dim 128
     assert flash_cuda.launches == before + 1
     assert flash_cuda.routed == routed + 1
     ref, _ = flash_cuda.flash_attention_plain(
-        q[..., :256], k[..., :256], v[..., :256], mask, 256 ** -0.5)
+        q[..., :128], k[..., :128], v[..., :128], mask, 128 ** -0.5)
     assert torch.equal(out.transpose(1, 2), ref)
 
     x = torch.randn((1, 128, 256), generator=g, device=dev,

@@ -662,7 +662,7 @@ def _orbax_dir(f):
 
 REFUSALS = {
     "unknown_model": (lambda f: resolve("model", "NuSVC"), KeyError,
-                      "registered: \\['Serenade', 'SerenadeNew'\\]"),
+                      "registered: \\['NUSVC', 'Serenade', 'SerenadeNew'\\]"),
     "vocoder_orbax_dir": (lambda f: load_vocoder(_orbax_dir(f), VOC_CONFIG),
                           ValueError, "Orbax"),
     "data_mesh": (lambda f: Converter.from_expdir(

@@ -471,7 +471,7 @@ def test_k1_plan_fill_and_shared_memory(t, ctas):
                               SM_COUNT)["ctas"] == 512
 
 
-@pytest.mark.parametrize("d", [32, 128, 256])
+@pytest.mark.parametrize("d", [32, 128, 384])
 def test_k1_refuses_a_bf16_head_dim_it_does_not_take(d):
     with pytest.raises(ValueError, match=f"head_dim {d}"):
         flash_cuda.k1_plan(1, 4, 256, d, torch.bfloat16, SM_COUNT)
@@ -784,7 +784,7 @@ def test_k5_plan_covers_every_key_block_once(b, h, tq, tk):
     assert f32["smem_bytes"] <= SMEM_LIMIT
 
 
-@pytest.mark.parametrize("d", [64, 128, 256, 576])
+@pytest.mark.parametrize("d", [64, 128, 384, 576])
 def test_k5_refuses_a_bf16_head_dim_it_does_not_take(d):
     with pytest.raises(ValueError, match=f"head_dim {d}"):
         flash_cuda.k5_plan(16, 4, 512, 512, d, torch.bfloat16, SM_COUNT)
@@ -823,13 +823,34 @@ def test_k4_plan_covers_every_query_row_once(b, h, tq, tk):
     assert f32["smem_bytes"] <= SMEM_LIMIT
 
 
-@pytest.mark.parametrize("d", [64, 128, 256, 576])
+@pytest.mark.parametrize("d", [64, 128, 384, 576])
 def test_k4_refuses_a_bf16_head_dim_it_does_not_take(d):
     with pytest.raises(ValueError, match=f"head_dim {d}"):
         flash_cuda.k4_plan(16, 4, 512, 512, d, torch.bfloat16, SM_COUNT)
     if d <= 512:
         assert flash_cuda.k4_plan(16, 4, 512, 512, d, torch.float32,
                                   SM_COUNT)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k4", "k5"])
+def test_head_dim_256_plans(kernel):
+    """NUSVC's head dim 256 (B 16 x 4 heads x T 512, and batch 1 at T
+    1024): the grid of head dim 512, the shared memory of the same layout
+    at half the columns (K1: Q 32 KB, two stages of K and V 16 KB each, the
+    S exchange 32 KB; K4: Q and dO 32 KB each, five 8 KB half tiles, dS;
+    K5: Q and dO 32 KB each, K and V 16 KB each, P and dS)."""
+    plan = getattr(flash_cuda, f"{kernel}_plan")
+    args = ((16, 4, 512, 256) if kernel == "k1" else (16, 4, 512, 512, 256))
+    p256 = plan(*args, torch.bfloat16, SM_COUNT)
+    p512 = plan(*args[:-1], 512, torch.bfloat16, SM_COUNT)
+    assert p256["grid"] == p512["grid"] and p256["threads"] == 384
+    smem = {"k1": 64 * 256 * 2 + 2 * 2 * 32 * 256 * 2 + 32 * 1024,
+            "k4": 2 * 64 * 256 * 2 + 5 * 32 * 128 * 2 + 64 * 128,
+            "k5": 2 * 64 * 256 * 2 + 2 * 32 * 256 * 2 + 3 * 32 * 64 * 2}
+    assert p256["smem_bytes"] == smem[kernel] + 1024 < p512["smem_bytes"]
+    if kernel == "k1":
+        assert plan(1, 4, 1024, 256, torch.bfloat16,
+                    SM_COUNT)["ctas"] == 64
 
 
 def _takes(plan, *args):
