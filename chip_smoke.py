@@ -232,7 +232,36 @@ Phases, each printing JSON lines:
                bf16 evaluation at T 1536: 6 K1 and 13 K2 launches; (e)
                ``bin/param_count --config`` on Serenade's full-width config
                and NUSVC's defaults, each total equal to the instantiated
-               model's.
+               model's;
+18. parallel -- the parallel layouts (lines ``"phase": "parallel"`` with
+               ``"part"`` dp_inference / dp_zero1 / tp / cp / pp / ep /
+               composed / nccl_one_rank, then ``"parallel_done"``).  Two
+               spawned ranks in a gloo group over CUDA tensors on the one
+               card (NCCL refuses two ranks on one device; the kernels
+               are built before they start): (a) dp x ZeRO-1, the
+               full-width Serenade train step at B 16 x 512, 8 rows a
+               rank, in f32 (SGD with momentum) against the one-process
+               step on the same weights, batch and global draws (losses
+               within 1e-4 relative, parameters within 5e-4 after 2
+               steps), then in bf16 with the recipe's AdamW, 2 warm-up and
+               3 timed steps: steps/s, each rank's K1, K2 and K4-K7
+               launches (6 and 13 a step), routed calls 0, each rank's
+               moment bytes about half the replicated run's; (b) tp,
+               data 1 x model 2, the f32 step against the one-process
+               step, the split leaves counted against JAX's rule (95 flax
+               leaves); (c) ``seq_sharded_attention`` at (1, 4, 1536,
+               512), f32, against one rank's attention; (d) ``gpipe``,
+               S 2 x M 4, forward and gradients; (e) ``moe_ffn`` with E 2;
+               (f) the composed step on pipe 1 x data 1 x model 2, three
+               Adam steps; (d-f) at the UNet transformer's FFN width (d
+               2048, GEGLU inner 8192), each against one rank.  On one
+               controller meanwhile: ``data_mesh`` 2 as two replicas on
+               the one card converts 8 (1024, 512) requests, 4 a replica,
+               and vocodes them, the f32 mels against the one-replica
+               batch's by phase 4's rule, each replica's K1-K3 launches in
+               bf16.  Last, a one-rank NCCL group in this process runs
+               (a)'s f32 step, which must equal the step with no group.
+               The bytes gloo staged through the host are printed.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -5142,6 +5171,491 @@ def nusvc_path(torch, np, dev, counters, card, conv):
     return bool(ok), infer_launches, train_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the parallel layouts
+# ---------------------------------------------------------------------------
+
+PAR_WORLD = 2
+# JAX's tp rule on the full-width tree at model 2 splits 95 flax leaves (93
+# port tensors: the GRU's gates are three leaves each);
+# tests/test_torch_parallel.py holds the port's picks to JAX's
+TP_FLAX_LEAVES = 95
+# the UNet transformer's FFN width, for the pp, ep and composed parts
+FFN_D, FFN_INNER = 2048, 8192
+# the f32 layout checks' optimizer: SGD with momentum (the trace is the
+# ZeRO-1 state), as JAX's full-model mesh test takes SGD: Adam's first
+# steps are sign(g) x lr, which f32 summation order can flip
+PAR_SGD = {"optimizer_type": "SGD",
+           "optimizer_params": {"lr": 1e-2, "momentum": 0.9},
+           "scheduler_type": "ConstantLR", "scheduler_params": {},
+           "grad_norm": 1.0}
+
+
+def _par_draws(torch, dev, b, t):
+    """The global batch's segment, flow-time and noise draws, the same in
+    every process."""
+    g = torch.Generator().manual_seed(11)
+    return {"frac": 0.1 + 0.4 * torch.rand((), generator=g),
+            "start": torch.rand((), generator=g),
+            "t": torch.rand((b,), generator=g).to(dev),
+            "z": torch.randn((b, t, 80), generator=g).to(dev)}
+
+
+def _par_run(torch, dev, dtype, config, mesh=None, zero1=False, steps=2,
+             timed=0, counters=None):
+    """The full-width Serenade train step (seeded weights, the global B
+    16 x 512 batch and draws) under ``mesh``'s layout, or alone; returns
+    (losses, the one-card parameters, the state, step seconds, timed
+    launches, routed calls)."""
+    from serenade_tpu_torch.configs import serenade_config
+    from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.models.serenade import Serenade
+    from serenade_tpu_torch.parallel import shard_batch
+    from serenade_tpu_torch.parallel.sharding import shard_params
+    from serenade_tpu_torch.trainers import (
+        build_optimizer, build_train_step, create_train_state,
+    )
+
+    model = init_params_(Serenade(**serenade_config(dtype)), seed=0).to(dev)
+    opt, _ = build_optimizer(config)
+    layout = None if mesh is None else shard_params(model, mesh, zero1=zero1)
+    state = create_train_state(model, opt, layout)
+    step = build_train_step(model, opt, device=dev)
+    batch = _train_batch(torch, dev, TRAIN_B, TRAIN_T, TRAIN_LENGTHS,
+                         serenade_config()["input_dim"], 1)
+    if layout is not None and layout.data_size > 1:
+        batch = shard_batch(batch, mesh)
+    draws = _par_draws(torch, dev, TRAIN_B, TRAIN_T)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses, walls = [], []
+    for i in range(steps + timed):
+        if i == steps and counters is not None:
+            torch.cuda.synchronize()
+            counters.reset()
+        start = time.time()
+        state, metrics = step(state, batch, gen, draws=draws)
+        losses.append(float(metrics["train/loss"]))
+        walls.append(time.time() - start)
+    torch.cuda.synchronize()
+    launches = counters.read() if counters is not None else None
+    routed = counters.routed() if counters is not None else None
+    full = (dict(state.params) if layout is None
+            else layout.full_params(state.params))
+    return losses, full, state, walls[steps:], launches, routed
+
+
+def _max_diff(torch, a, b):
+    return max(float((a[k].detach().float() - b[k].detach().float())
+                     .abs().max()) for k in a)
+
+
+def _moment_bytes(state):
+    """(this rank's first and second moment bytes, the replicated run's:
+    ZeRO-1 splits the moments, not the parameters)."""
+    mine = sum(t.numel() * t.element_size()
+               for key in ("mu", "nu") for t in state.opt_state[key].values())
+    full = sum(state.params[n].numel() * (
+        state.opt_state["mu"][n].element_size()
+        + state.opt_state["nu"][n].element_size())
+        for n in state.opt_state["mu"])
+    return mine, full
+
+
+def _ffn_inputs(torch, dev, n_stages):
+    from serenade_tpu_torch.parallel.composed import init_ffn_stages
+    from serenade_tpu_torch.parallel.pipeline import stack_stage_params
+
+    g = torch.Generator().manual_seed(3)
+    stacked = stack_stage_params(init_ffn_stages(g, n_stages, FFN_D,
+                                                 FFN_INNER))
+    x = torch.randn((8, 256, FFN_D), generator=g)
+    return {k: v.to(dev) for k, v in stacked.items()}, x.to(dev)
+
+
+def par_parts(torch, dev, rank, counters, card):
+    """The two ranks' parts; rank 0 holds each against its one-process
+    counterpart and prints its line."""
+    import functools
+
+    import numpy as np
+    from serenade_tpu_torch.configs import TRAIN_CONFIG
+    from serenade_tpu_torch.convert import flax_paths
+    from serenade_tpu_torch.ops.attention import (
+        multi_head_attention, seq_sharded_attention,
+    )
+    from serenade_tpu_torch.parallel import comm, composed_mesh, make_mesh
+    from serenade_tpu_torch.parallel.composed import (
+        build_composed_step, ffn_stage_full, place_composed_params,
+    )
+    from serenade_tpu_torch.parallel.mesh import Mesh, rank_mesh
+    from serenade_tpu_torch.parallel.moe import (
+        expert_mesh, init_moe_params, moe_ffn, place_moe_params,
+    )
+    from serenade_tpu_torch.parallel.pipeline import (
+        gpipe, microbatch, pipeline_mesh, place_pipeline_params,
+    )
+
+    res, ok = {}, True
+
+    def line(part, good, **kw):
+        nonlocal ok
+        ok &= bool(good)
+        res[part] = dict(kw, ok=bool(good))
+        if rank == 0:
+            emit({"phase": "parallel", "part": part, "ranks": PAR_WORLD,
+                  "backend": "gloo over CUDA tensors, two ranks on one card",
+                  "card": card, **kw, "ok": bool(good)})
+
+    ref = None
+    if rank == 0:   # the one-process step the layouts are held against
+        ref = _par_run(torch, dev, "float32", PAR_SGD)[:2]
+    # (a) dp x ZeRO-1, f32 against the one-process step, then bf16 timed
+    comm.staged_bytes = 0
+    losses, full, state, _, _, _ = _par_run(
+        torch, dev, "float32", PAR_SGD, make_mesh(2, 1), zero1=True)
+    kw = {"layout": "data 2 x model 1, ZeRO-1", "dtype": "float32",
+          "losses": losses, "rows_per_rank": TRAIN_B // PAR_WORLD}
+    good = True
+    if rank == 0:
+        kw["loss_rel_err"] = max(abs(a - b) / abs(b)
+                                 for a, b in zip(losses, ref[0]))
+        kw["param_max_abs_err"] = _max_diff(torch, full, ref[1])
+        good = kw["loss_rel_err"] <= 1e-4 and kw["param_max_abs_err"] <= 5e-4
+    del full, state
+    losses, _, state, walls, launches, routed = _par_run(
+        torch, dev, "bfloat16", TRAIN_CONFIG, make_mesh(2, 1), zero1=True,
+        steps=2, timed=3, counters=counters)
+    mine, replicated = _moment_bytes(state)
+    want = {k: v * 3 for k, v in TRAIN_LAUNCHES.items()}
+    del state
+    line("dp_zero1", good and launches == want and not any(routed.values())
+         and mine <= 0.55 * replicated
+         and all(math.isfinite(v) for v in losses),
+         bf16_losses=losses, bf16_steps_per_s=len(walls) / sum(walls),
+         bf16_step_s=walls, launches_per_rank=launches,
+         launches_expected=want, routed=routed, moment_bytes=mine,
+         moment_bytes_replicated=replicated,
+         moment_share=mine / replicated,
+         staged_host_bytes=comm.staged_bytes, **kw)
+    # (b) tp: model 2 x data 1, every rank the whole batch
+    comm.staged_bytes = 0
+    losses, full, state, _, _, _ = _par_run(torch, dev, "float32", PAR_SGD,
+                                            make_mesh(1, 2))
+    paths = flax_paths(init_model_meta(torch))
+    n_flax = sum(len(paths[n]) for n in state.layout.tp)
+    kw = {"layout": "data 1 x model 2", "dtype": "float32", "losses": losses,
+          "sharded_port_tensors": len(state.layout.tp),
+          "sharded_flax_leaves": n_flax,
+          "jax_rule_flax_leaves": TP_FLAX_LEAVES}
+    good = n_flax == TP_FLAX_LEAVES
+    if rank == 0:
+        kw["loss_rel_err"] = max(abs(a - b) / abs(b)
+                                 for a, b in zip(losses, ref[0]))
+        kw["param_max_abs_err"] = _max_diff(torch, full, ref[1])
+        good &= kw["loss_rel_err"] <= 1e-4 and kw["param_max_abs_err"] <= 5e-4
+    del full, state, ref
+    torch.cuda.empty_cache()
+    line("tp", good, staged_host_bytes=comm.staged_bytes, **kw)
+
+    # (c) cp: seq_sharded_attention at (1, 4, 1536, 512), f32
+    g = torch.Generator().manual_seed(5)
+    t, heads, hd = 1536, 4, 512
+    q, k, v = (torch.randn((1, t, heads * hd), generator=g).to(dev)
+               for _ in range(3))
+    mask = (torch.arange(t) < 1400).float()[None].to(dev)
+    mesh = rank_mesh((PAR_WORLD,), ("seq",))
+    slab = t // PAR_WORLD
+    got = seq_sharded_attention(q[:, rank * slab:(rank + 1) * slab], k, v,
+                                num_heads=heads, mesh=mesh, key_mask=mask)
+    want = multi_head_attention(q, k, v, num_heads=heads, key_mask=mask)
+    err = float((got - want).abs().max())
+    line("cp", err <= 1e-4, shape=[1, heads, t, hd], slab=slab,
+         max_abs_err=err, tol=1e-4)
+
+    # (d) pp: gpipe S 2, M 4, forward and the stages' gradients
+    comm.staged_bytes = 0
+    stacked, x = _ffn_inputs(torch, dev, 2)
+    mesh = pipeline_mesh(pipe=2)
+    placed = place_pipeline_params(stacked, mesh)
+    for p in placed.values():
+        p.requires_grad_()
+    start = time.time()
+    y = gpipe(ffn_stage_full, placed, microbatch(x, 4), mesh)
+    (y.float() ** 2).mean().backward()
+    torch.cuda.synchronize()
+    wall = time.time() - start
+    want = x
+    full = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+    for i in range(2):
+        want = ffn_stage_full({k: v[i] for k, v in full.items()}, want)
+    (want ** 2).mean().backward()
+    err = float((y.reshape(x.shape) - want).detach().abs().max())
+    scale = float(want.detach().abs().max())
+    gerr = max(float((placed[k].grad[0] - full[k].grad[rank]).abs().max())
+               / max(float(full[k].grad.abs().max()), 1e-12)
+               for k in placed)
+    line("pp", err / scale <= 1e-4 and gerr <= 1e-4, stages=2,
+         microbatches=4, x=list(x.shape), max_rel_err=err / scale,
+         grad_max_rel_err=gerr, tol=1e-4, seconds=wall,
+         staged_host_bytes=comm.staged_bytes)
+    del placed, full, stacked
+    # (e) ep: moe_ffn with E 2, one expert a rank
+    g = torch.Generator().manual_seed(7)
+    params = {k: v.to(dev) for k, v in init_moe_params(
+        g, 2, FFN_D, FFN_INNER).items()}
+    xe = torch.randn((4, 256, FFN_D), generator=g).to(dev)
+    mesh = expert_mesh(expert=2)
+    y, aux = moe_ffn(place_moe_params(params, mesh), xe, capacity_factor=2.0,
+                     mesh=mesh)
+    y1, aux1 = moe_ffn(params, xe, capacity_factor=2.0)
+    err = float((y - y1).abs().max()) / float(y1.abs().max())
+    line("ep", err <= 1e-4 and abs(float(aux) - float(aux1)) <= 1e-5,
+         experts=2, x=list(xe.shape), max_rel_err=err,
+         aux=[float(aux), float(aux1)], tol=1e-4)
+    del params
+    # (f) the composed step: pipe 1 x data 1 x model 2, three Adam steps
+    stacked, x = _ffn_inputs(torch, dev, 1)
+    tgt = torch.randn(x.shape, generator=torch.Generator().manual_seed(9))
+    xmb, tmb = microbatch(x, 4), microbatch(tgt.to(dev), 4)
+    out = {}
+    for name, mesh in (("composed", composed_mesh(data=1, model=2, pipe=1)),
+                       ("one", Mesh(np.full((1, 1, 1), rank, dtype=object),
+                                    ("pipe", "data", "model")))):
+        stage = place_composed_params(stacked, mesh)
+        for p in stage.values():
+            p.requires_grad_()
+        opt, step_fn = build_composed_step(mesh, lr=1e-3)
+        opt_state = opt.init(stage)
+        out[name] = [float(step_fn(stage, opt_state, xmb, tmb))
+                     for _ in range(3)]
+    err = max(abs(a - b) / abs(b) for a, b in zip(out["composed"],
+                                                    out["one"]))
+    line("composed", err <= 1e-4 and out["composed"][2] < out["composed"][0],
+         layout="pipe 1 x data 1 x model 2", losses=out["composed"],
+         one_rank_losses=out["one"], loss_rel_err=err, tol=1e-4)
+    return ok, res
+
+
+def init_model_meta(torch):
+    """The full-width Serenade on the meta device (names and shapes)."""
+    from serenade_tpu_torch.configs import serenade_config
+    from serenade_tpu_torch.models.serenade import Serenade
+
+    with torch.device("meta"):
+        return Serenade(**serenade_config())
+
+
+def par_rank(rank, world, store, outdir, card):
+    """One rank of phase 18: a gloo group over CUDA tensors on card 0."""
+    import torch
+    import torch.distributed as dist
+    from serenade_tpu_torch.ops import (
+        block1d_cuda, flash_cuda, resblock_cuda, viterbi_cuda,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    counters = Counters({"flash_cuda": flash_cuda,
+                         "block1d_cuda": block1d_cuda,
+                         "resblock_cuda": resblock_cuda,
+                         "viterbi_cuda": viterbi_cuda})
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    result = {"ok": False}
+    try:
+        ok, parts = par_parts(torch, torch.device("cuda", 0), rank, counters,
+                              card)
+        result = {"ok": ok, "parts": parts}
+    except BaseException as exc:
+        import traceback
+
+        result = {"ok": False, "error": traceback.format_exc()}
+        raise exc
+    finally:
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        dist.destroy_process_group()
+
+
+def _replica_counts(counters, log):
+    """``mesh.run_replicas`` that records each replica's kernel launches
+    (the replicas run one after another on the host)."""
+    from serenade_tpu_torch.parallel import mesh as pmesh
+
+    plain = pmesh.run_replicas
+
+    def counted(mesh, fn, items):
+        def one(i, item):
+            before = counters.read()
+            out = fn(i, item)
+            after = counters.read()
+            log.append({k: after[k] - before[k] for k in after})
+            return out
+
+        return plain(mesh, one, items)
+
+    return counted
+
+
+def par_inference(torch, np, dev, counters, card):
+    """(4) data-parallel inference on one controller: ``data_mesh`` 2 as
+    two replicas on the one card, 8 requests of (1024, 512) split 4 and 4,
+    then the vocoder tail, against the one-replica batch."""
+    from serenade_tpu_torch import api
+    from serenade_tpu_torch.configs import VOCODER_CONFIG, serenade_config
+    from serenade_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(8)
+    reqs = [(_features(np, rng, 1024, False), _features(np, rng, 512, True))
+            for _ in range(8)]
+    x0 = rng.normal(size=(8, 1024 + 512, 80)) * 0.667
+    plain = (api.run_replicas, pmesh.run_replicas)
+    out = {}
+    # f32 for the agreement (phase 4's f32 rule: the attention takes the
+    # plain route there), bf16 for the kernels' launches
+    for dtype in ("float32", "bfloat16"):
+        for name, devices in (("one", None), ("mesh", [dev, dev])):
+            conv = api.Converter(
+                serenade_config(dtype), None, _scaler(np),
+                vocoder_config=VOCODER_CONFIG,
+                vocoder_stats={"mean": np.zeros(80), "scale": np.ones(80)},
+                n_timesteps=10, seed=0, device=dev, mesh_devices=devices)
+            if devices:
+                conv.vocoder.place_on_mesh(conv.mesh)
+            log = []
+            api.run_replicas = pmesh.run_replicas = _replica_counts(
+                counters, log)
+            try:
+                counters.reset()
+                start = time.time()
+                m, lens = conv.convert_features_batch(
+                    [s for s, _ in reqs], [r for _, r in reqs], x0=x0,
+                    return_device=True)
+                w = conv.vocoder.decode_batch_device(m, lens)
+                torch.cuda.synchronize()
+                wall = time.time() - start
+            finally:
+                api.run_replicas, pmesh.run_replicas = plain
+            out[dtype, name] = (m.float().cpu().numpy(), w.cpu().numpy(),
+                                log, wall, counters.routed())
+            del conv
+            torch.cuda.empty_cache()
+    (m1, w1, _, _, _), (mm, wm, _, _, _) = (out["float32", "one"],
+                                            out["float32", "mesh"])
+    err = float(np.abs(mm - m1).max())
+    scale = max(1.0, float(np.abs(m1).max()))
+    wav_err = int(np.abs(wm.astype(np.int32) - w1.astype(np.int32)).max())
+    m16, _, log, wall, routed = out["bfloat16", "mesh"]
+    conv_logs, voc_logs = log[:2], log[2:]
+    # phase 4's rule: the waveform within 1e-3 of full scale (33 PCM16
+    # steps)
+    good = (len(log) == 4 and err / scale <= 1e-3 and wav_err <= 33
+            and all(r["flash_fwd"] == 60 and r["block1d_fwd"] == 130
+                    for r in conv_logs)
+            and all(r["resblock_branch"] >= 9 for r in voc_logs)
+            and not any(routed.values()) and bool(np.isfinite(m16).all()))
+    emit({"phase": "parallel", "part": "dp_inference",
+          "replicas": "cuda:0 twice (two replicas on one card: launches "
+                      "and agreement, not scaling)", "card": card,
+          "requests": [1024, 512], "batch": 8, "rows_per_replica": 4,
+          "f32_mel_max_abs_err": err, "mel_scale": scale, "tol": 1e-3,
+          "f32_wav_max_abs_err_pcm16": wav_err, "wav_tol_pcm16": 33,
+          "bf16_launches_per_replica": {"conversion": conv_logs,
+                                        "vocoder": voc_logs},
+          "bf16_routed": routed, "bf16_seconds": wall, "ok": good})
+    return good
+
+
+def par_nccl(torch, dev, counters, card):
+    """(6) one NCCL rank in this process (torchrun's environment read by
+    ``maybe_init_distributed``) runs the dp x ZeRO-1 step, against the
+    step with no group."""
+    import socket
+
+    import torch.distributed as dist
+    from serenade_tpu_torch.parallel import comm, make_mesh
+    from serenade_tpu_torch.parallel.mesh import maybe_init_distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        maybe_init_distributed()
+        backend = dist.get_backend()
+        probe = torch.ones(4, device=dev)
+        comm.all_reduce_(probe, dist.group.WORLD)
+        losses, full, _, _, _, _ = _par_run(torch, dev, "float32", PAR_SGD,
+                                            make_mesh(1, 1), zero1=True)
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ref_losses, ref, _, _, _, _ = _par_run(torch, dev, "float32", PAR_SGD)
+    err = _max_diff(torch, full, ref)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    good = (backend == "nccl" and float(probe.sum()) == 4.0
+            and rel <= 1e-4 and err <= 5e-4)
+    emit({"phase": "parallel", "part": "nccl_one_rank", "backend": backend,
+          "card": card, "losses": losses, "no_group_losses": ref_losses,
+          "loss_rel_err": rel, "param_max_abs_err": err, "ok": good})
+    return good
+
+
+def parallel_path(torch, np, dev, counters, card):
+    """Phase 18.  Returns (ok, each rank's bf16 train launches)."""
+    import multiprocessing
+
+    from serenade_tpu_torch.parallel import comm
+
+    t0 = time.time()
+    ok = True
+    # the kernels are built (phase 1) before any rank starts
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=par_rank, args=(
+            r, PAR_WORLD, os.path.join(tmp, "store"), tmp, card))
+            for r in range(PAR_WORLD)]
+        for p in procs:
+            p.start()
+        # the one-controller parts run meanwhile
+        ok &= par_inference(torch, np, dev, counters, card)
+        deadline = time.time() + 400
+        while any(p.is_alive() for p in procs):
+            if (any(p.exitcode not in (None, 0) for p in procs)
+                    or time.time() > deadline):
+                for p in procs:
+                    p.terminate()
+            time.sleep(0.5)
+        ranks = []
+        for r in range(PAR_WORLD):
+            path = os.path.join(tmp, f"rank{r}.json")
+            ranks.append(json.load(open(path)) if os.path.exists(path)
+                         else {"ok": False, "error": "no result"})
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            print(f"chip_smoke: parallel rank {r}:\n{res['error']}",
+                  file=sys.stderr)
+    ok &= all(r["ok"] for r in ranks) and all(
+        p.exitcode == 0 for p in procs)
+    launches = [r.get("parts", {}).get("dp_zero1", {}).get(
+        "launches_per_rank") for r in ranks]
+    ok &= par_nccl(torch, dev, counters, card)
+    emit({"phase": "parallel_done", "seconds": time.time() - t0,
+          "launches_per_rank": launches,
+          "staged_host_bytes": {p: ranks[0].get("parts", {}).get(p, {}).get(
+              "staged_host_bytes") for p in ("dp_zero1", "tp", "pp")},
+          "ok": bool(ok)})
+    return bool(ok), launches
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -5395,6 +5909,11 @@ def main() -> int:
     for name in entries:
         entries[name]["nusvc_launches"] = {
             "inference": infer_launches[name], "train": train_launches[name]}
+    parallel_ok, launches = parallel_path(torch, np, dev, counters, card)
+    ok &= parallel_ok
+    for name in entries:
+        entries[name]["parallel_launches_per_rank"] = [
+            None if r is None else r[name] for r in launches]
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

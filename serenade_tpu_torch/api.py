@@ -56,6 +56,9 @@ from serenade_tpu_torch.ops.longform import (
     StreamStitcher, convert_in_chunks, convert_in_chunks_stream,
     split_chunks_ramp, stitch_mel_stream,
 )
+from serenade_tpu_torch.parallel.mesh import (
+    make_mesh, replica_devices, replicate, run_replicas, split_rows,
+)
 from serenade_tpu_torch.quantize import (
     bound_parameters, quantize_dense_tree, quantize_tree, remove_parameters_,
     split_quantized,
@@ -103,7 +106,8 @@ class Converter:
                  contentvec_params=None, n_timesteps: int = 10,
                  solver: str = "euler", temperature: float = 0.667,
                  seed: int = 0, device=None, model_type: str = "Serenade",
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None,
+                 data_mesh: Optional[int] = None, mesh_devices=None):
         """``model_type``: the registry's model (``"SerenadeNew"``, the
         F0-fluctuation variant, takes ``f0_fluc`` in every feature dict).
         ``quantize="int8"`` keeps the model's weights int8 per channel on
@@ -116,8 +120,19 @@ class Converter:
         turns on the raw-audio entry points, with ``contentvec_params`` a
         Hugging Face ``HubertModel`` state dict (or a path to one), a flax
         tree, or None for weights from ``seed + 2``.  Runs on CUDA unless
-        ``device`` says otherwise."""
+        ``device`` says otherwise.
+
+        ``data_mesh=N`` converts each batch data-parallel over N devices
+        (``cuda:0`` .. ``cuda:N-1``, or N replicas of the CPU), or over
+        ``mesh_devices`` where given (which may name one card twice): each
+        replica converts its rows on its own device (replicas on one
+        device share its weights and a stream), batches pad to a multiple
+        of N, and the host joins the mels, as the JAX Converter shards a
+        batch over its ``data_mesh``."""
         _check_quantize(quantize)
+        mesh_devices = (list(mesh_devices) if mesh_devices else
+                        replica_devices(data_mesh, device or "cuda")
+                        if data_mesh and data_mesh > 1 else None)
         self.device = resolve_device(device)
         # feature extraction's settings (the recipe's), and the frame rate
         # a server counts audio seconds by
@@ -148,6 +163,16 @@ class Converter:
                     quantize_dense_tree(model)).items():
                 model.get_submodule(name.rpartition(".")[0]).use_int8_(qt)
         self.model = store_compute_weights_(model.to(self.device).eval())
+        self.mesh = None
+        if mesh_devices:
+            if quantize == "int8" and any(
+                    torch.device(d) != self.device for d in mesh_devices):
+                raise ValueError("quantize='int8' binds its weights on one "
+                                 "device: its data mesh must name only "
+                                 f"{self.device}")
+            self.mesh = make_mesh(data=len(mesh_devices), model=1,
+                                  devices=mesh_devices)
+            self._replicas = replicate(self.model, self.mesh)
         self._weights_lock = threading.Lock()
         self.scaler = {k: {kk: np.asarray(vv, np.float32)
                            for kk, vv in v.items()} for k, v in scaler.items()}
@@ -208,9 +233,8 @@ class Converter:
         from serenade_tpu_torch.utils.scalers import load_stats
         from serenade_tpu_torch.vocoder.vocoder import vocoder_from_section
 
-        if data_mesh is not None and data_mesh > 1:
-            raise NotImplementedError("data_mesh: conversion sharded over a "
-                                      "data mesh is not ported")
+        if data_mesh and data_mesh > 1:    # refused before anything loads
+            replica_devices(data_mesh, device or "cuda")
         _check_quantize(quantize)
         config = load_config(config or os.path.join(expdir, "config.yml"))
         model_type = config["model_type"]
@@ -235,7 +259,8 @@ class Converter:
         conv = cls(model_params, params, load_stats(stats),
                    n_timesteps=n_timesteps, solver=solver,
                    temperature=temperature, seed=seed, device=device,
-                   model_type=model_type, quantize=quantize, **extra)
+                   model_type=model_type, quantize=quantize,
+                   data_mesh=data_mesh, **extra)
         conv.config = dict(FEATURE_CONFIG, **config)
         conv.vocoder = vocoder_from_section(config.get("vocoder"),
                                             conv.scaler["logmel"],
@@ -356,11 +381,28 @@ class Converter:
             ref_args.append(ref["f0_fluc"])
             extra["shifts"] = (self.draw_shifts(ts) if shifts is None
                                else shifts)
+        kwargs = dict(n_timesteps=self.n_timesteps,
+                      temperature=self.temperature, solver=self.solver)
         with self.weights() as model:
-            return model.inference(
-                *args, *ref_args, n_timesteps=self.n_timesteps,
-                temperature=self.temperature, solver=self.solver, x0=x0,
-                **extra)
+            if self.mesh is None:
+                return model.inference(*args, *ref_args, x0=x0, **kwargs,
+                                       **extra)
+            # each replica converts its rows on its device
+            n = self.mesh.size
+            devices = self.mesh.devices.reshape(-1)
+            rows = [split_rows(a, n) for a in args + ref_args + [x0]]
+
+            def one(i, _):
+                dev = devices[i]
+                replica = (model if self._replicas[i] is self.model
+                           else self._replicas[i])
+                mine = [r[i].to(dev) for r in rows]
+                return replica.inference(
+                    *mine[:-1], x0=mine[-1], **kwargs,
+                    **{k: v.to(dev) for k, v in extra.items()})
+
+            return torch.cat([m.to(self.device) for m in run_replicas(
+                self.mesh, one, range(n))])
 
     def convert_features(self, src_feats: Mapping[str, np.ndarray],
                          ref_feats: Mapping[str, np.ndarray],
@@ -411,7 +453,7 @@ class Converter:
 
         ``pad_batch_pow2`` pads the batch to the next power of two by
         repeating the last request (serving: a few batch shapes per bucket
-        pair).  ``x0`` ``(B_padded, tr + ts, mels)`` replaces the noise
+        pair); a data mesh pads it on to a multiple of its replicas.  ``x0`` ``(B_padded, tr + ts, mels)`` replaces the noise
         draw and ``shifts`` the variant's shift draw, as in
         :meth:`convert_features`.
 
@@ -420,7 +462,10 @@ class Converter:
         and the N lengths.
         """
         b = len(src_list)
-        pad = (next_pow2(b) if pad_batch_pow2 else b) - b
+        target = next_pow2(b) if pad_batch_pow2 else b
+        if self.mesh is not None:   # every replica needs rows
+            target += (-target) % self.mesh.size
+        pad = target - b
         src_list = list(src_list) + [src_list[-1]] * pad
         ts = ts or max(bucket_length(f["hubert"].shape[0]) for f in src_list)
         src = self._stack([self._normalize_src(f) for f in src_list],

@@ -18,8 +18,10 @@ It writes ``<outdir>/config.yml`` with ``distilled: true`` and
 ``--teacher-checkpoint`` is a port ``checkpoint-<N>steps`` directory (an
 Orbax directory of the JAX package is refused by name).  The dataset,
 collater, trainer and model resolve from the config, so the ``*New``
-types distill with ``f0_fluc``.  One card: ``--data-axis`` above 1 is
-refused.
+types distill with ``f0_fluc``.  ``--data-axis N`` distils data-parallel
+over ``N`` ranks (``torchrun --nproc-per-node N``; the teacher's
+parameters replicated, the global batch ``batch_size x N``, rank 0
+writing), as ``bin/ssc_train.py`` trains.
 
 Two parts: :func:`distill_core` distills from a config dict, a teacher
 state dict and batches (a loader, or ``datasets.device_cache.
@@ -72,8 +74,7 @@ def build_argparser():
     p.add_argument("--batch-size", type=int, default=0,
                    help="0 = teacher config's batch_size")
     p.add_argument("--data-axis", type=int, default=-1,
-                   help="accepted at -1 or 1; a data-parallel axis is not "
-                        "ported")
+                   help="data-parallel axis size (-1 = all ranks)")
     p.add_argument("--seed", type=int, default=777)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
@@ -117,13 +118,16 @@ def distill_core(config: Mapping[str, Any],
                  outdir: str, mode: str = "endpoint", student_steps: int = 2,
                  teacher_steps: int = 10, solver: str = "euler",
                  temperature: float = 0.667, seed: int = 777, device=None,
-                 writer=None):
+                 writer=None, mesh=None):
     """Distill ``teacher_params`` (a state dict of the config's model)
     over ``train_iter`` (collated batches, or a ``DeviceResidentData``,
     whose step gathers on the device) to ``config["train_max_steps"]``
     under the config's trainer, checkpoints in ``outdir``.  ``config`` is
-    the distilled run's (:func:`distill_config`).  Returns (the trainer,
-    whose ``state.params`` are the student's, the frozen teacher)."""
+    the distilled run's (:func:`distill_config`).  Under a rank ``mesh``
+    (``parallel.make_mesh``) the student trains data-parallel over its
+    ``data`` axis and ``train_iter`` yields global batches.  Returns (the
+    trainer, whose ``state.params`` are the student's, the frozen
+    teacher)."""
     from serenade_tpu_torch import resolve_device
     from serenade_tpu_torch.config import resolve
     from serenade_tpu_torch.trainers import (
@@ -150,7 +154,12 @@ def distill_core(config: Mapping[str, Any],
     student = built()
     opt, _ = build_optimizer(config,
                              trainable_mask=distill_trainable_mask(student))
-    state = create_train_state(student, opt)
+    layout = None
+    if mesh is not None and mesh.size > 1:
+        from serenade_tpu_torch.parallel.sharding import shard_params
+
+        layout = shard_params(student, mesh)
+    state = create_train_state(student, opt, layout)
     step_fn = build_distill_step(
         student, teacher, opt, mode=mode, student_steps=student_steps,
         n_teacher_steps=teacher_steps, solver=solver,
@@ -173,8 +182,15 @@ def main(argv=None):
         level=logging.INFO if args.verbose > 0 else logging.WARN,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: "
                "%(message)s")
-    if args.data_axis > 1:
-        raise SystemExit("--data-axis > 1: data parallelism is not ported")
+    from serenade_tpu_torch.bin.ssc_train import mesh_axes
+    from serenade_tpu_torch.parallel import make_mesh, maybe_init_distributed
+    from serenade_tpu_torch.parallel.mesh import world
+
+    maybe_init_distributed()
+    data, _ = mesh_axes(args.data_axis)
+    rank = world()[0]
+    if rank:
+        logging.getLogger().setLevel(logging.WARN)
 
     from serenade_tpu_torch.checkpoint import restore_params_only
     from serenade_tpu_torch.config import dump_config, load_config, resolve
@@ -197,7 +213,7 @@ def main(argv=None):
         load_keys=tuple(sorted(set(collater_cls.FEATURE_KEYS.values()))))
     batch_size = args.batch_size or int(config.get("batch_size", 4))
     loader = ShardedBatchLoader(dataset, collater_cls(),
-                                batch_size=batch_size, shuffle=True,
+                                batch_size=batch_size * data, shuffle=True,
                                 seed=args.seed)
     logging.info("distilling from %s over %d utterances (batch %d)",
                  args.teacher_checkpoint, len(dataset), batch_size)
@@ -206,13 +222,15 @@ def main(argv=None):
         config, distill_steps=args.distill_steps, lr=args.lr,
         student_steps=args.student_steps, mode=args.mode,
         teacher_steps=args.teacher_steps, solver=args.solver)
-    dump_config(run_config, os.path.join(args.outdir, "config.yml"))
+    if rank == 0:
+        dump_config(run_config, os.path.join(args.outdir, "config.yml"))
     try:
         distill_core(run_config, teacher_params, loader, outdir=args.outdir,
                      mode=args.mode, student_steps=args.student_steps,
                      teacher_steps=args.teacher_steps, solver=args.solver,
                      temperature=args.temperature, seed=args.seed,
-                     device=args.device)
+                     device=args.device,
+                     mesh=make_mesh(data, 1) if data > 1 else None)
     finally:
         loader.shutdown()
 

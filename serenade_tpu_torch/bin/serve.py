@@ -51,7 +51,11 @@ In both forms:
 
 ``--quantize int8`` serves int8 weights dequantized once per
 conversion, ``--quantize int8_compute`` runs the estimator's Dense
-products int8 x int8 (``quantize.py``).
+products int8 x int8 (``quantize.py``).  ``--data-axis N`` converts
+each batch, and vocodes it, on N replicas (``cuda:0`` .. ``cuda:N-1``;
+N CPU replicas with ``--device cpu``), each its own rows, as the JAX
+server shards a batch over its data mesh (refused with ``--artifact``,
+as there).
 
 Endpoints: POST ``/convert_features``, ``/register_reference``,
 ``/convert_stream`` (feature or raw-audio bodies, a chunked stream of
@@ -141,6 +145,10 @@ def build_argparser():
                         "serving")
     p.add_argument("--max-request-seconds", type=float, default=600.0,
                    help="refuse single requests longer than this")
+    p.add_argument("--data-axis", type=int, default=1,
+                   help="convert each batch data-parallel over N replicas "
+                        "(cuda:0 .. cuda:N-1; N replicas of the CPU with "
+                        "--device cpu), the vocoder tail too")
     p.add_argument("--n-timesteps", type=int, default=None,
                    help="CFM ODE steps (default: --expdir's "
                         "inference_n_timesteps, else 10)")
@@ -241,7 +249,7 @@ def _converter(args):
             contentvec_ckpt=args.contentvec_ckpt,
             n_timesteps=args.n_timesteps, solver=args.solver,
             temperature=temperature, device=args.device,
-            quantize=args.quantize)
+            quantize=args.quantize, data_mesh=args.data_axis)
     if args.checkpoint:
         raise SystemExit("--checkpoint needs --expdir")
     voc_given = args.vocoder_config or args.vocoder_params
@@ -264,7 +272,7 @@ def _converter(args):
         load_stats(args.stats), n_timesteps=args.n_timesteps or 10,
         solver=args.solver or "euler", temperature=temperature,
         device=args.device, model_type=args.model_type,
-        quantize=args.quantize, **extra)
+        quantize=args.quantize, data_mesh=args.data_axis, **extra)
 
 
 def _warmup_shapes(specs, max_batch: int, flag: str = "--warmup"):
@@ -297,6 +305,8 @@ def _artifact_service(args):
     bad = [flag for flag, v in fixed.items() if v is not None]
     if args.model_type != "Serenade":
         bad.append("--model-type")
+    if args.data_axis != 1:
+        bad.append("--data-axis")
     if bad:
         raise SystemExit(
             f"{', '.join(bad)} cannot apply to an exported artifact (they "

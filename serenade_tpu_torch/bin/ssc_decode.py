@@ -17,6 +17,9 @@ directory) or the upstream reference's torch ``.pkl``.  The experiment's
 A checkpoint of the F0-fluctuation variant (its config's model type)
 decodes with its dumps' and references' ``f0_fluc`` too;
 ``bin/ssc_decode_new.py`` is the same CLI under the variant's name.
+``--data-axis N`` converts each chunk on N replicas of the converter
+(``cuda:0`` .. ``cuda:N-1``, or N CPU replicas with ``--device cpu``),
+each its own rows, as the JAX decode shards a chunk over its data mesh.
 
 Two parts: :func:`decode_core` converts feature dicts held in memory
 (torch and numpy only), and :func:`main` reads the dump, the statistics,
@@ -73,8 +76,9 @@ def build_argparser():
                    help="CFM ODE solver (default: the config's "
                         "inference_solver, else euler)")
     p.add_argument("--data-axis", type=int, default=1,
-                   help="refused above 1: decode over a data mesh is not "
-                        "ported")
+                   help="convert each chunk data-parallel over N replicas "
+                        "(cuda:0 .. cuda:N-1; N replicas of the CPU with "
+                        "--device cpu), chunks padded to a multiple of N")
     p.add_argument("--num-shards", type=int, default=1,
                    help="partition the utterance list for array-job decode")
     p.add_argument("--shard", type=int, default=1,
@@ -131,13 +135,17 @@ def decode_core(conv, sources, styles, references, batch_size: int = 1,
     noise row it started from, and ``shifts``, the chunk's (None but for
     the variant)."""
     draw = noise or conv.draw_noise
+    n_dev = conv.mesh.size if getattr(conv, "mesh", None) is not None else 1
     for (ts, tr), chunk in plan_chunks(sources, styles, references,
                                        batch_size):
-        x0 = draw(len(chunk), tr + ts)
+        # a data mesh needs rows on every replica: the chunk's last pair
+        # repeats, as in the JAX decode
+        padded = chunk + [chunk[-1]] * ((-len(chunk)) % n_dev)
+        x0 = draw(len(padded), tr + ts)
         sh = conv.draw_shifts(ts) if conv.variant_new else None
         mels, lens = conv.convert_features_batch(
-            [sources[u] for u, _, _ in chunk],
-            [references[r] for _, _, r in chunk], ts=ts, tr=tr,
+            [sources[u] for u, _, _ in padded],
+            [references[r] for _, _, r in padded], ts=ts, tr=tr,
             return_device=True, x0=x0, shifts=sh)
         results = []
         for i, (utt_id, style, ref_key) in enumerate(chunk):
@@ -231,9 +239,6 @@ def main(argv=None):
         level=logging.INFO if args.verbose > 0 else logging.WARN,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: "
                "%(message)s")
-    if args.data_axis > 1:
-        raise SystemExit("--data-axis: decode over a data mesh is not "
-                         "ported")
     if args.feats_scp is not None:
         raise SystemExit("--feats-scp: the decode reads the dump "
                          "directory; pass --dumpdir")
@@ -255,7 +260,7 @@ def main(argv=None):
         checkpoint=args.checkpoint, n_timesteps=args.n_timesteps,
         solver=args.solver, temperature=args.temperature, seed=args.seed,
         device=args.device, config=args.config,
-        params=_average_params(args))
+        params=_average_params(args), data_mesh=args.data_axis)
     logging.info("loaded %s", args.checkpoint)
     if conv.vocoder is None:
         logging.warning("no vocoder available; writing mel h5 instead of "

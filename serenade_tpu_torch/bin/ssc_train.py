@@ -16,10 +16,21 @@ path prefixes; checkpoints ``<outdir>/checkpoint-<N>steps``.
 ``--init-checkpoint`` takes a port checkpoint directory or the upstream
 reference's torch ``.pkl`` (converted; its GST then runs its BatchNorm
 statistics).  The F0-fluctuation variant trains through its config's
-``*New`` types, or through ``bin/ssc_train_new.py``.  One card:
-``--model-axis`` and ``--data-axis`` above 1 and ``--zero1`` are refused.
+``*New`` types, or through ``bin/ssc_train_new.py``.
 Needs h5py, joblib and pyyaml to read the dumps, statistics and config.
 Runs on CUDA unless ``--device cpu``.
+
+Parallel layouts run one process a rank (``parallel/``)::
+
+    torchrun --nproc-per-node 2 -m serenade_tpu_torch.bin.ssc_train \
+        --data-axis 2 [--zero1] ...        # dp, ZeRO-1 moments
+    torchrun --nproc-per-node 2 -m serenade_tpu_torch.bin.ssc_train \
+        --model-axis 2 ...                 # tp
+
+The world size must be ``data x model`` (``--data-axis -1`` takes every
+rank left).  The global batch is ``batch_size x data``: every rank reads
+it in the same seeded order and keeps its rows.  Rank 0 logs, evaluates
+and writes the checkpoints, in the one-card layout.
 """
 
 from __future__ import annotations
@@ -54,13 +65,15 @@ def build_argparser():
                         "torch .pkl")
     p.add_argument("--seed", type=int, default=777)
     p.add_argument("--model-axis", type=int, default=1,
-                   help="accepted at 1; a tensor-parallel axis is not "
-                        "ported")
+                   help="tensor-parallel axis size (ranks)")
     p.add_argument("--data-axis", type=int, default=-1,
-                   help="accepted at -1 or 1; a data-parallel axis is not "
-                        "ported")
+                   help="data-parallel axis size (-1 = all remaining "
+                        "ranks)")
     p.add_argument("--zero1", action=argparse.BooleanOptionalAction,
-                   default=None, help="refused: ZeRO-1 is not ported")
+                   default=None,
+                   help="shard optimizer state over the data axis (ZeRO-1); "
+                        "config key 'zero1' sets the default, --no-zero1 "
+                        "overrides it off")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     p.add_argument("--verbose", type=int, default=1)
@@ -79,14 +92,21 @@ def count_parameter_table(params) -> str:
     return "\n".join(lines)
 
 
-def _refuse(args, config) -> None:
-    if args.model_axis > 1:
-        raise SystemExit("--model-axis > 1: tensor parallelism is not "
-                         "ported")
-    if args.data_axis > 1:
-        raise SystemExit("--data-axis > 1: data parallelism is not ported")
-    if args.zero1 or (args.zero1 is None and config.get("zero1")):
-        raise SystemExit("--zero1: optimizer-state sharding is not ported")
+def mesh_axes(data_axis: int, model_axis: int = 1) -> tuple:
+    """(data, model) for this launch: the world size must be their
+    product (``data_axis`` -1 takes every rank left).  Refused by name
+    otherwise, before anything is read."""
+    from serenade_tpu_torch.parallel.mesh import world
+
+    size = world()[1]
+    data = size // max(model_axis, 1) if data_axis == -1 else data_axis
+    if data < 1 or data * model_axis != size:
+        raise SystemExit(
+            f"--data-axis {data_axis} x --model-axis {model_axis} needs "
+            f"{max(data, 1) * model_axis} ranks, but the world has {size}: "
+            f"launch one process a rank, e.g. torchrun --nproc-per-node "
+            f"{max(data, 1) * model_axis} -m ...")
+    return data, model_axis
 
 
 def _vocoder(config, scaler, device):
@@ -112,6 +132,9 @@ def main(argv=None, dataset_name: str = DEFAULT_DATASET):
     from serenade_tpu_torch.config import dump_config, load_config, resolve
     from serenade_tpu_torch.datasets.loader import ShardedBatchLoader
     from serenade_tpu_torch.models.layers import init_params_
+    from serenade_tpu_torch.parallel import make_mesh, maybe_init_distributed
+    from serenade_tpu_torch.parallel.mesh import world
+    from serenade_tpu_torch.parallel.sharding import shard_params
     from serenade_tpu_torch.trainers import (
         build_optimizer, build_train_step, create_train_state,
     )
@@ -121,10 +144,16 @@ def main(argv=None, dataset_name: str = DEFAULT_DATASET):
     )
     from serenade_tpu_torch.utils.scalers import load_scalers
 
+    maybe_init_distributed()
+    data, model_axis = mesh_axes(args.data_axis, args.model_axis)
+    rank = world()[0]
+    if rank:
+        logging.getLogger().setLevel(logging.WARN)
     config = load_config(args.config)
     config.update({k: v for k, v in vars(args).items()
                    if v not in (None, "")})
-    _refuse(args, config)
+    zero1 = (args.zero1 if args.zero1 is not None
+             else bool(config.get("zero1", False)))
     dataset_cls = resolve("dataset", config.get("dataset_type",
                                                 dataset_name))
     collater_cls = resolve("collater", config.get("collater_type",
@@ -146,7 +175,8 @@ def main(argv=None, dataset_name: str = DEFAULT_DATASET):
             model_params = ckpt_params
     config["model_params"] = model_params
     os.makedirs(args.outdir, exist_ok=True)
-    dump_config(config, os.path.join(args.outdir, "config.yml"))
+    if rank == 0:
+        dump_config(config, os.path.join(args.outdir, "config.yml"))
 
     np.random.seed(args.seed)
     scaler = load_scalers(args.stats)
@@ -165,14 +195,19 @@ def main(argv=None, dataset_name: str = DEFAULT_DATASET):
     if config.get("host_batch_dtype"):
         collater_kwargs["host_dtype"] = config["host_batch_dtype"]
     batch_size = int(config.get("batch_size", 4))
+    # every rank reads the global batch in one seeded order, then keeps
+    # its rows (the trainer's shard_batch)
+    global_batch = batch_size * data
     train_loader = ShardedBatchLoader(
         train_dataset, collater_cls(**collater_kwargs),
-        batch_size=batch_size, shuffle=True, seed=args.seed,
+        batch_size=global_batch, shuffle=True, seed=args.seed,
         num_workers=int(config.get("num_workers", 0)),
         worker_type=config.get("loader_worker_type", "thread"),
         sort_window=int(config.get("sort_window", 0)))
-    logging.info("dataset: %d train / %d dev; batch %d on %s",
-                 len(train_dataset), len(dev_dataset), batch_size, dev)
+    logging.info("dataset: %d train / %d dev; global batch %d on %s, "
+                 "mesh data=%d x model=%d%s", len(train_dataset),
+                 len(dev_dataset), global_batch, dev, data, model_axis,
+                 " (ZeRO-1)" if zero1 and data > 1 else "")
 
     model = init_params_(model_cls(**model_params), seed=args.seed)
     logging.info("\n%s", count_parameter_table(model.state_dict()))
@@ -187,7 +222,11 @@ def main(argv=None, dataset_name: str = DEFAULT_DATASET):
         logging.info("froze modules: %s", freeze)
     model.to(dev)
     opt, _ = build_optimizer(config, trainable_mask=trainable)
-    state = create_train_state(model, opt)
+    layout = None
+    if data * model_axis > 1:
+        layout = shard_params(model, make_mesh(data, model_axis),
+                              zero1=zero1)
+    state = create_train_state(model, opt, layout)
     # as in the JAX CLI, gradient_accumulate_steps is not passed
     step_fn = build_train_step(
         model, opt,
@@ -206,7 +245,7 @@ def main(argv=None, dataset_name: str = DEFAULT_DATASET):
             raise ValueError("device_resident_data requires "
                              "collater_params.pad_frames_to")
         dr = DeviceResidentData(train_dataset, pad_frames_to=pft,
-                                batch_size=batch_size, seed=args.seed,
+                                batch_size=global_batch, seed=args.seed,
                                 device=dev)
         train_iter = dr
         step_fn = dr.wrap_step(step_fn)
@@ -217,7 +256,7 @@ def main(argv=None, dataset_name: str = DEFAULT_DATASET):
     # the eval's one dev batch, in f32
     first_batch = next(iter(ShardedBatchLoader(
         dev_dataset, collater_cls(),
-        batch_size=min(batch_size, len(dev_dataset)), shuffle=False,
+        batch_size=min(global_batch, len(dev_dataset)), shuffle=False,
         drop_last=False)))
     eval_fn = make_eval_fn(
         model, first_batch, outdir=args.outdir,

@@ -36,7 +36,7 @@ Nothing here imports JAX; the caller converts JAX arrays to numpy.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +171,99 @@ def flax_leaf_layout(module: nn.Module
             out[f"{name}.{key}" if name else key] = (
                 axes.get(key) if p.dim() > 1 else None, len(leaves[key]))
     return out
+
+
+# each port tensor's axes in its flax leaf's order (flax axis i is port
+# axis axes[i]) where the layouts above transpose it; tensors of one
+# dimension keep theirs
+_FLAX_AXES: Dict[type, Dict[str, Tuple[int, ...]]] = {
+    layers.Dense: {"weight": (1, 0)},
+    layers.Conv1d: {"weight": (2, 1, 0)},
+    layers.ConvTranspose1d: {"weight": (2, 0, 1)},
+    layers.WNConv1d: {"v": (2, 1, 0)},
+    layers.Conv2d: {"weight": (2, 3, 1, 0)},
+    gst.MaskedGRU: {"weight_ih": (1, 0), "weight_hh": (1, 0)},
+    gst.StyleTokenLayer: {"gst_embs": (0, 1)},
+    gst_attention.RelPositionMultiHeadedAttention: {"pos_bias_u": (0, 1),
+                                                    "pos_bias_v": (0, 1)},
+    gst_attention.LegacyRelPositionMultiHeadedAttention: {
+        "pos_bias_u": (0, 1), "pos_bias_v": (0, 1)},
+}
+
+
+class FlaxLeaf(NamedTuple):
+    """A port tensor seen as its flax leaves: ``shape`` of one leaf,
+    ``parts`` leaves stacked along the port axis of the leaves' last axis,
+    and ``axes[i]``, the port axis of flax axis ``i``."""
+    shape: Tuple[int, ...]
+    parts: int
+    axes: Tuple[int, ...]
+
+
+def flax_leaf_shapes(module: nn.Module) -> Dict[str, FlaxLeaf]:
+    """Each state-dict key of ``module`` -> its :class:`FlaxLeaf`: the
+    shape and axis order the JAX package's tree has for it (Dense ``(in,
+    out)``, Conv ``(k, in, out)``, ...), which ``parallel/sharding.py``'s
+    rules read, as JAX's read the flax tree."""
+    out = {}
+    for name, mod in module.named_modules():
+        leaves = _LEAVES.get(type(mod))
+        if leaves is None:
+            continue
+        for key, p in mod.named_parameters(recurse=False):
+            axes = (tuple(range(p.dim())) if p.dim() == 1
+                    else _FLAX_AXES[type(mod)][key])
+            shape = [int(p.shape[a]) for a in axes]
+            parts = len(leaves[key])
+            shape[-1] //= parts
+            out[f"{name}.{key}" if name else key] = FlaxLeaf(
+                tuple(shape), parts, axes)
+    expected = set(dict(module.named_parameters()))
+    if set(out) != expected:
+        raise KeyError(f"no flax layout for "
+                       f"{sorted(expected - set(out))[:5]}")
+    return out
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stacked_from_flax(tree: Mapping, module: Optional[nn.Module] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """A stacked tree of the JAX package's ``parallel/`` (each leaf with a
+    leading stage or expert axis: ``pipeline.stack_stage_params``, a
+    stacked ``composed.init_ffn_stages``, ``moe.init_moe_params``), as
+    numpy arrays, for the port's ``parallel/`` modules.  Without
+    ``module`` the leaves keep JAX's layout (those modules compute
+    ``x @ w`` with flax's ``(in, out)`` kernels), flattened to
+    ``"a/b"`` keys; with ``module`` each stage's tree maps onto it through
+    :func:`state_dict_from_flax`, and the state dicts stack."""
+    if module is None:
+        flat = {}
+
+        def walk(node, prefix):
+            for k, v in node.items():
+                if isinstance(v, Mapping):
+                    walk(v, prefix + k + "/")
+                else:
+                    flat[prefix + k] = torch.from_numpy(
+                        np.array(v, dtype=np.float32))
+
+        walk(tree, "")
+        return flat
+    n = None
+
+    def count(a):
+        nonlocal n
+        n = np.asarray(a).shape[0]
+
+    _map_tree(tree, count)
+    stages = [state_dict_from_flax(module, _map_tree(
+        tree, lambda a, i=i: np.asarray(a)[i])) for i in range(n)]
+    return {k: torch.stack([s[k] for s in stages]) for k in stages[0]}
 
 
 def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, ...]]:

@@ -5,7 +5,11 @@ The padded corpus is stacked once into tensors on the card and each step
 gathers its batch there by an index tensor, so a step uploads B indices
 instead of its features.  Every item pads (or truncates, lengths clamped)
 to ``pad_frames_to`` frames.  The corpus carries ``f0_fluc`` when its
-first item has it (the F0-fluctuation variant).
+first item has it (the F0-fluctuation variant).  Under data parallelism
+each rank holds the whole corpus and iterates the global batch's indices
+in the same seeded order; the trainer keeps this rank's rows of them
+(``parallel.shard_batch``), so each rank gathers only its rows, as JAX's
+gather lays its batch out over ``data``.
 """
 
 from __future__ import annotations

@@ -12,6 +12,9 @@ from torch import nn
 
 from serenade_tpu_torch.models.layers import as_dtype
 from serenade_tpu_torch.models.unet import Decoder
+from serenade_tpu_torch.parallel.mesh import (
+    batch_draw, batch_sum, current_shard, sharded_batch,
+)
 
 
 class CFM(nn.Module):
@@ -54,11 +57,12 @@ class CFM(nn.Module):
         b, T, c = x1.shape
         dev = x1.device
         if t is None:
-            t = torch.rand((b,), generator=generator, device=dev)
+            t = batch_draw(torch.rand, (b,), generator=generator, device=dev)
         if x0 is not None:
             z = x0
         elif z is None:
-            z = torch.randn(x1.shape, generator=generator, device=dev)
+            z = batch_draw(torch.randn, x1.shape, generator=generator,
+                           device=dev)
         t3 = t.float().reshape(b, 1, 1)
         z = z.float()
         x1f = x1.float()
@@ -71,7 +75,8 @@ class CFM(nn.Module):
             v = self.estimator(*args, train=train, generator=generator)
         norm_mask = mask_l if mask_l is not None else mask
         err = torch.square((v - u) * norm_mask)
-        loss = err.sum() / (torch.clamp(norm_mask.sum(), min=1.0) * c)
+        loss = err.sum() / (torch.clamp(batch_sum(norm_mask.sum()), min=1.0)
+                            * c)
         return loss, y
 
     @torch.no_grad()
@@ -209,6 +214,9 @@ def _rematerialized(estimator, args, train, generator):
     from torch.utils.checkpoint import checkpoint
 
     start = None if generator is None else generator.get_state()
+    # the recomputation may run on autograd's thread, which does not see
+    # the caller's batch shard (the dropout masks' rows)
+    shard = current_shard()
     runs = []
 
     def run(*a):
@@ -219,7 +227,8 @@ def _rematerialized(estimator, args, train, generator):
         resume = generator.get_state()
         generator.set_state(start)
         try:        # a recomputation may be stopped early by an exception
-            return estimator(*a, train=train, generator=generator)
+            with sharded_batch(shard):
+                return estimator(*a, train=train, generator=generator)
         finally:
             generator.set_state(resume)
 

@@ -25,6 +25,7 @@ from serenade_tpu_torch.ops.primitives import (  # noqa: F401 (re-exported)
     masked_group_norm,
     mish,
 )
+from serenade_tpu_torch.parallel.mesh import batch_draw
 from serenade_tpu_torch.quantize import QTensor, int8_dot
 
 
@@ -40,7 +41,9 @@ def dropout(x, p: float, generator: Optional[torch.Generator]):
     reproduce the TPU's bits."""
     if p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    # drawn for the global batch under data parallelism (mesh.batch_draw)
+    keep = batch_draw(torch.rand, x.shape, generator=generator,
+                      device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

@@ -21,6 +21,7 @@ from serenade_tpu_torch.models.cfm import CFM
 from serenade_tpu_torch.models.conv1d_resnet import Conv1dResnet
 from serenade_tpu_torch.models.gst import StyleEncoder
 from serenade_tpu_torch.models.layers import Conv1d, as_dtype
+from serenade_tpu_torch.parallel.mesh import batch_sum
 from serenade_tpu_torch.utils.masking import length_mask
 
 
@@ -66,7 +67,7 @@ class NUSVC(nn.Module):
         mask = length_mask(lengths, T)[..., None]
         logmel_f = logmel.float()
         prior_loss = (0.5 * torch.square(logmel_f - enc.float()) * mask
-                      ).sum() / (torch.clamp(mask.sum(), min=1.0)
+                      ).sum() / (torch.clamp(batch_sum(mask.sum()), min=1.0)
                                  * self.output_dim)
         cfm_loss, _ = self.cfm_decoder.compute_loss(
             logmel_f, mask, enc, spk, t=t, z=z, generator=generator,

@@ -25,6 +25,7 @@ from serenade_tpu_torch.models.cfm import CFM
 from serenade_tpu_torch.models.conv1d_resnet import Conv1dResnet
 from serenade_tpu_torch.models.gst import StyleEncoder
 from serenade_tpu_torch.models.layers import as_dtype
+from serenade_tpu_torch.parallel.mesh import batch_draw, batch_max, batch_sum
 from serenade_tpu_torch.ops.sequence import pack_pair_time, unpack_suffix_time
 from serenade_tpu_torch.utils.masking import length_mask
 
@@ -108,7 +109,7 @@ class Serenade(nn.Module):
         logmel_f = logmel.float()
         prior = 0.5 * (torch.square(logmel_f - enc_outs.float()) + LOG_2PI)
         prior_loss = (prior * mask).sum() / (
-            torch.clamp(mask.sum(), min=1.0) * self.output_dim)
+            torch.clamp(batch_sum(mask.sum()), min=1.0) * self.output_dim)
 
         dt = self.dtype
         parts = [enc_outs, midi, loud] + ([] if fluc is None else [fluc])
@@ -127,7 +128,7 @@ class Serenade(nn.Module):
         ``start`` ~ U(0, 1) of the room left, drawn from ``generator``
         where not given; computed on the device, no host sync."""
         dev = lengths.device
-        maxlen = lengths.max()
+        maxlen = batch_max(lengths.max())
         if frac is None:
             frac = lo + (hi - lo) * torch.rand((), generator=generator,
                                                device=dev)
@@ -179,8 +180,8 @@ class Serenade(nn.Module):
         mu = torch.cat([p.to(self.dtype) for p in parts + [cond]], dim=-1)
         x0 = draws.get("x0")
         if x0 is None:
-            x0 = temperature * torch.randn(
-                (b, T, self.output_dim), generator=generator,
+            x0 = temperature * batch_draw(
+                torch.randn, (b, T, self.output_dim), generator=generator,
                 dtype=torch.float32, device=x.device)
         x0 = x0.float().to(x.device)
         x1_hat = self.cfm_decoder.rollout(mu, mask, spk, x0,

@@ -14,11 +14,16 @@ descriptors that K1 and K7 encode at launch.  Builds go to
 ``build/serenade_tpu_torch/`` beside the package (``SERENADE_TORCH_BUILD_DIR``
 overrides it).  Nothing here runs at import time: ``library(name)`` builds
 on first use, and ``build_all()`` starts one ``nvcc`` per source at once.
+Builds hold an ``fcntl`` lock on the build directory and compile into a
+temporary file named by the process, so several processes (the ranks of
+a parallel layout, test workers) starting on one fresh directory build
+each library once, and none loads a half-written one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -65,6 +70,7 @@ def _target(name: str, csrc: Path = CSRC_DIR) -> Path:
 
 
 def _command(name: str, out: Path) -> List[str]:
+    """The ``nvcc`` command that compiles ``<name>.cu`` into ``out``."""
     nvcc = _nvcc()
     # libcuda, for cuTensorMapEncodeTiled (TMA descriptors); the toolkit's
     # stub satisfies the link, the installed libcuda is loaded at run time
@@ -75,7 +81,7 @@ def _command(name: str, out: Path) -> List[str]:
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-I", str(CSRC_DIR),
-            "-o", str(out) + ".tmp", str(CSRC_DIR / f"{name}.cu"),
+            "-o", str(out), str(CSRC_DIR / f"{name}.cu"),
             *stubs[:1], "-lcuda"]
 
 
@@ -85,20 +91,32 @@ def build_all(names=SOURCES) -> Dict[str, str]:
     (registers, shared memory, spills); raises with the compiler's output
     on failure."""
     build_dir().mkdir(parents=True, exist_ok=True)
+    with open(build_dir() / ".build.lock", "w") as lock:
+        # one builder at a time: a process that waited finds the libraries
+        # built and compiles nothing
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build(names)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build(names) -> Dict[str, str]:
     procs = {}
     for name in names:
         out = _target(name)
         if not out.exists():
-            procs[name] = (out, subprocess.Popen(
-                _command(name, out), stdout=subprocess.PIPE,
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            procs[name] = (out, tmp, subprocess.Popen(
+                _command(name, tmp), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
-    for name, (out, proc) in procs.items():
+    for name, (out, tmp, proc) in procs.items():
         logs[name], _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu ---\n{logs[name]}")
         else:
-            os.replace(str(out) + ".tmp", out)
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return logs

@@ -10,6 +10,8 @@ attention whose head dim or dtype a flash kernel does not take
 ``flash_cuda.routed``; so does non-square attention (the GST token
 attention, tq=1), uncounted, as ``_xla_attention`` does in JAX.  Padded
 keys get a -1e30 bias and the softmax runs in f32.
+:func:`seq_sharded_attention` is the context-parallel form over a rank
+mesh's ``seq`` axis.
 """
 
 from __future__ import annotations
@@ -50,3 +52,22 @@ def multi_head_attention(q, k, v, *, num_heads: int,
             flash_cuda.routed += 1
         out, _ = flash_attention_plain(qh, kh, vh, key_mask, scale)
     return out.transpose(1, 2).reshape(b, tq, hd)
+
+
+def seq_sharded_attention(q, k, v, *, num_heads: int, mesh,
+                          seq_axis: str = "seq",
+                          key_mask: Optional[torch.Tensor] = None):
+    """Context-parallel attention (``serenade_tpu/ops/attention.py:115``):
+    ``q`` ``(B, Tq / n, H*D)`` is this rank's time slab of the queries on
+    ``mesh``'s ``seq_axis`` (n ranks, slab ``i`` on rank ``i``), K, V and
+    the key mask are whole on every rank.  Rows of attention are
+    independent given K and V, so each rank runs the usual dispatch on its
+    slab (a slab is not square, so it takes the plain route, uncounted, as
+    JAX skips its flash kernel for slabs) and the slabs are all-gathered:
+    returns ``(B, Tq, H*D)``, differentiable (the gradient keeps this
+    rank's slab)."""
+    from serenade_tpu_torch.parallel.comm import gather_from_group
+
+    out = multi_head_attention(q, k, v, num_heads=num_heads,
+                               key_mask=key_mask)
+    return gather_from_group(out, mesh.group(seq_axis), dim=1)

@@ -153,6 +153,11 @@ class BatchingConverter:
                  busy_hold_ms: float = 2000.0,
                  max_request_seconds: float = 600.0):
         self._conv = converter
+        voc = converter.vocoder
+        if getattr(converter, "mesh", None) is not None and voc is not None \
+                and voc.mesh is None:
+            # the tail runs data-parallel over the conversion's replicas
+            voc.place_on_mesh(converter.mesh)
         self._max_batch = max_batch
         self._max_wait = max_wait_ms / 1000.0
         self._busy_hold = busy_hold_ms / 1000.0

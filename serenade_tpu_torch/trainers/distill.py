@@ -28,7 +28,10 @@ import torch
 from torch import nn
 
 from serenade_tpu_torch import resolve_device
-from serenade_tpu_torch.trainers.train_step import TrainState, to_device
+from serenade_tpu_torch.parallel.mesh import batch_sum, sharded_batch
+from serenade_tpu_torch.trainers.train_step import (
+    TrainState, apply_update, local_draws, to_device,
+)
 
 METRICS = ("train/distill_loss", "train/loss")
 
@@ -78,7 +81,9 @@ def build_distill_step(model: nn.Module, teacher: nn.Module, opt, *,
     pair, ``t`` for the reflow loss.  Metrics ``train/distill_loss``,
     ``train/loss`` and ``train/grad_norm`` (the norm of every gradient,
     the frozen ones as zeros, before clipping), 0-d tensors.  Runs on CUDA
-    unless ``device`` says otherwise.
+    unless ``device`` says otherwise.  Under the state's ``layout`` (dp)
+    each rank passes its rows of the global batch, as to
+    ``build_train_step``.
     """
     if mode not in ("endpoint", "reflow"):
         raise ValueError(f"unknown distillation mode '{mode}'")
@@ -101,8 +106,8 @@ def build_distill_step(model: nn.Module, teacher: nn.Module, opt, *,
                               pair["x0"], n_timesteps=student_steps,
                               solver="euler")
             err = torch.square((out - pair["x1_hat"]) * pair["mask"])
-            return err.sum() / (torch.clamp(pair["mask"].sum(), min=1.0)
-                                * out.shape[-1])
+            return err.sum() / (torch.clamp(batch_sum(pair["mask"].sum()),
+                                            min=1.0) * out.shape[-1])
         loss, _ = cfm.compute_loss(
             pair["x1_hat"], pair["mask"], pair["mu"], pair["spk"],
             mask_l=pair["mask"], t=draws.get("t"), generator=generator,
@@ -112,24 +117,29 @@ def build_distill_step(model: nn.Module, teacher: nn.Module, opt, *,
     def step_fn(state: TrainState, batch: Mapping[str, Any],
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, torch.Tensor]] = None):
-        draws = draws or {}
         batch = {k: to_device(v, dev) for k, v in batch.items()}
+        layout = state.layout
+        shard = (None if layout is None
+                 else layout.batch_shard(batch["x"].shape[0]))
+        draws = local_draws(draws or {}, shard)
         args, kwargs = _batch_args(batch)
-        pair = teacher.make_reflow_batch(
-            *args, generator=generator, draws=draws,
-            n_timesteps=n_teacher_steps, temperature=temperature,
-            solver=solver, **kwargs)
         params = list(state.params.values())
         for p in params:
             p.grad = None
-        loss = loss_fn(pair, generator, draws)
-        loss.backward()
+        with sharded_batch(shard):
+            pair = teacher.make_reflow_batch(
+                *args, generator=generator, draws=draws,
+                n_timesteps=n_teacher_steps, temperature=temperature,
+                solver=solver, **kwargs)
+            loss = loss_fn(pair, generator, draws)
+            loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
         loss = loss.detach()
+        if layout is not None:
+            loss = layout.reduce_metrics(loss)
         metrics = dict.fromkeys(METRICS, loss)
-        metrics["train/grad_norm"] = opt.update(
-            state.params, dict(zip(state.params, grads)), state.opt_state)
+        metrics["train/grad_norm"] = apply_update(opt, state, grads)
         state.step += 1
         return state, metrics
 

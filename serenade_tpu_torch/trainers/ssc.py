@@ -11,10 +11,18 @@ As in the JAX package, a resumed run restores the parameters, moments,
 step and epochs, while the random draws restart from the trainer's
 ``generator`` (seeded anew by the caller) and the loader from its first
 epoch: a resumed port run follows a resumed JAX run.
+
+Under a parallel layout (the state's ``layout``, ``parallel/sharding.py``)
+every rank reads the global batch in the same seeded order and keeps its
+rows (``parallel.shard_batch``); only rank 0 logs, evaluates and writes
+samples and checkpoints, and every rank reaches a save and an eval, whose
+gathers of the shards are collectives.  A checkpoint holds the one-card
+layout and restores onto any layout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -104,6 +112,8 @@ class SSCTrainer:
         self.total_train_loss = defaultdict(float)
         self._pending = []
         self._n_acc = 0  # metrics accumulated since the last log boundary
+        self.layout = getattr(state, "layout", None)
+        self.main = self.layout is None or self.layout.writer
         # how many steps the host may run ahead of the device before it
         # fetches the OLDEST pending metrics (a bound on queued batches)
         self._dispatch_window = int(config.get("dispatch_window", 32))
@@ -113,13 +123,13 @@ class SSCTrainer:
         self.profile_steps = tuple(config.get("profile_steps", (10, 15)))
         self._profiler = None
         self._saver = (AsyncSaver() if config.get("async_checkpointing", True)
-                       else None)
+                       and self.main else None)
         self._last_saved_step = -1
         # step -> seconds the loop spent in save() (the snapshot's set-up
         # for an async save, the whole write for a synchronous one)
         self.save_blocked_s: Dict[int, float] = {}
 
-        if writer is None:
+        if writer is None and self.main:
             try:
                 from tensorboardX import SummaryWriter
 
@@ -131,7 +141,9 @@ class SSCTrainer:
 
     def run(self):
         max_steps = int(self.config.get("train_max_steps", 40000))
-        logger.info("training from step %d to %d", self.steps, max_steps)
+        if self.main:
+            logger.info("training from step %d to %d", self.steps,
+                        max_steps)
         try:
             while not self.finish_train:
                 self._train_epoch(max_steps)
@@ -143,10 +155,16 @@ class SSCTrainer:
                 # not when the interval save already wrote this step
                 self.save(self.steps)
             self.wait_for_saves()
-        logger.info("finished training at step %d", self.steps)
+        if self.main:
+            logger.info("finished training at step %d", self.steps)
 
     def _prep_batch(self, batch):
-        return {self.BATCH_RENAME.get(k, k): v for k, v in batch.items()}
+        batch = {self.BATCH_RENAME.get(k, k): v for k, v in batch.items()}
+        if self.layout is not None and self.layout.data_size > 1:
+            from serenade_tpu_torch.parallel import shard_batch
+
+            batch = shard_batch(batch, self.layout.mesh)
+        return batch
 
     def _stop_profile(self):
         self._profiler.__exit__(None, None, None)
@@ -180,7 +198,7 @@ class SSCTrainer:
             self.state, metrics = self.train_step(
                 self.state, self._prep_batch(batch), self.generator)
             self.steps += 1
-            if self.steps == 1:
+            if self.steps == 1 and self.main:
                 # the first step's loss on the host: proof that it ran
                 logger.info("first step executed: train/loss = %.4f",
                             float(metrics["train/loss"]))
@@ -221,7 +239,8 @@ class SSCTrainer:
         self._last_log_time = time.time()
         for key, total in self.total_train_loss.items():
             avg = total / max(n_acc, 1)
-            logger.info("(steps: %d) %s = %.4f", self.steps, key, avg)
+            if self.main:
+                logger.info("(steps: %d) %s = %.4f", self.steps, key, avg)
             if self._writer is not None:
                 self._writer.add_scalar(key, avg, self.steps)
         if self._writer is not None:
@@ -234,11 +253,16 @@ class SSCTrainer:
         interval = int(self.config.get("eval_interval_steps", 2500))
         if self.steps % interval or self.eval_fn is None:
             return
-        try:
-            self.eval_fn(self.state, self.steps)
-        except Exception:  # noqa: BLE001 — eval must never stop training
-            logger.exception("intermediate eval failed at step %d",
-                             self.steps)
+        # every rank gathers the tp shards; rank 0 converts and writes
+        with (self.layout.materialized() if self.layout is not None
+              else contextlib.nullcontext()):
+            if not self.main:
+                return
+            try:
+                self.eval_fn(self.state, self.steps)
+            except Exception:  # noqa: BLE001 — eval must never stop training
+                logger.exception("intermediate eval failed at step %d",
+                                 self.steps)
 
     def _check_save_interval(self):
         interval = int(self.config.get("save_interval_steps", 2500))
@@ -253,13 +277,20 @@ class SSCTrainer:
     def save(self, step: int):
         t0 = time.time()
         params = {k: p.detach() for k, p in self.state.params.items()}
-        if self._saver is not None:
-            path = self._saver.save(self.outdir, step, params,
-                                    self.state.opt_state, epochs=self.epochs)
-        else:
-            path = save_checkpoint(self.outdir, step, params,
-                                   self.state.opt_state, epochs=self.epochs)
+        opt_state = self.state.opt_state
+        if self.layout is not None:
+            # the one-card layout, gathered by every rank; rank 0 writes
+            params = self.layout.full_params(params)
+            opt_state = self.layout.full_opt_state(opt_state)
         self._last_saved_step = step
+        if not self.main:
+            return
+        if self._saver is not None:
+            path = self._saver.save(self.outdir, step, params, opt_state,
+                                    epochs=self.epochs)
+        else:
+            path = save_checkpoint(self.outdir, step, params, opt_state,
+                                   epochs=self.epochs)
         self.save_blocked_s[step] = time.time() - t0
         logger.info("saved checkpoint: %s (%s, step blocked %.3fs)", path,
                     "async commit" if self._saver is not None else "sync",
@@ -282,6 +313,12 @@ class SSCTrainer:
             logger.info("no checkpoint found; starting fresh")
             return
         restored = restore_checkpoint(path)
+        if self.layout is not None:
+            # this rank's shards of the one-card layout
+            restored["params"] = self.layout.local_params(restored["params"])
+            if "opt_state" in restored and not load_only_params:
+                restored["opt_state"] = self.layout.local_opt_state(
+                    restored["opt_state"])
         live = {k: p.data for k, p in self.state.params.items()}
         _check_like(restored["params"], live, "params")
         if not load_only_params:
@@ -296,7 +333,9 @@ class SSCTrainer:
             self.steps = int(restored["meta"]["step"])
             self.epochs = int(restored["meta"].get("epochs", 0))
             self.state.step = self.steps
-        logger.info("restored checkpoint %s (steps=%d)", path, self.steps)
+        if self.main:
+            logger.info("restored checkpoint %s (steps=%d)", path,
+                        self.steps)
 
 
 class SSCTrainerNew(SSCTrainer):

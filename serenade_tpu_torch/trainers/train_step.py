@@ -18,14 +18,16 @@ weights and the moments in place.  The moment updates run as
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from serenade_tpu_torch import resolve_device
+from serenade_tpu_torch.parallel.mesh import sharded_batch
 from serenade_tpu_torch.schedulers import SCHEDULERS
 
 METRICS = ("train/vector_loss", "train/prior_loss", "train/loss")
@@ -36,6 +38,9 @@ class TrainState:
     params: Dict[str, nn.Parameter]   # the model's own, updated in place
     opt_state: Dict[str, Any]
     step: int = 0
+    # the dp / tp / ZeRO-1 layout (parallel.sharding.ParallelLayout), or
+    # None on one card
+    layout: Any = None
 
 
 def _f32_power(base: float, count: int) -> float:
@@ -100,12 +105,19 @@ class Optimizer:
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
                grads: Mapping[str, torch.Tensor],
-               state: Dict[str, Any]) -> torch.Tensor:
+               state: Dict[str, Any], *,
+               norms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
         """Apply one update to ``params`` in place (``grads`` keyed as
         ``params``); returns the global norm of all ``grads`` before
-        clipping."""
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(list(grads.values()))))
+        clipping.  ``norms`` (the global norms of all gradients and of the
+        trainable ones) stand in for the norms of ``grads`` where those
+        are shards (``parallel.sharding.ParallelLayout.update``)."""
+        if norms is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(list(grads.values()))))
+        else:
+            norm = norms[0]
         names = self.trainable(params)
         if not names:                   # everything frozen: nothing moves
             state["count"] += 1
@@ -115,8 +127,9 @@ class Optimizer:
         g = grads
         if self.grad_norm is not None:
             # the trainable gradients' norm (all of them when none is frozen)
-            tnorm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            tnorm = (torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads))) if norms is None
+                else norms[1])
             # optax's select, kept on the device: t when ‖g‖ < max_norm,
             # else (t / ‖g‖) · max_norm (t / 1 · 1 is t exactly)
             keep = tnorm < self.grad_norm
@@ -183,9 +196,39 @@ def build_optimizer(config: Mapping[str, Any],
     return opt, schedule
 
 
-def create_train_state(model: nn.Module, opt: Optimizer) -> TrainState:
+def create_train_state(model: nn.Module, opt: Optimizer,
+                       layout=None) -> TrainState:
+    """The state of ``model``'s parameters; under a ``layout``
+    (``parallel.sharding.shard_params``, applied to ``model`` already) the
+    tp leaves are this rank's shards and the ZeRO-1 moments take their
+    shards' shapes."""
     params = dict(model.named_parameters())
-    return TrainState(params=params, opt_state=opt.init(params), step=0)
+    opt_state = (opt.init(params) if layout is None
+                 else layout.init_opt_state(opt, params))
+    return TrainState(params=params, opt_state=opt_state, step=0,
+                      layout=layout)
+
+
+def local_draws(draws, shard):
+    """``draws`` for the global batch cut to ``shard``'s rows: the entries
+    with a leading batch axis (``t``, ``z``, ``x0``); the segment's
+    scalars stay."""
+    if not draws or shard is None:
+        return draws
+    return {k: v[shard.start:shard.stop]
+            if torch.is_tensor(v) and v.dim() and v.shape[0] == shard.total
+            else v for k, v in draws.items()}
+
+
+def apply_update(opt: Optimizer, state: TrainState,
+                 grads: List[torch.Tensor]) -> torch.Tensor:
+    """The optimizer's update of ``state`` from this rank's gradients (in
+    ``state.params``' order), through its layout where it has one;
+    returns the global gradient norm."""
+    named = dict(zip(state.params, grads))
+    if state.layout is None:
+        return opt.update(state.params, named, state.opt_state)
+    return state.layout.update(opt, state.params, named, state.opt_state)
 
 
 def to_device(v, dev: torch.device) -> torch.Tensor:
@@ -216,6 +259,14 @@ def build_train_step(model: nn.Module, opt: Optimizer, *,
     ``train/vector_loss``, ``train/prior_loss``, ``train/loss`` and
     ``train/grad_norm`` (before clipping), as 0-d tensors.  Runs on CUDA
     unless ``device`` says otherwise.
+
+    Under the state's ``layout`` (dp, tp, ZeRO-1 over a rank mesh) every
+    rank calls the step with its rows of the global batch
+    (``parallel.shard_batch``) and the same ``generator`` state, or with
+    ``draws`` for the global batch; the draws, the masked means and the
+    segment then cover the global batch, the gradients and losses are
+    summed over the ``data`` group, and the metrics are the global
+    batch's on every rank.
     """
     dev = resolve_device(device)
     bad = [n for n, p in model.named_parameters()
@@ -242,21 +293,31 @@ def build_train_step(model: nn.Module, opt: Optimizer, *,
         params = list(state.params.values())
         for p in params:
             p.grad = None
-        if grad_accum > 1:
-            draws = draws or [None] * grad_accum
-            sums = sum(micro({k: v[i] for k, v in batch.items()}, generator,
-                             draws[i], state.step)
-                       for i in range(grad_accum))
-            values = sums * (1.0 / grad_accum)
-        else:
-            values = micro(batch, generator, draws, state.step)
+        layout = state.layout
+        rows = batch["x"].shape[1 if grad_accum > 1 else 0]
+        shard = None if layout is None else layout.batch_shard(rows)
+        with contextlib.ExitStack() as scope:
+            if layout is not None:
+                scope.enter_context(layout.materialized())
+            scope.enter_context(sharded_batch(shard))
+            if grad_accum > 1:
+                draws = draws or [None] * grad_accum
+                sums = sum(micro({k: v[i] for k, v in batch.items()},
+                                 generator, local_draws(draws[i], shard),
+                                 state.step)
+                           for i in range(grad_accum))
+                values = sums * (1.0 / grad_accum)
+            else:
+                values = micro(batch, generator, local_draws(draws, shard),
+                               state.step)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
         if grad_accum > 1:
             torch._foreach_mul_(grads, 1.0 / grad_accum)
+        if layout is not None:
+            values = layout.reduce_metrics(values)
         metrics = dict(zip(METRICS, values))
-        metrics["train/grad_norm"] = opt.update(
-            state.params, dict(zip(state.params, grads)), state.opt_state)
+        metrics["train/grad_norm"] = apply_update(opt, state, grads)
         state.step += 1
         return state, metrics
 

@@ -173,6 +173,17 @@ class Vocoder:
         else:
             load_params(model, params)
         self.model = model.to(self.device).eval()
+        self.mesh = None
+
+    def place_on_mesh(self, mesh) -> None:
+        """Run :meth:`decode_batch_device` data-parallel over ``mesh``'s
+        devices (``parallel.make_mesh(devices=...)``): each replica
+        vocodes its own rows, with no collective.  The server calls this
+        once when its Converter runs with ``data_mesh``."""
+        from serenade_tpu_torch.parallel.mesh import replicate
+
+        self.mesh = mesh
+        self._replicas = replicate(self.model, mesh)
 
     @classmethod
     def from_files(cls, checkpoint: str, config: str, stats: str,
@@ -225,8 +236,22 @@ class Vocoder:
         lens = upload(np.asarray(lengths, np.int64), self.device)
         idx = torch.minimum(torch.arange(t, device=self.device)[None, :],
                             (lens - 1)[:, None])
-        c = torch.gather(c, 1, idx[:, :, None].expand(b, t, mels))
-        y = self.synthesize(c)
+        c = self._normalize(torch.gather(c, 1, idx[:, :, None].expand(
+            b, t, mels)))
+        if self.mesh is None:
+            y = self.model(c)
+        else:
+            # after place_on_mesh: each replica vocodes its rows
+            from serenade_tpu_torch.parallel.mesh import (
+                run_replicas, split_rows,
+            )
+
+            parts = split_rows(c, self.mesh.size)
+            devices = self.mesh.devices.reshape(-1)
+            y = torch.cat([p.to(self.device) for p in run_replicas(
+                self.mesh, lambda i, part: self._replicas[i](
+                    part.to(devices[i])), parts)])
+        y = y[..., 0].float()
         return torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(
             torch.int16)
 

@@ -666,13 +666,14 @@ REFUSALS = {
     "vocoder_orbax_dir": (lambda f: load_vocoder(_orbax_dir(f), VOC_CONFIG),
                           ValueError, "Orbax"),
     "data_mesh": (lambda f: Converter.from_expdir(
-        str(f["pkl"].parent), f["stats"], data_mesh=2, device="cpu"),
-        NotImplementedError, "data_mesh"),
+        str(f["pkl"].parent), f["stats"], data_mesh=2, device="cuda"),
+        ValueError, "2-way data mesh needs 2 CUDA devices"),
     "quantize": (lambda f: Converter.from_expdir(
         str(f["pkl"].parent), f["stats"], quantize="int4", device="cpu"),
         ValueError, "unknown quantize mode 'int4'"),
     "decode_data_axis": (lambda f: pdecode.main(
-        _decode_argv(f, "--data-axis", "2")), SystemExit, "--data-axis"),
+        _decode_argv(f, "--data-axis", "2", "--device", "cuda")), ValueError,
+        "2-way data mesh needs 2 CUDA devices"),
     "decode_feats_scp": (lambda f: pdecode.main(
         _decode_argv(f, "--feats-scp", "feats.scp")), SystemExit,
         "--feats-scp"),

@@ -369,7 +369,8 @@ def test_distill_cli_then_decode_samples_the_student_steps(
 def test_distill_cli_refuses_by_name(dump, tmp_path, case):
     exp, ckpt = _teacher_dir(tmp_path, "Serenade")
     if case == "data_axis":
-        with pytest.raises(SystemExit, match="--data-axis"):
+        # a world of one process: the 2-rank run is in test_torch_parallel
+        with pytest.raises(SystemExit, match="--data-axis 2 .*torchrun"):
             pdistill.main(_distill_argv(dump, exp, ckpt, tmp_path / "o",
                                         "--data-axis", "2"))
         return

@@ -965,3 +965,52 @@ def test_block1d_routes_a_refused_shape_by_shape():
     assert run(6, 16, 8, torch.bfloat16) == 0
     assert run(5, 12, 4, torch.float32) == 0
     assert block1d_cuda.launches == 0
+
+
+_STUB_NVCC = """#!/bin/sh
+# records each compile and writes its -o file a second later
+out=""
+prev=""
+for a in "$@"; do
+  if [ "$prev" = "-o" ]; then out="$a"; fi
+  prev="$a"
+done
+echo "$out" >> "$NVCC_LOG"
+sleep 1
+echo built > "$out"
+"""
+
+
+def test_concurrent_builds_compile_each_library_once(tmp_path):
+    """Two processes building on one fresh build directory at once (two
+    ranks of a parallel layout, two test workers): the build lock makes
+    one compile each library, the other finds it built, and neither
+    writes the other's temporary file."""
+    import os
+    import subprocess
+    import sys
+
+    from serenade_tpu_torch.ops import _cuda
+
+    stub = tmp_path / "bin" / "nvcc"
+    stub.parent.mkdir()
+    stub.write_text(_STUB_NVCC)
+    stub.chmod(0o755)
+    log = tmp_path / "nvcc.log"
+    env = dict(os.environ, PATH=f"{stub.parent}{os.pathsep}"
+               f"{os.environ['PATH']}", NVCC_LOG=str(log),
+               SERENADE_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    code = ("from serenade_tpu_torch.ops import _cuda; "
+            "_cuda.build_all(('flash_fwd', 'viterbi_f0'))")
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env)
+             for _ in range(2)]
+    assert [p.wait(timeout=120) for p in procs] == [0, 0]
+    compiled = log.read_text().split()
+    assert len(compiled) == 2, compiled
+    assert all(c.endswith(".tmp") for c in compiled)
+    built = sorted(p.name for p in (tmp_path / "build").iterdir()
+                   if p.suffix == ".so")
+    assert built == sorted(_cuda._target(n).name
+                           for n in ("flash_fwd", "viterbi_f0"))
+    assert not [p for p in (tmp_path / "build").iterdir()
+                if p.name.endswith(".tmp")]

@@ -228,7 +228,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "sifigan/generator.py", "sifigan/convert.py",
             "bin/ssc_postprocessing.py", "models/nusvc.py",
             "modules/gst_attention.py", "bin/param_count.py",
-            "utils/plot.py", "utils/types.py"} <= walked
+            "utils/plot.py", "utils/types.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/comm.py", "parallel/sharding.py",
+            "parallel/pipeline.py", "parallel/moe.py",
+            "parallel/composed.py"} <= walked
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     bad = {f"{p.relative_to(REPO)}: {root}" for p in files

@@ -436,18 +436,25 @@ def test_parameter_table_at_full_width():
         "cfm_decoder", "encoder", "gst"]
 
 
+# a mesh the world (one process here) does not have, refused by name
 REFUSED = {
-    "model_axis": (["--model-axis", "2"], {}, SystemExit, "--model-axis"),
-    "data_axis": (["--data-axis", "2"], {}, SystemExit, "--data-axis"),
-    "zero1": (["--zero1"], {}, SystemExit, "--zero1"),
-    "zero1_config": ([], {"zero1": True}, SystemExit, "--zero1"),
+    "model_axis": (["--model-axis", "2"], {}, SystemExit,
+                   "--model-axis 2 needs 2 ranks.*torchrun"),
+    "data_axis": (["--data-axis", "2"], {}, SystemExit,
+                  "--data-axis 2 .* needs 2 ranks.*torchrun"),
+    "zero1": (["--zero1", "--data-axis", "4"], {}, SystemExit,
+              "--data-axis 4 .* needs 4 ranks"),
+    "zero1_config": (["--data-axis", "2", "--model-axis", "2"],
+                     {"zero1": True}, SystemExit, "needs 4 ranks"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_train_cli_refuses_by_name(tmp_path, case):
-    """Refused before any file is read (the dump and statistics named
-    here do not exist)."""
+    """A launch whose world size is not data x model is refused before
+    any file is read (the dump and statistics named here do not exist);
+    the layouts themselves run under a gloo group in
+    ``tests/test_torch_parallel.py``."""
     argv, overrides, exc, match = REFUSED[case]
     cfg = _yaml(tmp_path / "c.yml", **overrides)
     with pytest.raises(exc, match=match):
