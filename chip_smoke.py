@@ -262,6 +262,23 @@ Phases, each printing JSON lines:
                bf16.  Last, a one-rank NCCL group in this process runs
                (a)'s f32 step, which must equal the step with no group.
                The bytes gloo staged through the host are printed.
+19. vocoder_blocks -- the other vocoder blocks of
+               ``vocoder/layers.py`` in f32 at published widths, seeded
+               weights (lines ``"phase": "vocoder_blocks"`` with
+               ``"block"``, then ``"vocoder_blocks_done"``): MelGAN's
+               causal first conv (80 -> 512, k 7) and first causal
+               upsampling (512 -> 256, k 16, stride 8) on 512 frames and
+               its residual stacks at 256, 128, 64 and 32 channels
+               (dilations 1, 3, 9; 4,096 to 131,072 steps);
+               ParallelWaveGAN's ``ConvInUpsampleNetwork`` (80 mels,
+               aux_context_window 2, scales (4, 5, 3, 4)) on 512 frames,
+               a ``Stretch2d`` of its scale 4, and one stack of its
+               WaveNet blocks (residual 64, gate 128, skip 64, aux 80, k
+               3, dilations 1 ... 512) over the upsampled features.  Each
+               block on the card against the same module on the CPU from
+               the same weights and input, within 1e-5 of the CPU
+               output's peak, with its device ms (CUDA events).  No
+               kernel of ours runs here.
 
 Then the card's name and power limit, one line listing the kernels, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero, with
@@ -5656,6 +5673,108 @@ def parallel_path(torch, np, dev, counters, card):
     return bool(ok), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the other vocoder blocks (no kernel of ours)
+# ---------------------------------------------------------------------------
+
+BLOCK_FRAMES = 512                    # mel frames in
+BLOCK_REL = 1e-5                      # |card - CPU| over the CPU's peak
+PWG_SCALES = (4, 5, 3, 4)             # 240 samples a frame
+MELGAN_STACKS = ((256, 8), (128, 64), (64, 128), (32, 256))  # (C, x frames)
+
+
+def _seeded_block(torch, module, seed):
+    """``module`` with N(0, 1/fan_in) weights and N(0, 0.1) biases from a
+    seeded CPU generator (biases too, so that their placement shows)."""
+    from serenade_tpu_torch.models.layers import init_params_
+
+    init_params_(module, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return module.eval()
+
+
+def _block_case(torch, dev, card, name, module, args, reps=20, **info):
+    """``module`` on the CPU and a copy on the card, the same inputs; emits
+    the error and the card's ms.  Returns (ok, the card's output)."""
+    import copy
+
+    with torch.no_grad():
+        want = module(*args)
+        gpu = copy.deepcopy(module).to(dev)
+        gargs = [a.to(dev) for a in args]
+        got = gpu(*gargs)
+        ms = cuda_ms(torch, lambda: gpu(*gargs), reps)
+    outs = ((got, want) if not isinstance(got, tuple)
+            else tuple(zip(got, want)))
+    pairs = [outs] if not isinstance(got, tuple) else list(outs)
+    errs, peaks = [], []
+    for g, w in pairs:
+        errs.append(float((g.cpu() - w).abs().max()))
+        peaks.append(float(w.abs().max()))
+    ok = all(g.shape == w.shape and bool(torch.isfinite(g).all())
+             for g, w in pairs) and all(
+        e <= BLOCK_REL * p for e, p in zip(errs, peaks))
+    emit({"phase": "vocoder_blocks", "block": name, "card": card,
+          "in_shape": list(args[0].shape),
+          "out_shape": [list(g.shape) for g, _ in pairs],
+          "max_abs_err": errs, "peak": peaks, "rel_tol": BLOCK_REL,
+          "ms": ms, **info, "ok": ok})
+    return ok, got
+
+
+def vocoder_blocks_path(torch, np, dev, counters, card):
+    """Phase 19.  Returns ok; fails if any kernel of ours launched."""
+    from serenade_tpu_torch.vocoder import layers as vl
+
+    t0 = time.time()
+    ok = True
+    counters.reset()
+    gen = torch.Generator().manual_seed(190)
+    mel = torch.randn((1, BLOCK_FRAMES, 80), generator=gen)
+    # MelGAN (causal variant): the first conv, the first upsampling, the
+    # residual stacks at each width
+    ok &= _block_case(torch, dev, card, "causal_conv", _seeded_block(
+        torch, vl.CausalConv1d(80, 512, 7), 191), (mel,),
+        kernel_size=7)[0]
+    h = torch.randn((1, BLOCK_FRAMES, 512), generator=gen)
+    ok &= _block_case(torch, dev, card, "causal_deconv", _seeded_block(
+        torch, vl.CausalConvTranspose1d(512, 256, 16, 8), 192), (h,),
+        kernel_size=16, stride=8)[0]
+    for i, (c, up) in enumerate(MELGAN_STACKS):
+        x = torch.randn((1, BLOCK_FRAMES * up, c), generator=gen)
+        for d in (1, 3, 9):
+            ok &= _block_case(torch, dev, card, "melgan_stack", _seeded_block(
+                torch, vl.MelGANResidualStack(c, 3, d), 193 + 3 * i + d),
+                (x,), channels=c, dilation=d)[0]
+    # ParallelWaveGAN: the conditioning network, then one WaveNet stack
+    ok &= _block_case(torch, dev, card, "stretch2d", vl.Stretch2d(4, 1),
+                      (mel,), time_scale=4)[0]
+    up_ok, c_up = _block_case(
+        torch, dev, card, "conv_in_upsample", _seeded_block(
+            torch, vl.ConvInUpsampleNetwork(PWG_SCALES, 80, 2), 220),
+        (mel,), scales=list(PWG_SCALES), aux_context_window=2)
+    ok &= up_ok
+    c_up = c_up.cpu()
+    x = torch.randn((1, c_up.shape[1], 64), generator=gen)
+    for i in range(10):
+        block = _seeded_block(torch, vl.WaveNetResidualBlock(
+            64, 128, 64, 3, 2 ** i, 80), 230 + i)
+        case_ok, (x, _) = _block_case(
+            torch, dev, card, "wavenet", block, (x, c_up), reps=10,
+            dilation=2 ** i)
+        ok &= case_ok
+        x = x.cpu()
+    launches = counters.read()
+    ok &= not any(launches.values())
+    emit({"phase": "vocoder_blocks_done", "seconds": time.time() - t0,
+          "launches": launches, "ok": bool(ok)})
+    return bool(ok)
+
+
 # kernel name -> (source, the Pallas call it replaces, counter module and
 # attribute)
 KERNELS = {
@@ -5914,6 +6033,7 @@ def main() -> int:
     for name in entries:
         entries[name]["parallel_launches_per_rank"] = [
             None if r is None else r[name] for r in launches]
+    ok &= vocoder_blocks_path(torch, np, dev, counters, card)
     # every time above was taken with the queue held (cuda_ms fails if not)
     emit({"phase": "timing", **TIMING})
 

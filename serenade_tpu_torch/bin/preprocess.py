@@ -213,6 +213,16 @@ def load_gt_note_map(midi_path):
     return mapping
 
 
+def make_midi_transcribe_fn(ckpt_path, device=None):
+    """The phoneme-MIDI transcriber of an upstream ``midi_model.pt`` on
+    ``device``, or None without a checkpoint."""
+    if ckpt_path is None:
+        return None
+    from serenade_tpu_torch.modules.phoneme_midi import load_transcriber
+
+    return load_transcriber(ckpt_path, device=device)
+
+
 def run(args, with_f0_fluc: bool):
     """Dump every utterance of ``args.wav_scp`` (``f0_fluc`` too with
     ``with_f0_fluc``)."""
@@ -242,11 +252,7 @@ def run(args, with_f0_fluc: bool):
     gt_map = load_gt_note_map(args.midi_path)
     content_fn = (make_content_fn(args.contentvec_ckpt, device=dev)
                   if args.contentvec_ckpt else None)
-    midi_fn = None
-    if args.midi_model_ckpt:
-        from serenade_tpu_torch.modules.phoneme_midi import load_transcriber
-
-        midi_fn = load_transcriber(args.midi_model_ckpt, device=dev)
+    midi_fn = make_midi_transcribe_fn(args.midi_model_ckpt, device=dev)
     batch_size = max(int(args.batch_size or 1), 1)
     n_done = 0
 

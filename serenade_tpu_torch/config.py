@@ -6,7 +6,10 @@ serenade_tpu/config.py).
 holds what the port has: a config's ``model_type``, ``trainer_type``,
 ``collater_type`` and ``dataset_type`` resolve to their classes here (the
 JAX package's four pairs, the F0-fluctuation variant's ``*New`` types
-among them, and the legacy ``NUSVC`` model).
+among them, and the legacy ``NUSVC`` model).  Users add their own
+components with ``@register(kind, name)``; ``resolve`` then finds them by
+the config's name.  The built-ins stay ``"module:attribute"`` strings,
+imported when first resolved, so that reading a config imports no model.
 """
 
 from __future__ import annotations
@@ -14,10 +17,11 @@ from __future__ import annotations
 import copy
 import importlib
 import os
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
-# kind -> name -> "module:attribute", imported on first resolve
-_REGISTRY = {
+# kind -> name -> the object, or "module:attribute" imported on first
+# resolve (the built-ins)
+_REGISTRY: Dict[str, Dict[str, Any]] = {
     "model": {
         "Serenade": "serenade_tpu_torch.models.serenade:Serenade",
         "SerenadeNew": "serenade_tpu_torch.models.serenade_new:SerenadeNew",
@@ -36,6 +40,25 @@ _REGISTRY = {
 }
 
 
+def register(kind: str, name: str | None = None) -> Callable:
+    """Decorator: ``@register("model", "MyModel")`` (the name defaults to
+    the object's own) makes a config's ``model_type: MyModel`` resolve to
+    it."""
+
+    def wrap(obj):
+        _REGISTRY.setdefault(kind, {})[name or obj.__name__] = obj
+        return obj
+
+    return wrap
+
+
+def _load(target):
+    if not isinstance(target, str):
+        return target
+    module, attr = target.split(":")
+    return getattr(importlib.import_module(module), attr)
+
+
 def resolve(kind: str, name: str):
     """The class a config names; raises with the known names on a miss."""
     try:
@@ -44,8 +67,13 @@ def resolve(kind: str, name: str):
         known = sorted(_REGISTRY.get(kind, {}))
         raise KeyError(f"unknown {kind} {name!r}; registered: {known}") \
             from None
-    module, attr = target.split(":")
-    return getattr(importlib.import_module(module), attr)
+    return _load(target)
+
+
+def registered(kind: str) -> Dict[str, Any]:
+    """The kind's table, name -> object (the built-ins imported)."""
+    return {name: _load(target)
+            for name, target in _REGISTRY.get(kind, {}).items()}
 
 
 def _yaml():

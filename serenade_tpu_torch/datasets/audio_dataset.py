@@ -39,6 +39,10 @@ class AudioSCPDataset:
         else:
             self.entries = [(u, p, None, None) for u, p in wav_map.items()]
 
+    @property
+    def utt_ids(self):
+        return [e[0] for e in self.entries]
+
     def __iter__(self):
         for utt_id, path, start, end in self.entries:
             audio, fs = read_wav(path)

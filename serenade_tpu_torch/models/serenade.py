@@ -56,9 +56,7 @@ class Serenade(nn.Module):
         self.mask_size = tuple(mask_size)
         self.dtype = as_dtype(dtype)
         self.fluc_channels = fluc_channels
-        # encoder outputs, midi, loudness [, F0 fluctuation], mel
-        conditioning_dim = (encoder_channels + 1 + 1 + fluc_channels
-                            + output_dim)
+        self.encoder_channels = encoder_channels
         self.encoder = Conv1dResnet(input_dim, encoder_channels,
                                     encoder_hidden_dim, num_layers=2,
                                     dtype=dtype)
@@ -68,11 +66,18 @@ class Serenade(nn.Module):
                                 gru_units=gst_gru_units,
                                 norm_type=gst_norm_type, dtype=dtype)
         self.cfm_decoder = CFM(
-            in_channels=conditioning_dim + output_dim, out_channels=output_dim,
+            in_channels=self.conditioning_dim + output_dim,
+            out_channels=output_dim,
             spk_embed_dim=gst_embed_dim,
             decoder_channels=(decoder_channels, decoder_channels),
             decoder_attention_head_dim=decoder_attention_head_dim,
             dropout=dropout, dtype=dtype, remat=remat)
+
+    @property
+    def conditioning_dim(self) -> int:
+        # encoder outputs, midi, loudness [, F0 fluctuation], mel
+        return (self.encoder_channels + 1 + 1 + self.fluc_channels
+                + self.output_dim)
 
     def forward(self, x, lengths, logmel, midi, loud, *,
                 generator: Optional[torch.Generator] = None,

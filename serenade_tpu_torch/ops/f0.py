@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from serenade_tpu_torch import resolve_device
 from serenade_tpu_torch.ops import viterbi_cuda
 
 _INF = float("inf")
@@ -192,3 +193,19 @@ def smooth_f0_median(f0, width: int = 5):
                    mode="replicate").reshape(*shape[:-1], -1)
     med = padded.unfold(-1, width, 1).median(dim=-1).values
     return torch.where(f0 > 0, med, 0.0)
+
+
+def world_extract_compatible(audio, fs: int, f0min: float, f0max: float,
+                             frame_period_ms: float = 10.0, *, device=None
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """The F0 path of the reference's ``world_extract`` in one call: YIN,
+    then the median smoothing, then ``vuv = f0 > 0``.  ``audio`` is a host
+    or device waveform ``(T,)`` (or ``(B, T)``); it runs on ``device``
+    (the card unless the caller names another) and returns host arrays
+    ``(f0, vuv)``, f32."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(audio, dtype=torch.float32).to(dev)
+    f0, _ = yin_f0(x, fs=fs, f0_floor=float(f0min), f0_ceil=float(f0max),
+                   frame_period_ms=frame_period_ms)
+    f0 = smooth_f0_median(f0)
+    return f0.cpu().numpy(), (f0 > 0).float().cpu().numpy()

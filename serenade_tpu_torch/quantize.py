@@ -62,6 +62,10 @@ class QTensor:
     def shape(self):
         return self.q.shape
 
+    @property
+    def dtype(self):  # what it dequantizes to (for shape and dtype probes)
+        return torch.float32
+
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         return self.q.to(dtype) * self.scale.to(dtype)
 

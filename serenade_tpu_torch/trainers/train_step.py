@@ -48,6 +48,11 @@ def _f32_power(base: float, count: int) -> float:
     return float(np.float32(base) ** np.float32(count))
 
 
+# the optimizer kinds a config's ``optimizer_type`` names (the JAX
+# package's registered optimizers)
+OPTIMIZERS = ("AdamW", "Adam", "SGD")
+
+
 class Optimizer:
     """``optax.chain(clip_by_global_norm, adamw | adam | sgd)`` with a
     schedule, over named tensors.
@@ -65,7 +70,7 @@ class Optimizer:
                  weight_decay: float = 0.0, mu_dtype=None,
                  momentum: Optional[float] = None,
                  trainable_mask: Optional[Mapping[str, bool]] = None):
-        if kind not in ("AdamW", "Adam", "SGD"):
+        if kind not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer '{kind}'")
         self.kind, self.schedule = kind, schedule
         self.grad_norm = float(grad_norm) if grad_norm else None

@@ -59,6 +59,7 @@ from tests.test_serenade_convert import (
     _build_torch_twin,
 )
 from tests.test_vocoder import CFG as VOC_CFG, _torch_generator
+import torch_parallel_worker as worker
 
 MODEL_PARAMS = dict(
     input_dim=IN_DIM, output_dim=MEL, encoder_channels=ENC_CH,
@@ -157,9 +158,7 @@ def test_config_files_match_jax(tmp_path):
 # -- the shared files: a dump, statistics, twins and configs ---------------
 
 
-@pytest.fixture(scope="module")
-def files(tmp_path_factory):
-    root = tmp_path_factory.mktemp("decode")
+def _make_files(root):
     rng = np.random.default_rng(0)
     dump = root / "dump"
     for utt, t in UTTS:
@@ -212,8 +211,22 @@ def files(tmp_path_factory):
     (pkl.parent / "config.yml").write_text(yaml.safe_dump(config))
     (root / "config_novoc.yml").write_text(yaml.safe_dump(
         {k: v for k, v in config.items() if k != "vocoder"}))
-    return dict(root=root, dump=dump, stats=stats, scaler=scaler, twin=twin,
-                pkl=pkl, gen=gen, config=config)
+    return dict(root=root, dump=dump, stats=stats, scaler=scaler,
+                twin_sd=twin.state_dict(), pkl=pkl, gen_sd=gen.state_dict(),
+                config=config)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """The dump, statistics, twins and configs, written once a test run
+    (``worker.shared``); the twins are rebuilt here from their saved
+    state dicts."""
+    out = dict(worker.shared(tmp_path_factory, "torch_decode_files",
+                             _make_files))
+    twin, gen = _build_torch_twin(), _torch_generator()
+    twin.load_state_dict(out.pop("twin_sd"))
+    gen.load_state_dict(out.pop("gen_sd"))
+    return dict(out, twin=twin, gen=gen.eval())
 
 
 def test_h5_dump_reads_match_jax(files, tmp_path):
@@ -393,12 +406,17 @@ def _dump_feats(dump, utt):
 
 
 @pytest.fixture(scope="module")
-def expdirs(files):
+def expdirs(files, tmp_path_factory):
     """The twin's params as JAX's converter gives them, as an Orbax
     checkpoint of the JAX package and, through the param bridge, as a port
     checkpoint (beside an older one), under one
     config.yml whose sampler is Euler-2; JAX's ``Converter(expdir)`` at
-    temperature 0 converts one dump pair."""
+    temperature 0 converts one dump pair.  Once a test run."""
+    return worker.shared(tmp_path_factory, "torch_decode_expdirs",
+                         lambda _: _make_expdirs(files))
+
+
+def _make_expdirs(files):
     from serenade_tpu.api import Converter as JaxConverter
 
     root = files["root"]

@@ -30,6 +30,7 @@ from serenade_tpu_torch.collaters.ssc import bucket_length
 from serenade_tpu_torch.serving import (
     decode_response, encode_reference, encode_request, encode_wav_request,
 )
+import torch_parallel_worker as worker
 from tests.test_torch_decode import (  # noqa: F401 (fixtures)
     MEL_TOL, UTTS, WAV_TOL, _dump_feats, expdirs, files,
 )
@@ -52,14 +53,17 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def cli_art(files, expdirs, tmp_path_factory):
     """The experiment exported by the CLI for the CPU at the dump pair's
-    buckets, steps and solver from the config."""
-    art = str(tmp_path_factory.mktemp("art") / "cli")
-    ts = bucket_length(expdirs["src"]["hubert"].shape[0])
-    tr = bucket_length(expdirs["ref"]["hubert"].shape[0])
-    pexport.main(["--expdir", str(expdirs["pdir"]), "--stats",
-                  files["stats"], "--out-dir", art, "--buckets",
-                  f"{ts}x{tr}", "--device", "cpu", "--verbose", "0"])
-    return art
+    buckets, steps and solver from the config, once a test run."""
+    def export(root):
+        art = str(root / "cli")
+        ts = bucket_length(expdirs["src"]["hubert"].shape[0])
+        tr = bucket_length(expdirs["ref"]["hubert"].shape[0])
+        pexport.main(["--expdir", str(expdirs["pdir"]), "--stats",
+                      files["stats"], "--out-dir", art, "--buckets",
+                      f"{ts}x{tr}", "--device", "cpu", "--verbose", "0"])
+        return art
+
+    return worker.shared(tmp_path_factory, "torch_deploy_cli_art", export)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ import torch
 from serenade_tpu_torch import deploy
 from serenade_tpu_torch.api import Converter
 from serenade_tpu_torch.collaters.ssc import bucket_length
+import torch_parallel_worker as worker
 
 CFG = dict(input_dim=32, output_dim=80, encoder_channels=16,
            encoder_hidden_dim=64, decoder_channels=128, gst_embed_dim=64,
@@ -62,15 +63,19 @@ def _converter(quantize):
 @pytest.fixture(scope="module")
 def arts(tmp_path_factory):
     """The f32 and int8 artifacts of the one set of weights, each at the
-    buckets of a 150-frame source and a 100-frame reference."""
-    root = tmp_path_factory.mktemp("narrow")
-    out = {}
-    for name, quantize in MODES.items():
-        out[name] = str(root / name)
-        deploy.export_converter(
-            _converter(quantize), out[name],
-            buckets=((bucket_length(SRC_T), bucket_length(REF_T)),))
-    return out
+    buckets of a 150-frame source and a 100-frame reference, once a test
+    run."""
+    def export(root):
+        out = {}
+        for name, quantize in MODES.items():
+            out[name] = str(root / name)
+            deploy.export_converter(
+                _converter(quantize), out[name],
+                buckets=((bucket_length(SRC_T), bucket_length(REF_T)),))
+        return out
+
+    return worker.shared(tmp_path_factory, "torch_deploy_narrow_arts",
+                         export)
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))

@@ -50,6 +50,7 @@ from serenade_tpu_torch.ops import resample as pres
 from serenade_tpu_torch.ops import stft as pstft
 from serenade_tpu_torch.ops import viterbi_cuda
 from test_torch_slice import CFG, STEPS, TEMP, VOC, _jax_side
+import torch_parallel_worker as worker
 
 SR = 24000
 FC = dict(sampling_rate=SR, fft_size=512, hop_size=240, win_length=480,
@@ -369,11 +370,14 @@ def test_unported_backends_and_f0_fluc_are_refused():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def contentvec():
-    """One seeded init of the narrow JAX ContentVecEncoder."""
+def contentvec(tmp_path_factory):
+    """One seeded init of the narrow JAX ContentVecEncoder, once a test
+    run."""
     model = jcv.ContentVecEncoder(**CV)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(
-        jax.random.key(11), jnp.zeros((1, 16000), jnp.float32)))
+    params = worker.shared(
+        tmp_path_factory, "torch_features_contentvec",
+        lambda _: jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(
+            jax.random.key(11), jnp.zeros((1, 16000), jnp.float32))))
     return dict(model=model, params=params)
 
 

@@ -390,6 +390,53 @@ def test_seq_sharded_attention_matches_single_device(run):
                                    rtol=1e-5)
 
 
+# --- the CLIs -----------------------------------------------------------------
+
+
+def _last_params(outdir):
+    return pckpt.restore_params_only(pckpt.find_latest_checkpoint(outdir))
+
+
+@pytest.mark.parametrize("layout", ["dp_zero1", "tp"])
+def test_train_cli_layout_matches_one_rank_run(run, layout):
+    """The 2-rank CLI run's checkpoint (the one-card layout, written by
+    rank 0) against a one-rank run of the same global batch: ``--data-axis
+    2 --zero1`` reads batches of 4 and splits them, ``--model-axis 2``
+    reads batches of 2 on both ranks."""
+    root, cli = run["root"], run["cli"]
+    name, batch = ("dp", 4) if layout == "dp_zero1" else ("tp", 2)
+    one = f"one_{name}"
+    cfg = root / f"{one}.yml"
+    cfg.write_text(yaml.safe_dump(dict(TRAIN, num_workers=0,
+                                       batch_size=batch)))
+    ptrain.main(_cli_argv(root, cli["dump_root"], cfg, one))
+    got, want = _last_params(str(root / name)), _last_params(str(root / one))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   atol=5e-5, err_msg=k)
+    ckpt = pckpt.restore_checkpoint(pckpt.find_latest_checkpoint(
+        str(root / name)))
+    assert ckpt["meta"]["step"] == 4
+    assert (root / name / "predictions" / "4steps").is_dir()
+
+
+def test_distill_and_decode_cli_data_axis(run):
+    """The 2-rank distillation's checkpoint decodes in one process, with
+    ``--data-axis 2`` (two CPU replicas of the converter)."""
+    root = run["root"]
+    ckpt = pckpt.find_latest_checkpoint(str(root / "distilled"))
+    assert ckpt.endswith("checkpoint-2steps")
+    out = root / "decoded"
+    pdecode.main(["--dumpdir", run["cli"]["train_argvs"][0][1], "--stats",
+                  str(root / "stats.joblib"), "--outdir", str(out),
+                  "--checkpoint", ckpt, "--device", "cpu", "--batch-size",
+                  "3", "--data-axis", "2", "--verbose", "0"])
+    mels = [f for f in os.listdir(out) if f.endswith(".h5")
+            and not f.startswith("00_")]
+    assert mels
+
+
 def test_batched_inference_dp_sharded_matches_replicated():
     """Data-parallel inference on one controller: batch 8 over 8 CPU
     replicas, each converting its row, against JAX's batch sharded over
@@ -495,53 +542,6 @@ def test_zero1_rule_picks_jax_axes_at_full_width(full_width, data_size,
     assert {p: tuple(s) for p, s in got.items()} == {
         p: tuple(s) for p, s in want.items()}
     assert sum("data" in s for s in got.values()) > 0
-
-
-# --- the CLIs -----------------------------------------------------------------
-
-
-def _last_params(outdir):
-    return pckpt.restore_params_only(pckpt.find_latest_checkpoint(outdir))
-
-
-@pytest.mark.parametrize("layout", ["dp_zero1", "tp"])
-def test_train_cli_layout_matches_one_rank_run(run, layout):
-    """The 2-rank CLI run's checkpoint (the one-card layout, written by
-    rank 0) against a one-rank run of the same global batch: ``--data-axis
-    2 --zero1`` reads batches of 4 and splits them, ``--model-axis 2``
-    reads batches of 2 on both ranks."""
-    root, cli = run["root"], run["cli"]
-    name, batch = ("dp", 4) if layout == "dp_zero1" else ("tp", 2)
-    one = f"one_{name}"
-    cfg = root / f"{one}.yml"
-    cfg.write_text(yaml.safe_dump(dict(TRAIN, num_workers=0,
-                                       batch_size=batch)))
-    ptrain.main(_cli_argv(root, cli["dump_root"], cfg, one))
-    got, want = _last_params(str(root / name)), _last_params(str(root / one))
-    assert set(got) == set(want)
-    for k in want:
-        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
-                                   atol=5e-5, err_msg=k)
-    ckpt = pckpt.restore_checkpoint(pckpt.find_latest_checkpoint(
-        str(root / name)))
-    assert ckpt["meta"]["step"] == 4
-    assert (root / name / "predictions" / "4steps").is_dir()
-
-
-def test_distill_and_decode_cli_data_axis(run):
-    """The 2-rank distillation's checkpoint decodes in one process, with
-    ``--data-axis 2`` (two CPU replicas of the converter)."""
-    root = run["root"]
-    ckpt = pckpt.find_latest_checkpoint(str(root / "distilled"))
-    assert ckpt.endswith("checkpoint-2steps")
-    out = root / "decoded"
-    pdecode.main(["--dumpdir", run["cli"]["train_argvs"][0][1], "--stats",
-                  str(root / "stats.joblib"), "--outdir", str(out),
-                  "--checkpoint", ckpt, "--device", "cpu", "--batch-size",
-                  "3", "--data-axis", "2", "--verbose", "0"])
-    mels = [f for f in os.listdir(out) if f.endswith(".h5")
-            and not f.startswith("00_")]
-    assert mels
 
 
 def test_converter_data_mesh_and_vocoder_tail():

@@ -231,18 +231,6 @@ def test_gpipe_transformer_stack(run):
                                run["ref"]["block"], atol=2e-5, rtol=1e-5)
 
 
-def test_gpipe_stage_count_mismatch_is_loud():
-    """8 stacked stages on a 4-way pipe axis raise before anything runs,
-    instead of running every second stage."""
-    mesh = Mesh(np.arange(S, dtype=object).reshape(1, S), ("data", "pipe"))
-    rng = np.random.default_rng(8)
-    stacked = {"w": torch.from_numpy(rng.normal(size=(8, D, D))),
-               "b": torch.from_numpy(rng.normal(size=(8, D)))}
-    with pytest.raises(ValueError, match="stage axis 8"):
-        gpipe(worker._toy_stage, stacked,
-              microbatch(torch.zeros(4, 2, D, dtype=torch.float64), 2), mesh)
-
-
 def test_gpipe_fewer_microbatches_than_stages(run):
     np.testing.assert_allclose(_gpipe(run, 0)["few"], run["ref"]["few"],
                                atol=1e-6)
@@ -290,3 +278,15 @@ def test_composed_train_step_loss_decreases_and_placement_holds(run):
         np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
         assert got["after_shapes"] == got["local_shapes"]
         assert got["moment_shapes"] == got["local_shapes"]
+
+
+def test_gpipe_stage_count_mismatch_is_loud():
+    """8 stacked stages on a 4-way pipe axis raise before anything runs,
+    instead of running every second stage."""
+    mesh = Mesh(np.arange(S, dtype=object).reshape(1, S), ("data", "pipe"))
+    rng = np.random.default_rng(8)
+    stacked = {"w": torch.from_numpy(rng.normal(size=(8, D, D))),
+               "b": torch.from_numpy(rng.normal(size=(8, D)))}
+    with pytest.raises(ValueError, match="stage axis 8"):
+        gpipe(worker._toy_stage, stacked,
+              microbatch(torch.zeros(4, 2, D, dtype=torch.float64), 2), mesh)

@@ -42,6 +42,7 @@ from serenade_tpu_torch.utils import model_io
 from serenade_tpu_torch.utils.scalers import load_scalers
 from test_torch_train import CFG, _np
 from test_torch_train_loop import _port, jax_model  # noqa: F401 (fixture)
+import torch_parallel_worker as worker
 from tests.test_serenade_convert import (
     DEC_CH, ENC_CH, GRU_UNITS, GST_CHANS, GST_DIM, HEAD_DIM, IN_DIM, MEL,
     _build_torch_twin,
@@ -88,7 +89,12 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def dump(tmp_path_factory):
-    root = tmp_path_factory.mktemp("cli")
+    """The CLIs' dump, written once a test run."""
+    return worker.shared(tmp_path_factory, "torch_train_cli_dump",
+                         _make_dump)
+
+
+def _make_dump(root):
     rng = np.random.default_rng(0)
     for utt, t in UTTS:
         h5 = str(root / "dump" / f"{utt}.h5")

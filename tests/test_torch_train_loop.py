@@ -12,6 +12,7 @@ dropout 0 (as ``tests/test_torch_train.py``).
 """
 
 import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,7 @@ from serenade_tpu_torch.trainers import (
 from serenade_tpu_torch.utils import model_io
 from serenade_tpu_torch.utils.scalers import load_scalers
 from test_torch_train import CFG, _draws, _np
+import torch_parallel_worker as worker
 
 IN_DIM, MEL = CFG["input_dim"], CFG["output_dim"]
 # the dump: 11 utterances of 40-150 frames (4 of them without the cyclic
@@ -67,7 +69,12 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def dump(tmp_path_factory):
-    root = tmp_path_factory.mktemp("loop")
+    """The loop's dump and statistics, written once a test run."""
+    return worker.shared(tmp_path_factory, "torch_train_loop_dump",
+                         _make_dump)
+
+
+def _make_dump(root):
     rng = np.random.default_rng(0)
     scaler = {"hubert": jscalers.StandardScaler(),
               "logmel": jscalers.StandardScaler(),
@@ -267,9 +274,15 @@ T_LOOP = 128
 
 
 @pytest.fixture(scope="module")
-def jax_model():
+def jax_model(tmp_path_factory):
     """The JAX model and its seeded parameters (numpy, jittered off the
-    init's zeros and ones)."""
+    init's zeros and ones; made once a test run)."""
+    params = worker.shared(tmp_path_factory, "torch_train_loop_jax_params",
+                           lambda _: _jax_params())
+    return JaxSerenade(**CFG, dtype=jnp.float32), params
+
+
+def _jax_params():
     jmodel = JaxSerenade(**CFG, dtype=jnp.float32)
     key = jax.random.key(0)
     rng = np.random.default_rng(1)
@@ -281,7 +294,7 @@ def jax_model():
     params = jax.tree_util.tree_map(
         lambda a: (a + 0.05 * rng.normal(size=a.shape)).astype(np.float32),
         params)
-    return jmodel, params
+    return params
 
 
 def _port(params):
@@ -397,13 +410,35 @@ def _same_scalars(got, want):
                                    err_msg=str(key))
 
 
+def _held(run):
+    """What the tests read of a run, in a form that pickles: the
+    trainer's steps, epochs, parameters (numpy or tensors) and save
+    times, and its logged scalars."""
+    trainer, scalars = run
+    params = trainer.state.params
+    return (SimpleNamespace(
+        steps=trainer.steps, epochs=trainer.epochs,
+        save_blocked_s=dict(getattr(trainer, "save_blocked_s", {})),
+        state=SimpleNamespace(params=(
+            {k: v.detach().clone() for k, v in params.items()}
+            if isinstance(params, dict) and all(
+                torch.is_tensor(v) for v in params.values())
+            else _np(params)))), scalars)
+
+
 @pytest.fixture(scope="module")
-def runs(jax_model, jax_step, dump, tmp_path_factory):
+def runs(jax_model, request, tmp_path_factory):
     """The 6-step run on both sides (the port's checkpoints written by
     AsyncSaver, then by synchronous saves in a second run), and both
-    sides resumed from step 3."""
+    sides resumed from step 3; once a test run."""
+    return worker.shared(tmp_path_factory, "torch_train_loop_runs",
+                         lambda root: _runs(
+                             jax_model, request.getfixturevalue("jax_step"),
+                             request.getfixturevalue("dump"), root))
+
+
+def _runs(jax_model, jax_step, dump, root):
     _, params = jax_model
-    root = tmp_path_factory.mktemp("runs")
     out = {"root": root}
     out["jax"] = _jax_run(jax_step, params, dump, str(root / "jax"))
     out["port"] = _port_run(params, dump, str(root / "port"))
@@ -415,7 +450,7 @@ def runs(jax_model, jax_step, dump, tmp_path_factory):
     out["port_resumed"] = _port_run(params, dump, str(root / "pr"),
                                     resume=str(root / "port"
                                                / "checkpoint-3steps"))
-    return out
+    return {k: v if k == "root" else _held(v) for k, v in out.items()}
 
 
 def test_trainer_logs_what_jax_logs(jax_model, runs):

@@ -22,6 +22,7 @@ from serenade_tpu_torch.bin import sifigan_extract_features as pextract
 from serenade_tpu_torch.bin import ssc_postprocessing as post
 from serenade_tpu_torch.bin import vocoder_train as ptrain
 from serenade_tpu_torch.vocoder.vocoder import Vocoder, load_vocoder
+import torch_parallel_worker as worker
 from test_torch_vocoder_train import (  # noqa: F401 (fixtures)
     SR, _singing_wav, _t, dump, one_torch_thread,
 )
@@ -56,8 +57,12 @@ def trained(dump, tmp_path_factory):
     at each step, each against UnivNet's adversary: {family: (outdir,
     argv without --outdir)}.  HiFiGAN's default adversary is chosen by
     ``build_discriminator``, held below, and runs in
-    ``test_torch_vocoder_losses`` and on the card."""
-    root = tmp_path_factory.mktemp("trained")
+    ``test_torch_vocoder_losses`` and on the card.  Once a test run."""
+    return worker.shared(tmp_path_factory, "torch_vocoder_trained",
+                         lambda root: _train(dump, root))
+
+
+def _train(dump, root):
     out = {}
     for family in ("hifigan", "sifigan"):
         argv = ["--train-dumpdir", str(dump / "dump"), "--config",

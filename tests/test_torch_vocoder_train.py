@@ -25,6 +25,7 @@ from serenade_tpu_torch.bin import sifigan_extract_features as pextract
 from serenade_tpu_torch.bin import vocoder_train as ptrain
 from serenade_tpu_torch.trainers import vocoder_trainer as ptrainer
 from serenade_tpu_torch.vocoder.layers import HiFiGANResidualBlock
+import torch_parallel_worker as worker
 
 SR = 24000
 UP = (5, 4, 3, 2)        # SiFiGAN's hop 120 (5 ms)
@@ -175,8 +176,11 @@ def _run_jax_cli(main, argv):
 @pytest.fixture(scope="module")
 def dump(tmp_path_factory):
     """A tiny feature dump (``wave``, ``logmel`` 8 mels at hop 48) of two
-    sung utterances, and their wav.scp."""
-    root = tmp_path_factory.mktemp("voc")
+    sung utterances, and their wav.scp; written once a test run."""
+    return worker.shared(tmp_path_factory, "torch_vocoder_dump", _make_dump)
+
+
+def _make_dump(root):
     lines = []
     for i, f0 in enumerate((220.0, 330.0)):
         wav = _singing_wav(1.0, f0)

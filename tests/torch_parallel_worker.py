@@ -416,10 +416,8 @@ def main(rank, world, store, suite, inp_path, outdir):
     inp = torch.load(inp_path, weights_only=False)
     results = {}
     try:
-        import time; T0 = time.time()
         for fn in SCENARIOS[suite]:
             results[fn.__name__] = fn(inp, rank, world)
-            if rank == 0: print("rank0", fn.__name__, time.time() - T0, flush=True)
     except BaseException:
         results["error"] = traceback.format_exc()
         raise
@@ -473,20 +471,37 @@ def collect(procs, root, timeout=600):
 
 
 def shared(tmp_path_factory, name, compute):
-    """``compute(root)`` once a test session: the first pytest-xdist worker
-    to ask computes it under a file lock in the session's directory, the
-    others wait and read its results (a module fixture runs once a
-    worker, and ``--dist load`` spreads a file's tests over workers)."""
+    """``compute(root)`` once a test run, for every pytest-xdist worker.
+
+    A module fixture runs once a worker, and ``--dist load`` deals one
+    file's tests to several workers; a fixture used by several files runs
+    once a file besides.  Here the first worker to ask computes under a
+    file lock in the run's temporary directory (the parent of each
+    worker's own, which every worker of the run shares) and saves the
+    result with ``torch.save``; the others wait on the lock and load it.
+    Nothing is kept between runs.  A failure is saved too, so that the
+    other workers raise it instead of computing again.  ``compute`` gets
+    the shared directory ``root`` for its files; what it returns must
+    pickle (arrays, tensors, state dicts, paths), so a fixture that hands
+    out modules rebuilds them from the state dicts it loads."""
     import pathlib
 
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent          # the session's, shared by its workers
+        base = base.parent          # the run's, shared by its workers
     root = pathlib.Path(base) / name
     root.mkdir(exist_ok=True)
-    done = root / "results.pt"
+    done, failed = root / "results.pt", root / "failed.txt"
     with open(root / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
+        if failed.exists():
+            raise RuntimeError(f"the shared fixture {name} failed in "
+                               f"another worker:\n{failed.read_text()}")
         if not done.exists():
-            torch.save(compute(root), done)
+            try:
+                result = compute(root)
+            except Exception:
+                failed.write_text(traceback.format_exc())
+                raise
+            torch.save(result, done)
     return torch.load(done, weights_only=False)
